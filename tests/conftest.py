@@ -44,3 +44,9 @@ WINDOW w3s AS (UNION orders PARTITION BY userid ORDER BY ts
 @pytest.fixture(scope="session")
 def micro_sql():
     return MICRO_SQL
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (and nvcc or Triton); skips "
+        "where there is none")
