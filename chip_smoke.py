@@ -6,28 +6,48 @@ plain versions.
 Phases (each prints its own lines; any failure exits non-zero):
 
 1. device  — a CUDA card is required; prints its name and power limit;
-2. build   — compiles the unit-fold CUDA source (nvcc, sm_90a) and the
-             feature-hash Triton kernel from this checkout;
+2. build   — compiles the three CUDA sources (unit fold, batched window
+             fold, segmented sums; nvcc, sm_90a), one nvcc each, all
+             started together, and the feature-hash Triton kernel, from
+             this checkout;
 3. kernels — each kernel against its plain PyTorch version on the card,
-             at the serving path's shapes (and one offline-shaped
-             unit-fold block): bitwise, except the EW lanes at rtol 1e-5;
-4. main path — ``FeatureEngine`` on the card at deployment size (1.5 M
-             stored rows, capacity 1.6 M), bulk load + 4,096 live rows,
-             ``request_batch`` at B = 1, 64, 256; both kernels' launch
-             counts must grow; the B = 64 batch must equal a CPU engine
-             (plain versions) serving a copy of the same store;
-5. times   — request latency percentiles and each kernel's time beside
-             its bound and its plain version's time (CUDA events).
+             at its paths' shapes, and run twice (the two runs must be
+             bitwise equal): the unit fold at the serving shapes and at
+             Q = rp offline shapes in both its shared-memory and its wide
+             (global-memory) variant, bitwise except the EW lanes at
+             rtol 1e-5; the feature hash, exact; and, once the serving
+             store exists (3b, after phase 4), the batched window fold on
+             it (rtol/atol 1e-5, a NaN row that matches no request) and
+             the bucket build over the deployment's action rows
+             (rtol 1e-4, NaN prices, out-of-range ids);
+4. main paths, each with the launch counts set to 0 just before it and
+             read just after, at deployment size (1.5 M rows):
+   a. serving — ``FeatureEngine`` (capacity 1.6 M) bulk load + 4,096 live
+             rows, ``request_batch`` at B = 1, 64, 256; the B = 64 batch
+             must equal a CPU engine (plain versions) on a copy of the
+             store;
+   b. offline — ``FeatureEngine.offline()`` over the deployment tables,
+             equal to the same call with the plain fold on the card
+             (``unit_fold_kernel=False``); the same on a skewed (zipf 1.1)
+             variant, whose hot keys' units take the wide variant; then
+             ``verify_consistency(bitwise=True)`` on the card over a
+             prefix of the tables (every base row replayed as a request);
+   c. additive folds — ``store_windowfold`` on the serving store at
+             B = 1, 64, 256 and ``bucket_build`` over the action rows;
+5. times   — request latency percentiles, offline wall and device time,
+             and each kernel's time beside its bound, its plain version's
+             time and, where one exists, one PyTorch call's (CUDA events).
 
 The second-to-last line is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.  With ``--json PATH`` a
-copy of all results (latencies, profile, per-shape kernel times) is
+copy of all results (latencies, profiles, per-shape kernel times) is
 written to PATH.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import pathlib
 import subprocess
@@ -61,6 +81,10 @@ CAPACITY = 1_600_000
 N_LIVE = 4096
 BATCHES = (1, 64, 256)
 N_LATENCY = 400                    # timed batches per B (p99 = 4th largest)
+SKEW_ALPHA = 1.1                   # zipf skew of the offline variant
+CONSISTENCY_ROWS = 20_000          # replayed rows (one request per base row)
+WINDOW_MS = 60_000                 # additive folds' request frame
+BUCKETS = ((60_000, 600), (1_000, 36_000))   # bucket_build (ms, buckets)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside tensor cores
 EW_RTOL = 1e-5                     # 1-ulp expf differences carried by a fold
@@ -100,7 +124,7 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor,
-            rtol: float = 0.0) -> float:
+            rtol: float = 0.0, atol: float = 1e-6) -> float:
     """Exact (rtol 0) or relative comparison, NaN (NULL) only where the
     plain version has NaN; returns max |diff| over the other entries."""
     got, want = got.detach().cpu(), want.detach().cpu()
@@ -114,11 +138,64 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
         ok = torch.equal(nan, want.isnan()) and torch.equal(got[~nan],
                                                             want[~nan])
     else:
-        ok = torch.allclose(got, want, rtol=rtol, atol=1e-6, equal_nan=True)
+        ok = torch.allclose(got, want, rtol=rtol, atol=atol, equal_nan=True)
     if not ok:
         raise AssertionError(f"{name}: kernel != plain version "
                              f"(max abs err {err}, rtol {rtol})")
     return err
+
+
+def same_bits(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    """Two runs of one kernel on the same inputs: the same bits (NaN at
+    the same places)."""
+    if not (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(), b.nan_to_num())):
+        raise AssertionError(f"{name}: two runs differ")
+
+
+def bound(nbytes: int, ops: int):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------- phase 2
+
+
+def build_all(dev):
+    """One nvcc per CUDA source, all started together, beside the Triton
+    JIT; returns {source name: seconds}."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.batch_windowfold.kernel import SOURCE as BWF
+    from repro_torch.kernels.feature_hash.kernel import feature_hash_triton
+    from repro_torch.kernels.segagg.kernel import SOURCE as SEG
+    from repro_torch.kernels.unit_fold.kernel import SOURCE as UF
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        return time.perf_counter() - t0
+
+    def triton_jit():
+        feature_hash_triton(torch.zeros(8, dtype=torch.int32, device=dev),
+                            1024)
+        torch.cuda.synchronize()
+
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        jobs = {src.name: pool.submit(timed, build.load_library, src)
+                for src in (UF, BWF, SEG)}
+        jobs["triton feature_hash"] = pool.submit(timed, triton_jit)
+        took = {name: job.result() for name, job in jobs.items()}
+    for src in (UF, BWF, SEG):
+        lib = build.library_path(src)
+        log(f"built {lib.name} in {took[src.name]:.1f} s")
+        log_path = lib.with_suffix(".log")
+        if log_path.exists():
+            for line in log_path.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"ptxas: {line.strip()}")
+    log(f"Triton feature_hash JIT in {took['triton feature_hash']:.1f} s")
+    return took
 
 
 # ---------------------------------------------------------------- phase 3
@@ -179,35 +256,34 @@ def fold_bytes_ops(plan, u: int, rows: int, nq: int):
     return nbytes, ops
 
 
-def bound(nbytes: int, ops: int):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def check_unit_fold(name, block, reps):
-    from repro_torch.kernels.unit_fold.kernel import unit_fold_cuda
+    from repro_torch.kernels.unit_fold.kernel import (lane_tiles,
+                                                      unit_fold_cuda)
     from repro_torch.kernels.unit_fold.ref import unit_fold_plain
 
     plan, idents, data, ts, q, r_real = block
+    u, rp = ts.shape
+    variant = ("shared" if lane_tiles(plan, rp, q.shape[1]) is not None
+               else "wide")
     got = unit_fold_cuda(plan, data, idents, ts, q, r_real)
+    again = unit_fold_cuda(plan, data, idents, ts, q, r_real)
     torch.cuda.synchronize()
     want = unit_fold_plain(plan, data, idents, ts, q, r_real)
     err, nulls = 0.0, {}
-    for g, a, b in zip(plan.groups, got, want):
+    for g, a, b, c in zip(plan.groups, got, want, again):
+        same_bits(f"unit_fold[{name}/{g.family}]", a, c)
         rtol = EW_RTOL if g.family == "ew" else 0.0
         err = max(err, compare(f"unit_fold[{name}/{g.family}]", a, b, rtol))
         nulls[g.family] = int(a.isnan().sum())
     if not all(nulls.values()):
         raise AssertionError(f"unit_fold[{name}]: a group folded no NULL "
                              f"row ({nulls} NaN folds per family)")
-    log(f"unit_fold[{name}] NaN (NULL) folds per family, equal to the "
-        f"plain version's: {nulls}")
+    log(f"unit_fold[{name}] {variant} variant; NaN (NULL) folds per "
+        f"family, equal to the plain version's: {nulls}; two runs equal")
     ms = cuda_ms(lambda: unit_fold_cuda(plan, data, idents, ts, q, r_real),
                  reps)
     plain_ms = cuda_ms(
         lambda: unit_fold_plain(plan, data, idents, ts, q, r_real), 2)
-    u, rp = ts.shape
     # the bound counts the R real rows the fold needs; the identity rows
     # that pad each unit to rp are the layout's cost, shown beside it
     b_ms, b_by = bound(*fold_bytes_ops(plan, u, r_real, q.shape[1]))
@@ -218,7 +294,7 @@ def check_unit_fold(name, block, reps):
         f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by}; "
         f"{padded_ms:.5f} over rows padded to rp)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, "variant": variant,
             "bound_ms_padded_rows": padded_ms}
 
 
@@ -244,18 +320,151 @@ def check_feature_hash(dev, reps):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def profile_requests(eng, rows, n: int = 5):
-    """Device time and kernel count of ``n`` request batches from the
+def store_vals(state) -> torch.Tensor:
+    """The additive lanes (price, 1) lifted from a store table state."""
+    price = state["cols"]["price"]
+    return torch.stack([price, torch.ones_like(price)], dim=1).contiguous()
+
+
+def request_frames(reqs, dev):
+    """(key, [ts - WINDOW_MS, ts]) of request rows, int32 on ``dev``."""
+    key = torch.tensor([int(r["userid"]) for r in reqs], dtype=torch.int32,
+                       device=dev)
+    t1 = torch.tensor([int(r["ts"]) for r in reqs], dtype=torch.int32,
+                      device=dev)
+    return key, t1 - WINDOW_MS, t1
+
+
+def check_batch_windowfold(state, reqs, dev, reps):
+    """``store_windowfold`` on the serving store (C = capacity) at each
+    request batch: kernel against plain version (rtol/atol 1e-5), twice
+    bitwise; then the same with a NaN in a live row that no request
+    matches, which (as in the reference's dense product) turns its whole
+    lane NaN."""
+    from repro_torch.kernels.batch_windowfold import store_windowfold
+
+    vals = store_vals(state)
+    count = int(state["count"])
+    out, err = {}, 0.0
+    for b in BATCHES:
+        q = request_frames(reqs[:b], dev)
+        got = store_windowfold(state, vals, *q, use_kernel=True)
+        again = store_windowfold(state, vals, *q, use_kernel=True)
+        torch.cuda.synchronize()
+        same_bits(f"batch_windowfold[B={b}]", got, again)
+        want = store_windowfold(state, vals, *q, use_kernel=False)
+        err = max(err, compare(f"batch_windowfold[B={b}]", got, want,
+                               rtol=1e-5, atol=1e-5))
+        if got.isnan().any():
+            raise AssertionError(f"batch_windowfold[B={b}]: NaN folds")
+        out[b] = q
+    nan_vals = vals.clone()
+    nan_vals[0, 0] = float("nan")         # row 0 lies before every frame
+    q = out[max(BATCHES)]
+    got = store_windowfold(state, nan_vals, *q, use_kernel=True)
+    want = store_windowfold(state, nan_vals, *q, use_kernel=False)
+    compare("batch_windowfold[NaN row]", got, want, rtol=1e-5, atol=1e-5)
+    if not (got[:, 0].isnan().all() and not got[:, 1].isnan().any()):
+        raise AssertionError("batch_windowfold: a NaN in an unmatched row "
+                             "must turn exactly its lane NaN")
+    log(f"batch_windowfold: kernel == plain (rtol 1e-5) at B={BATCHES} "
+        f"over C={vals.shape[0]} store rows ({count} live), two runs "
+        f"equal; a NaN in an unmatched row turns its lane NaN in both")
+    b = max(BATCHES)
+    ms = cuda_ms(lambda: store_windowfold(state, vals, *q, use_kernel=True),
+                 reps)
+    plain_ms = cuda_ms(lambda: store_windowfold(state, vals, *q,
+                                                use_kernel=False), 3)
+    f = vals.shape[1]
+    # least work: each live row's key, ts and F lanes read once, the
+    # (B, F) sums written once; three compares and a multiply-add per
+    # (request, live row, lane)
+    nbytes = count * (8 + 4 * f) + b * 12 + b * f * 4
+    b_ms, b_by = bound(nbytes, b * count * (3 + f))
+    log(f"batch_windowfold B={b} C={vals.shape[0]} F={f} max_abs_err={err} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def bucket_inputs(actions, bucket_ms: int, n_buckets: int, dev):
+    """The deployment's action rows as bucket-build input: (price,
+    quantity) lanes with NULL (NaN) prices in every 100,003rd row from
+    row 7, and timestamps pushed out of range (a negative bucket, one
+    past the last) in every 50,000th row."""
+    vals = np.stack([actions.columns["price"],
+                     actions.columns["quantity"]], 1).astype(np.float32)
+    vals[7::100_003, 0] = np.nan
+    ts = actions.columns["ts"].astype(np.int32).copy()
+    ts[::50_000] = -5
+    ts[1::50_000] = n_buckets * bucket_ms + 7
+    return (torch.from_numpy(vals).to(dev), torch.from_numpy(ts).to(dev))
+
+
+def check_bucket_build(actions, dev, reps):
+    """``bucket_build`` over the action rows at each bucket width: kernel
+    against plain version (rtol 1e-4, NaN positions equal), twice
+    bitwise, counts exact; times at the first width, beside one
+    ``index_add_`` call computing the same sums."""
+    from repro_torch.kernels.segagg import bucket_build
+
+    res, err = {}, 0.0
+    for bucket_ms, n_buckets in BUCKETS:
+        vals, ts = bucket_inputs(actions, bucket_ms, n_buckets, dev)
+        got = bucket_build(vals, ts, bucket_ms, n_buckets, use_kernel=True)
+        again = bucket_build(vals, ts, bucket_ms, n_buckets,
+                             use_kernel=True)
+        torch.cuda.synchronize()
+        name = f"bucket_build[{n_buckets} buckets]"
+        same_bits(name, got, again)
+        want = bucket_build(vals, ts, bucket_ms, n_buckets,
+                            use_kernel=False)
+        err = max(err, compare(name, got, want, rtol=1e-4, atol=1e-3))
+        seg = torch.div(ts, bucket_ms, rounding_mode="floor")
+        in_range = int(((seg >= 0) & (seg < n_buckets)).sum())
+        if int(got[:, 2].sum()) != in_range or not got[:, 0].isnan().any():
+            raise AssertionError(f"{name}: counts or NULL sums wrong")
+        res[n_buckets] = (vals, ts, bucket_ms)
+    log(f"bucket_build: kernel == plain (rtol 1e-4) at {BUCKETS} over "
+        f"{len(actions)} rows, two runs equal, counts exact, NULL prices "
+        f"confined to their buckets")
+    vals, ts, bucket_ms = res[BUCKETS[0][1]]
+    n_buckets = BUCKETS[0][1]
+    ms = cuda_ms(lambda: bucket_build(vals, ts, bucket_ms, n_buckets,
+                                      use_kernel=True), reps)
+    plain_ms = cuda_ms(lambda: bucket_build(vals, ts, bucket_ms, n_buckets,
+                                            use_kernel=False), reps)
+    # the library yardstick: one index_add_ over the masked rows
+    aug = torch.cat([vals, torch.ones_like(vals[:, :1])], 1)
+    seg = torch.div(ts, bucket_ms, rounding_mode="floor")
+    ok = (seg >= 0) & (seg < n_buckets)
+    ids = torch.where(ok, seg, 0).long()
+    masked = torch.where(ok[:, None], aug, 0.0)
+    zeros = torch.zeros((n_buckets, 3), device=dev)
+    lib_ms = cuda_ms(lambda: zeros.clone().index_add_(0, ids, masked), reps)
+    n = vals.shape[0]
+    # least work: values and ts read once, the (S, F+1) sums written once;
+    # one add per row and lane
+    b_ms, b_by = bound(n * (4 * 2 + 4) + n_buckets * 3 * 4, n * 3)
+    log(f"bucket_build N={n} S={n_buckets} F=2+count max_abs_err={err} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+        f"bound_ms={b_ms:.5f} ({b_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def profile_calls(fn, n: int):
+    """Device time and kernel count of ``n`` calls of ``fn`` from the
     profiler's kernel events, beside the host wall time they took."""
     from torch.profiler import ProfilerActivity, profile
 
-    eng.request_batch(rows)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            eng.request_batch(rows)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
@@ -268,17 +477,49 @@ def profile_requests(eng, rows, n: int = 5):
     host = sorted(((e.key, e.self_cpu_time_total, e.count)
                    for e in prof.key_averages()),
                   key=lambda kv: -kv[1])[:8]
-    return {"wall_ms_per_batch": wall_ms / n,
-            "device_ms_per_batch": dev_ms / n,
-            "kernels_per_batch": len(kernels) / n,
+    return {"wall_ms_per_call": wall_ms / n,
+            "device_ms_per_call": dev_ms / n,
+            "kernels_per_call": len(kernels) / n,
             "device_busy_share": dev_ms / wall_ms if wall_ms else 0.0,
-            "top_kernels_ms_per_batch": [(k[:60], v / 1e3 / n)
-                                         for k, v in top],
-            "top_host_ops_ms_per_batch": [(k[:60], v / 1e3 / n, c / n)
-                                          for k, v, c in host]}
+            "top_kernels_ms_per_call": [(k[:60], v / 1e3 / n)
+                                        for k, v in top],
+            "top_host_ops_ms_per_call": [(k[:60], v / 1e3 / n, c / n)
+                                         for k, v, c in host]}
+
+
+def log_profile(label: str, prof, card: str) -> None:
+    if prof["kernels_per_call"] == 0:
+        log(f"profile {label}: no device events (device time not "
+            f"measured)")
+        return
+    log(f"profile {label}: wall {prof['wall_ms_per_call']:.3f} ms, device "
+        f"{prof['device_ms_per_call']:.3f} ms "
+        f"({prof['kernels_per_call']:.0f} kernels), device busy share "
+        f"{prof['device_busy_share']:.3f}  [{card}]")
+    for name, ms in prof["top_kernels_ms_per_call"]:
+        log(f"  device {ms:.4f} ms  {name}")
+    for name, ms, calls in prof["top_host_ops_ms_per_call"]:
+        log(f"  host self {ms:.4f} ms  {calls:.0f} calls  {name}")
 
 
 # ---------------------------------------------------------------- phase 4
+
+
+def run_path(name: str, fn, expect):
+    """Drive one main path with the launch counts set to 0 just before
+    it and read just after; every kernel in ``expect`` must have
+    launched.  Returns (fn's result, counts)."""
+    from repro_torch.kernels import dispatch
+
+    dispatch.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    log(f"launches during the {name} path: {counts}")
+    for k in expect:
+        if counts.get(k, 0) < 1:
+            raise AssertionError(f"{name} path did not launch {k}")
+    return out, counts
 
 
 def slice_table(table, lo: int, hi: int):
@@ -309,6 +550,59 @@ def compare_features(gpu, cpu) -> float:
     return err
 
 
+def compare_offline(name: str, got, want, n_rows: int) -> float:
+    """Offline features on the card against the plain-fold run: finite
+    (the deployment has no NULL), of the base table's length, bitwise
+    except ``ew`` (rtol 1e-5)."""
+    if list(got) != list(want):
+        raise AssertionError(f"{name}: features {list(got)} != "
+                             f"{list(want)}")
+    err = 0.0
+    for k in want:
+        x, y = got[k], want[k]
+        if x.shape[0] != n_rows or not np.all(np.isfinite(x)):
+            raise AssertionError(f"{name}: feature {k} has shape "
+                                 f"{x.shape} or non-finite values")
+        ok = (np.allclose(x, y, rtol=EW_RTOL, atol=1e-6) if k == "ew"
+              else np.array_equal(x, y))
+        if not ok:
+            raise AssertionError(f"{name}: feature {k} != plain fold")
+        err = max(err, float(np.max(np.abs(x.astype(np.float64) - y))))
+    return err
+
+
+def widest_units(cs, tables):
+    """(widest rp, [(rp, variant)] per unit block) of an offline plan."""
+    from repro_torch.core.lowering import drivers
+    from repro_torch.core.lowering.windows import (group_leaf_set,
+                                                   unique_leaves)
+    from repro_torch.kernels.unit_fold import ops
+    from repro_torch.kernels.unit_fold.kernel import lane_tiles
+
+    lws, _, _ = drivers.plan_offline(cs, tables)
+    blocks = []
+    for gl in lws:
+        plan, _ = ops.plan_for(
+            [m.node.spec for m in gl.members], group_leaf_set(gl.members),
+            gl.members[0].node.spec.order_by,
+            [tuple(unique_leaves(m.aggs)) for m in gl.members])
+        for b in gl.blocks:
+            rp = b.idx.shape[1]
+            blocks.append((rp, "shared" if lane_tiles(plan, rp, rp)
+                           is not None else "wide"))
+    return max(rp for rp, _ in blocks), blocks
+
+
+def prefix_tables(tables, n_rows: int):
+    """The first ``n_rows`` events of the deployment (both tables cut at
+    one timestamp)."""
+    ts = np.sort(np.concatenate([t.columns["ts"] for t in tables.values()]))
+    cut = ts[min(n_rows, ts.shape[0]) - 1]
+    return {name: slice_table(t, 0, int(np.searchsorted(
+        t.columns["ts"], cut, side="right")))
+        for name, t in tables.items()}
+
+
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", dest="json_path", default=None,
@@ -319,42 +613,27 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import compile_script, verify_consistency
+    from repro_torch.core.lowering.windows import group_windows
     from repro_torch.data.synthetic import make_action_tables
-    from repro_torch.kernels import build, dispatch
-    from repro_torch.kernels.feature_hash.kernel import feature_hash_triton
-    from repro_torch.kernels.unit_fold.kernel import SOURCE
+    from repro_torch.kernels.batch_windowfold import store_windowfold
+    from repro_torch.kernels.segagg import bucket_build
     from repro_torch.serve.engine import FeatureEngine
 
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    smi = subprocess.run(
+    card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    card = smi
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     phase("2 build")
-    t0 = time.perf_counter()
-    build.load_library(SOURCE)                  # nvcc, sm_90a
-    t_nvcc = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    feature_hash_triton(torch.zeros(8, dtype=torch.int32, device=dev), 1024)
-    torch.cuda.synchronize()                    # Triton JIT
-    t_triton = time.perf_counter() - t0
-    lib_path = build.library_path(SOURCE)
-    log(f"built {lib_path.name} in {t_nvcc:.1f} s and the Triton kernel "
-        f"in {t_triton:.1f} s")
-    ptxas = lib_path.with_suffix(".log")
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas: {line.strip()}")
+    build_s = build_all(dev)
 
     phase("3 kernels against plain versions")
-    from repro_torch.core.compiler import compile_script
-    from repro_torch.core.lowering.windows import group_windows
-
     small = make_action_tables(n_actions=64, n_orders=32, n_users=4,
                                horizon_ms=60_000, seed=0,
                                with_profile=False)
@@ -366,11 +645,24 @@ def main(argv) -> int:
                                             1, 1, dev), 50)
     res_wr = check_unit_fold("wr", fold_block(groups["wr"], 256,
                                               total["wr"], 1, 2, dev), 50)
-    check_unit_fold("offline", fold_block(groups["w"], 64, 1024, 1024, 3,
-                                          dev), 5)
+    # offline shapes, Q = rp: rp = 2048 (the uniform deployment's units,
+    # shared-memory variant) and rp = 8192 (past the shared-memory limit:
+    # the wide variant), every leaf family
+    offline_shapes = {}
+    for name, u, r, seed in (("w/rp2048", 64, 2048, 3),
+                             ("wr/rp2048", 64, 2048, 4),
+                             ("w/rp8192", 8, 8192, 5),
+                             ("wr/rp8192", 8, 8192, 6)):
+        offline_shapes[name] = check_unit_fold(
+            name, fold_block(groups[name.split("/")[0]], u, r, r, seed,
+                             dev), 3)
+    for name in ("w/rp8192", "wr/rp8192"):
+        if offline_shapes[name]["variant"] != "wide":
+            raise AssertionError(f"unit_fold[{name}] did not take the wide "
+                                 f"variant")
     res_fh = check_feature_hash(dev, 50)
 
-    phase("4 main path at deployment size")
+    phase("4a serving path at deployment size")
     t0 = time.perf_counter()
     tables = make_action_tables(**DEPLOYMENT)
     actions, orders = tables["actions"], tables["orders"]
@@ -378,7 +670,6 @@ def main(argv) -> int:
     hist_end = n_act - N_LIVE - max(BATCHES)
     log(f"tables: {n_act} actions + {len(orders)} orders in "
         f"{time.perf_counter() - t0:.1f} s")
-    dispatch.reset_launch_counts()
     t0 = time.perf_counter()
     eng = FeatureEngine(SMOKE_SQL, tables, capacity=CAPACITY,
                         fused_fold=True, device="cuda")
@@ -396,16 +687,14 @@ def main(argv) -> int:
         f"{N_LIVE} rows in {t_ingest:.2f} s; {stored} rows stored")
     reqs = [dict(actions.row(i)) for i in
             range(hist_end + N_LIVE, hist_end + N_LIVE + max(BATCHES))]
-    served = {b: eng.request_batch(reqs[:b]) for b in BATCHES}
-    counts = dispatch.launch_counts()
-    log(f"launches during the main path: {counts}")
-    for name in ("unit_fold", "feature_hash"):
-        if counts.get(name, 0) < 1:
-            raise AssertionError(f"main path did not launch {name}")
+    served, counts = run_path(
+        "serving", lambda: {b: eng.request_batch(reqs[:b])
+                            for b in BATCHES},
+        ("unit_fold", "feature_hash"))
+    paths = {"serving": counts}
     for b, feats in served.items():
         if len(feats) != b or set(feats[0]) != set(cs.feature_names):
             raise AssertionError(f"request_batch B={b}: bad output shape")
-
     cpu = FeatureEngine(SMOKE_SQL, tables, capacity=CAPACITY,
                         fused_fold=True, device="cpu")
     cpu.load_store_from({
@@ -414,8 +703,93 @@ def main(argv) -> int:
             "cols": {c: v.cpu().numpy() for c, v in st["cols"].items()}}
         for t, st in eng.store.tables.items()})
     err = compare_features(served[64], cpu.request_batch(reqs[:64]))
+    del cpu
     log(f"B=64 card vs CPU plain path: equal (bitwise; ew within rtol "
         f"{EW_RTOL}), max abs diff {err}")
+
+    phase("4b offline path at deployment size")
+    t0 = time.perf_counter()
+    off, counts = run_path("offline", eng.offline, ("unit_fold",))
+    t_off_cold = time.perf_counter() - t0
+    paths["offline"] = counts
+    plain_cs = compile_script(SMOKE_SQL, tables=tables,
+                              unit_fold_kernel=False)
+    err_off = compare_offline("offline", off,
+                              plain_cs.offline(tables, device="cuda"), n_act)
+    del plain_cs
+    rp_uniform, blocks_uniform = widest_units(eng.cs, tables)
+    log(f"offline over {n_act + len(orders)} rows: {len(off)} features x "
+        f"{n_act} rows equal the plain fold on the card (bitwise; ew "
+        f"within rtol {EW_RTOL}), max abs diff {err_off}; unit blocks "
+        f"(rp, variant): {blocks_uniform}; first call {t_off_cold:.2f} s "
+        f"(plan + upload + fold)")
+
+    skewed = make_action_tables(**dict(DEPLOYMENT, zipf_alpha=SKEW_ALPHA))
+    skew_eng = FeatureEngine(SMOKE_SQL, skewed, capacity=64,
+                             fused_fold=True, device="cuda")
+    t0 = time.perf_counter()
+    off_skew, counts = run_path("offline (skewed)", skew_eng.offline,
+                                ("unit_fold",))
+    t_skew = time.perf_counter() - t0
+    paths["offline_skewed"] = counts
+    rp_skew, blocks_skew = widest_units(skew_eng.cs, skewed)
+    n_wide = sum(v == "wide" for _, v in blocks_skew)
+    if n_wide == 0 or counts["unit_fold"] != len(blocks_skew):
+        raise AssertionError(f"skewed offline: {n_wide} wide blocks, "
+                             f"{counts['unit_fold']} launches for "
+                             f"{len(blocks_skew)} blocks")
+    plain_cs = compile_script(SMOKE_SQL, tables=skewed,
+                              unit_fold_kernel=False)
+    err_skew = compare_offline("offline (skewed)", off_skew,
+                               plain_cs.offline(skewed, device="cuda"),
+                               len(skewed["actions"]))
+    del plain_cs
+    log(f"offline skewed (zipf {SKEW_ALPHA}): widest unit rp={rp_skew}; "
+        f"{n_wide} of {len(blocks_skew)} unit blocks took the wide "
+        f"variant {blocks_skew}; equal to the plain fold (max abs diff "
+        f"{err_skew}); first call {t_skew:.2f} s")
+
+    prefix = prefix_tables(tables, CONSISTENCY_ROWS)
+    n_prefix = sum(len(t) for t in prefix.values())
+    t0 = time.perf_counter()
+    rep, counts = run_path(
+        "consistency",
+        lambda: verify_consistency(compile_script(SMOKE_SQL, tables=prefix),
+                                   prefix, bitwise=True, device="cuda"),
+        ("unit_fold",))
+    t_cons = time.perf_counter() - t0
+    paths["consistency"] = counts
+    if not (rep.passed and rep.bitwise_equal):
+        raise AssertionError(f"verify_consistency on the card: {rep}")
+    log(f"verify_consistency on the card over {n_prefix} rows "
+        f"({len(prefix['actions'])} requests): {rep} in {t_cons:.1f} s")
+
+    phase("4c additive folds (store_windowfold, bucket_build)")
+    state = eng.store.tables["actions"]
+    vals = store_vals(state)
+
+    def additive():
+        folds = {b: store_windowfold(state, vals,
+                                     *request_frames(reqs[:b], dev))
+                 for b in BATCHES}
+        buckets = {s: bucket_build(*bucket_inputs(actions, ms, s, dev), ms,
+                                   s) for ms, s in BUCKETS}
+        return folds, buckets
+
+    (folds, buckets), counts = run_path(
+        "additive folds", additive, ("batch_windowfold", "segagg"))
+    paths["additive"] = counts
+    for b, out in folds.items():
+        if tuple(out.shape) != (b, 2) or out.isnan().any() or not bool(
+                (out[:, 1] == out[:, 1].round()).all()):
+            raise AssertionError(f"store_windowfold B={b}: bad output")
+    for s, out in buckets.items():
+        if tuple(out.shape) != (s, 3):
+            raise AssertionError(f"bucket_build S={s}: bad output")
+
+    phase("3b additive-fold kernels against plain versions")
+    res_bwf = check_batch_windowfold(state, reqs, dev, 20)
+    res_seg = check_bucket_build(actions, dev, 20)
 
     phase("5 times")
     latency = {}
@@ -438,50 +812,78 @@ def main(argv) -> int:
         log(f"request_batch B={b}: p50 {latency[b]['p50_ms']:.3f} ms, "
             f"p99 {latency[b]['p99_ms']:.3f} ms over {N_LATENCY} batches  "
             f"[{card}]")
-    prof = profile_requests(eng, reqs[:256])
-    if prof["kernels_per_batch"] == 0:
-        log("profiler: no device events (device time not measured)")
-    else:
-        log(f"profile B=256: wall {prof['wall_ms_per_batch']:.3f} ms, "
-            f"device {prof['device_ms_per_batch']:.3f} ms "
-            f"({prof['kernels_per_batch']:.0f} kernels), device busy share "
-            f"{prof['device_busy_share']:.3f}  [{card}]")
-        for name, ms in prof["top_kernels_ms_per_batch"]:
-            log(f"  device {ms:.4f} ms  {name}")
-        for name, ms, calls in prof["top_host_ops_ms_per_batch"]:
-            log(f"  host self {ms:.4f} ms  {calls:.0f} calls  {name}")
+    prof = profile_calls(lambda: eng.request_batch(reqs[:256]), 5)
+    log_profile("request_batch B=256", prof, card)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eng.offline()
+    t_off = (time.perf_counter() - t0) / 3
+    prof_off = profile_calls(eng.offline, 2)
+    log(f"offline (plan cached) over {n_act + len(orders)} rows: wall "
+        f"{t_off * 1e3:.1f} ms per call, {paths['offline']['unit_fold']} "
+        f"unit-fold launches per call  [{card}]")
+    log_profile("offline", prof_off, card)
     uf = {k: res_w[k] + res_wr[k] for k in ("ms", "plain_ms", "bound_ms")}
+    launches = {k: sum(c.get(k, 0) for c in paths.values())
+                for k in ("unit_fold", "feature_hash", "batch_windowfold",
+                          "segagg")}
     kernels = [
         {"name": "unit_fold", "route": "cuda",
          "source": "src/repro_torch/kernels/unit_fold/csrc/unit_fold.cu",
          "replaces": "src/repro/kernels/unit_fold/kernel.py:278",
-         "launches": counts.get("unit_fold", 0),
-         "max_abs_err": max(res_w["max_abs_err"], res_wr["max_abs_err"]),
+         "launches": launches["unit_fold"],
+         "max_abs_err": max([res_w["max_abs_err"], res_wr["max_abs_err"]]
+                            + [r["max_abs_err"]
+                               for r in offline_shapes.values()]),
          "ms": uf["ms"], "plain_ms": uf["plain_ms"],
          "bound_ms": uf["bound_ms"], "bound_by": res_w["bound_by"],
          "library_ms": None},
         {"name": "feature_hash", "route": "triton",
          "source": "src/repro_torch/kernels/feature_hash/kernel.py",
          "replaces": "src/repro/kernels/feature_hash/kernel.py:32",
-         "launches": counts.get("feature_hash", 0),
+         "launches": launches["feature_hash"],
          "max_abs_err": res_fh["max_abs_err"], "ms": res_fh["ms"],
          "plain_ms": res_fh["plain_ms"], "bound_ms": res_fh["bound_ms"],
          "bound_by": res_fh["bound_by"], "library_ms": None},
+        {"name": "batch_windowfold", "route": "cuda",
+         "source": "src/repro_torch/kernels/batch_windowfold/csrc/"
+                   "batch_windowfold.cu",
+         "replaces": "src/repro/kernels/batch_windowfold/kernel.py:66",
+         "launches": launches["batch_windowfold"], **res_bwf},
+        {"name": "segagg", "route": "cuda",
+         "source": "src/repro_torch/kernels/segagg/csrc/segagg.cu",
+         "replaces": "src/repro/kernels/segagg/kernel.py:57",
+         "launches": launches["segagg"], **res_seg},
     ]
     log(f"unit_fold main-path shapes (w + wr, B=256): ms {uf['ms']:.4f}, "
         f"plain {uf['plain_ms']:.4f}, bound {uf['bound_ms']:.5f}  [{card}]")
+    for name, r in offline_shapes.items():
+        log(f"unit_fold offline {name} ({r['variant']}): ms {r['ms']:.4f}, "
+            f"plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.5f}  "
+            f"[{card}]")
     log(f"feature_hash 2^20 codes: ms {res_fh['ms']:.4f}, plain "
         f"{res_fh['plain_ms']:.4f}, bound {res_fh['bound_ms']:.5f}  "
         f"[{card}]")
+    log(f"launches per path: {paths}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if json_path:
         out = pathlib.Path(json_path)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps({
             "card": card, "kernels": kernels, "latency": latency,
-            "unit_fold_shapes": {"w": res_w, "wr": res_wr},
-            "profile": prof, "load_s": t_load, "ingest_s": t_ingest},
-            indent=1))
+            "build_s": build_s,
+            "unit_fold_shapes": dict(offline_shapes, w=res_w, wr=res_wr),
+            "profile_requests": prof, "profile_offline": prof_off,
+            "offline": {"wall_ms_cached": t_off * 1e3,
+                        "first_call_s": t_off_cold,
+                        "skewed_first_call_s": t_skew,
+                        "blocks_uniform": blocks_uniform,
+                        "blocks_skewed": blocks_skew,
+                        "widest_rp_skewed": rp_skew,
+                        "consistency_rows": n_prefix,
+                        "consistency_s": t_cons},
+            "launches_per_path": paths,
+            "load_s": t_load, "ingest_s": t_ingest}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
-"""repro_torch.core — SQL frontend, plan, leaf algebra and compiler."""
+"""repro_torch.core — SQL frontend, plan, leaf algebra, compiler and the
+offline/online consistency gate."""
 
 from .types import Column, ColumnType, Dictionary, Table, TableSchema  # noqa: F401
 from .window import WindowSpec, parse_interval_ms  # noqa: F401
 from .plan import FeatureScript, LastJoinSpec, SelectItem, build_plan  # noqa: F401
 from .sql import ParseError, parse  # noqa: F401
 from .compiler import CompileContext, CompiledScript, compile_script  # noqa: F401
+from .consistency import replay_online, verify_consistency  # noqa: F401

@@ -1,8 +1,10 @@
-"""Query plan compiler (§4) — one plan, one lowering, a thin driver.
+"""Query plan compiler (§4) — one plan, one lowering, thin drivers.
 
 A FeaturePlan lowers ONCE (``core.lowering``) to per-window folds, LAST
-JOIN resolution and scalar evaluation; the fused request driver
-(``lowering.drivers``) is a thin executor over that lowering.
+JOIN resolution and scalar evaluation; the offline schedules (fused,
+serial) and the request drivers (single, batched) are thin executors
+over that lowering (``lowering.drivers``), which is what makes the
+online features equal the offline ones (``core.consistency``).
 Compilation-level optimizations from §4.2: window merging
 (``plan.build_plan``), cycle binding (``lowering.windows.unique_leaves``)
 and the plan cache (``lowering.cache``).
@@ -14,6 +16,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..kernels.dispatch import resolve_device
 from .expr import ColumnRef, Expr
 from .lowering import drivers as _drv
 from .lowering import windows as _lw
@@ -34,9 +37,12 @@ class CompileContext:
                  max_cardinality: int = 256,
                  online_buffer: int = 256,
                  cardinality_overrides: Optional[Dict[str, int]] = None,
+                 offline_slice_rows: int = 1024,
+                 offline_max_slices: int = 8,
                  distinct_hll_p: Optional[int] = None,
                  distinct_hll_min_card: int = 64,
-                 fused_unit_fold: bool = True):
+                 fused_unit_fold: bool = True,
+                 unit_fold_kernel: Optional[bool] = None):
         # the port folds every window group through the fused unit fold
         # (kernels/unit_fold); the staged fold path is not ported
         if not fused_unit_fold:
@@ -48,6 +54,16 @@ class CompileContext:
         self.max_cardinality = max_cardinality
         self.online_buffer = online_buffer
         self.overrides = dict(cardinality_overrides or {})
+        # §6.2 unit planning: hot keys with more than offline_slice_rows
+        # rows are cut into at most offline_max_slices time slices.  The
+        # parameters are part of the plan, so every offline schedule
+        # folds identical units.
+        self.offline_slice_rows = offline_slice_rows
+        self.offline_max_slices = offline_max_slices
+        # the fold's kernel selector (kernels.dispatch.resolve): None
+        # follows the tensors' device, True forces the CUDA kernel,
+        # False runs the plain version (the kernel's reference)
+        self.unit_fold_kernel = unit_fold_kernel
         # optional mergeable-sketch leaf for distinct_count over wide key
         # universes (functions.HLLLeaf)
         self.distinct_hll_p = distinct_hll_p
@@ -70,7 +86,8 @@ def _round8(x: int) -> int:
 
 
 class CompiledScript:
-    """A deployed feature script and its fused request driver."""
+    """A deployed feature script: offline + online drivers sharing one
+    lowering."""
 
     def __init__(self, script: FeatureScript, ctx: CompileContext):
         self.script = script
@@ -78,6 +95,7 @@ class CompiledScript:
         self.plan: FeaturePlan = build_plan(script)
         self._fingerprint = script.fingerprint()   # hashed once
         self._online_fns: Dict[Tuple, Any] = {}
+        self._offline_plan_cache: Dict[Tuple, Any] = {}
         self.windows: List[_lw.LoweredWindow] = _lw.lower_windows(
             self.plan, script, ctx)
         self.join_cols: Dict[str, List[str]] = join_columns(self.plan,
@@ -93,6 +111,40 @@ class CompiledScript:
 
     def describe_plan(self) -> str:
         return self.plan.describe()
+
+    # ======================================================================
+    # OFFLINE driver (batch over whole tables)
+    # ======================================================================
+
+    def offline(self, tables: Dict[str, Table], device="cuda"
+                ) -> Dict[str, np.ndarray]:
+        """Default offline schedule (fused window-parallel groups) on
+        ``device``: the card unless the caller asks for the CPU; a CUDA
+        device without a card raises."""
+        return _drv.offline_fused(self, tables, resolve_device(device))
+
+    def offline_serial(self, tables: Dict[str, Table], device="cuda"
+                       ) -> Dict[str, np.ndarray]:
+        """Serialized-branch schedule (same folds, a barrier between
+        window groups)."""
+        return _drv.offline_serial(self, tables, resolve_device(device))
+
+    def offline_sharded(self, tables: Dict[str, Table], mesh=None,
+                        n_shards: Optional[int] = None,
+                        axis: str = "shard") -> Dict[str, np.ndarray]:
+        raise NotImplementedError(
+            "CompiledScript.offline_sharded (key-sharded offline execution) "
+            "is not ported to repro_torch yet")
+
+    # ======================================================================
+    # ONLINE driver (request mode against the live store)
+    # ======================================================================
+
+    def online(self, store, key: int, ts: int, values: Dict[str, float]
+               ) -> Dict[str, np.ndarray]:
+        """Features for one request tuple (virtually inserted), on the
+        store's device."""
+        return _drv.online(self, store, key, ts, values)
 
     def required_store_columns(self) -> Dict[str, List[str]]:
         """Which columns each table's online store must retain."""

@@ -1,9 +1,12 @@
-"""LAST JOIN lowering — the request path's point-in-time lookup.
+"""LAST JOIN lowering — one lookup core (``resolve_last``) for both
+executors.
 
-A LAST JOIN resolves, per request row, the newest right-table row with
-the same key and order value <= the request's timestamp.  The store is
-pre-ranked by (key, ts), so that row is one range lookup, batched over
-the request rows.
+A LAST JOIN resolves, per left row, the newest right-table row with the
+same key and order value <= the left row's timestamp.  Online, the store
+is pre-ranked by (key, ts), so that row is one range lookup, batched over
+the request rows; offline, the right table is sorted once by the same
+composite (key, ts) key (stable, so equal rows keep arrival order) and
+every base row is one search.
 """
 
 from __future__ import annotations
@@ -15,9 +18,10 @@ import torch
 from ...storage import timestore
 from ..expr import ColumnRef, Expr
 from ..plan import FeaturePlan, FeatureScript, LastJoinSpec
-from .windows import INT_MIN
+from .windows import INT_MAX, INT_MIN
 
-__all__ = ["join_columns", "resolve_last", "online_last_join"]
+__all__ = ["join_columns", "resolve_last", "online_last_join",
+           "offline_last_join"]
 
 
 def join_columns(plan: FeaturePlan, script: FeatureScript
@@ -72,3 +76,29 @@ def online_last_join(states, js: LastJoinSpec, join_cols, env, key, ts):
     return resolve_last(js.right_table, st["cols"],
                         join_cols.get(js.right_table, []), hi - 1, lo,
                         int(st["keys"].shape[0]))
+
+
+def offline_last_join(arrays, js: LastJoinSpec, script: FeatureScript,
+                      join_cols: Dict[str, List[str]]
+                      ) -> Dict[str, torch.Tensor]:
+    """Batch executor: sort the right table by (key, order) once, then
+    find every base row's newest right row with one search each
+    (``timestore.composite`` orders rows as (key, ts) does)."""
+    base = arrays[script.base_table]
+    right = arrays[js.right_table]
+    order = js.order_by or script.order_column
+    rk = right[js.right_key].to(torch.int32)
+    comp = timestore.composite(rk, right[order].to(torch.int32))
+    comp_s, perm = torch.sort(comp, stable=True)
+
+    lk = base[js.left_key].to(torch.int32)
+    lts = base[script.order_column].to(torch.int32)
+    lo = torch.searchsorted(comp_s, timestore.composite(
+        lk, torch.full_like(lk, timestore.INT_MIN)))
+    top = lts if js.point_in_time else torch.full_like(lk, INT_MAX)
+    pos = torch.searchsorted(comp_s, timestore.composite(lk, top),
+                             right=True) - 1
+    wanted = join_cols.get(js.right_table, [])
+    cols = {c: right[c][perm] for c in wanted}
+    return resolve_last(js.right_table, cols, wanted, pos, lo,
+                        int(comp_s.shape[0]))

@@ -2,6 +2,11 @@
 
 * :func:`repro_torch.kernels.unit_fold.unit_fold` — fused unit fold
   (CUDA C++ for sm_90a, ``unit_fold/csrc/unit_fold.cu``)
+* :func:`repro_torch.kernels.batch_windowfold.batch_windowfold` /
+  ``store_windowfold`` — additive-leaf masked request fold (CUDA C++,
+  ``batch_windowfold/csrc/batch_windowfold.cu``)
+* :func:`repro_torch.kernels.segagg.segagg` / ``bucket_build`` —
+  segmented sums (CUDA C++, ``segagg/csrc/segagg.cu``)
 * :func:`repro_torch.kernels.feature_hash.feature_hash` — signature
   hashing (Triton)
 
@@ -10,7 +15,10 @@ plain versions, and counts every kernel launch.
 """
 
 from . import dispatch  # noqa: F401
+from .batch_windowfold import batch_windowfold, store_windowfold  # noqa: F401
 from .feature_hash import feature_hash  # noqa: F401
+from .segagg import bucket_build, segagg  # noqa: F401
 from .unit_fold import unit_fold  # noqa: F401
 
-__all__ = ["dispatch", "unit_fold", "feature_hash"]
+__all__ = ["dispatch", "unit_fold", "batch_windowfold", "store_windowfold",
+           "segagg", "bucket_build", "feature_hash"]

@@ -10,7 +10,9 @@
 
 Every kernel wrapper counts its launches here, one per launch and
 nowhere else, so a run can show that its main path went through the
-kernels.
+kernels.  ``resolve_device`` is the entry points' side of the policy:
+they run on the card unless the caller asks for the CPU, and a CUDA
+device without a card raises (no silent move to the CPU).
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["KernelUnsupportedError", "resolve", "count_launch",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["KernelUnsupportedError", "resolve", "resolve_device",
+           "count_launch", "launch_counts", "reset_launch_counts"]
 
 _LAUNCHES: Dict[str, int] = {}
 
@@ -43,6 +45,16 @@ def resolve(use_kernel: Optional[bool], tensor: torch.Tensor) -> bool:
             f"tensor's device, or use_kernel=False for the plain PyTorch "
             f"version.")
     return bool(use_kernel)
+
+
+def resolve_device(device) -> torch.device:
+    """An entry point's device; a CUDA device without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but no CUDA device "
+                           f"is available; pass device='cpu' to run the "
+                           f"plain versions on the CPU")
+    return dev
 
 
 def count_launch(name: str) -> None:

@@ -12,6 +12,11 @@ vectors) is cached in ``core.lowering.cache`` per static group signature
 and device, so repeated folds of one script (every request batch, every
 pad class) reuse one plan and its identity vectors resident on the
 device.
+
+The offline engine's entry is ``unit_fold_blocks``: the group's flat
+(key, ts, rank, arrival)-sorted rows are lifted once (``prelift_blocks``)
+and every §6.2 unit block gathers its (U, R) lane block from them through
+its flat-row index, then folds every row of every unit (Q = R).
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ from .. import dispatch
 from . import ref as _ref
 from .kernel import unit_fold_cuda
 
-__all__ = ["unit_fold", "plan_for", "fold_env", "pad_rows"]
+__all__ = ["unit_fold", "plan_for", "fold_env", "pad_rows",
+           "prelift_blocks", "unit_fold_blocks"]
 
 
 def _next_pow2(n: int) -> int:
@@ -110,9 +116,22 @@ def fold_env(plan: _ref.UnitFoldPlan, ident_list: Sequence[torch.Tensor],
     ``{leaf key: (U, Q, *S)}`` dicts."""
     ts = env[plan.order_by]
     u, r = ts.shape
-    data_list, ts = pad_rows(
-        ident_list, [_ref.lift_group(g, env, (u, r)) for g in plan.groups],
-        ts)
+    return _fold_lanes(
+        plan, ident_list,
+        [_ref.lift_group(g, env, (u, r)) for g in plan.groups], ts,
+        queries, use_kernel)
+
+
+def _fold_lanes(plan: _ref.UnitFoldPlan,
+                ident_list: Sequence[torch.Tensor],
+                data_list: Sequence[torch.Tensor], ts: torch.Tensor,
+                queries: torch.Tensor, use_kernel: Optional[bool]
+                ) -> List[Dict[str, torch.Tensor]]:
+    """Pad lifted (U, R, F) lane blocks to rp, fold them through the
+    kernel (CUDA tensors) or the plain version (CPU tensors), and split
+    the groups back into per-member dicts."""
+    r = ts.shape[1]
+    data_list, ts = pad_rows(ident_list, data_list, ts)
     queries = queries.to(torch.int32).contiguous()
     fold = (unit_fold_cuda if dispatch.resolve(use_kernel, ts)
             else _ref.unit_fold_plain)
@@ -146,3 +165,52 @@ def unit_fold(specs: Sequence[Any], leaves: Dict[str, Any],
         queries = torch.arange(r, dtype=torch.int32,
                                device=ts.device).expand(u, r)
     return fold_env(plan, ident_list, env, queries, use_kernel=use_kernel)
+
+
+def prelift_blocks(specs: Sequence[Any], leaves: Dict[str, Any],
+                   flat_env: Dict[str, Any], *, order_by: str,
+                   member_keys: Optional[Sequence[Sequence[str]]] = None
+                   ) -> Tuple:
+    """What every unit block of one group lowering shares: the cached
+    plan and identity vectors, every leaf group's lanes lifted ONCE over
+    the flat pad-appended rows, and the flat order column.  (The
+    reference lifts narrow groups per unit instead, an XLA layout choice;
+    lifts are row-local, so the lanes are the same bits either way.)"""
+    flat_ts = flat_env[order_by]
+    plan, ident_list = plan_for(specs, leaves, order_by, member_keys,
+                                device=flat_ts.device)
+    n = flat_ts.shape[0]
+    flat_data = [_ref.lift_group(g, flat_env, (n,)) for g in plan.groups]
+    return plan, ident_list, flat_data, flat_ts
+
+
+def unit_fold_blocks(specs: Sequence[Any], leaves: Dict[str, Any],
+                     flat_env: Dict[str, Any], idx: torch.Tensor, *,
+                     order_by: str,
+                     member_keys: Optional[Sequence[Sequence[str]]] = None,
+                     use_kernel: Optional[bool] = None,
+                     prelift: Optional[Tuple] = None
+                     ) -> List[Dict[str, torch.Tensor]]:
+    """Fold one window group over a §6.2 unit block at every row.
+
+    ``flat_env`` holds the group's FLAT pad-appended columns — the
+    merged (key, ts, rank, arrival)-sorted rows plus one sentinel row
+    (``order_by`` = INT_MAX, ``__valid__`` = False) — and ``idx`` the
+    (U, R) flat-row gather index of the block (pad slots point at the
+    sentinel, which lifts to identity).  Each leaf group's (U, R, F) lane
+    block is one gather of its flat lanes (``prelift``, built once per
+    lowering); every row of every unit is queried (Q = R).  Returns one
+    ``{leaf key: (U, R, *S)}`` dict per member.
+    """
+    if prelift is None:
+        prelift = prelift_blocks(specs, leaves, flat_env,
+                                 order_by=order_by,
+                                 member_keys=member_keys)
+    plan, ident_list, flat_data, flat_ts = prelift
+    idx = idx.long()
+    ts = flat_ts[idx]                                       # (U, R)
+    u, r = ts.shape
+    queries = torch.arange(r, dtype=torch.int32,
+                           device=ts.device).expand(u, r)
+    return _fold_lanes(plan, ident_list, [fd[idx] for fd in flat_data], ts,
+                       queries, use_kernel)

@@ -8,6 +8,8 @@ every batch goes through the fused path: one unit-fold kernel launch per
 window group for the whole batch, and the feature-hash kernel for
 ``discrete()``.
 
+``offline()`` materializes the script's training features over the
+tables, on the engine's device, through the same unit fold.
 ``submit_request()`` enqueues a request into a ``RequestBatcher`` and
 ``flush()`` drains the queue through the batched path.  ``latencies_ms``
 holds real request completion samples only: every request of a batch
@@ -26,10 +28,10 @@ import time
 from typing import Any, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from ..core.compiler import CompiledScript, compile_script
 from ..core.types import Table
+from ..kernels.dispatch import resolve_device
 from ..storage.memest import MemoryGuard
 from ..storage.timestore import OnlineStore
 from .batcher import RequestBatcher
@@ -40,17 +42,6 @@ __all__ = ["FeatureEngine"]
 def _not_ported(name: str):
     raise NotImplementedError(f"FeatureEngine option {name!r} is not "
                               f"ported to repro_torch yet")
-
-
-def resolve_device(device) -> torch.device:
-    """The engine's device; a CUDA device without a card raises (no
-    silent move to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but no CUDA device "
-                           f"is available; pass device='cpu' to run the "
-                           f"plain versions on the CPU")
-    return dev
 
 
 class FeatureEngine:
@@ -191,6 +182,14 @@ class FeatureEngine:
             for rid, f in zip(ids, feats):
                 out[rid] = f
         return out
+
+    # ------------------------------------------------------------- offline
+    def offline(self, tables: Optional[Dict[str, Table]] = None
+                ) -> Dict[str, np.ndarray]:
+        """Offline (training-set) feature materialization for this
+        deployment's script, on the engine's device: the same fold that
+        serves the requests computes the training features."""
+        return self.cs.offline(tables or self.tables, device=self.device)
 
     # ------------------------------------------------------------ helpers
     def _key_col(self) -> str:

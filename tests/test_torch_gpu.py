@@ -108,3 +108,129 @@ def test_engine_on_card_matches_cpu_engine():
                                            atol=EW_ATOL)
             else:
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def _bwf_inputs(c, f, b, seed, dev):
+    rng = np.random.default_rng(seed)
+    keys = np.sort(rng.integers(0, 16, size=c)).astype(np.int32)
+    ts = rng.integers(0, 10_000, size=c).astype(np.int32)
+    vals = rng.normal(size=(c, f)).astype(np.float32)
+    qkey = rng.integers(0, 16, size=b).astype(np.int32)
+    qt1 = rng.integers(0, 10_000, size=b).astype(np.int32)
+    qt0 = qt1 - rng.integers(0, 3_000, size=b).astype(np.int32)
+    keys[-1], vals[-1, 0] = 99, np.nan     # NaN in a row no request matches
+    return [torch.from_numpy(a).to(dev) for a in
+            (keys, ts, vals, qkey, qt0, qt1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,f,b", [(64, 1, 3), (500, 9, 37),
+                                   (130, 17, 130), (20_000, 2, 256)])
+def test_batch_windowfold_kernel_matches_plain(c, f, b):
+    """rtol/atol 1e-5 (the kernel sums rows in chunks, the plain version
+    in matrix products), NaN positions equal, two runs bitwise equal."""
+    from repro_torch.kernels.batch_windowfold import batch_windowfold
+
+    dev = require_cuda()
+    args = _bwf_inputs(c, f, b, seed=c, dev=dev)
+    before = dispatch.launch_counts().get("batch_windowfold", 0)
+    got = batch_windowfold(*args, use_kernel=True)
+    again = batch_windowfold(*args, use_kernel=True)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["batch_windowfold"] == before + 2
+    assert torch.equal(got.isnan(), again.isnan())
+    assert torch.equal(got.nan_to_num(), again.nan_to_num())
+    want = batch_windowfold(*args, use_kernel=False)
+    assert got[:, 0].isnan().all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                               equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_store_windowfold_kernel_masks_dead_rows():
+    from repro_torch.kernels.batch_windowfold import store_windowfold
+    from repro_torch.storage.timestore import OnlineStore
+
+    dev = require_cuda()
+    rng = np.random.default_rng(1)
+    n, cap = 3000, 4096
+    store = OnlineStore(capacity=cap, device=dev)
+    store.create_table("a", {"price": np.float32})
+    store.bulk_load("a", rng.integers(0, 8, n), rng.integers(0, 90_000, n),
+                    {"price": rng.uniform(1, 100, n).astype(np.float32)})
+    st = store.tables["a"]
+    vals = torch.stack([st["cols"]["price"], torch.ones_like(
+        st["cols"]["price"])], dim=1)
+    vals[n:] = float("nan")
+    q = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, 8, 64).astype(np.int32),
+        rng.integers(0, 30_000, 64).astype(np.int32))]
+    qt1 = q[1] + 60_000
+    got = store_windowfold(st, vals, q[0], q[1], qt1, use_kernel=True)
+    want = store_windowfold(st, vals, q[0], q[1], qt1, use_kernel=False)
+    assert not got.isnan().any()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,f,s", [(64, 4, 8), (1000, 16, 50),
+                                   (100_000, 3, 600), (100_000, 3, 36_000)])
+def test_segagg_kernel_matches_plain(n, f, s):
+    """rtol 1e-4 against the plain version (whose index_add_ adds in no
+    fixed order on the card); the kernel's two runs are bitwise equal; a
+    NaN stays in its segment; out-of-range ids are dropped."""
+    from repro_torch.kernels.segagg import segagg
+
+    dev = require_cuda()
+    rng = np.random.default_rng(n + s)
+    vals = rng.uniform(1, 100, (n, f)).astype(np.float32)
+    segs = rng.integers(-3, s + 3, n).astype(np.int32)
+    segs[: n // 2] = np.sort(segs[: n // 2])
+    vals[5, 0] = np.nan
+    vals_t, segs_t = (torch.from_numpy(vals).to(dev),
+                      torch.from_numpy(segs).to(dev))
+    got = segagg(vals_t, segs_t, s, use_kernel=True)
+    again = segagg(vals_t, segs_t, s, use_kernel=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), again.isnan())
+    assert torch.equal(got.nan_to_num(), again.nan_to_num())
+    want = segagg(vals_t, segs_t, s, use_kernel=False)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3,
+                               equal_nan=True)
+    assert int(got.isnan().sum()) == (1 if 0 <= segs[5] < s else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rp_rows", [700, 5000])
+def test_offline_unit_fold_kernel_matches_plain(rp_rows):
+    """An offline block at Q = rp: 700 rows (rp 1024, shared-memory
+    variant) and 5,000 rows (rp 8192, the wide global-memory variant)."""
+    from repro_torch.core.lowering import drivers
+
+    require_cuda()
+    tables = make_action_tables(n_actions=rp_rows, n_orders=0, n_users=1,
+                                horizon_ms=600_000, seed=5,
+                                with_profile=False)
+    sql = SMOKE_SQL.replace("UNION orders ", "")
+    gpu_cs = compile_script(sql, tables=tables, offline_max_slices=1)
+    dispatch.reset_launch_counts()
+    got = gpu_cs.offline(tables, device="cuda")
+    lws, _, _ = drivers.plan_offline(gpu_cs, tables)
+    # one launch per unit block: one group (both windows share the
+    # layout), one key, one unit
+    assert dispatch.launch_counts()["unit_fold"] == \
+        sum(len(gl.blocks) for gl in lws) == 1
+    rp = lws[0].blocks[0].idx.shape[1]
+    assert (rp >= 4096) == (rp_rows == 5000)
+    plain = compile_script(sql, tables=tables, offline_max_slices=1,
+                           unit_fold_kernel=False).offline(tables,
+                                                           device="cuda")
+    cpu = compile_script(sql, tables=tables,
+                         offline_max_slices=1).offline(tables, device="cpu")
+    for want in (plain, cpu):
+        for k in want:
+            if k == "ew":
+                np.testing.assert_allclose(got[k], want[k], rtol=EW_RTOL,
+                                           atol=EW_ATOL)
+            else:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -4,6 +4,7 @@ modules: ``repro/core/__init__.py`` pulls in the compiler, which imports
 jax)."""
 
 import ast
+import importlib
 import pathlib
 
 import pytest
@@ -24,8 +25,37 @@ def _imported_roots(path: pathlib.Path):
             yield node.lineno, node.module.split(".")[0]
 
 
+# modules of the offline slice: each must exist and import without JAX
+SLICE_MODULES = (
+    "core.hll", "core.skew", "core.multiwindow", "core.consistency",
+    "core.lowering.windows", "core.lowering.joins", "core.lowering.drivers",
+    "kernels.batch_windowfold", "kernels.batch_windowfold.ref",
+    "kernels.batch_windowfold.kernel", "kernels.batch_windowfold.ops",
+    "kernels.segagg", "kernels.segagg.ref", "kernels.segagg.kernel",
+    "kernels.segagg.ops")
+
+
 def test_port_has_files():
     assert len(FILES) > 20
+    have = {".".join(p.relative_to(PORT).with_suffix("").parts)
+            for p in FILES}
+    for m in SLICE_MODULES:
+        assert m in have or m + ".__init__" in have, m
+    for src in ("batch_windowfold", "segagg", "unit_fold"):
+        assert (PORT / "kernels" / src / "csrc" / f"{src}.cu").is_file()
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_module_imports_without_jax(module):
+    """The module imports, and nothing it binds comes from JAX or the
+    reference package."""
+    mod = importlib.import_module(f"repro_torch.{module}")
+    assert mod.__doc__
+    foreign = [name for name, v in vars(mod).items()
+               if str(getattr(v, "__module__", None) or
+                      getattr(v, "__name__", "")).split(".")[0]
+               in FORBIDDEN]
+    assert not foreign, foreign
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -174,12 +174,12 @@ def test_kernel_lane_tiles_fit_shared_memory():
     for g, t in zip(plan.groups, tiles):
         assert K.smem_bytes(g.kind, rp, len(g.members_ix), nq, t) \
             <= K.SMEM_LIMIT
-    hdr, smem, n_tasks = K._header(plan, rp, nq, r_real=600)
+    hdr, words, n_tasks = K._header(plan, rp, nq, r_real=600)
     assert n_tasks == sum(-(-g.width // t)
                           for g, t in zip(plan.groups, tiles))
-    assert smem <= K.SMEM_LIMIT
+    assert words == 0 and 0 < hdr[7] <= K.SMEM_LIMIT
     rows = np.asarray(torch_ref.member_rows(plan.specs, 600))
     np.testing.assert_array_equal(
-        hdr[9:9 + 4 * len(plan.specs)].reshape(-1, 4), rows)
+        hdr[K._HDR:K._HDR + 4 * len(plan.specs)].reshape(-1, 4), rows)
     # ROWS members clip to the real row count, RANGE members to 2^30
     assert (rows[rows[:, 0] == 1, 1] <= 600).all()
