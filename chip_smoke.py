@@ -6,10 +6,10 @@ plain versions.
 Phases (each prints its own lines; any failure exits non-zero):
 
 1. device  — a CUDA card is required; prints its name and power limit;
-2. build   — compiles the three CUDA sources (unit fold, batched window
-             fold, segmented sums; nvcc, sm_90a), one nvcc each, all
-             started together, and the feature-hash Triton kernel, from
-             this checkout;
+2. build   — compiles the five CUDA sources (unit fold, batched window
+             fold, segmented sums, linear scan, flash decode; nvcc,
+             sm_90a), one nvcc each, all started together, and the
+             feature-hash Triton kernel, from this checkout;
 3. kernels — each kernel against its plain PyTorch version on the card,
              at its paths' shapes, and run twice (the two runs must be
              bitwise equal): the unit fold at the serving shapes and at
@@ -19,7 +19,12 @@ Phases (each prints its own lines; any failure exits non-zero):
              store exists (3b, after phase 4), the batched window fold on
              it (rtol/atol 1e-5, a NaN row that matches no request) and
              the bucket build over the deployment's action rows
-             (rtol 1e-4, NaN prices, out-of-range ids);
+             (rtol 1e-4, NaN prices, out-of-range ids); 3c, the model
+             kernels at the full hymba-1.5b shapes: the linear scan at
+             (8, 1024, 51,200) float32, bitwise, and the decode partials
+             at B = 8, Hq = 25, Hkv = 5, D = 64 over a bf16 cache of
+             2,048 (live ranges from 0 and, as on a sliding-window layer,
+             from lo > 0), rtol 1e-4 / atol 1e-5;
 4. main paths, each with the launch counts set to 0 just before it and
              read just after, at deployment size (1.5 M rows):
    a. serving — ``FeatureEngine`` (capacity 1.6 M) bulk load + 4,096 live
@@ -34,6 +39,14 @@ Phases (each prints its own lines; any failure exits non-zero):
              prefix of the tables (every base row replayed as a request);
    c. additive folds — ``store_windowfold`` on the serving store at
              B = 1, 64, 256 and ``bucket_build`` over the action rows;
+   d. model serving — hymba-1.5b at full width and depth (random
+             weights from a seeded ``torch.Generator``), ``ServingEngine``
+             with B = 8 prompts of 1,024 tokens, ``max_len`` 2,048,
+             ``generate_greedy`` 32 tokens: in float32 through the
+             kernels, then teacher-forced through the kernels and the
+             plain versions (prefill and every step's logits within
+             rtol/atol 1e-3); then in bf16, timed (prefill, decode per
+             token, tokens/s, device busy share under the profiler);
 5. times   — request latency percentiles, offline wall and device time,
              and each kernel's time beside its bound, its plain version's
              time and, where one exists, one PyTorch call's (CUDA events).
@@ -88,6 +101,10 @@ BUCKETS = ((60_000, 600), (1_000, 36_000))   # bucket_build (ms, buckets)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside tensor cores
 EW_RTOL = 1e-5                     # 1-ulp expf differences carried by a fold
+MODEL_ARCH = "hymba-1.5b"          # model serving (phase 4d), full size
+MODEL_BATCH, MODEL_PROMPT, MODEL_MAX_LEN, MODEL_TOKENS = 8, 1024, 2048, 32
+MODEL_TOL = 1e-3                   # f32 logits, kernels vs plain versions
+DECODE_LIVE = (1025, 1056)         # decode live lengths at positions 1,024+
 
 
 def log(msg: str) -> None:
@@ -167,7 +184,9 @@ def build_all(dev):
     JIT; returns {source name: seconds}."""
     from repro_torch.kernels import build
     from repro_torch.kernels.batch_windowfold.kernel import SOURCE as BWF
+    from repro_torch.kernels.chunked_scan.kernel import SOURCE as LS
     from repro_torch.kernels.feature_hash.kernel import feature_hash_triton
+    from repro_torch.kernels.flash_decode.kernel import SOURCE as FD
     from repro_torch.kernels.segagg.kernel import SOURCE as SEG
     from repro_torch.kernels.unit_fold.kernel import SOURCE as UF
 
@@ -181,12 +200,13 @@ def build_all(dev):
                             1024)
         torch.cuda.synchronize()
 
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    sources = (UF, BWF, SEG, LS, FD)
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
         jobs = {src.name: pool.submit(timed, build.load_library, src)
-                for src in (UF, BWF, SEG)}
+                for src in sources}
         jobs["triton feature_hash"] = pool.submit(timed, triton_jit)
         took = {name: job.result() for name, job in jobs.items()}
-    for src in (UF, BWF, SEG):
+    for src in sources:
         lib = build.library_path(src)
         log(f"built {lib.name} in {took[src.name]:.1f} s")
         log_path = lib.with_suffix(".log")
@@ -453,6 +473,262 @@ def check_bucket_build(actions, dev, reps):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
+def check_linear_scan(dev, reps):
+    """The SSM prefill scan of hymba-1.5b, (B, T, d_inner * state) =
+    (8, 1024, 51,200) float32 with a in (0, 1): kernel against plain
+    version bitwise, two runs bitwise."""
+    from repro_torch.kernels.chunked_scan.kernel import linear_scan_cuda
+    from repro_torch.kernels.chunked_scan.ref import linear_scan_ref
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    shape = (MODEL_BATCH, MODEL_PROMPT, 51_200)
+    a = torch.rand(shape, generator=gen, device=dev) * 0.7 + 0.3
+    x = torch.randn(shape, generator=gen, device=dev)
+    got = linear_scan_cuda(a, x)
+    again = linear_scan_cuda(a, x)
+    torch.cuda.synchronize()
+    same_bits("linear_scan", got, again)
+    want = linear_scan_ref(a, x)
+    err = compare("linear_scan", got, want)
+    if not torch.isfinite(got).all():
+        raise AssertionError("linear_scan: non-finite output")
+    del got, again, want
+    ms = cuda_ms(lambda: linear_scan_cuda(a, x), reps)
+    plain_ms = cuda_ms(lambda: linear_scan_ref(a, x), 2)
+    n = a.numel()
+    # least work: a and x read once, y written once; a multiply and an
+    # add per element
+    b_ms, b_by = bound(3 * n * 4, 2 * n)
+    log(f"linear_scan {tuple(shape)} f32: kernel == plain (bitwise), two "
+        f"runs equal; ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={b_ms:.5f} ({b_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def decode_inputs(dev, sliding: bool):
+    """One decode step of hymba-1.5b's attention at positions 1,024+: q
+    (8, 25, 64) float32, a bf16 cache (8, 2,048, 5, 64), live lengths in
+    DECODE_LIVE; ``sliding`` starts each live range 1,024 keys back, as
+    on a sliding-window layer."""
+    gen = torch.Generator(device=dev).manual_seed(17 + sliding)
+    b, hq, hkv, d = MODEL_BATCH, 25, 5, 64
+    q = torch.randn((b, hq, d), generator=gen, device=dev)
+    k, v = (torch.randn((b, MODEL_MAX_LEN, hkv, d), generator=gen,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    hi = torch.randint(DECODE_LIVE[0], DECODE_LIVE[1] + 1, (b,),
+                       generator=gen, device=dev, dtype=torch.int32)
+    lo = torch.clamp(hi - 1024, min=0) if sliding else torch.zeros_like(hi)
+    return q, k, v, lo, hi
+
+
+def decode_library(q, k, v, lo, hi):
+    """The yardstick (never the port): one
+    ``scaled_dot_product_attention`` call with a boolean live-range mask
+    and ``enable_gqa``, which returns the finalized attention."""
+    pos = torch.arange(k.shape[1], device=k.device)
+    mask = ((pos[None, :] >= lo[:, None]) & (pos[None, :] < hi[:, None]))
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.to(k.dtype)[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask[:, None, None, :], enable_gqa=True)[:, :, 0]
+
+
+def check_decode_partials(dev, reps):
+    """Kernel against plain version (rtol 1e-4 / atol 1e-5), two runs
+    bitwise, for live ranges from 0 (global layers) and from lo > 0
+    (sliding-window layers); times and bound for both, the library call
+    beside them."""
+    from repro_torch.kernels.flash_decode.kernel import decode_partials_cuda
+    from repro_torch.kernels.flash_decode.ref import (decode_partials_ref,
+                                                      finalize_partials)
+
+    res = {}
+    for sliding in (False, True):
+        name = "sliding" if sliding else "global"
+        q, k, v, lo, hi = decode_inputs(dev, sliding)
+        got = decode_partials_cuda(q, k, v, lo, hi)
+        again = decode_partials_cuda(q, k, v, lo, hi)
+        torch.cuda.synchronize()
+        want = decode_partials_ref(q, k, v, lo, hi)
+        err = 0.0
+        for part, a, b, c in zip("mlo", got, again, want):
+            same_bits(f"decode_partials[{name}/{part}]", a, b)
+            err = max(err, compare(f"decode_partials[{name}/{part}]", a, c,
+                                   rtol=1e-4, atol=1e-5))
+        lib = decode_library(q, k, v, lo, hi).float()
+        err_lib = float((finalize_partials(*got) - lib).abs().max())
+        ms = cuda_ms(lambda: decode_partials_cuda(q, k, v, lo, hi), reps)
+        plain_ms = cuda_ms(lambda: decode_partials_ref(q, k, v, lo, hi), 20)
+        lib_ms = cuda_ms(lambda: decode_library(q, k, v, lo, hi), reps)
+        live = int((hi - lo).sum())
+        b, hq, d = q.shape
+        hkv = k.shape[2]
+        # least work: each live K and V row read once (bf16), q read and
+        # the partials written once; 4 * d flops per live key and head
+        nbytes = live * hkv * d * 2 * 2 + b * hq * d * 4 + b * hq * (d + 2) * 4
+        b_ms, b_by = bound(nbytes, live * (hq // hkv) * hkv * 4 * d)
+        log(f"decode_partials[{name}] B={b} Hq={hq} Hkv={hkv} D={d} bf16 "
+            f"cache S={k.shape[1]}, {live} live keys: kernel == plain "
+            f"(rtol 1e-4), two runs equal, max_abs_err={err}; finalized vs "
+            f"SDPA (bf16) max diff {err_lib:.3e}; ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={b_ms:.5f} ({b_by})")
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     "live_keys": live}
+    return res
+
+
+# ---------------------------------------------------------------- phase 4d
+
+
+def model_prompt(cfg):
+    gen = torch.Generator().manual_seed(5)
+    return torch.randint(0, cfg.vocab_size, (MODEL_BATCH, MODEL_PROMPT),
+                         generator=gen, dtype=torch.int32).numpy()
+
+
+def teacher_forced(engine, prompt, tokens):
+    """Prefill, then decode the given tokens; every step's logits."""
+    out = [engine.prefill({"tokens": prompt})]
+    for i in range(tokens.shape[1]):
+        out.append(engine.decode(tokens[:, i:i + 1]))
+    return out
+
+
+def check_logits(logits, cfg):
+    for i, x in enumerate(logits):
+        if x.shape != (MODEL_BATCH, cfg.vocab_padded) or \
+                not np.isfinite(x).all():
+            raise AssertionError(f"model logits {i}: shape {x.shape} or "
+                                 f"non-finite values")
+
+
+def model_serving(dev, card):
+    """Phase 4d: hymba-1.5b at full width and depth on the card."""
+    from repro_torch.configs import get
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import ServingEngine
+
+    cfg = get(MODEL_ARCH)
+    prompt = model_prompt(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"{MODEL_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} G params drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s; B={MODEL_BATCH} prompts of "
+        f"{MODEL_PROMPT} tokens, max_len {MODEL_MAX_LEN}, "
+        f"{MODEL_TOKENS} greedy tokens")
+
+    # f32: the main path through the kernels, then kernels vs plain
+    kern = ServingEngine(cfg, params, max_len=MODEL_MAX_LEN,
+                         dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    tokens, counts_f32 = run_path(
+        "model serving (f32)",
+        lambda: kern.generate_greedy({"tokens": prompt}, MODEL_TOKENS),
+        ("linear_scan", "decode_partials"))
+    t_f32 = time.perf_counter() - t0
+    expect = {"linear_scan": cfg.n_layers,
+              "decode_partials": cfg.n_layers * MODEL_TOKENS}
+    for k, n in expect.items():
+        if counts_f32.get(k) != n:
+            raise AssertionError(f"model serving: {counts_f32.get(k)} {k} "
+                                 f"launches, expected {n}")
+    if tokens.shape != (MODEL_BATCH, MODEL_TOKENS) or tokens.min() < 0 or \
+            tokens.max() >= cfg.vocab_padded:
+        raise AssertionError(f"generate_greedy: bad tokens {tokens.shape}")
+    got = teacher_forced(kern, prompt, tokens)
+    del kern
+    plain = ServingEngine(cfg, params, max_len=MODEL_MAX_LEN,
+                          dtype=torch.float32, device=dev, use_kernel=False)
+    want = teacher_forced(plain, prompt, tokens)
+    del plain
+    check_logits(got, cfg)
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not np.allclose(a, b, rtol=MODEL_TOL, atol=MODEL_TOL):
+            raise AssertionError(f"model logits step {i}: kernels != plain "
+                                 f"(max diff {np.abs(a - b).max()})")
+        err = max(err, float(np.abs(a - b).max()))
+    if not np.array_equal(np.stack([x.argmax(-1) for x in got[:-1]], 1),
+                          tokens):
+        raise AssertionError("teacher-forced kernel run: argmax differs "
+                             "from generate_greedy's tokens")
+    log(f"f32 generate_greedy {t_f32:.1f} s; teacher-forced prefill + "
+        f"{MODEL_TOKENS} steps: kernels == plain versions within "
+        f"{MODEL_TOL} (max abs diff {err:.3e}, logits ~"
+        f"{float(np.abs(want[0]).max()):.2f}); argmax reproduces the "
+        f"generated tokens")
+
+    # bf16: the reference's serving dtype, timed
+    params = _cast(params)
+    torch.cuda.empty_cache()
+    eng = ServingEngine(cfg, params, max_len=MODEL_MAX_LEN,
+                        dtype=torch.bfloat16, device=dev)
+    eng.generate_greedy({"tokens": prompt}, 2)             # warm-up
+    t0 = time.perf_counter()
+    tok_bf16, counts_bf16 = run_path(
+        "model serving (bf16)",
+        lambda: eng.generate_greedy({"tokens": prompt}, MODEL_TOKENS),
+        ("linear_scan", "decode_partials"))
+    t_gen = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = eng.prefill({"tokens": prompt})
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    steps = []
+    for i in range(MODEL_TOKENS):
+        t0 = time.perf_counter()
+        last = eng.decode(tok_bf16[:, i:i + 1])
+        steps.append((time.perf_counter() - t0) * 1e3)
+    check_logits([first, last], cfg)
+    tok_s = MODEL_BATCH * MODEL_TOKENS / (sum(steps) / 1e3)
+    prof_dec = profile_calls(lambda: eng.decode(tok_bf16[:, :1]), 8)
+    prof_pre = profile_calls(lambda: eng.prefill({"tokens": prompt}), 1)
+    out = {"params_g": n_params / 1e9, "f32_generate_s": t_f32,
+           "f32_max_abs_diff": err, "bf16_generate_s": t_gen,
+           "bf16_prefill_ms": prefill_ms,
+           "bf16_decode_ms_p50": float(np.percentile(steps, 50)),
+           "bf16_decode_ms_p99": float(np.percentile(steps, 99)),
+           "bf16_decode_ms": steps, "bf16_decode_tokens_per_s": tok_s,
+           "launches_f32": counts_f32, "launches_bf16": counts_bf16,
+           "profile_decode": prof_dec, "profile_prefill": prof_pre,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"bf16 prefill {prefill_ms:.1f} ms (B={MODEL_BATCH} x "
+        f"{MODEL_PROMPT} tokens); decode per token p50 "
+        f"{out['bf16_decode_ms_p50']:.2f} ms, p99 "
+        f"{out['bf16_decode_ms_p99']:.2f} ms over {MODEL_TOKENS} steps; "
+        f"{tok_s:.0f} tokens/s; generate_greedy {t_gen:.2f} s  [{card}]")
+    log_profile("decode step (bf16)", prof_dec, card)
+    log_profile("prefill (bf16)", prof_pre, card)
+    del eng, params
+    torch.cuda.empty_cache()
+    return out, {"model_f32": counts_f32, "model_bf16": counts_bf16}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _cast(tree):
+    if isinstance(tree, dict):
+        return {k: _cast(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v) for v in tree]
+    return tree.to(torch.bfloat16)
+
+
 def profile_calls(fn, n: int):
     """Device time and kernel count of ``n`` calls of ``fn`` from the
     profiler's kernel events, beside the host wall time they took."""
@@ -662,6 +938,11 @@ def main(argv) -> int:
                                  f"variant")
     res_fh = check_feature_hash(dev, 50)
 
+    phase("3c model kernels against plain versions (hymba-1.5b shapes)")
+    res_ls = check_linear_scan(dev, 10)
+    res_fd = check_decode_partials(dev, 50)
+    torch.cuda.empty_cache()
+
     phase("4a serving path at deployment size")
     t0 = time.perf_counter()
     tables = make_action_tables(**DEPLOYMENT)
@@ -791,6 +1072,10 @@ def main(argv) -> int:
     res_bwf = check_batch_windowfold(state, reqs, dev, 20)
     res_seg = check_bucket_build(actions, dev, 20)
 
+    phase(f"4d model serving ({MODEL_ARCH}, full width and depth)")
+    model, counts = model_serving(dev, card)
+    paths.update(counts)
+
     phase("5 times")
     latency = {}
     for b in BATCHES:
@@ -826,7 +1111,7 @@ def main(argv) -> int:
     uf = {k: res_w[k] + res_wr[k] for k in ("ms", "plain_ms", "bound_ms")}
     launches = {k: sum(c.get(k, 0) for c in paths.values())
                 for k in ("unit_fold", "feature_hash", "batch_windowfold",
-                          "segagg")}
+                          "segagg", "linear_scan", "decode_partials")}
     kernels = [
         {"name": "unit_fold", "route": "cuda",
          "source": "src/repro_torch/kernels/unit_fold/csrc/unit_fold.cu",
@@ -854,6 +1139,17 @@ def main(argv) -> int:
          "source": "src/repro_torch/kernels/segagg/csrc/segagg.cu",
          "replaces": "src/repro/kernels/segagg/kernel.py:57",
          "launches": launches["segagg"], **res_seg},
+        {"name": "linear_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/chunked_scan/csrc/"
+                   "linear_scan.cu",
+         "replaces": "src/repro/kernels/chunked_scan/kernel.py:68",
+         "launches": launches["linear_scan"], **res_ls},
+        {"name": "decode_partials", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_decode/csrc/"
+                   "flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode/kernel.py:77",
+         "launches": launches["decode_partials"],
+         **{k: v for k, v in res_fd["global"].items() if k != "live_keys"}},
     ]
     log(f"unit_fold main-path shapes (w + wr, B=256): ms {uf['ms']:.4f}, "
         f"plain {uf['plain_ms']:.4f}, bound {uf['bound_ms']:.5f}  [{card}]")
@@ -864,6 +1160,12 @@ def main(argv) -> int:
     log(f"feature_hash 2^20 codes: ms {res_fh['ms']:.4f}, plain "
         f"{res_fh['plain_ms']:.4f}, bound {res_fh['bound_ms']:.5f}  "
         f"[{card}]")
+    log(f"linear_scan (8, 1024, 51,200): ms {res_ls['ms']:.4f}, plain "
+        f"{res_ls['plain_ms']:.4f}, bound {res_ls['bound_ms']:.5f}  [{card}]")
+    for name, r in res_fd.items():
+        log(f"decode_partials {name} ({r['live_keys']} live keys): ms "
+            f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f}  [{card}]")
     log(f"launches per path: {paths}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if json_path:
@@ -882,7 +1184,8 @@ def main(argv) -> int:
                         "widest_rp_skewed": rp_skew,
                         "consistency_rows": n_prefix,
                         "consistency_s": t_cons},
-            "launches_per_path": paths,
+            "launches_per_path": paths, "model_serving": model,
+            "decode_partials_shapes": res_fd,
             "load_s": t_load, "ingest_s": t_ingest}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

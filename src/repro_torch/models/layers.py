@@ -1,0 +1,329 @@
+"""Layer primitives of the dense and hybrid families, in PyTorch.
+
+The same functions as ``repro/models/layers.py``, on tensors:
+
+  * params are plain dicts of tensors (one dict per layer; the JAX
+    package stacks layers on a leading L axis for its scan, PyTorch runs
+    a Python loop over them);
+  * activations (B, S, D); attention heads (B, S, H, Dh);
+  * prefill attention is *chunked* (flash-style online softmax over KV
+    tiles, plain torch, as the reference's is plain jnp); decode
+    attention goes through ``kernels.flash_decode.decode_partials`` over
+    the live cache range, the SSM prefill through
+    ``kernels.chunked_scan.linear_scan``.
+
+MLA, MoE, RWKV, ``layer_norm`` and ``gelu_mlp`` (the other families) are
+not ported yet (ROADMAP queue 1, item 8) and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.chunked_scan import linear_scan
+from ..kernels.flash_decode import decode_partials, finalize_partials
+
+__all__ = ["rms_norm", "swiglu", "rope_tables", "apply_rope",
+           "chunked_attention", "init_gqa", "gqa_forward", "init_ssm",
+           "ssm_forward", "layer_norm", "gelu_mlp", "init_mla",
+           "mla_forward", "init_moe", "moe_forward", "init_rwkv",
+           "rwkv_time_mix", "rwkv_channel_mix", "not_ported",
+           "normal_init"]
+
+Params = Dict[str, Any]
+
+_NEG = -1e30
+
+
+def not_ported(name: str):
+    raise NotImplementedError(
+        f"{name} is not ported to repro_torch yet (ROADMAP queue 1, item 8: "
+        f"the MLA, MoE, RWKV, audio and VLM families)")
+
+
+def normal_init(shape, scale: float, generator: torch.Generator, dtype,
+                device) -> torch.Tensor:
+    """N(0, 1) float32 draws from ``generator``, scaled, cast to dtype."""
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (x * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms / activations / rope
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)).to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    g = x @ w_gate
+    u = x @ w_up
+    h = F.silu(g.to(torch.float32)).to(x.dtype) * u
+    return h @ w_down
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    not_ported("layer_norm (audio family)")
+
+
+def gelu_mlp(x, w_up, b_up, w_down, b_down):
+    not_ported("gelu_mlp (audio family)")
+
+
+def rope_tables(positions: torch.Tensor, dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for given positions: (..., dim/2) float32."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(theta) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x: (B, S, H, D); cos/sin: (S, D/2) or (B, S, D/2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if cos.dim() == 2:
+        cos = cos[None, :, None, :]
+        sin = sin[None, :, None, :]
+    else:
+        cos = cos[:, :, None, :]
+        sin = sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# chunked (flash-style) attention — plain torch
+# ---------------------------------------------------------------------------
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, window: int = 0, chunk: int = 1024) -> torch.Tensor:
+    """Causal online-softmax attention over KV tiles (the prefill),
+    float32 accumulators.
+
+    q: (B, S, Hq, D); k/v: (B, S, Hkv, D) with Hq = G * Hkv (query head
+    h reads KV head h // G).  ``window`` > 0 masks keys ``window`` or more
+    positions older than the query (SWA).  Never holds more than
+    (B, Hq, S, chunk) scores.  (The reference's ``kv_len``/``kv_min``
+    decode masks live in ``flash_decode.decode_partials``'s [lo, hi).)
+    """
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = hq // hkv
+    chunk = min(chunk, sk)
+    dev = q.device
+    qg = q.reshape(b, sq, hkv, g, d).to(torch.float32)
+    scale = d ** -0.5
+    q_pos = torch.arange(sq, dtype=torch.int32, device=dev)
+
+    m_acc = torch.full((b, hkv, g, sq), _NEG, dtype=torch.float32,
+                       device=dev)
+    l_acc = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=dev)
+    o_acc = torch.zeros((b, hkv, g, sq, dv), dtype=torch.float32, device=dev)
+    for c0 in range(0, sk, chunk):
+        kb = k[:, c0:c0 + chunk].to(torch.float32)
+        vb = v[:, c0:c0 + chunk].to(torch.float32)
+        c = kb.shape[1]
+        if c < chunk:                    # the reference pads with zeros
+            kb = F.pad(kb, (0, 0, 0, 0, 0, chunk - c))
+            vb = F.pad(vb, (0, 0, 0, 0, 0, chunk - c))
+        s = torch.einsum("bskgd,bckd->bkgsc", qg, kb) * scale
+        k_pos = c0 + torch.arange(chunk, dtype=torch.int32, device=dev)
+        msk = q_pos[:, None] >= k_pos[None, :]
+        if window:
+            msk &= q_pos[:, None] - k_pos[None, :] < window
+        s = torch.where(msk[None, None, None], s, _NEG)
+
+        m_new = torch.maximum(m_acc, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m_acc - m_new)
+        l_acc = l_acc * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgsc,bckd->bkgsd", p, vb)
+        o_acc = o_acc * corr[..., None] + pv
+        m_acc = m_new
+    out = o_acc / torch.clamp(l_acc, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv)
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+
+
+def init_gqa(generator: torch.Generator, cfg, dtype, device) -> Params:
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s = d ** -0.5
+    shapes = (("wq", (d, hq * dh)), ("wk", (d, hkv * dh)),
+              ("wv", (d, hkv * dh)), ("wo", (hq * dh, d)))
+    p = {name: normal_init(shape, s, generator, dtype, device)
+         for name, shape in shapes}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((dh,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((dh,), dtype=dtype, device=device)
+    return p
+
+
+def gqa_forward(p: Params, x: torch.Tensor, cfg, *, positions,
+                cache: Optional[Dict] = None, window: int = 0,
+                chunk: int = 1024, use_kernel: Optional[bool] = None):
+    """Full-sequence prefill or cached single-step decode.
+
+    cache: {"k": (B, Smax, Hkv, Dh), "v": ..., "len": (B,)} or None.
+    Returns (out, new_cache).  Prefill (cache None) returns this
+    sequence's roped k and v as {"k", "v"} (the reference's
+    ``forward_prefill`` computes them a second time for the cache).
+    Decode writes k/v at ``len`` into the cache **in place** (the
+    reference returns updated copies) and runs
+    ``flash_decode.decode_partials`` over the live range
+    [max(len + 1 - window, 0), len + 1).
+    """
+    b, s, _ = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, hq, dh)
+    k = (x @ p["wk"]).reshape(b, s, hkv, dh)
+    v = (x @ p["wv"]).reshape(b, s, hkv, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    cos, sin = rope_tables(positions, dh, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    if cache is None:
+        out = chunked_attention(q, k, v, window=window, chunk=chunk)
+        new_cache = {"k": k, "v": v}
+    else:
+        if s != 1:
+            raise ValueError(f"cached decode takes one token, got {s}")
+        pos = cache["len"]                                    # (B,)
+        ck, cv = cache["k"], cache["v"]
+        rows = torch.arange(b, device=ck.device)
+        ck[rows, pos.long()] = k[:, 0].to(ck.dtype)
+        cv[rows, pos.long()] = v[:, 0].to(cv.dtype)
+        hi = (pos + 1).to(torch.int32)
+        lo = (torch.clamp(hi - window, min=0) if window
+              else torch.zeros_like(hi))
+        part = decode_partials(q[:, 0], ck, cv, lo, hi,
+                               use_kernel=use_kernel)
+        out = finalize_partials(*part).to(q.dtype)[:, None]
+        new_cache = {"k": ck, "v": cv, "len": pos + 1}
+    y = out.reshape(b, s, hq * dh) @ p["wo"]
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# not ported yet: MLA, MoE, RWKV
+# ---------------------------------------------------------------------------
+
+
+def init_mla(generator, cfg, dtype, device) -> Params:
+    not_ported("MLA attention (init_mla)")
+
+
+def mla_forward(p, x, cfg, *, positions, cache=None, chunk=1024):
+    not_ported("MLA attention (mla_forward)")
+
+
+def init_moe(generator, cfg, dtype, device) -> Params:
+    not_ported("MoE FFN (init_moe)")
+
+
+def moe_forward(p, x, cfg):
+    not_ported("MoE FFN (moe_forward)")
+
+
+def init_rwkv(generator, cfg, dtype, device) -> Params:
+    not_ported("RWKV6 (init_rwkv)")
+
+
+def rwkv_time_mix(p, x, cfg, *, state=None):
+    not_ported("RWKV6 time mix")
+
+
+def rwkv_channel_mix(p, x, *, shift=None):
+    not_ported("RWKV6 channel mix")
+
+
+# ---------------------------------------------------------------------------
+# Mamba-lite SSM branch (hymba) — diagonal S6
+# ---------------------------------------------------------------------------
+
+
+def init_ssm(generator: torch.Generator, cfg, dtype, device) -> Params:
+    sm = cfg.ssm
+    d = cfg.d_model
+    di = sm.expand * d
+    n = sm.state_dim
+    s = d ** -0.5
+    log_a = -torch.exp(torch.randn((di, n), generator=generator,
+                                   dtype=torch.float32, device=device) * 0.5)
+    return {
+        "in_proj": normal_init((d, 2 * di), s, generator, dtype, device),
+        "w_dt": normal_init((di,), 0.1, generator, dtype, device),
+        "b_dt": torch.full((di,), -4.0, dtype=dtype, device=device),
+        "log_a": log_a.to(dtype),
+        "w_b": normal_init((d, n), s, generator, dtype, device),
+        "w_c": normal_init((d, n), s, generator, dtype, device),
+        "d_skip": torch.ones((di,), dtype=dtype, device=device),
+        "out_proj": normal_init((di, d), di ** -0.5, generator, dtype,
+                                device),
+    }
+
+
+def ssm_forward(p: Params, x: torch.Tensor, cfg, *,
+                state: Optional[torch.Tensor] = None,
+                use_kernel: Optional[bool] = None):
+    """Diagonal selective-state-space branch.
+
+    h_t (di, n):  h = a_t * h + dt_t * x_t ⊗ B_t ;  y = (h · C_t) + D*x.
+    Prefill (S > 1): ``chunked_scan.linear_scan`` over (B, S, di·n)
+    from a zero state.  Decode (S = 1): the one-step update on the
+    carried state.  Returns (y (B, S, d), new_state (B, di, n) float32).
+    """
+    sm = cfg.ssm
+    b, s, _ = x.shape
+    di, n = sm.expand * cfg.d_model, sm.state_dim
+    f32 = torch.float32
+
+    xz = x @ p["in_proj"]
+    xi, z = xz[..., :di], xz[..., di:]
+    dt = F.softplus(xi.to(f32) * p["w_dt"].to(f32) + p["b_dt"].to(f32))
+    a = (dt[..., None] * p["log_a"].to(f32)).exp_()          # (B,S,di,n)
+    x32 = x.to(f32)
+    bmat = x32 @ p["w_b"].to(f32)
+    cmat = x32 @ p["w_c"].to(f32)
+    u = (dt * xi.to(f32))[..., None] * bmat[:, :, None, :]
+
+    if s == 1:
+        if state is None:
+            state = torch.zeros((b, di, n), dtype=f32, device=x.device)
+        h = a[:, 0] * state + u[:, 0]                          # (B, di, n)
+        hs = h[:, None]
+        new_state = h
+    else:
+        if state is not None:
+            raise ValueError("the prefill scan starts from a zero state")
+        hs = linear_scan(a.reshape(b, s, di * n), u.reshape(b, s, di * n),
+                         use_kernel=use_kernel).reshape(b, s, di, n)
+        new_state = hs[:, -1].clone()
+    del a, u
+    y = torch.einsum("bsdn,bsn->bsd", hs, cmat)
+    y = y + p["d_skip"].to(f32) * xi.to(f32)
+    y = y * F.silu(z.to(f32))
+    return y.to(x.dtype) @ p["out_proj"], new_state

@@ -19,6 +19,11 @@ features to the host, which waits for the card).
 Options that are not ported yet raise ``NotImplementedError`` naming the
 option: pre-aggregation, sharding, replication, checkpoints, retention /
 TTL eviction and the staged (non-fused) fold path.
+
+``ServingEngine`` wraps a model's prefill/decode for batched requests —
+the "online ML" consumer of the features (dense and hybrid families): the
+SSM prefill runs the linear-scan kernel, every decode step the
+flash-decode kernel in every layer.
 """
 
 from __future__ import annotations
@@ -28,15 +33,17 @@ import time
 from typing import Any, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..core.compiler import CompiledScript, compile_script
 from ..core.types import Table
 from ..kernels.dispatch import resolve_device
+from ..models.model import decode_step, forward_prefill, init_decode_state
 from ..storage.memest import MemoryGuard
 from ..storage.timestore import OnlineStore
 from .batcher import RequestBatcher
 
-__all__ = ["FeatureEngine"]
+__all__ = ["FeatureEngine", "ServingEngine"]
 
 
 def _not_ported(name: str):
@@ -226,3 +233,76 @@ class FeatureEngine:
         self.ingest_ms.clear()
         self.rows_ingested = 0
         self.n_requests = 0
+
+
+class ServingEngine:
+    """Model serving: prefill once, then batched decode steps.
+
+    ``params`` (``models.init_params`` / ``params_from_jax``) are moved to
+    ``device`` as they are; their dtype is the compute dtype.  ``dtype``
+    is the cache dtype of ``init_decode_state``.  ``use_kernel`` is passed
+    to the kernels (``None``: the CUDA kernels on the card, the plain
+    versions on the CPU; ``False``: the plain versions anywhere, the
+    reference the kernels are held against).  Logits come back as float32
+    numpy arrays (the exact values of bfloat16 logits).
+    """
+
+    def __init__(self, cfg, params, max_len: int = 2048,
+                 dtype=torch.bfloat16, device="cuda",
+                 use_kernel: Optional[bool] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = _to_device(params, self.device)
+        self.max_len = max_len
+        self.dtype = dtype
+        self.use_kernel = use_kernel
+        self.state = None
+
+    def init_state(self, batch_size: int) -> Dict[str, Any]:
+        """An empty decode state at this engine's capacity and dtype."""
+        return init_decode_state(self.cfg, batch_size, self.max_len,
+                                 dtype=self.dtype, device=self.device)
+
+    def prefill(self, batch) -> np.ndarray:
+        """Prefill ``batch["tokens"]`` (B, S); keeps the decode state
+        (KV caches padded to ``max_len``) and returns the last logits."""
+        logits, self.state = forward_prefill(
+            self.cfg, self.params, {"tokens": self._tokens(batch["tokens"])},
+            cache_capacity=self.max_len, use_kernel=self.use_kernel)
+        return _host(logits)
+
+    def decode(self, tokens: np.ndarray) -> np.ndarray:
+        """One decode step for every sequence: tokens (B, 1)."""
+        logits, self.state = decode_step(
+            self.cfg, self.params, self.state, self._tokens(tokens),
+            use_kernel=self.use_kernel)
+        return _host(logits)
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        if not isinstance(tokens, torch.Tensor):
+            tokens = torch.from_numpy(np.asarray(tokens))
+        return tokens.to(device=self.device, dtype=torch.int32)
+
+    def generate_greedy(self, batch, n_tokens: int) -> np.ndarray:
+        """Greedy decoding: argmax over ``vocab_padded`` (padded ids are
+        not masked, as in the reference) -> (B, n_tokens) int32."""
+        logits = self.prefill(batch)
+        out = []
+        tok = np.argmax(logits, axis=-1)[:, None].astype(np.int32)
+        for _ in range(n_tokens):
+            out.append(tok)
+            logits = self.decode(tok)
+            tok = np.argmax(logits, axis=-1)[:, None].astype(np.int32)
+        return np.concatenate(out, axis=1)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _host(logits: torch.Tensor) -> np.ndarray:
+    return logits.to(torch.float32).cpu().numpy()

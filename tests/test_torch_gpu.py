@@ -7,7 +7,8 @@ on a GPU host that has only PyTorch and Triton:
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_gpu.py
 
 Bitwise everywhere, except the EW lanes at ``EW_RTOL``/``EW_ATOL`` (an
-``expf`` ulp carried by the fold).
+``expf`` ulp carried by the fold) and the kernels whose sums run in
+another order than their plain versions (each case states its bar).
 """
 
 import numpy as np
@@ -234,3 +235,92 @@ def test_offline_unit_fold_kernel_matches_plain(rp_rows):
                                            atol=EW_ATOL)
             else:
                 np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,d", [(1, 64, 8), (3, 1000, 37),
+                                   (2, 256, 51_200)])
+def test_linear_scan_kernel_matches_plain(b, t, d):
+    """Bitwise: the kernel repeats the plain version's sequential
+    recurrence with the same two roundings per step (``--fmad=false``)."""
+    from repro_torch.kernels.chunked_scan import linear_scan
+
+    dev = require_cuda()
+    rng = np.random.default_rng(t)
+    a = torch.from_numpy(rng.uniform(0.3, 1.0, (b, t, d)).astype(
+        np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((b, t, d)).astype(
+        np.float32)).to(dev)
+    before = dispatch.launch_counts().get("linear_scan", 0)
+    got = linear_scan(a, x, use_kernel=True)
+    again = linear_scan(a, x, use_kernel=True)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["linear_scan"] == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, linear_scan(a, x, use_kernel=False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 32), (25, 5, 64),
+                                      (32, 8, 128)])
+def test_decode_partials_kernel_matches_plain(kv_dtype, hq, hkv, d):
+    """rtol 1e-4 / atol 1e-5 against the plain version (the sums run in
+    another order), two runs bitwise equal; rows with lo = 0, lo > 0 (a
+    sliding window), a one-key range and no live key."""
+    from repro_torch.kernels.flash_decode import decode_partials
+
+    dev = require_cuda()
+    b, s = 4, 2048
+    rng = np.random.default_rng(hq * d)
+    q = torch.from_numpy(rng.standard_normal((b, hq, d)).astype(
+        np.float32)).to(dev)
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, hkv, d)).astype(
+        np.float32)).to(dev, kv_dtype) for _ in range(2))
+    lo = torch.tensor([0, 17, 1040, 5], dtype=torch.int32, device=dev)
+    hi = torch.tensor([1041, 1041, 1041, 5], dtype=torch.int32, device=dev)
+    before = dispatch.launch_counts().get("decode_partials", 0)
+    got = decode_partials(q, k, v, lo, hi, use_kernel=True)
+    again = decode_partials(q, k, v, lo, hi, use_kernel=True)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["decode_partials"] == before + 2
+    want = decode_partials(q, k, v, lo, hi, use_kernel=False)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    assert bool((got[1][3] == s).all())          # the empty row: l = S
+
+
+@pytest.mark.gpu
+def test_model_serving_kernels_match_plain():
+    """A 4-layer reduced hymba (one sliding-window layer) served on the
+    card through the kernels and through the plain versions, the same
+    tokens teacher-forced into both: logits within 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import reduced
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import ServingEngine
+
+    dev = require_cuda()
+    cfg = dataclasses.replace(reduced("hymba-1.5b"), n_layers=4)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, (3, 300)).astype(np.int32)
+    engines = [ServingEngine(cfg, params, max_len=320, dtype=torch.float32,
+                             device=dev, use_kernel=uk)
+               for uk in (None, False)]
+    dispatch.reset_launch_counts()
+    tokens = engines[0].generate_greedy({"tokens": prompt}, 8)
+    counts = dispatch.launch_counts()
+    assert counts["linear_scan"] == 4 and counts["decode_partials"] == 32
+    logits = [[e.prefill({"tokens": prompt})] for e in engines]
+    for i in range(tokens.shape[1]):
+        for e, out in zip(engines, logits):
+            out.append(e.decode(tokens[:, i:i + 1]))
+    for a, b in zip(*logits):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(
+        np.stack([np.argmax(x, -1) for x in logits[0][:-1]], 1), tokens)

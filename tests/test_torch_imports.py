@@ -25,14 +25,23 @@ def _imported_roots(path: pathlib.Path):
             yield node.lineno, node.module.split(".")[0]
 
 
-# modules of the offline slice: each must exist and import without JAX
+# modules of the offline and model-serving slices: each must exist and
+# import without JAX
 SLICE_MODULES = (
     "core.hll", "core.skew", "core.multiwindow", "core.consistency",
     "core.lowering.windows", "core.lowering.joins", "core.lowering.drivers",
     "kernels.batch_windowfold", "kernels.batch_windowfold.ref",
     "kernels.batch_windowfold.kernel", "kernels.batch_windowfold.ops",
     "kernels.segagg", "kernels.segagg.ref", "kernels.segagg.kernel",
-    "kernels.segagg.ops")
+    "kernels.segagg.ops",
+    "configs", "configs.base", "configs.registry", "configs.hymba_1_5b",
+    "configs.llama3_8b",
+    "kernels.chunked_scan", "kernels.chunked_scan.ref",
+    "kernels.chunked_scan.kernel", "kernels.chunked_scan.ops",
+    "kernels.flash_decode", "kernels.flash_decode.ref",
+    "kernels.flash_decode.kernel", "kernels.flash_decode.ops",
+    "models", "models.layers", "models.model", "serve.engine",
+    "launch", "launch.serve")
 
 
 def test_port_has_files():
@@ -41,8 +50,11 @@ def test_port_has_files():
             for p in FILES}
     for m in SLICE_MODULES:
         assert m in have or m + ".__init__" in have, m
-    for src in ("batch_windowfold", "segagg", "unit_fold"):
-        assert (PORT / "kernels" / src / "csrc" / f"{src}.cu").is_file()
+    for pkg, src in (("batch_windowfold", "batch_windowfold"),
+                     ("segagg", "segagg"), ("unit_fold", "unit_fold"),
+                     ("chunked_scan", "linear_scan"),
+                     ("flash_decode", "flash_decode")):
+        assert (PORT / "kernels" / pkg / "csrc" / f"{src}.cu").is_file()
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
