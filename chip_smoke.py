@@ -19,12 +19,17 @@ Phases (each prints its own lines; any failure exits non-zero):
              store exists (3b, after phase 4), the batched window fold on
              it (rtol/atol 1e-5, a NaN row that matches no request) and
              the bucket build over the deployment's action rows
-             (rtol 1e-4, NaN prices, out-of-range ids); 3c, the model
+             (rtol 1e-4, NaN prices, out-of-range ids; the segmented-sum
+             kernel, its plain version and one ``index_add_`` timed on
+             the same prepared inputs at both widths, the kernel's passes
+             by name under the profiler); 3c, the model
              kernels at the full hymba-1.5b shapes: the linear scan at
              (8, 1024, 51,200) float32, bitwise, and the decode partials
              at B = 8, Hq = 25, Hkv = 5, D = 64 over a bf16 cache of
              2,048 (live ranges from 0 and, as on a sliding-window layer,
-             from lo > 0), rtol 1e-4 / atol 1e-5;
+             from lo > 0), rtol 1e-4 / atol 1e-5, timed warm (one cache)
+             and cold in L2 (a rotation of eight caches), beside one
+             ``scaled_dot_product_attention`` call;
 4. main paths, each with the launch counts set to 0 just before it and
              read just after, at deployment size (1.5 M rows):
    a. serving — ``FeatureEngine`` (capacity 1.6 M) bulk load + 4,096 live
@@ -61,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import itertools
 import json
 import pathlib
 import subprocess
@@ -105,6 +111,7 @@ MODEL_ARCH = "hymba-1.5b"          # model serving (phase 4d), full size
 MODEL_BATCH, MODEL_PROMPT, MODEL_MAX_LEN, MODEL_TOKENS = 8, 1024, 2048, 32
 MODEL_TOL = 1e-3                   # f32 logits, kernels vs plain versions
 DECODE_LIVE = (1025, 1056)         # decode live lengths at positions 1,024+
+DECODE_COLD = 8                    # caches rotated for the cold-L2 times
 
 
 def log(msg: str) -> None:
@@ -424,9 +431,14 @@ def bucket_inputs(actions, bucket_ms: int, n_buckets: int, dev):
 def check_bucket_build(actions, dev, reps):
     """``bucket_build`` over the action rows at each bucket width: kernel
     against plain version (rtol 1e-4, NaN positions equal), twice
-    bitwise, counts exact; times at the first width, beside one
-    ``index_add_`` call computing the same sums."""
+    bitwise, counts exact.  Then, at each width, ``segagg_cuda`` and one
+    ``index_add_`` call timed on the same prepared inputs (the lanes with
+    the count column, the bucket ids; ``index_add_`` gets them masked and
+    widened as it needs), the kernel's passes by name under the profiler,
+    and ``bucket_build`` whole (its ``cat``/``div`` included)."""
     from repro_torch.kernels.segagg import bucket_build
+    from repro_torch.kernels.segagg.kernel import segagg_cuda
+    from repro_torch.kernels.segagg.ref import segagg_ref
 
     res, err = {}, 0.0
     for bucket_ms, n_buckets in BUCKETS:
@@ -448,29 +460,47 @@ def check_bucket_build(actions, dev, reps):
     log(f"bucket_build: kernel == plain (rtol 1e-4) at {BUCKETS} over "
         f"{len(actions)} rows, two runs equal, counts exact, NULL prices "
         f"confined to their buckets")
-    vals, ts, bucket_ms = res[BUCKETS[0][1]]
-    n_buckets = BUCKETS[0][1]
-    ms = cuda_ms(lambda: bucket_build(vals, ts, bucket_ms, n_buckets,
-                                      use_kernel=True), reps)
-    plain_ms = cuda_ms(lambda: bucket_build(vals, ts, bucket_ms, n_buckets,
-                                            use_kernel=False), reps)
-    # the library yardstick: one index_add_ over the masked rows
-    aug = torch.cat([vals, torch.ones_like(vals[:, :1])], 1)
-    seg = torch.div(ts, bucket_ms, rounding_mode="floor")
-    ok = (seg >= 0) & (seg < n_buckets)
-    ids = torch.where(ok, seg, 0).long()
-    masked = torch.where(ok[:, None], aug, 0.0)
-    zeros = torch.zeros((n_buckets, 3), device=dev)
-    lib_ms = cuda_ms(lambda: zeros.clone().index_add_(0, ids, masked), reps)
-    n = vals.shape[0]
-    # least work: values and ts read once, the (S, F+1) sums written once;
-    # one add per row and lane
-    b_ms, b_by = bound(n * (4 * 2 + 4) + n_buckets * 3 * 4, n * 3)
-    log(f"bucket_build N={n} S={n_buckets} F=2+count max_abs_err={err} "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-        f"bound_ms={b_ms:.5f} ({b_by})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    out = {}
+    for bucket_ms, n_buckets in BUCKETS:
+        vals, ts, _ = res[n_buckets]
+        aug = torch.cat([vals, torch.ones_like(vals[:, :1])], 1).contiguous()
+        seg = torch.div(ts, bucket_ms, rounding_mode="floor").to(
+            torch.int32).contiguous()
+        ok = (seg >= 0) & (seg < n_buckets)
+        ids = torch.where(ok, seg, 0).long()
+        masked = torch.where(ok[:, None], aug, 0.0)
+        zeros = torch.zeros((n_buckets, 3), device=dev)
+        ms = cuda_ms(lambda: segagg_cuda(aug, seg, n_buckets), reps)
+        lib_ms = cuda_ms(lambda: zeros.clone().index_add_(0, ids, masked),
+                         reps)
+        ms_again = cuda_ms(lambda: segagg_cuda(aug, seg, n_buckets), reps)
+        plain_ms = cuda_ms(lambda: segagg_ref(aug, seg, n_buckets), reps)
+        bb_ms = cuda_ms(lambda: bucket_build(vals, ts, bucket_ms, n_buckets,
+                                             use_kernel=True), reps)
+        bb_plain_ms = cuda_ms(lambda: bucket_build(
+            vals, ts, bucket_ms, n_buckets, use_kernel=False), reps)
+        passes = kernel_times(lambda: segagg_cuda(aug, seg, n_buckets), 5,
+                              ms)
+        n = vals.shape[0]
+        # least work: the (N, 3) lanes and the ids read once, the (S, 3)
+        # sums written once; one add per row and lane
+        b_ms, b_by = bound(n * (4 * 3 + 4) + n_buckets * 3 * 4, n * 3)
+        log(f"segagg N={n} S={n_buckets} F=3: segagg_cuda ms={ms:.4f} "
+            f"(again {ms_again:.4f}), index_add_ library_ms={lib_ms:.4f}, "
+            f"plain segagg_ref plain_ms={plain_ms:.4f}, all on the same "
+            f"inputs; passes {passes}; bucket_build ms={bb_ms:.4f} (plain "
+            f"{bb_plain_ms:.4f}); bound_ms={b_ms:.5f} ({b_by})")
+        out[n_buckets] = {"ms": ms, "ms_again": ms_again,
+                          "library_ms": lib_ms, "plain_ms": plain_ms,
+                          "bucket_build_ms": bb_ms,
+                          "bucket_build_plain_ms": bb_plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "passes_ms": passes}
+    first = out[BUCKETS[0][1]]
+    return {"max_abs_err": err, "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"]}, out
 
 
 def check_linear_scan(dev, reps):
@@ -506,12 +536,13 @@ def check_linear_scan(dev, reps):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
-def decode_inputs(dev, sliding: bool):
+def decode_inputs(dev, sliding: bool, draw: int = 0):
     """One decode step of hymba-1.5b's attention at positions 1,024+: q
     (8, 25, 64) float32, a bf16 cache (8, 2,048, 5, 64), live lengths in
     DECODE_LIVE; ``sliding`` starts each live range 1,024 keys back, as
-    on a sliding-window layer."""
-    gen = torch.Generator(device=dev).manual_seed(17 + sliding)
+    on a sliding-window layer.  ``draw`` picks another seed (another
+    cache)."""
+    gen = torch.Generator(device=dev).manual_seed(17 + sliding + 2 * draw)
     b, hq, hkv, d = MODEL_BATCH, 25, 5, 64
     q = torch.randn((b, hq, d), generator=gen, device=dev)
     k, v = (torch.randn((b, MODEL_MAX_LEN, hkv, d), generator=gen,
@@ -533,11 +564,19 @@ def decode_library(q, k, v, lo, hi):
         attn_mask=mask[:, None, None, :], enable_gqa=True)[:, :, 0]
 
 
+def rotating(fn, inputs):
+    """``fn`` over the argument tuples in turn, one per call."""
+    it = itertools.cycle(inputs)
+    return lambda: fn(*next(it))
+
+
 def check_decode_partials(dev, reps):
     """Kernel against plain version (rtol 1e-4 / atol 1e-5), two runs
     bitwise, for live ranges from 0 (global layers) and from lo > 0
     (sliding-window layers); times and bound for both, the library call
-    beside them."""
+    beside them: warm (one cache, as a loop over one layer finds it in
+    L2) and cold (a rotation of DECODE_COLD caches, 21 MB each, far past
+    the 50 MB L2, as the model's 32 layers find theirs)."""
     from repro_torch.kernels.flash_decode.kernel import decode_partials_cuda
     from repro_torch.kernels.flash_decode.ref import (decode_partials_ref,
                                                       finalize_partials)
@@ -560,6 +599,12 @@ def check_decode_partials(dev, reps):
         ms = cuda_ms(lambda: decode_partials_cuda(q, k, v, lo, hi), reps)
         plain_ms = cuda_ms(lambda: decode_partials_ref(q, k, v, lo, hi), 20)
         lib_ms = cuda_ms(lambda: decode_library(q, k, v, lo, hi), reps)
+        sets = [decode_inputs(dev, sliding, i) for i in range(DECODE_COLD)]
+        cold_ms = cuda_ms(rotating(decode_partials_cuda, sets), reps)
+        cold_lib_ms = cuda_ms(rotating(decode_library, sets), reps)
+        del sets
+        passes = kernel_times(lambda: decode_partials_cuda(q, k, v, lo, hi),
+                              5, ms)
         live = int((hi - lo).sum())
         b, hq, d = q.shape
         hkv = k.shape[2]
@@ -572,10 +617,13 @@ def check_decode_partials(dev, reps):
             f"(rtol 1e-4), two runs equal, max_abs_err={err}; finalized vs "
             f"SDPA (bf16) max diff {err_lib:.3e}; ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-            f"bound_ms={b_ms:.5f} ({b_by})")
+            f"bound_ms={b_ms:.5f} ({b_by}); cold in L2 over {DECODE_COLD} "
+            f"caches: ms={cold_ms:.4f} library_ms={cold_lib_ms:.4f}; "
+            f"passes {passes}")
         res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                     "live_keys": live}
+                     "cold_ms": cold_ms, "cold_library_ms": cold_lib_ms,
+                     "passes_ms": passes, "live_keys": live}
     return res
 
 
@@ -704,6 +752,12 @@ def model_serving(dev, card):
         f"{out['bf16_decode_ms_p99']:.2f} ms over {MODEL_TOKENS} steps; "
         f"{tok_s:.0f} tokens/s; generate_greedy {t_gen:.2f} s  [{card}]")
     log_profile("decode step (bf16)", prof_dec, card)
+    attn = {k: v for k, v in prof_dec["kernel_ms_per_call"].items()
+            if "decode_split_kernel" in k or "decode_merge_kernel" in k}
+    out["decode_partials_ms_per_step"] = sum(attn.values())
+    log(f"decode_partials in a decode step: {sum(attn.values()):.4f} ms of "
+        f"{prof_dec['device_ms_per_call']:.3f} ms device time ({attn})  "
+        f"[{card}]")
     log_profile("prefill (bf16)", prof_pre, card)
     del eng, params
     torch.cuda.empty_cache()
@@ -755,12 +809,28 @@ def profile_calls(fn, n: int):
                   key=lambda kv: -kv[1])[:8]
     return {"wall_ms_per_call": wall_ms / n,
             "device_ms_per_call": dev_ms / n,
+            "kernel_ms_per_call": {k: v / 1e3 / n
+                                   for k, v in by_name.items()},
             "kernels_per_call": len(kernels) / n,
             "device_busy_share": dev_ms / wall_ms if wall_ms else 0.0,
             "top_kernels_ms_per_call": [(k[:60], v / 1e3 / n)
                                         for k, v in top],
             "top_host_ops_ms_per_call": [(k[:60], v / 1e3 / n, c / n)
                                          for k, v, c in host]}
+
+
+def kernel_times(fn, n: int, ms: float):
+    """{kernel name: device ms per call} of ``fn`` under the profiler,
+    held to ``ms``, the call's time from CUDA events: the profiler has
+    been seen to keep the kernels of only some of the calls it traced, so
+    a trace whose kernels do not add up to within 25% of ``ms`` is taken
+    again, and after three such traces the passes are not measured (an
+    empty dict)."""
+    for _ in range(3):
+        prof = profile_calls(fn, n)
+        if abs(prof["device_ms_per_call"] - ms) <= 0.25 * ms:
+            return dict(prof["top_kernels_ms_per_call"])
+    return {}
 
 
 def log_profile(label: str, prof, card: str) -> None:
@@ -1070,7 +1140,7 @@ def main(argv) -> int:
 
     phase("3b additive-fold kernels against plain versions")
     res_bwf = check_batch_windowfold(state, reqs, dev, 20)
-    res_seg = check_bucket_build(actions, dev, 20)
+    res_seg, seg_shapes = check_bucket_build(actions, dev, 20)
 
     phase(f"4d model serving ({MODEL_ARCH}, full width and depth)")
     model, counts = model_serving(dev, card)
@@ -1149,7 +1219,9 @@ def main(argv) -> int:
                    "flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode/kernel.py:77",
          "launches": launches["decode_partials"],
-         **{k: v for k, v in res_fd["global"].items() if k != "live_keys"}},
+         **{k: v for k, v in res_fd["global"].items()
+            if k not in ("live_keys", "cold_ms", "cold_library_ms",
+                         "passes_ms")}},
     ]
     log(f"unit_fold main-path shapes (w + wr, B=256): ms {uf['ms']:.4f}, "
         f"plain {uf['plain_ms']:.4f}, bound {uf['bound_ms']:.5f}  [{card}]")
@@ -1165,7 +1237,13 @@ def main(argv) -> int:
     for name, r in res_fd.items():
         log(f"decode_partials {name} ({r['live_keys']} live keys): ms "
             f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library "
-            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f}  [{card}]")
+            f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f}; cold in L2 "
+            f"ms {r['cold_ms']:.4f}, library {r['cold_library_ms']:.4f}  "
+            f"[{card}]")
+    for n_buckets, r in seg_shapes.items():
+        log(f"segagg S={n_buckets}: ms {r['ms']:.4f}, index_add_ "
+            f"{r['library_ms']:.4f}, plain {r['plain_ms']:.4f}, bound "
+            f"{r['bound_ms']:.5f}; passes {r['passes_ms']}  [{card}]")
     log(f"launches per path: {paths}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if json_path:
@@ -1185,7 +1263,7 @@ def main(argv) -> int:
                         "consistency_rows": n_prefix,
                         "consistency_s": t_cons},
             "launches_per_path": paths, "model_serving": model,
-            "decode_partials_shapes": res_fd,
+            "decode_partials_shapes": res_fd, "segagg_shapes": seg_shapes,
             "load_s": t_load, "ingest_s": t_ingest}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,11 @@
 Replaces ``src/repro/kernels/segagg/kernel.py::segagg_pallas``.  Built
 with ``nvcc`` for ``sm_90a`` on first use and loaded with ``ctypes``
 (``kernels.build``).  The wrapper checks every input, allocates the
-output and the two passes' scratch with ``torch.empty``, launches on
-PyTorch's current stream, raises if the launch reports an error, and
-counts the launch (one count for the two passes).
+output and the two passes' scratch with ``torch.empty`` (its size from
+the library's own plan, computed on the host from N, F and S alone),
+launches on PyTorch's current stream, raises if the launch reports an
+error, and counts the launch (one count for the two passes of every lane
+slice).
 """
 
 from __future__ import annotations
@@ -17,10 +19,9 @@ import torch
 
 from .. import build, dispatch
 
-__all__ = ["SOURCE", "CHUNK", "segagg_cuda"]
+__all__ = ["SOURCE", "segagg_cuda"]
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "segagg.cu"
-CHUNK = 2048                   # rows per pass-1 block (csrc CHUNK)
 
 _LIB = {}
 
@@ -29,10 +30,10 @@ def _library() -> ctypes.CDLL:
     lib = _LIB.get("lib")
     if lib is None:
         lib = build.load_library(SOURCE)
-        if lib.segagg_chunk_rows() != CHUNK:
-            raise RuntimeError("segagg.cu CHUNK differs from kernel.CHUNK")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.segagg_launch.argtypes = [p, p, i, i, i, p, p, p, p, p, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.segagg_scratch_floats.argtypes = [ll, i, i]
+        lib.segagg_scratch_floats.restype = ll
+        lib.segagg_launch.argtypes = [p, p, ll, i, i, p, p, p]
         lib.segagg_launch.restype = ctypes.c_int
         _LIB["lib"] = lib
     return lib
@@ -67,19 +68,14 @@ def segagg_cuda(values: torch.Tensor, seg_ids: torch.Tensor,
     out = torch.empty((n_segments, f), dtype=torch.float32, device=dev)
     if n == 0:
         return out.zero_()
-    n_chunks = -(-n // CHUNK)
-    chunk_seg = torch.empty((n_chunks * CHUNK,), dtype=torch.int32,
-                            device=dev)
-    chunk_sum = torch.empty((n_chunks * CHUNK * f,), dtype=torch.float32,
-                            device=dev)
-    bounds = torch.empty((2, n_chunks), dtype=torch.int32, device=dev)
     lib = _library()
+    partial = torch.empty((lib.segagg_scratch_floats(n, f, n_segments),),
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.segagg_launch(
             values.data_ptr(), seg_ids.data_ptr(), n, f, n_segments,
-            out.data_ptr(), chunk_seg.data_ptr(), chunk_sum.data_ptr(),
-            bounds[0].data_ptr(), bounds[1].data_ptr(), stream)
+            out.data_ptr(), partial.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"segagg kernel launch failed: CUDA error {err}")
     dispatch.count_launch("segagg")

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..kernels.dispatch import resolve_device
 from . import layers as L
 
 __all__ = ["ATTN_CHUNK", "init_params", "params_from_jax", "forward_prefill",
@@ -71,11 +72,13 @@ def _init_layer(cfg: ArchConfig, generator, dtype, device) -> Params:
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                dtype=torch.bfloat16, device="cpu") -> Params:
+                dtype=torch.bfloat16, device="cuda") -> Params:
     """Random weights with the reference's shapes and scales (not its
     values: ``torch.Generator`` draws other numbers than ``jax.random``).
-    The generator must live on ``device``."""
+    The generator must live on ``device`` (the card unless the caller
+    passes ``device="cpu"``)."""
     _check_family(cfg)
+    device = resolve_device(device)
     vp, d = cfg.vocab_padded, cfg.d_model
     params: Params = {
         "embed": L.normal_init((vp, d), 0.02, generator, dtype, device),
@@ -98,11 +101,13 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def params_from_jax(cfg: ArchConfig, params_np: Params,
-                    device="cpu") -> Params:
+                    device="cuda") -> Params:
     """The JAX package's parameter pytree (numpy arrays, per-layer leaves
     stacked on a leading L axis) as the port's parameters: one dict per
-    layer, same names and dtypes, on ``device``."""
+    layer, same names and dtypes, on ``device`` (the card unless the
+    caller passes ``device="cpu"``)."""
     _check_family(cfg)
+    device = resolve_device(device)
 
     def unstack(tree, i):
         if isinstance(tree, dict):
@@ -213,10 +218,12 @@ def forward_prefill(cfg: ArchConfig, params: Params, batch,
 
 
 def init_decode_state(cfg: ArchConfig, batch_size: int, max_len: int,
-                      dtype=torch.bfloat16, device="cpu") -> Dict[str, Any]:
+                      dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
     """An empty decode state: zero KV caches (B, max_len, Hkv, Dh) and,
-    for the hybrid family, zero SSM states (B, d_inner, state) float32."""
+    for the hybrid family, zero SSM states (B, d_inner, state) float32,
+    on ``device`` (the card unless the caller passes ``device="cpu"``)."""
     _check_family(cfg)
+    device = resolve_device(device)
     b, hkv, dh = batch_size, cfg.n_kv_heads, cfg.head_dim
     layers = []
     for _ in range(cfg.n_layers):

@@ -3,7 +3,10 @@ inputs: the port's plain ``decode_partials`` (the version the CUDA kernel
 is held against on the card) against the reference's Pallas kernel in
 interpret mode (one query head per KV head, live range [0, length)),
 against ``sharded_decode._partials_gqa`` (GQA grouping, live range
-[lo, hi)), and the partial-merge monoid across shards.
+[lo, hi)), and the partial-merge monoid across shards; and the CUDA
+kernel's split-KV schedule (``decode_partials_split_ref``: splits of the
+key axis, the identity outside a live range, merged in split order)
+against all three.
 
 rtol/atol 1e-4, the reference's own bar (``tests/test_kernels.py``):
 the sums are taken in another order.
@@ -23,6 +26,8 @@ from repro_torch.kernels.flash_decode import (decode_attention,
                                               decode_partials,
                                               finalize_partials,
                                               merge_partials)
+from repro_torch.kernels.flash_decode.ref import (decode_partials_ref,
+                                                  decode_partials_split_ref)
 
 RTOL = ATOL = 1e-4
 
@@ -148,3 +153,101 @@ def test_kernel_on_a_cpu_tensor_raises():
     q, k, v = _t(*_qkv(1, 2, 2, 8, 4, 0))
     with pytest.raises(dispatch.KernelUnsupportedError):
         decode_partials(q, k, v, use_kernel=True)
+
+
+SPLIT = 128         # keys per split of the CUDA kernel (csrc SPLIT)
+S_SPLIT = 512
+# (lo, hi): on split boundaries, inside splits, across several, hi = S,
+# one key, and no live key (lo >= hi)
+RANGES = [(0, 128), (128, 384), (5, 140), (130, 260), (0, S_SPLIT),
+          (400, S_SPLIT), (100, 101), (30, 30), (90, 12)]
+
+
+def _split_case(seed, hq=10, hkv=2, d=32):
+    b = len(RANGES)
+    q, k, v = _qkv(b, hq, hkv, S_SPLIT, d, seed)
+    lo = np.array([r[0] for r in RANGES], np.int32)
+    hi = np.array([r[1] for r in RANGES], np.int32)
+    return q, k, v, lo, hi
+
+
+@pytest.mark.parametrize("split", [SPLIT, 64, 7])
+def test_split_schedule_matches_partials_gqa(split):
+    """Live rows against ``_partials_gqa``; every row (the empty ones
+    included: l = S exactly) against the one-pass plain version."""
+    q, k, v, lo, hi = _split_case(split)
+    got = decode_partials_split_ref(*_t(q, k, v, lo, hi), split)
+    whole = decode_partials_ref(*_t(q, k, v, lo, hi))
+    _close(got, [w.numpy() for w in whole])
+    live = lo < hi
+    want = _partials_gqa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         jnp.asarray(lo), jnp.asarray(hi), 32 ** -0.5)
+    _close([x[live] for x in got], [np.asarray(w)[live] for w in want])
+    assert bool((got[1][~torch.from_numpy(live)] == S_SPLIT).all())
+    assert bool((got[0][~torch.from_numpy(live)] == -1e30).all())
+    np.testing.assert_allclose(got[2][7].numpy(),
+                               np.repeat(v[7].sum(0), 5, axis=0),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_split_schedule_matches_pallas():
+    """g = 1 and live ranges [0, length) as the Pallas kernel takes them:
+    lengths on and inside split boundaries, the whole cache, one key and
+    none."""
+    b, h, d = 6, 2, 32
+    q, k, v = _qkv(b, h, h, S_SPLIT, d, 21)
+    lens = np.array([128, 256, 77, S_SPLIT, 1, 0], np.int32)
+    m, l, o = decode_partials_pallas(
+        jnp.asarray(q.reshape(b * h, d)),
+        jnp.asarray(np.moveaxis(k, 2, 1).reshape(b * h, S_SPLIT, d)),
+        jnp.asarray(np.moveaxis(v, 2, 1).reshape(b * h, S_SPLIT, d)),
+        jnp.asarray(np.repeat(lens, h)), interpret=True)
+    got = decode_partials_split_ref(*_t(q, k, v, np.zeros_like(lens), lens),
+                                    SPLIT)
+    _close(got, (np.asarray(m).reshape(b, h), np.asarray(l).reshape(b, h),
+                 np.asarray(o).reshape(b, h, d)))
+
+
+def test_split_schedule_nan_in_a_live_key_propagates():
+    """A NaN in a live key turns its KV head's g query heads NaN (m, l
+    and o), as in both references; the other KV head is untouched."""
+    q, k, v, lo, hi = _split_case(3)
+    k[2, 40, 1, 5] = np.nan            # row 2 lives in [5, 140): KV head 1
+    got = decode_partials_split_ref(*_t(q, k, v, lo, hi), SPLIT)
+    want = _partials_gqa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         jnp.asarray(lo), jnp.asarray(hi), 32 ** -0.5)
+    for x, w in zip(got, want):
+        np.testing.assert_array_equal(np.isnan(x.numpy()),
+                                      np.isnan(np.asarray(w)))
+    assert bool(got[0][2, 5:].isnan().all() and got[2][2, 5:].isnan().all())
+    assert not bool(got[0][2, :5].isnan().any())
+    _close(got, [w.numpy() for w in decode_partials_ref(
+        *_t(q, k, v, lo, hi))])
+
+
+def test_split_schedule_dead_keys_do_not_reach_the_result():
+    """NaN and Inf in the keys and values past ``hi`` (and before ``lo``)
+    of live rows: the result is finite and equals both references on the
+    clean cache (the keys are masked; the dead values are not read)."""
+    q, k, v, lo, hi = _split_case(4)
+    clean_k, clean_v = k.copy(), v.copy()
+    for r, (a, z) in enumerate(RANGES):
+        if a < z:
+            k[r, z:, :, ::2], k[r, z:, :, 1::2] = np.nan, np.inf
+            v[r, z:, :, ::2], v[r, z:, :, 1::2] = -np.inf, np.nan
+            k[r, :a], v[r, :a] = np.nan, np.inf
+    live = lo < hi
+    got = decode_partials_split_ref(*_t(q, k, v, lo, hi), SPLIT)
+    assert all(bool(torch.isfinite(x[torch.from_numpy(live)]).all())
+               for x in got)
+    want = decode_partials_split_ref(*_t(q, clean_k, clean_v, lo, hi),
+                                     SPLIT)
+    for x, w in zip(got, want):
+        assert torch.equal(x[torch.from_numpy(live)],
+                           w[torch.from_numpy(live)])
+    _close([x[live] for x in decode_partials(*_t(q, k, v, lo, hi))],
+           [w[live].numpy() for w in want])
+    ref = _partials_gqa(jnp.asarray(q), jnp.asarray(clean_k),
+                        jnp.asarray(clean_v), jnp.asarray(lo),
+                        jnp.asarray(hi), 32 ** -0.5)
+    _close([x[live] for x in got], [np.asarray(w)[live] for w in ref])

@@ -174,19 +174,31 @@ def test_store_windowfold_kernel_masks_dead_rows():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,f,s", [(64, 4, 8), (1000, 16, 50),
-                                   (100_000, 3, 600), (100_000, 3, 36_000)])
-def test_segagg_kernel_matches_plain(n, f, s):
+@pytest.mark.parametrize("n,f,s,ids", [
+    (64, 4, 8, "mixed"), (1000, 16, 50, "mixed"), (100_000, 3, 600, "mixed"),
+    (100_000, 3, 36_000, "mixed"), (300_000, 3, 600, "one-segment"),
+    (50_000, 5, 600, "out-of-range"), (1_000_000, 3, 36_000, "uniform")])
+def test_segagg_kernel_matches_plain(n, f, s, ids):
     """rtol 1e-4 against the plain version (whose index_add_ adds in no
     fixed order on the card); the kernel's two runs are bitwise equal; a
-    NaN stays in its segment; out-of-range ids are dropped."""
+    NaN stays in its segment; out-of-range ids are dropped.  ``mixed``:
+    half the rows sorted, ids from -3 to S + 2; ``one-segment``: every
+    row in segment 1 (one run through every row block); ``out-of-range``:
+    every id outside [0, S); ``uniform``: ids drawn uniformly from
+    [0, S)."""
     from repro_torch.kernels.segagg import segagg
 
     dev = require_cuda()
     rng = np.random.default_rng(n + s)
     vals = rng.uniform(1, 100, (n, f)).astype(np.float32)
-    segs = rng.integers(-3, s + 3, n).astype(np.int32)
-    segs[: n // 2] = np.sort(segs[: n // 2])
+    segs = {"mixed": rng.integers(-3, s + 3, n),
+            "one-segment": np.ones(n),
+            "out-of-range": np.where(rng.random(n) < 0.5,
+                                     -rng.integers(1, 2**31, n),
+                                     rng.integers(s, 2**31, n)),
+            "uniform": rng.integers(0, s, n)}[ids].astype(np.int32)
+    if ids == "mixed":
+        segs[: n // 2] = np.sort(segs[: n // 2])
     vals[5, 0] = np.nan
     vals_t, segs_t = (torch.from_numpy(vals).to(dev),
                       torch.from_numpy(segs).to(dev))
@@ -199,6 +211,8 @@ def test_segagg_kernel_matches_plain(n, f, s):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3,
                                equal_nan=True)
     assert int(got.isnan().sum()) == (1 if 0 <= segs[5] < s else 0)
+    if ids == "out-of-range":
+        assert not bool(got.any())
 
 
 @pytest.mark.gpu
@@ -266,29 +280,46 @@ def test_linear_scan_kernel_matches_plain(b, t, d):
 @pytest.mark.parametrize("hq,hkv,d", [(4, 4, 32), (25, 5, 64),
                                       (32, 8, 128)])
 def test_decode_partials_kernel_matches_plain(kv_dtype, hq, hkv, d):
-    """rtol 1e-4 / atol 1e-5 against the plain version (the sums run in
-    another order), two runs bitwise equal; rows with lo = 0, lo > 0 (a
-    sliding window), a one-key range and no live key."""
+    """rtol 1e-4 / atol 1e-5 against the plain version computed in
+    float64 (the exact value that float32 sums in any order round: the
+    row with no live key sums all 2,048 value rows, and two float32
+    orders of that sum differ by more than 1e-5), two runs bitwise equal;
+    rows with lo = 0, lo > 0 (a sliding window), a one-key range, no live
+    key, ranges that start and end on the kernel's 128-key split
+    boundaries and inside them, and hi = S.  Every live row has NaN and
+    Inf in its dead keys and values (before lo, past hi): the kernel never
+    reads them."""
     from repro_torch.kernels.flash_decode import decode_partials
+    from repro_torch.kernels.flash_decode.ref import decode_partials_ref
 
     dev = require_cuda()
-    b, s = 4, 2048
+    s = 2048
+    ranges = [(0, 1041), (17, 1041), (1040, 1041), (5, 5), (128, 256),
+              (0, s), (1000, 1100), (127, 129), (1984, s), (64, 128)]
+    b = len(ranges)
     rng = np.random.default_rng(hq * d)
     q = torch.from_numpy(rng.standard_normal((b, hq, d)).astype(
         np.float32)).to(dev)
-    k, v = (torch.from_numpy(rng.standard_normal((b, s, hkv, d)).astype(
-        np.float32)).to(dev, kv_dtype) for _ in range(2))
-    lo = torch.tensor([0, 17, 1040, 5], dtype=torch.int32, device=dev)
-    hi = torch.tensor([1041, 1041, 1041, 5], dtype=torch.int32, device=dev)
+    kv = [rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+          for _ in range(2)]
+    for r, (a, z) in enumerate(ranges):
+        if a < z:
+            for x, bad in zip(kv, (np.nan, np.inf)):
+                x[r, :a], x[r, z:, :, ::2] = bad, -np.inf
+                x[r, z:, :, 1::2] = np.nan
+    k, v = (torch.from_numpy(x).to(dev, kv_dtype) for x in kv)
+    lo = torch.tensor([r[0] for r in ranges], dtype=torch.int32, device=dev)
+    hi = torch.tensor([r[1] for r in ranges], dtype=torch.int32, device=dev)
     before = dispatch.launch_counts().get("decode_partials", 0)
     got = decode_partials(q, k, v, lo, hi, use_kernel=True)
     again = decode_partials(q, k, v, lo, hi, use_kernel=True)
     torch.cuda.synchronize()
     assert dispatch.launch_counts()["decode_partials"] == before + 2
-    want = decode_partials(q, k, v, lo, hi, use_kernel=False)
+    want = decode_partials_ref(q, k, v, lo, hi, dtype=torch.float64)
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)
-        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(g, w.float(), rtol=1e-4, atol=1e-5)
+        assert bool(torch.isfinite(g).all())
     assert bool((got[1][3] == s).all())          # the empty row: l = S
 
 

@@ -47,7 +47,8 @@ def model_pair(request):
     jcfg, tcfg = _cfgs(*request.param)
     jparams = jax.jit(lambda key: JM.init_params(jcfg, key, jnp.float32))(
         jax.random.PRNGKey(0))
-    tparams = TM.params_from_jax(tcfg, jax.tree.map(np.asarray, jparams))
+    tparams = TM.params_from_jax(tcfg, jax.tree.map(np.asarray, jparams),
+                                 device="cpu")
     rng = np.random.default_rng(sum(map(ord, jcfg.name)) + jcfg.n_layers)
     prompt = rng.integers(0, jcfg.vocab_size, (B, PROMPT)).astype(np.int32)
     steps = rng.integers(0, jcfg.vocab_size, (STEPS, B, 1)).astype(np.int32)
@@ -88,7 +89,7 @@ def test_params_from_jax_and_init_shapes(model_pair):
         for k, v in flat_t.items():
             np.testing.assert_array_equal(v.numpy(), flat_j[k][i])
     fresh = TM.init_params(tcfg, torch.Generator().manual_seed(1),
-                           dtype=torch.float32)
+                           dtype=torch.float32, device="cpu")
     assert _shapes(fresh) == _shapes(tparams)
 
 
@@ -173,9 +174,9 @@ def test_other_families_raise(arch):
     cfg = reduced(arch)
     with pytest.raises(NotImplementedError, match="queue 1, item 8"):
         TM.init_params(cfg, torch.Generator().manual_seed(0),
-                       dtype=torch.float32)
+                       dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError):
-        TM.init_decode_state(cfg, 1, 8)
+        TM.init_decode_state(cfg, 1, 8, device="cpu")
 
 
 def test_params_from_jax_takes_bf16_leaves():
@@ -185,7 +186,7 @@ def test_params_from_jax_takes_bf16_leaves():
     jparams = jax.tree.map(np.asarray, jax.jit(
         lambda key: JM.init_params(jcfg, key, jnp.bfloat16))(
         jax.random.PRNGKey(1)))
-    got = TM.params_from_jax(tcfg, jparams)
+    got = TM.params_from_jax(tcfg, jparams, device="cpu")
     assert got["embed"].dtype == torch.bfloat16
     np.testing.assert_array_equal(
         got["layers"][1]["attn"]["wq"].float().numpy(),
@@ -197,9 +198,28 @@ def test_cuda_device_without_a_card_raises():
         pytest.skip("a card is present")
     cfg = reduced("llama3-8b")
     params = TM.init_params(cfg, torch.Generator().manual_seed(0),
-                            dtype=torch.float32)
+                            dtype=torch.float32, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(cfg, params, max_len=16)
+
+
+@pytest.mark.parametrize("ctor", ["init_params", "params_from_jax",
+                                  "init_decode_state"])
+def test_model_constructors_default_to_the_card(ctor):
+    """Like every entry point of the port, the model's constructors run on
+    the card unless the caller passes ``device="cpu"``: without a card the
+    default raises (``dispatch.resolve_device``), after the family
+    check."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    cfg = reduced("llama3-8b")
+    args = {"init_params": (cfg, torch.Generator().manual_seed(0)),
+            "params_from_jax": (cfg, {}),
+            "init_decode_state": (cfg, 1, 8)}[ctor]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(TM, ctor)(*args)
+    with pytest.raises(NotImplementedError):
+        getattr(TM, ctor)(reduced("rwkv6-7b"), *args[1:])
 
 
 def test_launch_serve_runs_on_cpu(capsys):
