@@ -12,12 +12,15 @@ Phases (each prints its own lines; any failure exits non-zero):
              feature-hash Triton kernel, from this checkout;
 3. kernels — each kernel against its plain PyTorch version on the card,
              at its paths' shapes, and run twice (the two runs must be
-             bitwise equal): the unit fold at the serving shapes and at
-             Q = rp offline shapes in both its shared-memory and its wide
-             (global-memory) variant, bitwise except the EW lanes at
+             bitwise equal): the unit fold on unpadded rows at the
+             serving shapes (B = 256, few-query variant), at the
+             consistency replay's U = 1, and at Q = rp offline shapes of
+             rp 2,048 (shared-memory variant) to 32,768 (wide
+             global-memory variant), bitwise except the EW lanes at
              rtol 1e-5; the feature hash, exact; and, once the serving
              store exists (3b, after phase 4), the batched window fold on
-             it (rtol/atol 1e-5, a NaN row that matches no request) and
+             it (rtol/atol 1e-5, a NaN row that matches no request, a
+             +Inf row that request 0 matches) and
              the bucket build over the deployment's action rows
              (rtol 1e-4, NaN prices, out-of-range ids; the segmented-sum
              kernel, its plain version and one ``index_add_`` timed on
@@ -229,12 +232,14 @@ def build_all(dev):
 
 
 def fold_block(members, u: int, r: int, nq: int, seed: int, dev):
-    """A (U, R) block of gathered units for one window group, lifted and
-    padded exactly as the serving path pads it: sorted timestamps with
-    INT_MAX in invalid slots, a valid prefix per unit, queries at the
-    last valid row (nq = 1) or every row (nq = R).  Every fourth unit
-    holds one NULL (NaN) price, at its last valid row in every other such
-    unit, elsewhere at random: min/max/drawdown must propagate it."""
+    """A (U, R) block of gathered units for one window group, lifted as
+    the serving path lifts it (unpadded: the kernel makes the identity
+    rows past R itself): sorted timestamps with INT_MAX in invalid
+    slots, a valid prefix per unit, queries at the last valid row
+    (nq = 1) or every row (nq = R).  Every fourth unit holds one NULL
+    (NaN) price, at its last valid row in every other such unit,
+    elsewhere at random: min/max/drawdown must propagate it (a U = 1
+    block: its unit holds the NULL)."""
     from repro_torch.kernels.unit_fold import ops, ref
     from repro_torch.core.lowering.windows import (group_leaf_set,
                                                    unique_leaves)
@@ -261,10 +266,8 @@ def fold_block(members, u: int, r: int, nq: int, seed: int, dev):
     plan, idents = ops.plan_for(
         [m.node.spec for m in members], group_leaf_set(members), "ts",
         [tuple(unique_leaves(m.aggs)) for m in members], device=dev)
-    data, tsp = ops.pad_rows(
-        idents, [ref.lift_group(g, env, (u, r)) for g in plan.groups],
-        env["ts"])
-    return plan, idents, data, tsp, q.contiguous(), r
+    data = [ref.lift_group(g, env, (u, r)).contiguous() for g in plan.groups]
+    return plan, idents, data, env["ts"].contiguous(), q.contiguous()
 
 
 def fold_bytes_ops(plan, u: int, rows: int, nq: int):
@@ -284,18 +287,25 @@ def fold_bytes_ops(plan, u: int, rows: int, nq: int):
 
 
 def check_unit_fold(name, block, reps):
-    from repro_torch.kernels.unit_fold.kernel import (lane_tiles,
-                                                      unit_fold_cuda)
+    """The kernel on the unpadded block against the plain version on the
+    block padded to rp (``ops.pad_rows``, timed with it): bitwise except
+    EW at rtol 1e-5, two runs bitwise, NaN folds at the same places."""
+    from repro_torch.kernels.unit_fold import ops
+    from repro_torch.kernels.unit_fold.kernel import unit_fold_cuda, variant
     from repro_torch.kernels.unit_fold.ref import unit_fold_plain
 
-    plan, idents, data, ts, q, r_real = block
-    u, rp = ts.shape
-    variant = ("shared" if lane_tiles(plan, rp, q.shape[1]) is not None
-               else "wide")
-    got = unit_fold_cuda(plan, data, idents, ts, q, r_real)
-    again = unit_fold_cuda(plan, data, idents, ts, q, r_real)
+    plan, idents, data, ts, q = block
+    u, r = ts.shape
+    kind = variant(plan, r, q.shape[1])
+
+    def plain():
+        pdata, pts = ops.pad_rows(idents, data, ts)
+        return unit_fold_plain(plan, pdata, idents, pts, q, r)
+
+    got = unit_fold_cuda(plan, data, idents, ts, q)
+    again = unit_fold_cuda(plan, data, idents, ts, q)
     torch.cuda.synchronize()
-    want = unit_fold_plain(plan, data, idents, ts, q, r_real)
+    want = plain()
     err, nulls = 0.0, {}
     for g, a, b, c in zip(plan.groups, got, want, again):
         same_bits(f"unit_fold[{name}/{g.family}]", a, c)
@@ -305,23 +315,22 @@ def check_unit_fold(name, block, reps):
     if not all(nulls.values()):
         raise AssertionError(f"unit_fold[{name}]: a group folded no NULL "
                              f"row ({nulls} NaN folds per family)")
-    log(f"unit_fold[{name}] {variant} variant; NaN (NULL) folds per "
-        f"family, equal to the plain version's: {nulls}; two runs equal")
-    ms = cuda_ms(lambda: unit_fold_cuda(plan, data, idents, ts, q, r_real),
-                 reps)
-    plain_ms = cuda_ms(
-        lambda: unit_fold_plain(plan, data, idents, ts, q, r_real), 2)
+    log(f"unit_fold[{name}] {kind} variant; NaN (NULL) folds per family, "
+        f"equal to the plain version's: {nulls}; two runs equal")
+    ms = cuda_ms(lambda: unit_fold_cuda(plan, data, idents, ts, q), reps)
+    plain_ms = cuda_ms(plain, 2)
+    rp = max(2, 1 << (r - 1).bit_length())
     # the bound counts the R real rows the fold needs; the identity rows
-    # that pad each unit to rp are the layout's cost, shown beside it
-    b_ms, b_by = bound(*fold_bytes_ops(plan, u, r_real, q.shape[1]))
+    # that pad each unit to rp are the plain layout's cost, shown beside it
+    b_ms, b_by = bound(*fold_bytes_ops(plan, u, r, q.shape[1]))
     padded_ms, _ = bound(*fold_bytes_ops(plan, u, rp, q.shape[1]))
     widths = [f"{g.family}:{g.kind}:{g.width}" for g in plan.groups]
-    log(f"unit_fold[{name}] U={u} R={r_real} rp={rp} Q={q.shape[1]} "
+    log(f"unit_fold[{name}] U={u} R={r} rp={rp} Q={q.shape[1]} "
         f"groups={widths} max_abs_err={err} ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by}; "
         f"{padded_ms:.5f} over rows padded to rp)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "variant": variant,
+            "bound_ms": b_ms, "bound_by": b_by, "variant": kind,
             "bound_ms_padded_rows": padded_ms}
 
 
@@ -362,12 +371,26 @@ def request_frames(reqs, dev):
     return key, t1 - WINDOW_MS, t1
 
 
+def matched_row(state, key: int, t0: int, t1: int) -> int:
+    """A live store row that the request (key, [t0, t1]) matches."""
+    n = int(state["count"])
+    keys = state["keys"][:n].cpu().numpy()
+    ts = state["ts"][:n].cpu().numpy()
+    hit = np.flatnonzero((keys == key) & (ts >= t0) & (ts <= t1))
+    if hit.size == 0:
+        raise AssertionError(f"no live row matches request key {key}")
+    return int(hit[0])
+
+
 def check_batch_windowfold(state, reqs, dev, reps):
     """``store_windowfold`` on the serving store (C = capacity) at each
     request batch: kernel against plain version (rtol/atol 1e-5), twice
-    bitwise; then the same with a NaN in a live row that no request
-    matches, which (as in the reference's dense product) turns its whole
-    lane NaN."""
+    bitwise; then a NaN in a live row that no request matches (row 0,
+    in a chunk every request's range misses), which (as in the
+    reference's dense product) turns its whole lane NaN; then a +Inf in a
+    live row that request 0 matches: that request's lane is +Inf, not
+    NaN, and every other request's is Inf (it matches too) or NaN (the
+    dense product's 0 * Inf)."""
     from repro_torch.kernels.batch_windowfold import store_windowfold
 
     vals = store_vals(state)
@@ -385,18 +408,34 @@ def check_batch_windowfold(state, reqs, dev, reps):
         if got.isnan().any():
             raise AssertionError(f"batch_windowfold[B={b}]: NaN folds")
         out[b] = q
+    q = out[max(BATCHES)]
     nan_vals = vals.clone()
     nan_vals[0, 0] = float("nan")         # row 0 lies before every frame
-    q = out[max(BATCHES)]
     got = store_windowfold(state, nan_vals, *q, use_kernel=True)
     want = store_windowfold(state, nan_vals, *q, use_kernel=False)
     compare("batch_windowfold[NaN row]", got, want, rtol=1e-5, atol=1e-5)
     if not (got[:, 0].isnan().all() and not got[:, 1].isnan().any()):
         raise AssertionError("batch_windowfold: a NaN in an unmatched row "
                              "must turn exactly its lane NaN")
+    inf_vals = vals.clone()
+    inf_vals[matched_row(state, int(q[0][0]), int(q[1][0]),
+                         int(q[2][0])), 0] = float("inf")
+    got = store_windowfold(state, inf_vals, *q, use_kernel=True)
+    want = store_windowfold(state, inf_vals, *q, use_kernel=False)
+    compare("batch_windowfold[Inf row]", got, want, rtol=1e-5, atol=1e-5)
+    lane = got[:, 0]
+    if not (bool(lane[0] == float("inf"))
+            and bool((lane.isnan() | (lane == float("inf"))).all())
+            and bool(torch.isfinite(got[:, 1]).all())):
+        raise AssertionError("batch_windowfold: a +Inf in a matched row "
+                             "must give +Inf to its request, NaN or Inf "
+                             "to the others in its lane only")
     log(f"batch_windowfold: kernel == plain (rtol 1e-5) at B={BATCHES} "
         f"over C={vals.shape[0]} store rows ({count} live), two runs "
-        f"equal; a NaN in an unmatched row turns its lane NaN in both")
+        f"equal; a NaN in an unmatched row turns its lane NaN in both; a "
+        f"+Inf in a matched row gives its request +Inf "
+        f"({int((lane == float('inf')).sum())} requests Inf, "
+        f"{int(lane.isnan().sum())} NaN)")
     b = max(BATCHES)
     ms = cuda_ms(lambda: store_windowfold(state, vals, *q, use_kernel=True),
                  reps)
@@ -404,14 +443,17 @@ def check_batch_windowfold(state, reqs, dev, reps):
                                                 use_kernel=False), 3)
     f = vals.shape[1]
     # least work: each live row's key, ts and F lanes read once, the
-    # (B, F) sums written once; three compares and a multiply-add per
-    # (request, live row, lane)
+    # (B, F) sums written once; the dense count (three compares and a
+    # multiply-add per (request, live row, lane)) is shown beside it
     nbytes = count * (8 + 4 * f) + b * 12 + b * f * 4
-    b_ms, b_by = bound(nbytes, b * count * (3 + f))
+    b_ms, b_by = bound(nbytes, 0)
+    dense_ms = b * count * (3 + f) / F32_OPS_PER_S * 1e3
     log(f"batch_windowfold B={b} C={vals.shape[0]} F={f} max_abs_err={err} "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+        f"dense_ops_ms={dense_ms:.5f}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "dense_ops_ms": dense_ms}
 
 
 def bucket_inputs(actions, bucket_ms: int, n_buckets: int, dev):
@@ -923,7 +965,7 @@ def widest_units(cs, tables):
     from repro_torch.core.lowering.windows import (group_leaf_set,
                                                    unique_leaves)
     from repro_torch.kernels.unit_fold import ops
-    from repro_torch.kernels.unit_fold.kernel import lane_tiles
+    from repro_torch.kernels.unit_fold.kernel import variant
 
     lws, _, _ = drivers.plan_offline(cs, tables)
     blocks = []
@@ -934,8 +976,7 @@ def widest_units(cs, tables):
             [tuple(unique_leaves(m.aggs)) for m in gl.members])
         for b in gl.blocks:
             rp = b.idx.shape[1]
-            blocks.append((rp, "shared" if lane_tiles(plan, rp, rp)
-                           is not None else "wide"))
+            blocks.append((rp, variant(plan, rp, rp)))
     return max(rp for rp, _ in blocks), blocks
 
 
@@ -991,18 +1032,27 @@ def main(argv) -> int:
                                             1, 1, dev), 50)
     res_wr = check_unit_fold("wr", fold_block(groups["wr"], 256,
                                               total["wr"], 1, 2, dev), 50)
-    # offline shapes, Q = rp: rp = 2048 (the uniform deployment's units,
-    # shared-memory variant) and rp = 8192 (past the shared-memory limit:
-    # the wide variant), every leaf family
+    # the consistency replay's shape: one unit, one query
+    replay = {name: check_unit_fold(f"{name}/U1", fold_block(
+        groups[name], 1, total[name], 1, seed, dev), 200)
+        for name, seed in (("w", 7), ("wr", 8))}
+    # offline shapes, Q = rp, every leaf family: rp = 2048 (the uniform
+    # deployment's units, shared memory), 8192 and 16384 (w's min/max
+    # sparse table past shared memory: the wide variant; wr's levels fit
+    # up to 8192) and 32768 (the wide variant for both)
     offline_shapes = {}
     for name, u, r, seed in (("w/rp2048", 64, 2048, 3),
                              ("wr/rp2048", 64, 2048, 4),
                              ("w/rp8192", 8, 8192, 5),
-                             ("wr/rp8192", 8, 8192, 6)):
+                             ("wr/rp8192", 8, 8192, 6),
+                             ("w/rp16384", 4, 16384, 9),
+                             ("wr/rp16384", 4, 16384, 10),
+                             ("w/rp32768", 2, 32768, 11),
+                             ("wr/rp32768", 2, 32768, 12)):
         offline_shapes[name] = check_unit_fold(
             name, fold_block(groups[name.split("/")[0]], u, r, r, seed,
                              dev), 3)
-    for name in ("w/rp8192", "wr/rp8192"):
+    for name in ("w/rp32768", "wr/rp32768"):
         if offline_shapes[name]["variant"] != "wide":
             raise AssertionError(f"unit_fold[{name}] did not take the wide "
                                  f"variant")
@@ -1188,8 +1238,9 @@ def main(argv) -> int:
          "replaces": "src/repro/kernels/unit_fold/kernel.py:278",
          "launches": launches["unit_fold"],
          "max_abs_err": max([res_w["max_abs_err"], res_wr["max_abs_err"]]
-                            + [r["max_abs_err"]
-                               for r in offline_shapes.values()]),
+                            + [r["max_abs_err"] for r in
+                               (*offline_shapes.values(),
+                                *replay.values())]),
          "ms": uf["ms"], "plain_ms": uf["plain_ms"],
          "bound_ms": uf["bound_ms"], "bound_by": res_w["bound_by"],
          "library_ms": None},
@@ -1225,6 +1276,10 @@ def main(argv) -> int:
     ]
     log(f"unit_fold main-path shapes (w + wr, B=256): ms {uf['ms']:.4f}, "
         f"plain {uf['plain_ms']:.4f}, bound {uf['bound_ms']:.5f}  [{card}]")
+    for name, r in replay.items():
+        log(f"unit_fold replay {name} (U=1, Q=1, {r['variant']}): ms "
+            f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, bound "
+            f"{r['bound_ms']:.5f}  [{card}]")
     for name, r in offline_shapes.items():
         log(f"unit_fold offline {name} ({r['variant']}): ms {r['ms']:.4f}, "
             f"plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.5f}  "
@@ -1252,7 +1307,9 @@ def main(argv) -> int:
         out.write_text(json.dumps({
             "card": card, "kernels": kernels, "latency": latency,
             "build_s": build_s,
-            "unit_fold_shapes": dict(offline_shapes, w=res_w, wr=res_wr),
+            "unit_fold_shapes": dict(offline_shapes, w=res_w, wr=res_wr,
+                                     **{f"{k}/U1": v
+                                        for k, v in replay.items()}),
             "profile_requests": prof, "profile_offline": prof_off,
             "offline": {"wall_ms_cached": t_off * 1e3,
                         "first_call_s": t_off_cold,

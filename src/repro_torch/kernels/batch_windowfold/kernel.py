@@ -4,9 +4,10 @@
 Replaces ``src/repro/kernels/batch_windowfold/kernel.py::
 batch_windowfold_pallas``.  Built with ``nvcc`` for ``sm_90a`` on first
 use and loaded with ``ctypes`` (``kernels.build``).  The wrapper checks
-every input, allocates the output and the per-chunk partials with
+every input, allocates the output and one scratch buffer (chunk and
+32-row group key ranges, non-finite flags, per-chunk partials) with
 ``torch.empty``, launches on PyTorch's current stream, raises if the
-launch reports an error, and counts the launch (one count for the two
+launch reports an error, and counts the launch (one count for the three
 passes).
 """
 
@@ -39,6 +40,8 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.bwf_launch.argtypes = [p, p, p, p, i, p, p, p, i, i, p, p, p]
         lib.bwf_launch.restype = ctypes.c_int
+        lib.bwf_scratch_words.argtypes = [i, i, i]
+        lib.bwf_scratch_words.restype = ctypes.c_longlong
         _LIB["lib"] = lib
     return lib
 
@@ -86,17 +89,16 @@ def batch_windowfold_cuda(keys: torch.Tensor, ts: torch.Tensor,
         return out
     if c == 0:
         return out.zero_()
-    n_chunks = -(-c // CHUNK_ROWS)
-    partial = torch.empty((n_chunks * b * f,), dtype=torch.float32,
-                          device=dev)
     lib = _library()
+    scratch = torch.empty((lib.bwf_scratch_words(c, b, f),),
+                          dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bwf_launch(
             keys.data_ptr(), ts.data_ptr(), vals.data_ptr(),
             None if count is None else count.data_ptr(), c,
             qkey.data_ptr(), qt0.data_ptr(), qt1.data_ptr(), b, f,
-            out.data_ptr(), partial.data_ptr(), stream)
+            out.data_ptr(), scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"batch_windowfold kernel launch failed: CUDA "
                            f"error {err}")

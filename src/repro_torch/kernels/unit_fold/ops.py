@@ -4,8 +4,10 @@
 batched (U, R) block of padded units — every member window, every
 deduplicated leaf — in one dispatch: the CUDA kernel for tensors on the
 card, the plain PyTorch version for tensors on the CPU
-(``kernels.dispatch``).  Rows are padded to a power of two with identity
-values and INT_MAX timestamps, which changes no real query's fold.
+(``kernels.dispatch``).  The plain version takes rows padded to a power
+of two with identity values and INT_MAX timestamps (``pad_rows``), which
+changes no real query's fold; the kernel reads the rows unpadded and
+makes those rows itself.
 
 ``UnitFoldPlan`` construction (leaf stacking + per-lane identity
 vectors) is cached in ``core.lowering.cache`` per static group signature
@@ -92,7 +94,8 @@ def pad_rows(ident_list: Sequence[torch.Tensor],
              ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Pad (U, R, F) lane blocks and the (U, R) order column to a
     power-of-two row count with identity rows and INT_MAX timestamps —
-    the layout both fold versions take; no real query's fold changes."""
+    the layout the plain version takes (the CUDA kernel makes those rows
+    itself); no real query's fold changes."""
     u, r = ts.shape
     rp = max(2, _next_pow2(r))
     if rp > r:
@@ -111,8 +114,8 @@ def fold_env(plan: _ref.UnitFoldPlan, ident_list: Sequence[torch.Tensor],
              use_kernel: Optional[bool] = None
              ) -> List[Dict[str, torch.Tensor]]:
     """Fold a (U, R) unit env with a ready plan (``plan_for``): lift each
-    leaf group, pad rows, run the kernel (CUDA tensors) or the plain
-    version (CPU tensors), and split the groups back into per-member
+    leaf group, run the kernel (CUDA tensors) or the plain version (CPU
+    tensors), and split the groups back into per-member
     ``{leaf key: (U, Q, *S)}`` dicts."""
     ts = env[plan.order_by]
     u, r = ts.shape
@@ -127,16 +130,21 @@ def _fold_lanes(plan: _ref.UnitFoldPlan,
                 data_list: Sequence[torch.Tensor], ts: torch.Tensor,
                 queries: torch.Tensor, use_kernel: Optional[bool]
                 ) -> List[Dict[str, torch.Tensor]]:
-    """Pad lifted (U, R, F) lane blocks to rp, fold them through the
-    kernel (CUDA tensors) or the plain version (CPU tensors), and split
-    the groups back into per-member dicts."""
+    """Fold lifted (U, R, F) lane blocks through the kernel (CUDA
+    tensors: the unpadded rows) or the plain version (CPU tensors: rows
+    padded to rp by ``pad_rows``), and split the groups back into
+    per-member dicts."""
     r = ts.shape[1]
-    data_list, ts = pad_rows(ident_list, data_list, ts)
     queries = queries.to(torch.int32).contiguous()
-    fold = (unit_fold_cuda if dispatch.resolve(use_kernel, ts)
-            else _ref.unit_fold_plain)
-    return _unstack_batched(
-        plan, fold(plan, data_list, ident_list, ts, queries, r))
+    if dispatch.resolve(use_kernel, ts):
+        folded = unit_fold_cuda(
+            plan, [d.contiguous() for d in data_list], ident_list,
+            ts.to(torch.int32).contiguous(), queries)
+    else:
+        data_list, ts = pad_rows(ident_list, data_list, ts)
+        folded = _ref.unit_fold_plain(plan, data_list, ident_list, ts,
+                                      queries, r)
+    return _unstack_batched(plan, folded)
 
 
 def unit_fold(specs: Sequence[Any], leaves: Dict[str, Any],

@@ -127,3 +127,98 @@ def test_kernel_cannot_be_forced_on_cpu_tensors():
     before = dict(dispatch.launch_counts())
     batch_windowfold(*args)
     assert dispatch.launch_counts() == before
+
+
+def test_inf_in_matched_and_unmatched_rows():
+    """+Inf in a row request 0 matches gives it +Inf; every request that
+    does not match it reads 0 * Inf = NaN in that lane (the dense
+    product), and a -Inf in a row no request matches turns its lane NaN
+    for all: the port's plain version and the reference alike."""
+    keys, ts, vals, qkey, qt0, qt1 = _inputs(300, 3, 12, seed=8)
+    qkey[0], qt1[0], qt0[0] = keys[7], ts[7], ts[7] - 100
+    hit = np.flatnonzero((keys == qkey[0]) & (ts >= qt0[0]) & (ts <= qt1[0]))
+    assert hit.size
+    vals[hit[0], 0] = np.inf
+    keys[-1] = 99                      # matches no request key
+    vals[-1, 2] = -np.inf
+    want_ref, want_pal, got = _both((keys, ts, vals, qkey, qt0, qt1))
+    for want in (want_ref, want_pal):
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    assert got[0, 0] == np.inf
+    assert np.all(np.isnan(got[:, 0]) | (got[:, 0] == np.inf))
+    assert np.isnan(got[:, 2]).all() and np.isfinite(got[:, 1]).all()
+
+
+def _dense_design(keys, ts, vals, qkey, qt0, qt1, chunk):
+    """The dense kernel's arithmetic: per chunk acc = acc + m * v over
+    every row in row order, then the partials in chunk order."""
+    out = np.zeros((qkey.shape[0], vals.shape[1]), np.float32)
+    for lo in range(0, keys.shape[0], chunk):
+        acc = np.zeros_like(out)
+        for i in range(lo, min(keys.shape[0], lo + chunk)):
+            m = ((keys[i] == qkey) & (ts[i] >= qt0) & (ts[i] <= qt1))
+            with np.errstate(invalid="ignore"):
+                acc = acc + m.astype(np.float32)[:, None] * vals[i][None, :]
+        out = out + acc
+    return out
+
+
+def _skipping_design(keys, ts, vals, qkey, qt0, qt1, chunk, group):
+    """The redesigned kernel's arithmetic: a request whose (key, ts)
+    interval misses a chunk's range writes +0.0, or NaN in a lane with a
+    non-finite value there; otherwise it folds only the 32-row groups in
+    its range or holding a non-finite value, and the nonzero partials
+    are added in chunk order."""
+    pack = keys.astype(np.int64) * 2**32 + (ts.astype(np.int64) + 2**31)
+    lo_q = qkey.astype(np.int64) * 2**32 + (qt0.astype(np.int64) + 2**31)
+    hi_q = qkey.astype(np.int64) * 2**32 + (qt1.astype(np.int64) + 2**31)
+    out = np.zeros((qkey.shape[0], vals.shape[1]), np.float32)
+    for lo in range(0, keys.shape[0], chunk):
+        rows = np.arange(lo, min(keys.shape[0], lo + chunk))
+        bad = ~np.isfinite(vals[rows])
+        for b in range(qkey.shape[0]):
+            if lo_q[b] > pack[rows].max() or hi_q[b] < pack[rows].min():
+                part = np.where(bad.any(0), np.float32(np.nan),
+                                np.float32(0))
+            else:
+                part = np.zeros(vals.shape[1], np.float32)
+                for g in range(lo, rows[-1] + 1, group):
+                    gr = np.arange(g, min(rows[-1] + 1, g + group))
+                    if not bad[gr - lo].any() and (
+                            lo_q[b] > pack[gr].max()
+                            or hi_q[b] < pack[gr].min()):
+                        continue
+                    for i in gr:
+                        m = np.float32(keys[i] == qkey[b] and
+                                       qt0[b] <= ts[i] <= qt1[b])
+                        with np.errstate(invalid="ignore"):
+                            part = part + m * vals[i]
+            nz = part.view(np.int32) != 0
+            out[b, nz] = out[b, nz] + part[nz]
+    return out
+
+
+@pytest.mark.parametrize("sort", [True, False], ids=["sorted", "unsorted"])
+def test_skipping_rows_keeps_the_dense_designs_bits(sort):
+    """The kernel skips chunks and groups a request cannot match and adds
+    only nonzero partials: because a fold from +0.0 is never -0.0, adding
+    m * v = +-0.0 changes nothing, and a non-finite value in an
+    unmatched row still makes NaN, so the result is the dense design's,
+    bit for bit, on a sorted store and an unsorted one (small chunks and
+    groups, the kernel's rule)."""
+    keys, ts, vals, qkey, qt0, qt1 = _inputs(700, 2, 9, seed=12)
+    if sort:
+        order = np.lexsort((ts, keys))
+        keys, ts, vals = keys[order], ts[order], vals[order]
+    vals[5, 0] = np.nan                # unmatched: its lane turns NaN
+    qkey[1], qt1[1], qt0[1] = keys[400], ts[400], ts[400] - 2_000
+    hit = np.flatnonzero((keys == qkey[1]) & (ts >= qt0[1]) & (ts <= qt1[1]))
+    vals[hit[-1], 1] = np.inf
+    args = (keys, ts, vals, qkey, qt0, qt1)
+    want = _dense_design(*args, chunk=128)
+    got = _skipping_design(*args, chunk=128, group=16)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(got)
+    np.testing.assert_array_equal(got[ok].view(np.int32),
+                                  want[ok].view(np.int32))

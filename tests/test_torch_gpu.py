@@ -70,6 +70,82 @@ def test_unit_fold_kernel_matches_plain(which, q1):
                                        equal_nan=True, msg=k)
 
 
+def _fold_direct(sql, u, r, queries, seed, edit=None, **ctx):
+    """The kernel on unpadded (U, R) rows against the plain version on
+    the rows padded to rp; ``edit(price)`` changes the numpy prices."""
+    from repro_torch.kernels.unit_fold import kernel as K, ref
+
+    dev = require_cuda()
+    specs, leaves, mk = _group(sql, **ctx)
+    plan, idents = uf_ops.plan_for(specs, leaves, "ts", mk, device=dev)
+    env_np = unit_block(u, r, seed=seed)
+    if edit is not None:
+        edit(env_np["price"])
+    env = {k: torch.from_numpy(v).to(dev) for k, v in env_np.items()}
+    data = [ref.lift_group(g, env, (u, r)).contiguous()
+            for g in plan.groups]
+    ts = env["ts"].to(torch.int32).contiguous()
+    q = (torch.arange(r, dtype=torch.int32, device=dev).expand(u, r)
+         if queries is None else
+         torch.tensor(queries, dtype=torch.int32, device=dev).reshape(u, -1))
+    q = q.contiguous()
+    got = K.unit_fold_cuda(plan, data, idents, ts, q)
+    again = K.unit_fold_cuda(plan, data, idents, ts, q)
+    torch.cuda.synchronize()
+    pdata, pts = uf_ops.pad_rows(idents, data, ts)
+    want = ref.unit_fold_plain(plan, pdata, idents, pts, q, r)
+    for g, a, b, c in zip(plan.groups, got, want, again):
+        assert torch.equal(a.isnan(), c.isnan())
+        assert torch.equal(a.nan_to_num(), c.nan_to_num())
+        tol = (EW_RTOL, EW_ATOL) if g.family == "ew" else (0, 0)
+        torch.testing.assert_close(a, b, rtol=tol[0], atol=tol[1],
+                                   equal_nan=True, msg=g.family)
+    return K.variant(plan, r, q.shape[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u", [1, 7])
+@pytest.mark.parametrize("r", [257, 513])
+def test_unit_fold_kernel_unpadded_rows(r, u):
+    """R not a power of two, given unpadded (the kernel makes rows R..rp
+    identity), one query per unit at its last row, at row 0 and mid-unit,
+    U = 1 as the consistency replay launches it."""
+    queries = [[(r - 1, 0, r // 2)[i % 3]] for i in range(u)]
+    assert _fold_direct(SQLS["edge"], u, r, queries, seed=r + u) == "few"
+    _fold_direct(SQLS["family"], u, r, queries, seed=r + u + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q1", [False, True], ids=["all-rows", "one-query"])
+def test_unit_fold_kernel_edge_values(q1):
+    """A query at row 0 and empty frames (EXCLUDE CURRENT_ROW at row 0),
+    -0.0 and +-Inf in the ADD lanes, and NULL (NaN) prices on 32-row node
+    boundaries (rows 31, 32, 63, 64, 127, 128)."""
+    def edit(price):
+        price[0, 5::9] = -0.0
+        price[1, 40] = np.inf
+        price[1, 90] = -np.inf
+        price[2, 70] = np.inf
+        for row in (31, 32, 63, 64, 127, 128):
+            price[3, row] = np.nan
+
+    u, r = 5, 150
+    queries = [[0], [r - 1], [80], [64], [0]] if q1 else None
+    _fold_direct(SQLS["family"], u, r, queries, seed=3, edit=edit)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u,rp,kind", [(4, 2048, "shared"),
+                                       (2, 8192, "wide"),
+                                       (1, 16384, "wide")])
+def test_unit_fold_kernel_offline_shapes(u, rp, kind):
+    """Offline units queried at every row (Q = rp), every family: shared
+    memory at rp = 2048, the wide variant where the min/max sparse table
+    no longer fits."""
+    assert _fold_direct(SQLS["edge"], u, rp, None, seed=rp) == kind
+    _fold_direct(SQLS["family"], u, rp, None, seed=rp + 1)
+
+
 @pytest.mark.gpu
 def test_feature_hash_kernel_matches_plain():
     dev = require_cuda()
@@ -171,6 +247,113 @@ def test_store_windowfold_kernel_masks_dead_rows():
     want = store_windowfold(st, vals, q[0], q[1], qt1, use_kernel=False)
     assert not got.isnan().any()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _dense_design(keys, ts, vals, qkey, qt0, qt1, count=None):
+    """The dense design's arithmetic on the CPU: per 4,096-row
+    chunk acc = acc + m * v over every row in row order (rows past the
+    live count read as 0), then the chunk partials added in order."""
+    keys, ts, vals, qkey, qt0, qt1 = (x.cpu() for x in
+                                      (keys, ts, vals, qkey, qt0, qt1))
+    c, f = vals.shape
+    live = c if count is None else min(int(count), c)
+    vals = vals.clone()
+    vals[live:] = 0.0
+    out = torch.zeros((qkey.shape[0], f))
+    for lo in range(0, c, 4096):
+        acc = torch.zeros_like(out)
+        for i in range(lo, min(c, lo + 4096)):
+            m = ((keys[i] == qkey) & (ts[i] >= qt0) & (ts[i] <= qt1)).float()
+            acc = acc + m[:, None] * vals[i][None, :]
+        out = out + acc
+    return out
+
+
+def _store(c, f, b, seed, dev, sort=True):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 12, c).astype(np.int32)
+    ts = rng.integers(0, 100_000, c).astype(np.int32)
+    if sort:
+        order = np.lexsort((ts, keys))
+        keys, ts = keys[order], ts[order]
+    vals = rng.normal(size=(c, f)).astype(np.float32)
+    pick = rng.integers(0, c, b)
+    qkey, qt1 = keys[pick].copy(), ts[pick].copy()
+    qt0 = (qt1 - 5_000).astype(np.int32)
+    return keys, ts, vals, qkey, qt0, qt1, pick
+
+
+def _bwf_check(arrays, dev, count=None):
+    from repro_torch.kernels.batch_windowfold.kernel import \
+        batch_windowfold_cuda
+
+    args = [torch.from_numpy(a.copy()).to(dev) for a in arrays]
+    cnt = (None if count is None
+           else torch.tensor(count, dtype=torch.int32, device=dev))
+    got = batch_windowfold_cuda(*args, count=cnt)
+    again = batch_windowfold_cuda(*args, count=cnt)
+    torch.cuda.synchronize()
+    want = _dense_design(*args, count=count)
+    got = got.cpu()
+    assert torch.equal(got.isnan(), again.cpu().isnan())
+    assert torch.equal(got.nan_to_num(), again.cpu().nan_to_num())
+    # bitwise equal to the dense design (NaN at the same places)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got[~got.isnan()], want[~want.isnan()])
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sort", [True, False], ids=["sorted", "unsorted"])
+def test_batch_windowfold_kernel_equals_dense_design(sort):
+    """A store sorted by (key, ts), where requests skip most chunks and
+    groups, and an unsorted one, where no chunk can be skipped: the
+    kernel's bits equal the dense design's on the same inputs (and the
+    plain version's at rtol 1e-5)."""
+    from repro_torch.kernels.batch_windowfold.ref import \
+        batch_windowfold_ref
+
+    dev = require_cuda()
+    arrays = _store(13_000, 3, 300, seed=21 + sort, dev=dev, sort=sort)[:6]
+    got = _bwf_check(arrays, dev)
+    want = batch_windowfold_ref(*(torch.from_numpy(a) for a in arrays))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_batch_windowfold_kernel_non_finite_rows():
+    """A +Inf in a row request 0 matches gives it +Inf (every other
+    request NaN or Inf: the dense product's 0 * Inf); a -Inf and a NaN in
+    a chunk no request reaches turn their lanes NaN for every request."""
+    dev = require_cuda()
+    keys, ts, vals, qkey, qt0, qt1, pick = _store(13_000, 3, 40, seed=23,
+                                                  dev=dev)
+    keys[:4096] = -1                   # chunk 0: a key no request has
+    pick = 4096 + pick % (keys.shape[0] - 4096)
+    qkey, qt1 = keys[pick].copy(), ts[pick].copy()
+    qt0 = (qt1 - 5_000).astype(np.int32)
+    vals[pick[0], 0] = np.inf
+    vals[100, 1] = -np.inf
+    vals[200, 2] = np.nan
+    got = _bwf_check((keys, ts, vals, qkey, qt0, qt1), dev)
+    assert got[0, 0] == float("inf")
+    assert bool((got[:, 0].isnan() | (got[:, 0] == float("inf"))).all())
+    assert bool(got[:, 1:].isnan().all())
+
+
+@pytest.mark.gpu
+def test_batch_windowfold_kernel_garbage_past_count():
+    """Rows at or past the live count hold matching keys and NaN values:
+    they read as 0 (store_windowfold's contract)."""
+    dev = require_cuda()
+    keys, ts, vals, qkey, qt0, qt1, _ = _store(9_000, 2, 64, seed=25,
+                                               dev=dev)
+    count = 7_001
+    keys[count:] = qkey[0]
+    ts[count:] = qt1[0]
+    vals[count:] = np.nan
+    got = _bwf_check((keys, ts, vals, qkey, qt0, qt1), dev, count=count)
+    assert not bool(got.isnan().any())
 
 
 @pytest.mark.gpu

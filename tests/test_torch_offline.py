@@ -192,9 +192,10 @@ WIDE_TABLES = dict(n_actions=5000, n_orders=0, n_users=1,
 
 def test_wide_unit_folds_on_the_plain_path():
     """One key of 5,000 rows, unsliced: one unit at rp = 8192, queried at
-    every row.  The kernel's shared memory cannot hold it, so the wrapper
-    picks the wide (global-memory) variant; on the CPU the same plan folds
-    on the plain path and equals the reference."""
+    every row.  The kernel's shared memory cannot hold its min/max sparse
+    table, so the wrapper picks the wide (global-memory) variant; on the
+    CPU the same plan folds on the plain path and equals the
+    reference."""
     jt, tt = jax_tables(**WIDE_TABLES), torch_tables(**WIDE_TABLES)
     ctx = dict(offline_max_slices=1)
     tcs = torch_compile(WIDE_SQL, tables=tt, **ctx)
@@ -208,10 +209,11 @@ def test_wide_unit_folds_on_the_plain_path():
             torch_drivers.group_leaf_set(members), "ts",
             member_keys=[tuple(torch_drivers.unique_leaves(m.aggs))
                          for m in members])
-        assert K.lane_tiles(plan, rp, rp) is None
-        hdr, words, n_tasks = K._header(plan, rp, rp, r_real=rp)
-        assert hdr[7] == 0 and words == K.scratch_words(
-            plan, K.wide_tiles(plan), rp, rp)
+        assert K.lane_tiles(plan, rp) is None
+        assert K.variant(plan, rp, rp) == "wide"
+        hdr, mode, words, n_tasks = K._header(plan, rp, rp)
+        assert mode == "wide" and hdr[9] == 16 and words == K.scratch_words(
+            plan, K.wide_tiles(plan), rp)
         assert n_tasks == sum(-(-g.width // t) for g, t in
                               zip(plan.groups, K.wide_tiles(plan)))
     want = jax_compile(WIDE_SQL, tables=jt, fused_unit_fold=True,
@@ -220,15 +222,19 @@ def test_wide_unit_folds_on_the_plain_path():
 
 
 def test_lane_tiles_pick_the_shared_variant_when_it_fits():
-    """rp = 2048 at Q = rp (the uniform deployment's offline units) fits
-    shared memory; rp = 4096 does not for a sparse (min) table."""
+    """rp = 2048 at Q = rp (the uniform deployment's offline units) and
+    4096 fit shared memory with a min/max sparse table; 8192 does not.
+    One lane of an ADD scan still fits at 16,384, not at 32,768."""
     tcs = torch_compile(WIDE_SQL)
     members = [w for w in tcs.windows if w.node.spec.name == "w"]
     plan = torch_ref.build_plan(
         [m.node.spec for m in members],
         torch_drivers.group_leaf_set(members), "ts")
-    assert K.lane_tiles(plan, 2048, 2048) is not None
-    assert K.lane_tiles(plan, 4096, 4096) is None
+    assert K.lane_tiles(plan, 2048) is not None
+    assert K.lane_tiles(plan, 4096) is not None
+    assert K.lane_tiles(plan, 8192) is None
+    assert K.many_smem_bytes("scan", 16384, 1) <= K.SMEM_LIMIT
+    assert K.many_smem_bytes("scan", 32768, 1) > K.SMEM_LIMIT
 
 
 def test_offline_plan_cache_sees_data_mutation():

@@ -155,31 +155,210 @@ def test_forcing_kernel_on_cpu_raises():
                            use_kernel=True)
 
 
+def _plan(sql, **ctx):
+    _, specs, leaves, mk = _group(torch_compile, sql, fused_unit_fold=True,
+                                  **ctx)
+    return torch_ref.build_plan(specs, leaves, "ts", member_keys=mk)
+
+
 def test_kernel_lane_tiles_fit_shared_memory():
-    """The kernel's host-side launch plan: a wide stacked group (HLL, 256
-    lanes) is tiled across blocks so each block's structure fits shared
-    memory; 3-lane drawdown/EW groups stay whole; the header's tile
-    offsets are the prefix sums of the groups' tile counts."""
+    """The kernel's host-side launch plan at many queries per unit: a
+    wide stacked group (HLL, 257 lanes) is tiled across blocks so each
+    block's structure fits half an SM's shared memory; 3-lane
+    drawdown/EW groups stay whole; the header's tile
+    offsets are the prefix sums of the groups' tile counts; ROWS members
+    clip to the real row count, RANGE members to 2^30."""
     from repro_torch.kernels.unit_fold import kernel as K
 
-    _, specs, leaves, mk = _group(torch_compile, FAMILY_SQL,
-                                  fused_unit_fold=True, distinct_hll_p=8,
-                                  distinct_hll_min_card=8)
-    plan = torch_ref.build_plan(specs, leaves, "ts", member_keys=mk)
-    rp, nq = 1024, 1
-    tiles = K.lane_tiles(plan, rp, nq)
+    plan = _plan(FAMILY_SQL, distinct_hll_p=8, distinct_hll_min_card=8)
+    rp = 1024
+    tiles = K.lane_tiles(plan, rp)
     widths = {g.family: (g.width, t) for g, t in zip(plan.groups, tiles)}
     assert widths["max"][0] == 257 and widths["max"][1] < 257
     assert widths["drawdown"] == (3, 3) and widths["ew"] == (3, 3)
     for g, t in zip(plan.groups, tiles):
-        assert K.smem_bytes(g.kind, rp, len(g.members_ix), nq, t) \
-            <= K.SMEM_LIMIT
-    hdr, words, n_tasks = K._header(plan, rp, nq, r_real=600)
+        assert K.many_smem_bytes(g.kind, rp, t) \
+            <= K.SMEM_LIMIT // 2
+    hdr, mode, words, n_tasks = K._header(plan, rp, rp)
+    assert mode == "shared" and words == 0
     assert n_tasks == sum(-(-g.width // t)
                           for g, t in zip(plan.groups, tiles))
-    assert words == 0 and 0 < hdr[7] <= K.SMEM_LIMIT
-    rows = np.asarray(torch_ref.member_rows(plan.specs, 600))
+    assert 0 < hdr[9] <= K.SMEM_LIMIT
+    r = 600
+    hdr, _, _, _ = K._header(plan, r, r)
+    rows = np.asarray(torch_ref.member_rows(plan.specs, r))
     np.testing.assert_array_equal(
         hdr[K._HDR:K._HDR + 4 * len(plan.specs)].reshape(-1, 4), rows)
-    # ROWS members clip to the real row count, RANGE members to 2^30
-    assert (rows[rows[:, 0] == 1, 1] <= 600).all()
+    assert (rows[rows[:, 0] == 1, 1] <= r).all()
+    assert (rows[rows[:, 0] == 0, 1] <= 2**30).all()
+
+
+@pytest.mark.parametrize("r,rp", [(1, 2), (2, 2), (3, 4), (257, 512),
+                                  (513, 1024), (1024, 1024)])
+def test_padded_rows_is_the_plain_layouts_rp(r, rp):
+    from repro_torch.kernels.unit_fold import kernel as K
+
+    assert K.padded_rows(r) == rp
+    ts = torch.zeros((1, r), dtype=torch.int32)
+    assert torch_uf.pad_rows([torch.zeros(1)], [torch.zeros((1, r, 1))],
+                             ts)[1].shape[1] == rp
+
+
+def test_few_layout_offsets():
+    """The few variant's shared memory: the order column, the bounds and
+    two ints come first (a multiple of 4 words), then per group its
+    staged rows, and but for min/max its upper levels and ten kept nodes
+    per frame, each region after the last."""
+    from repro_torch.kernels.unit_fold import kernel as K
+
+    plan = _plan(FAMILY_SQL)
+    r, q = 37, 2
+    base, offs, nbytes = K.few_layout(plan, r, q)
+    assert base % 4 == 0 and base >= r + 2 * len(plan.specs) * q + 2
+    n_up = 2 * (K.padded_rows(r) >> 5) - 1
+    end = 0
+    for g, (stage, up, stash) in zip(plan.groups, offs):
+        nodes = g.family not in ("min", "max")
+        assert stage == end and up == stage + r * g.width
+        assert stash == up + n_up * g.width * nodes
+        end = stash + len(g.members_ix) * q * 10 * g.width * nodes
+    assert nbytes == 4 * (base + end)
+    assert K.few_layout(plan, r, K.FEW_QUERIES + 1) is None
+    assert K.few_layout(plan, 1 << 15, 1) is None       # past the limit
+
+
+@pytest.mark.parametrize("r,q,want", [
+    (513, 1, "few"), (257, 4, "few"), (2048, 2048, "shared"),
+    (4096, 4096, "shared"), (8192, 8192, "wide"), (32768, 32768, "wide")])
+def test_variant_choice(r, q, want):
+    """The serving window of the smoke script (one query per unit) takes
+    the few variant; offline units (Q = rp) shared memory while the
+    min/max sparse table fits (rp up to 4,096), then the wide variant."""
+    from repro_torch.kernels.unit_fold import kernel as K
+
+    sql = ("SELECT sum(price) OVER w AS s, min(price) OVER w AS mn, "
+           "max(price) OVER w AS mx FROM actions WINDOW w AS (PARTITION "
+           "BY uid ORDER BY ts ROWS_RANGE BETWEEN 60s PRECEDING AND "
+           "CURRENT ROW)")
+    assert K.variant(_plan(sql), r, q) == want
+
+
+def test_wide_stacks_take_the_many_variant_at_one_query():
+    """A group too wide for the few variant's staged rows (the family
+    script's 98 ADD lanes at 600 rows) folds one query per unit in the
+    many-query variant."""
+    from repro_torch.kernels.unit_fold import kernel as K
+
+    plan = _plan(FAMILY_SQL)
+    assert K.few_layout(plan, 600, 1) is None
+    assert K.variant(plan, 600, 1) == "shared"
+
+
+@pytest.mark.parametrize("kind,rp,words", [
+    ("tree", 1024, 2047), ("scan", 1024, 2048 + 32 + 1),
+    ("scan", 16, 32 + 0 + 1), ("sparse", 1024, 11 * 1024)])
+def test_structure_words(kind, rp, words):
+    from repro_torch.kernels.unit_fold import kernel as K
+
+    assert K.structure_words(kind, rp) == words
+    assert K.many_smem_bytes(kind, rp, 3) == 4 * (4 + 3 * words)
+
+
+def test_header_kinds_and_launch_threads():
+    """Every group builds its plan kind's structure (min/max the plain
+    version's sparse table) and the header says so."""
+    from repro_torch.kernels.unit_fold import kernel as K
+
+    plan = _plan(FAMILY_SQL)
+    kinds = {g.family: g.kind for g in plan.groups}
+    assert kinds == {"add": "scan", "min": "sparse", "max": "sparse",
+                     "drawdown": "tree", "ew": "scan"}
+    for q in (1, 1024):
+        hdr, _, _, _ = K._header(plan, 1024, q)
+        gh = hdr[K._HDR + 4 * len(plan.specs):].reshape(
+            len(plan.groups), K._GROUP_INTS)
+        assert [int(k) for k in gh[:, 1]] == [
+            torch_ref.KINDS[g.kind] for g in plan.groups]
+    assert (K.launch_threads("few"), K.launch_threads("shared"),
+            K.launch_threads("wide")) == (512, 1024, 1024)
+
+
+def test_header_of_the_few_variant():
+    """Mode 0, the groups' region offset and shared-memory bytes from
+    ``few_layout``, each group's three offsets in its descriptor."""
+    from repro_torch.kernels.unit_fold import kernel as K
+
+    plan = _plan(FAMILY_SQL)
+    hdr, mode, words, n_tasks = K._header(plan, 37, 1)
+    base, offs, nbytes = K.few_layout(plan, 37, 1)
+    assert mode == "few" and words == 0 and n_tasks == len(plan.groups)
+    assert (hdr[7], hdr[9], hdr[13]) == (0, nbytes, base)
+    gh = hdr[K._HDR + 4 * len(plan.specs):].reshape(len(plan.groups), -1)
+    np.testing.assert_array_equal(gh[:, 7:10], np.asarray(offs))
+    assert K._header(plan, 37, 1) is K._header(plan, 37, 1)   # cached
+
+
+def _lanes(sql, family, u, r, seed):
+    """A group's lifted (U, rp, F) lanes (identity-padded) and its plan
+    group, for the kernel-arithmetic tests below."""
+    plan = _plan(sql)
+    grp = next(g for g in plan.groups if g.family == family)
+    env = {k: torch.from_numpy(v) for k, v in _block(
+        u, r, seed=seed, nan_rows=[(0, r // 3)]).items()}
+    ident = torch_ref.group_identity(grp)
+    data, _ = torch_uf.pad_rows([ident], [torch_ref.lift_group(
+        grp, env, (u, r))], env["ts"].to(torch.int32))
+    return grp, data[0], ident
+
+
+@pytest.mark.parametrize("family", ["add", "ew"])
+def test_prefix_recurrence_is_the_msb_first_fold(family):
+    """The many-query variant's prefixes: P[x] = P[x - lowbit(x)] (+) the
+    node of x's lowest set bit, with the chunk starts P[32c] folded from
+    their level >= 5 nodes, gives every scan prefix of the plain version
+    (``_prefix_at``, the reference's bracketing) bit for bit."""
+    grp, data, _ = _lanes(FAMILY_SQL, family, 2, 100, seed=8)
+    rp = data.shape[1]
+    lvl = torch_ref._pack_levels(grp.proxy, data)
+    offs = torch_ref._level_offsets(rp)
+    xs = torch.arange(1, rp + 1, dtype=torch.int32).expand(2, 1, rp)
+    want = torch_ref._prefix_at(grp.proxy, lvl, offs, xs, rp)[:, 0]
+    pre = {}
+    for x in range(1, rp + 1):
+        low = x & -x
+        k = low.bit_length() - 1
+        node = lvl[:, offs[k] + (x >> k) - 1]
+        if x % 32 == 0 or x == low:
+            # a chunk start (or a lone node): the MSB-first fold itself
+            pre[x] = torch_ref._prefix_at(
+                grp.proxy, lvl, offs, torch.full((2, 1, 1), x,
+                                                 dtype=torch.int32),
+                rp)[:, 0, 0]
+        else:
+            pre[x] = grp.proxy.combine(pre[x - low], node)
+    got = torch.stack([pre[x] for x in range(1, rp + 1)], 1)
+    nan = got.isnan()
+    assert torch.equal(nan, want.isnan())
+    assert torch.equal(got[~nan], want[~nan])
+
+
+@pytest.mark.parametrize("family", ["min", "max"])
+def test_min_max_reduction_equals_the_sparse_table(family):
+    """The few variant folds min/max as a plain reduction of [s, e) (any
+    order): the plain version's sparse-table lookups give the same
+    values, NULL (NaN) included."""
+    grp, data, ident = _lanes(FAMILY_SQL, family, 2, 70, seed=9)
+    rp = data.shape[1]
+    rng = np.random.default_rng(3)
+    e = rng.integers(1, 71, (2, 1, 9)).astype(np.int32)
+    s = np.minimum(e, rng.integers(0, 71, (2, 1, 9))).astype(np.int32)
+    starts, ends = torch.from_numpy(s), torch.from_numpy(e)
+    want = torch_ref._sparse_group(grp, data, ident, starts, ends, rp)
+    red = torch.amin if family == "min" else torch.amax
+    for ui in range(2):
+        for qi in range(9):
+            a, b = int(s[ui, 0, qi]), int(e[ui, 0, qi])
+            got = ident if a >= b else red(data[ui, a:b], dim=0)
+            assert torch.equal(got.isnan(), want[ui, 0, qi].isnan())
+            nan = got.isnan()
+            assert torch.equal(got[~nan], want[ui, 0, qi][~nan])
