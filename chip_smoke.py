@@ -34,7 +34,8 @@ Phases (each prints its own lines; any failure exits non-zero):
              and cold in L2 (a rotation of eight caches), beside one
              ``scaled_dot_product_attention`` call;
 4. main paths, each with the launch counts set to 0 just before it and
-             read just after, at deployment size (1.5 M rows):
+             read just after, at deployment size (1.5 M rows; run in
+             the order a, b, e, f, c, d):
    a. serving — ``FeatureEngine`` (capacity 1.6 M) bulk load + 4,096 live
              rows, ``request_batch`` at B = 1, 64, 256; the B = 64 batch
              must equal a CPU engine (plain versions) on a copy of the
@@ -45,6 +46,23 @@ Phases (each prints its own lines; any failure exits non-zero):
              variant, whose hot keys' units take the wide variant; then
              ``verify_consistency(bitwise=True)`` on the card over a
              prefix of the tables (every base row replayed as a request);
+   e. staged fold — ``FeatureEngine(fused_fold=False)`` on a copy of
+             4a's store: ``request_batch`` at B = 1, 64, 256 and
+             ``request`` equal 4a's fused features (bitwise, ew at rtol
+             1e-5), staged ``offline()`` equals 4b's, and the seed
+             baseline (``run_reference_serial``) equals it (counts,
+             min/max, hash bitwise; sums within a float32 bound of the
+             key history's prefix; the rest at rtol 1e-4 / atol 1e-3)
+             and its own CPU run; timed;
+   f. long windows — ``LONG_SQL`` (``OPTIONS(long_windows="wl:60s")``)
+             over 1.5 M rows of 32 keys, ``use_preagg=True``: bulk load
+             and ``ingest_many`` maintain the bucket planes (checked
+             against the same folds alone, timed), ``request_batch`` at
+             B = 1, 64, 256 equals a CPU engine on copies of the store
+             and planes (bitwise, drawdown and EW at rtol 1e-5) and the
+             first request equals ``offline()`` over its history; then
+             ``verify_consistency(use_preagg=True)`` over every 300th
+             row, the reference certifier's bitwise columns bitwise;
    c. additive folds — ``store_windowfold`` on the serving store at
              B = 1, 64, 256 and ``bucket_build`` over the action rows;
    d. model serving — hymba-1.5b at full width and depth (random
@@ -115,6 +133,45 @@ MODEL_BATCH, MODEL_PROMPT, MODEL_MAX_LEN, MODEL_TOKENS = 8, 1024, 2048, 32
 MODEL_TOL = 1e-3                   # f32 logits, kernels vs plain versions
 DECODE_LIVE = (1025, 1056)         # decode live lengths at positions 1,024+
 DECODE_COLD = 8                    # caches rotated for the cold-L2 times
+STAGED_REPS = 100                  # timed batches per B, phases 4e and 4f
+SEED_TOL = dict(rtol=1e-4, atol=1e-3)   # reduction-order bar (reference)
+# the seed baseline sums a window as the difference of two float32
+# prefixes over the key's whole history, so its error scales with that
+# history's magnitude S, not with the window's value: |diff| <= atol +
+# SEED_PREFIX_ULPS * 2^-24 * S for the additive columns
+SEED_PREFIX_ULPS = 16
+SEED_ADDITIVE = ("s", "a")
+
+# phase 4f: the serving deployment's rows and horizon with 32 keys, the
+# most an integer key without a dictionary gets planes for (rule
+# C-KEYCARD: the compile-time cardinality is 32), and a long window
+LONG_SQL = """
+SELECT
+  sum(price) OVER wl AS s_l, count(price) OVER wl AS c_l,
+  min(price) OVER wl AS mn_l, max(price) OVER wl AS mx_l,
+  distinct_count(category) OVER wl AS dc_l,
+  drawdown(price) OVER wl AS dd_l, ew_avg(price, 0.5) OVER wl AS ew_l,
+  sum(price) OVER w AS s, count(price) OVER w AS c,
+  discrete(category, 1048576) AS cat_h
+FROM actions
+WINDOW wl AS (UNION orders PARTITION BY userid ORDER BY ts
+              ROWS_RANGE BETWEEN 36000s PRECEDING AND CURRENT ROW),
+       w AS (UNION orders PARTITION BY userid ORDER BY ts
+             ROWS_RANGE BETWEEN 60s PRECEDING AND CURRENT ROW)
+OPTIONS (long_windows = "wl:60s")
+"""
+DEPLOYMENT_LONG = dict(n_actions=1_000_000, n_orders=500_000, n_users=32,
+                       horizon_ms=36_000_000, seed=0, with_profile=False)
+# (keys, fine slots, coarse slots, max_coarse_q, max_bucket_rows): what
+# the reference builds for LONG_SQL
+LONG_PLANES = (32, 632, 41, 39, 128)
+LONG_LOOSE = ("dd_l", "ew_l")      # card vs CPU: rtol 1e-5 (EW, drawdown)
+LONG_EXACT_OFFLINE = ("c_l", "mn_l", "mx_l", "dc_l")
+GATE_STRIDE = 300                  # the pre-agg gate replays every 300th row
+# the reference certifier's bitwise class under pre-agg for LONG_SQL over
+# the thinned tables (no C-BUF, C-PREAGG-EDGE or C-KEYCARD there); the
+# other columns take the reference's tolerance
+GATE_BITWISE = ("c_l", "mn_l", "mx_l", "dc_l", "s", "c", "cat_h")
 
 
 def log(msg: str) -> None:
@@ -917,9 +974,23 @@ def slice_table(table, lo: int, hi: int):
                                 table.columns.items()}, dicts=table.dicts)
 
 
-def compare_features(gpu, cpu) -> float:
+def stride_table(table, k: int):
+    """Every ``k``-th row of a table (the whole horizon, thinned)."""
+    from repro_torch.core.types import Table
+
+    return Table(table.schema, {c: v[::k] for c, v in
+                                table.columns.items()}, dicts=table.dicts)
+
+
+def compare_features(gpu, cpu, loose=("ew",)) -> float:
+    """Per-request features, finite and of one shape: bitwise, except
+    the ``loose`` columns at rtol ``EW_RTOL``."""
+    if len(gpu) != len(cpu):
+        raise AssertionError(f"{len(gpu)} feature rows != {len(cpu)}")
     err = 0.0
     for i, (a, b) in enumerate(zip(gpu, cpu)):
+        if set(a) != set(b):
+            raise AssertionError(f"features {sorted(a)} != {sorted(b)}")
         for k in a:
             x, y = np.asarray(a[k]), np.asarray(b[k])
             if not np.all(np.isfinite(x)):
@@ -927,13 +998,12 @@ def compare_features(gpu, cpu) -> float:
             if x.shape != y.shape:
                 raise AssertionError(f"feature {k}[{i}] shape {x.shape} "
                                      f"!= {y.shape}")
-            if k == "ew":
+            if k in loose:
                 ok = np.allclose(x, y, rtol=EW_RTOL, atol=1e-6)
             else:
                 ok = np.array_equal(x, y)
             if not ok:
-                raise AssertionError(f"feature {k}[{i}]: card {x} != "
-                                     f"CPU plain path {y}")
+                raise AssertionError(f"feature {k}[{i}]: {x} != {y}")
             err = max(err, float(np.max(np.abs(x.astype(np.float64) - y))))
     return err
 
@@ -957,6 +1027,323 @@ def compare_offline(name: str, got, want, n_rows: int) -> float:
             raise AssertionError(f"{name}: feature {k} != plain fold")
         err = max(err, float(np.max(np.abs(x.astype(np.float64) - y))))
     return err
+
+
+def compare_tolerance(name: str, got, want, exact) -> float:
+    """Whole-table features: the ``exact`` columns bitwise, the rest at
+    ``SEED_TOL`` as the reference's consistency gate reads it (a column
+    passes when its max abs diff is within atol or its max diff relative
+    to max(|want|, 1) within rtol); returns the max abs diff."""
+    if set(got) != set(want):
+        raise AssertionError(f"{name}: features {sorted(got)} != "
+                             f"{sorted(want)}")
+    err = 0.0
+    for k in want:
+        x = np.asarray(got[k], np.float64)
+        y = np.asarray(want[k], np.float64)
+        if x.shape != y.shape or not np.all(np.isfinite(x)):
+            raise AssertionError(f"{name}: feature {k} has shape {x.shape} "
+                                 f"or non-finite values")
+        d = np.abs(x - y)
+        dmax = float(d.max()) if d.size else 0.0
+        rel = float((d / np.maximum(np.abs(y), 1.0)).max()) if d.size \
+            else 0.0
+        ok = (dmax == 0.0 if k in exact
+              else dmax <= SEED_TOL["atol"] or rel <= SEED_TOL["rtol"])
+        if not ok:
+            raise AssertionError(f"{name}: feature {k} differs (max abs "
+                                 f"{dmax}, rel {rel})")
+        err = max(err, dmax)
+    return err
+
+
+def key_history_abs(tables, col: str = "price") -> np.ndarray:
+    """Per base row, the sum of |col| over its key's rows in every
+    table: the magnitude the seed baseline's prefixes reach."""
+    keys = [t.columns["userid"] for t in tables.values()]
+    tot = np.zeros(int(max(k.max() for k in keys)) + 1)
+    for t, k in zip(tables.values(), keys):
+        np.add.at(tot, k, np.abs(t.columns[col].astype(np.float64)))
+    return tot[tables["actions"].columns["userid"]]
+
+
+def compare_seed(got, want, tables) -> float:
+    """The seed baseline against ``offline()``: the additive columns
+    within the prefix bound, every other column as
+    ``compare_tolerance`` (count, distinct count, min, max and the hash
+    bitwise)."""
+    bar = SEED_TOL["atol"] + SEED_PREFIX_ULPS * 2.0**-24 * key_history_abs(
+        tables)
+    err = 0.0
+    for k in SEED_ADDITIVE:
+        d = np.abs(np.asarray(got[k], np.float64) - want[k])
+        if not np.all(d <= bar):
+            raise AssertionError(f"seed baseline: {k} beyond the prefix "
+                                 f"bound (max abs {float(d.max())})")
+        err = max(err, float(d.max()))
+    rest = [k for k in want if k not in SEED_ADDITIVE]
+    return max(err, compare_tolerance(
+        "seed baseline", {k: got[k] for k in rest},
+        {k: want[k] for k in rest},
+        exact=("c", "dc", "mn", "mx", "cat_h")))
+
+
+def store_arrays(eng):
+    """An engine's store as numpy arrays (``load_store_from``'s input)."""
+    return {t: {"keys": st["keys"].cpu().numpy(),
+                "ts": st["ts"].cpu().numpy(),
+                "count": st["count"].cpu().numpy(),
+                "cols": {c: v.cpu().numpy() for c, v in st["cols"].items()}}
+            for t, st in eng.store.tables.items()}
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
+def same_tree(name: str, a, b) -> None:
+    for x, y in zip(_leaves(a), _leaves(b)):
+        same_bits(name, x, y)
+
+
+def latencies(fn, rows, reps: int):
+    """Host-inclusive p50/p99 of ``fn(rows[:b])`` per B (CUDA events;
+    every call ends by copying features to the host)."""
+    out = {}
+    for b in BATCHES:
+        for _ in range(3):
+            fn(rows[:b])
+        samples = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(rows[:b])
+            end.record()
+            end.synchronize()
+            samples.append(start.elapsed_time(end))
+        out[b] = {"p50_ms": float(np.percentile(samples, 50)),
+                  "p99_ms": float(np.percentile(samples, 99))}
+    return out
+
+
+def log_latency(label: str, lat, reps: int, card: str) -> None:
+    for b, r in lat.items():
+        log(f"{label} B={b}: p50 {r['p50_ms']:.3f} ms, p99 "
+            f"{r['p99_ms']:.3f} ms over {reps} batches  [{card}]")
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------- phase 4e
+
+
+def staged_path(tables, eng, reqs, served, off, card):
+    """The staged fold (``fused_fold=False``) on a copy of 4a's store:
+    ``request_batch`` and ``request`` against 4a's fused features,
+    ``offline()`` against 4b's, and the seed baseline
+    (``run_reference_serial``) at the reduction-order bar."""
+    from repro_torch.core import multiwindow
+    from repro_torch.serve.engine import FeatureEngine
+
+    n_act = len(tables["actions"])
+    staged = FeatureEngine(SMOKE_SQL, tables, capacity=CAPACITY,
+                           fused_fold=False, device="cuda")
+    staged.load_store_from(store_arrays(eng))
+
+    def serve():
+        return ({b: staged.request_batch(reqs[:b]) for b in BATCHES},
+                staged.request(reqs[0]))
+
+    (got, one), counts = run_path("staged serving", serve,
+                                  ("feature_hash",))
+    paths = {"staged_serving": counts}
+    err = max(compare_features(got[b], served[b]) for b in BATCHES)
+    compare_features([one], got[1], loose=())
+    t0 = time.perf_counter()
+    st_off, counts = run_path("staged offline", staged.offline,
+                              ("feature_hash",))
+    t_off_first = time.perf_counter() - t0
+    paths["staged_offline"] = counts
+    err_off = compare_offline("staged offline", st_off, off, n_act)
+    _, t_off = timed(staged.offline)
+    t0 = time.perf_counter()
+    seed, counts = run_path(
+        "seed baseline",
+        lambda: multiwindow.run_reference_serial(staged.cs, tables,
+                                                 device="cuda"),
+        ("feature_hash",))
+    t_seed = time.perf_counter() - t0
+    paths["seed_baseline"] = counts
+    err_seed = compare_seed(seed, st_off, tables)
+    # the same baseline in plain torch on the host CPU: the same bits
+    # (ew within rtol 1e-5)
+    t0 = time.perf_counter()
+    compare_offline("seed baseline on the CPU", seed,
+                    multiwindow.run_reference_serial(staged.cs, tables,
+                                                     device="cpu"), n_act)
+    t_seed_cpu = time.perf_counter() - t0
+    for name, c in paths.items():
+        if c.get("unit_fold", 0):
+            raise AssertionError(f"{name} launched the unit-fold kernel")
+    log(f"staged request_batch B={BATCHES} equal 4a's fused features "
+        f"(bitwise; ew within rtol {EW_RTOL}, max abs diff {err}); "
+        f"request(row 0) equals B=1 bitwise; staged offline equals 4b's "
+        f"(max abs diff {err_off}); seed baseline equals it (c, dc, mn, "
+        f"mx, cat_h bitwise; s, a within {SEED_PREFIX_ULPS} float32 ulps "
+        f"of the key history's |price| sum; the rest at rtol "
+        f"{SEED_TOL['rtol']} / atol {SEED_TOL['atol']}; max abs diff "
+        f"{err_seed}) and its own CPU run (bitwise, ew within rtol "
+        f"{EW_RTOL}; {t_seed_cpu:.1f} s on the host)")
+    lat = latencies(staged.request_batch, reqs, STAGED_REPS)
+    log_latency("staged request_batch", lat, STAGED_REPS, card)
+    prof = profile_calls(lambda: staged.request_batch(reqs[:256]), 3)
+    log_profile("staged request_batch B=256", prof, card)
+    log(f"staged offline over {n_act + len(tables['orders'])} rows: first "
+        f"call {t_off_first:.2f} s (plan + upload + fold), plan cached "
+        f"{t_off * 1e3:.1f} ms; seed baseline {t_seed * 1e3:.1f} ms  "
+        f"[{card}]")
+    return {"latency": lat, "profile_b256": prof,
+            "offline_first_s": t_off_first, "offline_cached_ms": t_off * 1e3,
+            "seed_baseline_ms": t_seed * 1e3}, paths
+
+
+# ---------------------------------------------------------------- phase 4f
+
+
+def long_windows(card):
+    """``use_preagg`` serving of LONG_SQL at deployment size: planes
+    maintained by bulk load and ingest, requests against a CPU engine on
+    copies of the store and planes and against ``offline()``, and
+    ``verify_consistency(use_preagg=True)`` over every 300th row."""
+    from repro_torch.core import (compile_script, replay_online,
+                                  verify_consistency)
+    from repro_torch.data.synthetic import make_action_tables
+    from repro_torch.serve.engine import FeatureEngine
+
+    tables = make_action_tables(**DEPLOYMENT_LONG)
+    actions, orders = tables["actions"], tables["orders"]
+    n_act = len(actions)
+    hist_end = n_act - N_LIVE - max(BATCHES)
+    eng = FeatureEngine(LONG_SQL, tables, capacity=CAPACITY,
+                        use_preagg=True, fused_fold=True, device="cuda")
+    cs = eng.cs
+    wi, pa = next((i, w.preagg) for i, w in enumerate(cs.windows)
+                  if w.preagg is not None)
+    shape = (pa.n_keys, pa.n_fine, pa.n_coarse, pa.max_coarse_q,
+             pa.max_bucket_rows)
+    if shape != LONG_PLANES:
+        raise AssertionError(f"pre-agg planes {shape} != {LONG_PLANES}")
+    hist = slice_table(actions, 0, hist_end)
+    _, t_load = timed(lambda: (eng.bulk_load("actions", hist),
+                               eng.bulk_load("orders", orders)))
+
+    def update(pre, name, t):
+        # the engine's own inputs: every stored column as float32
+        return cs.preagg_update_many(
+            pre, name, t.columns["userid"], t.columns["ts"],
+            {c: t.columns[c].astype(np.float32) for c in eng._need[name]})
+
+    def fold_loaded():
+        pre = cs.init_preagg_states("cuda")
+        for name, t in (("actions", hist), ("orders", orders)):
+            pre = update(pre, name, t)
+        return pre
+
+    planes, t_planes_load = timed(fold_loaded)
+    same_tree("planes after bulk_load", planes, eng.pre_states)
+    prof_update = profile_calls(lambda: update(
+        cs.init_preagg_states("cuda"), "actions", hist), 1)
+    del planes
+    before = tree_to(eng.pre_states, "cuda")
+    live = [actions.row(i) for i in range(hist_end, hist_end + N_LIVE)]
+    _, t_ingest = timed(lambda: eng.ingest_many("actions", live))
+    live_t = slice_table(actions, hist_end, hist_end + N_LIVE)
+    again, t_planes_ingest = timed(lambda: update(before, "actions",
+                                                  live_t))
+    same_tree("planes after ingest_many", again, eng.pre_states)
+    del before, again
+    plane_bytes = pa.plane_bytes(eng.pre_states[wi])
+    log(f"pre-agg planes {LONG_PLANES[:3]} (keys, fine, coarse slots), "
+        f"{plane_bytes} bytes; bulk_load {hist_end + len(orders)} rows "
+        f"{t_load:.2f} s, of which planes {t_planes_load:.2f} s; "
+        f"update_many over the loaded actions: {prof_update['kernels_per_call']:.0f} "
+        f"launches, wall {prof_update['wall_ms_per_call']:.0f} ms; "
+        f"ingest_many {N_LIVE} rows {t_ingest:.3f} s, of which planes "
+        f"{t_planes_ingest:.3f} s  [{card}]")
+
+    base = hist_end + N_LIVE
+    reqs = [dict(actions.row(i)) for i in range(base, base + max(BATCHES))]
+    served, counts = run_path(
+        "long windows", lambda: {b: eng.request_batch(reqs[:b])
+                                 for b in BATCHES},
+        ("unit_fold", "feature_hash"))
+    paths = {"long_windows": counts}
+    cpu = FeatureEngine(LONG_SQL, tables, capacity=CAPACITY,
+                        use_preagg=True, fused_fold=True, device="cpu")
+    cpu.load_store_from(store_arrays(eng))
+    cpu.pre_states = tree_to(eng.pre_states, "cpu")
+    err = compare_features(served[64], cpu.request_batch(reqs[:64]),
+                           loose=LONG_LOOSE)
+    del cpu
+    # the first request row sees exactly the history offline() sees for
+    # it: the stored actions and every order
+    off = cs.offline({"actions": slice_table(actions, 0, base + 1),
+                      "orders": orders}, device="cuda")
+    err_off = compare_tolerance(
+        "first request vs offline",
+        {k: np.asarray(v)[None] for k, v in served[1][0].items()},
+        {k: v[-1:] for k, v in off.items()}, exact=LONG_EXACT_OFFLINE)
+    log(f"long-window B=64 card equal to the CPU engine (bitwise; "
+        f"{LONG_LOOSE} within rtol {EW_RTOL}; max abs diff {err}); first "
+        f"request equal to offline() ({LONG_EXACT_OFFLINE} bitwise, the "
+        f"rest within rtol {SEED_TOL['rtol']} / atol {SEED_TOL['atol']}; "
+        f"max abs diff {err_off})")
+    lat = latencies(eng.request_batch, reqs, STAGED_REPS)
+    log_latency("long-window request_batch", lat, STAGED_REPS, card)
+    prof = profile_calls(lambda: eng.request_batch(reqs[:256]), 3)
+    log_profile("long-window request_batch B=256", prof, card)
+    for b in (1, 64):
+        p = profile_calls(lambda: eng.request_batch(reqs[:b]), 3)
+        log(f"long-window request_batch B={b}: "
+            f"{p['kernels_per_call']:.0f} launches per batch, device busy "
+            f"share {p['device_busy_share']:.3f}  [{card}]")
+    del eng
+
+    thin = {name: stride_table(t, GATE_STRIDE) for name, t in tables.items()}
+    n_thin = sum(len(t) for t in thin.values())
+    gate_cs = compile_script(LONG_SQL, tables=thin)
+    t0 = time.perf_counter()
+    online, counts = run_path(
+        "pre-agg gate", lambda: replay_online(gate_cs, thin, use_preagg=True,
+                                              device="cuda"),
+        ("unit_fold", "feature_hash"))
+    rep = verify_consistency(gate_cs, thin, use_preagg=True, bitwise=False,
+                             online_outputs=online, device="cuda")
+    t_gate = time.perf_counter() - t0
+    paths["preagg_gate"] = counts
+    gate_off = gate_cs.offline(thin, device="cuda")
+    for k in GATE_BITWISE:
+        if not np.array_equal(online[k], gate_off[k]):
+            raise AssertionError(f"pre-agg gate: {k} not bitwise")
+    if not rep.passed:
+        raise AssertionError(f"verify_consistency(use_preagg=True): {rep}")
+    log(f"verify_consistency(use_preagg=True) on the card over {n_thin} "
+        f"rows (every {GATE_STRIDE}th): {rep}; {GATE_BITWISE} bitwise; "
+        f"{t_gate:.1f} s  [{card}]")
+    return {"plane_bytes": plane_bytes, "latency": lat,
+            "profile_b256": prof, "bulk_load_s": t_load,
+            "planes_load_s": t_planes_load, "update_many": prof_update,
+            "ingest_s": t_ingest, "planes_ingest_s": t_planes_ingest,
+            "gate_rows": n_thin, "gate_s": t_gate}, paths
 
 
 def widest_units(cs, tables):
@@ -1098,11 +1485,7 @@ def main(argv) -> int:
             raise AssertionError(f"request_batch B={b}: bad output shape")
     cpu = FeatureEngine(SMOKE_SQL, tables, capacity=CAPACITY,
                         fused_fold=True, device="cpu")
-    cpu.load_store_from({
-        t: {"keys": st["keys"].cpu().numpy(), "ts": st["ts"].cpu().numpy(),
-            "count": st["count"].cpu().numpy(),
-            "cols": {c: v.cpu().numpy() for c, v in st["cols"].items()}}
-        for t, st in eng.store.tables.items()})
+    cpu.load_store_from(store_arrays(eng))
     err = compare_features(served[64], cpu.request_batch(reqs[:64]))
     del cpu
     log(f"B=64 card vs CPU plain path: equal (bitwise; ew within rtol "
@@ -1165,6 +1548,16 @@ def main(argv) -> int:
     log(f"verify_consistency on the card over {n_prefix} rows "
         f"({len(prefix['actions'])} requests): {rep} in {t_cons:.1f} s")
 
+    phase("4e staged fold path at deployment size")
+    staged, counts = staged_path(tables, eng, reqs, served, off, card)
+    paths.update(counts)
+    torch.cuda.empty_cache()
+
+    phase("4f long windows (pre-aggregation) at deployment size")
+    longw, counts = long_windows(card)
+    paths.update(counts)
+    torch.cuda.empty_cache()
+
     phase("4c additive folds (store_windowfold, bucket_build)")
     state = eng.store.tables["actions"]
     vals = store_vals(state)
@@ -1197,26 +1590,8 @@ def main(argv) -> int:
     paths.update(counts)
 
     phase("5 times")
-    latency = {}
-    for b in BATCHES:
-        rows = reqs[:b]
-        for _ in range(3):
-            eng.request_batch(rows)
-        # host-inclusive: every call ends by copying features to the host
-        samples = []
-        for _ in range(N_LATENCY):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            eng.request_batch(rows)
-            end.record()
-            end.synchronize()
-            samples.append(start.elapsed_time(end))
-        latency[b] = {"p50_ms": float(np.percentile(samples, 50)),
-                      "p99_ms": float(np.percentile(samples, 99))}
-        log(f"request_batch B={b}: p50 {latency[b]['p50_ms']:.3f} ms, "
-            f"p99 {latency[b]['p99_ms']:.3f} ms over {N_LATENCY} batches  "
-            f"[{card}]")
+    latency = latencies(eng.request_batch, reqs, N_LATENCY)
+    log_latency("request_batch", latency, N_LATENCY, card)
     prof = profile_calls(lambda: eng.request_batch(reqs[:256]), 5)
     log_profile("request_batch B=256", prof, card)
     t0 = time.perf_counter()
@@ -1320,6 +1695,7 @@ def main(argv) -> int:
                         "consistency_rows": n_prefix,
                         "consistency_s": t_cons},
             "launches_per_path": paths, "model_serving": model,
+            "staged": staged, "long_windows": longw,
             "decode_partials_shapes": res_fd, "segagg_shapes": seg_shapes,
             "load_s": t_load, "ingest_s": t_ingest}, indent=1))
     print(json.dumps({"kernels": kernels}))

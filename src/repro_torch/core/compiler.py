@@ -2,9 +2,13 @@
 
 A FeaturePlan lowers ONCE (``core.lowering``) to per-window folds, LAST
 JOIN resolution and scalar evaluation; the offline schedules (fused,
-serial) and the request drivers (single, batched) are thin executors
-over that lowering (``lowering.drivers``), which is what makes the
-online features equal the offline ones (``core.consistency``).
+serial, the seed baseline) and the request drivers (single, batched,
+fused fast path) are thin executors over that lowering
+(``lowering.drivers``), which is what makes the online features equal
+the offline ones (``core.consistency``).  Long windows keep §5.1
+pre-aggregation planes (``core.preagg``), maintained from the ingest
+path through ``preagg_update`` / ``preagg_update_many`` and read by
+``online`` / ``online_batch`` with ``preagg_states``.
 Compilation-level optimizations from §4.2: window merging
 (``plan.build_plan``), cycle binding (``lowering.windows.unique_leaves``)
 and the plan cache (``lowering.cache``).
@@ -43,12 +47,6 @@ class CompileContext:
                  distinct_hll_min_card: int = 64,
                  fused_unit_fold: bool = True,
                  unit_fold_kernel: Optional[bool] = None):
-        # the port folds every window group through the fused unit fold
-        # (kernels/unit_fold); the staged fold path is not ported
-        if not fused_unit_fold:
-            raise NotImplementedError(
-                "CompileContext option 'fused_unit_fold=False' (the staged "
-                "fold path) is not ported to repro_torch yet")
         self.tables = tables or {}
         self.default_cardinality = default_cardinality
         self.max_cardinality = max_cardinality
@@ -60,9 +58,13 @@ class CompileContext:
         # folds identical units.
         self.offline_slice_rows = offline_slice_rows
         self.offline_max_slices = offline_max_slices
-        # the fold's kernel selector (kernels.dispatch.resolve): None
-        # follows the tensors' device, True forces the CUDA kernel,
+        # fused_unit_fold routes every driver's fold through one
+        # kernels.unit_fold dispatch per window group; False runs the
+        # staged per-leaf build/query (plain torch), with the same bits.
+        # The fused fold's kernel selector (kernels.dispatch.resolve):
+        # None follows the tensors' device, True forces the CUDA kernel,
         # False runs the plain version (the kernel's reference)
+        self.fused_unit_fold = fused_unit_fold
         self.unit_fold_kernel = unit_fold_kernel
         # optional mergeable-sketch leaf for distinct_count over wide key
         # universes (functions.HLLLeaf)
@@ -140,11 +142,23 @@ class CompiledScript:
     # ONLINE driver (request mode against the live store)
     # ======================================================================
 
-    def online(self, store, key: int, ts: int, values: Dict[str, float]
+    def online(self, store, key: int, ts: int, values: Dict[str, float],
+               preagg_states: Optional[Dict[int, Any]] = None
                ) -> Dict[str, np.ndarray]:
         """Features for one request tuple (virtually inserted), on the
-        store's device."""
-        return _drv.online(self, store, key, ts, values)
+        store's device; long windows read ``preagg_states`` when given."""
+        return _drv.online(self, store, key, ts, values,
+                           preagg_states=preagg_states)
+
+    def online_batch(self, store, keys: Sequence[int], ts: Sequence[int],
+                     values: Dict[str, Sequence[float]],
+                     preagg_states: Optional[Dict[int, Any]] = None
+                     ) -> Dict[str, np.ndarray]:
+        """Features for B requests in one batched call (the script's fold
+        selector, plus the pre-aggregated windows when ``preagg_states``
+        is given); bitwise equal to B single ``online`` calls."""
+        return _drv.online_batch(self, store, keys, ts, values,
+                                 preagg_states=preagg_states)
 
     def required_store_columns(self) -> Dict[str, List[str]]:
         """Which columns each table's online store must retain."""
@@ -177,6 +191,42 @@ class CompiledScript:
         batch, through the kernels on a CUDA store and the plain versions
         on a CPU store."""
         return _drv.online_batch_fast(self, store, keys, ts, values)
+
+    def _observe_queries(self, ts_list: Sequence[int]):
+        """§5.1 adaptive hierarchy: host-side per-query level stats."""
+        for w in self.windows:
+            if w.preagg is None:
+                continue
+            for t in ts_list:
+                w.preagg.observe_query(int(t))
+
+    # -- pre-aggregation plumbing -------------------------------------------
+    def init_preagg_states(self, device="cuda") -> Dict[int, Any]:
+        """Identity bucket planes of every long window, on ``device``."""
+        dev = resolve_device(device)
+        return {wi: w.preagg.init_state(dev)
+                for wi, w in enumerate(self.windows) if w.preagg is not None}
+
+    def preagg_update(self, pre_states: Dict[int, Any], table: str,
+                      key: int, ts: int, values: Dict[str, float]):
+        """Fold one ingested row into every relevant window's buckets —
+        driven from the store binlog (§5.1)."""
+        for wi, w in enumerate(self.windows):
+            if w.preagg is None or table not in w.sources:
+                continue
+            pre_states[wi] = w.preagg.update(pre_states[wi], key, ts, values)
+        return pre_states
+
+    def preagg_update_many(self, pre_states: Dict[int, Any], table: str,
+                           keys, ts, values: Dict[str, Any]):
+        """Batched pre-agg maintenance: fold N ingested rows per window
+        with one ordered fold + scatter (see ``PreAgg.update_many``)."""
+        for wi, w in enumerate(self.windows):
+            if w.preagg is None or table not in w.sources:
+                continue
+            pre_states[wi] = w.preagg.update_many(pre_states[wi], keys, ts,
+                                                  values)
+        return pre_states
 
 
 def compile_script(script_or_sql, tables: Optional[Dict[str, Table]] = None,

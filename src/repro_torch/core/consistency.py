@@ -12,9 +12,10 @@ Replay contract: events are presented in the offline tie-break order —
 (ts, table-rank, arrival) — which is exactly the order the store's
 insert-after-peers policy reconstructs.
 
-Ported: unsharded raw serving.  Pre-aggregation, sharding, replication
-and fault injection are not ported yet and raise ``NotImplementedError``
-naming the option.
+Ported: unsharded serving, raw and pre-aggregated (``use_preagg``: the
+replay folds every ingested row into the §5.1 bucket planes and serves
+long windows from them).  Sharding, replication and fault injection are
+not ported yet and raise ``NotImplementedError`` naming the option.
 """
 
 from __future__ import annotations
@@ -103,8 +104,10 @@ def replay_online(cs: CompiledScript, tables: Dict[str, Table],
                   device="cuda") -> Dict[str, np.ndarray]:
     """Feed rows through an online store on ``device`` in arrival order;
     collect the request-mode features of every base-table row, in base
-    row order."""
-    _not_ported(use_preagg=use_preagg, n_shards=n_shards is not None,
+    row order.  With ``use_preagg`` every replayed row is also folded
+    into the pre-aggregation planes (``preagg_update``), which serve the
+    long windows."""
+    _not_ported(n_shards=n_shards is not None,
                 mesh=mesh is not None, replication=replication,
                 kill_shard_at=kill_shard_at is not None)
     dev = resolve_device(device)
@@ -121,6 +124,7 @@ def replay_online(cs: CompiledScript, tables: Dict[str, Table],
             dd = table.schema.column(c).ctype.device_dtype
             specs[c] = np.float32 if dd.kind == "f" else np.int32
         store.create_table(tname, specs)
+    pre_states = cs.init_preagg_states(dev) if use_preagg else None
 
     n_base = len(tables[base])
     outputs: Dict[str, List[np.ndarray]] = {}
@@ -134,9 +138,12 @@ def replay_online(cs: CompiledScript, tables: Dict[str, Table],
         key = int(table.columns[key_col][i])
         values = {c: float(table.columns[c][i]) for c in need[tname]}
         if tname == base:
-            for k, v in cs.online(store, key, ts, values).items():
+            for k, v in cs.online(store, key, ts, values,
+                                  preagg_states=pre_states).items():
                 outputs.setdefault(k, []).append(np.asarray(v))
         store.put(tname, key, ts, values)
+        if use_preagg:
+            pre_states = cs.preagg_update(pre_states, tname, key, ts, values)
 
     # rows were replayed in ts order; restore original base-row order
     base_ts = tables[base].columns[cs.script.order_column]
@@ -149,7 +156,7 @@ def replay_online(cs: CompiledScript, tables: Dict[str, Table],
 def verify_consistency(cs: CompiledScript, tables: Dict[str, Table],
                        use_preagg: bool = False, atol: float = 1e-3,
                        rtol: float = 1e-4, n_shards: Optional[int] = None,
-                       mesh=None, bitwise: bool = True,
+                       mesh=None, bitwise: Optional[bool] = None,
                        replication: int = 0,
                        kill_shard_at: Optional[int] = None,
                        online_outputs: Optional[Dict[str, np.ndarray]]
@@ -158,18 +165,24 @@ def verify_consistency(cs: CompiledScript, tables: Dict[str, Table],
     caller asks for the CPU).
 
     ``bitwise`` selects the gate: ``array_equal`` on every feature
-    (floats included, the default for raw serving) vs reduction-order
-    tolerance (``atol``/``rtol``).  ``online_outputs`` supplies
+    (floats included) vs reduction-order tolerance (``atol``/``rtol``).
+    Default: bitwise for raw serving, tolerance with ``use_preagg``
+    (bucket partials re-bracket float combines); pass ``bitwise=True``
+    with pre-agg for order-insensitive-in-float workloads (min/max,
+    integer-valued sums).  ``online_outputs`` supplies
     precomputed online-side feature arrays (already in offline row
     order) instead of running ``replay_online`` — the hook that lets
     another serving harness be held to the same gate.
     """
-    _not_ported(use_preagg=use_preagg, n_shards=n_shards is not None,
+    _not_ported(n_shards=n_shards is not None,
                 mesh=mesh is not None, replication=replication,
                 kill_shard_at=kill_shard_at is not None)
+    if bitwise is None:
+        bitwise = not use_preagg
     offline = cs.offline(tables, device=device)
     online = (online_outputs if online_outputs is not None
-              else replay_online(cs, tables, device=device))
+              else replay_online(cs, tables, use_preagg=use_preagg,
+                                 device=device))
     mism: List[str] = []
     max_abs = 0.0
     max_rel = 0.0

@@ -341,8 +341,17 @@ def _onehot_fn(arg: Expr, card: int, weight: Optional[Expr] = None,
     def fn(env):
         code = as_tensor(eval_scalar(arg, env)).to(torch.int32)
         iota = torch.arange(card, dtype=torch.int32, device=code.device)
-        oh = (code[..., None] == iota).to(torch.float32)
+        hit = code[..., None] == iota
+        if weight is not None and cond is None:
+            # the reference's jit rewrites ``convert(hit) * w`` to
+            # ``select(hit, w, 0)``: a NULL weight stays in its own
+            # category, and the other categories hold +0.0
+            w = as_tensor(eval_scalar(weight, env)).to(torch.float32)
+            return torch.where(hit, w[..., None], 0.0)
+        oh = hit.to(torch.float32)
         if cond is not None:
+            # the condition's multiply blocks that rewrite: a NULL weight
+            # spreads over every category, in both packages
             c = as_tensor(eval_scalar(cond, env)).to(torch.float32)
             oh = oh * c[..., None]
         if weight is not None:
@@ -355,6 +364,32 @@ def _onehot_fn(arg: Expr, card: int, weight: Optional[Expr] = None,
 
 def _safe_div(a, b):
     return a / torch.where(b == 0, 1.0, b)
+
+
+# float64 bits below a float32 significand: a value whose low bits are
+# exactly 1 followed by zeros lies halfway between two float32 values
+_F32_TAIL = (1 << 29) - 1
+_F32_HALF = 1 << 28
+
+
+def _sub_square(q: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``q - m*m`` rounded ONCE to float32, as the one fused multiply-add
+    the reference's jit contracts ``q - square(m)`` into.  In float64
+    ``m*m`` is exact and ``d = q - m*m`` carries one rounding, whose
+    error ``e`` a two-sum recovers; ``d`` then rounds to the float32 of
+    ``d + e`` unless it sits exactly halfway between two float32 values
+    with ``e != 0``, where it is first moved one float64 step toward
+    ``d + e`` (the double-rounding case)."""
+    q64 = q.to(torch.float64)
+    p64 = m.to(torch.float64) * m.to(torch.float64)
+    d = q64 - p64
+    bq = d - q64
+    e = (q64 - (d - bq)) + (-p64 - bq)
+    tie = (d.view(torch.int64) & _F32_TAIL) == _F32_HALF
+    nudge = tie & (e != 0)
+    toward = torch.where(e > 0, float("inf"), float("-inf")).to(d)
+    d = torch.where(nudge, torch.nextafter(d, toward), d)
+    return d.to(torch.float32)
 
 
 def _top_k_indices(counts: torch.Tensor, n: int):
@@ -398,9 +433,13 @@ def build_aggregator(call: AggCall, ctx) -> Aggregator:
         else:
             def fin(s, _v=(fn == "variance")):
                 mean = _safe_div(s[keys[0]], s[keys[1]])
-                var = _safe_div(s[keys[2]], s[keys[1]]) - torch.square(mean)
+                var = _sub_square(_safe_div(s[keys[2]], s[keys[1]]), mean)
                 var = torch.clamp_min(var, 0.0)
-                return var if _v else torch.sqrt(var)
+                # torch's vectorized CPU sqrt can miss the correctly
+                # rounded float32 by an ulp; float64 sqrt rounded to
+                # float32 is correctly rounded
+                return var if _v else torch.sqrt(
+                    var.to(torch.float64)).to(torch.float32)
         return Aggregator(fn, leaves, fin)
 
     if fn in ("min", "max"):

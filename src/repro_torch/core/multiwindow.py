@@ -5,7 +5,9 @@ the execution policies are offline schedules in ``core.lowering.drivers``:
 
 * fused   (``CompiledScript.offline``)        — all groups, no barrier;
 * serial  (``CompiledScript.offline_serial``) — a barrier between groups,
-  the baseline the paper compares against.
+  the baseline the paper compares against;
+* reference serial (``run_reference_serial``) — the seed algorithm: one
+  global sort and fold per window, a barrier between windows.
 
 These helpers keep the reference package's API for callers and for the
 ConcatJoin alignment checks.  Each runs on ``device``: the card unless
@@ -51,6 +53,9 @@ def run_serial(cs: CompiledScript, tables: Dict[str, Table],
 
 def run_reference_serial(cs: CompiledScript, tables: Dict[str, Table],
                          device="cuda") -> Dict[str, np.ndarray]:
-    """The seed-algorithm baseline: not ported yet (it needs the staged
-    fold primitives); raises ``NotImplementedError``."""
-    return _drv.offline_reference_serial(cs, tables, device)
+    """The seed-algorithm baseline (per-window merge + sort + global
+    segmented scan / segment tree, ``core.window.fold_windows``): integer
+    features equal ``run_parallel``'s bitwise; sums carry the rounding of
+    prefixes over a key's whole history."""
+    return _drv.offline_reference_serial(cs, tables,
+                                         resolve_device(device))

@@ -6,11 +6,12 @@ combine-scan + prefix difference, idempotent sparse-table build +
 identity-padded units.  The plain version is written in the *value form*
 of the reference's TPU kernel (packed balanced-tree levels, an MSB-first
 prefix walk, a sparse table with a ``floor(log2)`` level, a two-sided
-tree walk), which needs no torch copy of ``associative_scan`` and is
-bitwise equal to it: scan prefix ``[0, e)`` is the MSB-first left fold of
-the position-aligned power-of-two blocks of ``[0, e)``.  It is the CPU
-path and the version the CUDA kernel (``csrc/unit_fold.cu``) is held
-against, bit for bit, on the card.
+tree walk), bitwise equal to ``associative_scan``: scan prefix
+``[0, e)`` is the MSB-first left fold of the position-aligned power-of-two
+blocks of ``[0, e)`` (``core.window.prefix_walk``, which the staged
+``associative_scan`` runs too).  It is the CPU path and the version the
+CUDA kernel (``csrc/unit_fold.cu``) is held against, bit for bit, on the
+card.
 
 Leaf stacking is what keeps one structure per leaf family: every
 ``AddLeaf`` stacks into one (rows, F) lane block folded by one scan,
@@ -29,6 +30,7 @@ import torch
 
 from ...core.functions import (AddLeaf, DrawdownLeaf, EWLeaf, HLLLeaf, Leaf,
                                MaxLeaf, MinLeaf, floor_log2)
+from ...core.window import first_geq, prefix_walk
 
 __all__ = ["LeafGroup", "UnitFoldPlan", "build_plan", "lift_group",
            "group_identity", "unit_fold_plain", "member_rows", "FAMILIES",
@@ -215,10 +217,11 @@ def member_rows(specs: Sequence[Any], r_real: int) -> List[Tuple[int, ...]]:
 
 
 def _bounds(rows: Sequence[Tuple[int, ...]], ts: torch.Tensor,
-            q: torch.Tensor, rp: int) -> Tuple[torch.Tensor, torch.Tensor]:
+            q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(U, M, Q) [start, end) frame bounds: ROWS arithmetic, the RANGE
-    binary search run ceil(log2(rp))+1 steps over the padded row
-    (converged rows stay put), MAXSIZE and EXCLUDE CURRENT_ROW."""
+    binary search (``core.window.first_geq``: ceil(log2(rp))+1 steps over
+    the padded row, converged rows staying put), MAXSIZE and EXCLUDE
+    CURRENT_ROW."""
     end0 = q + 1
     range_ix = [i for i, r in enumerate(rows) if not r[0]]
     found = {}
@@ -227,16 +230,11 @@ def _bounds(rows: Sequence[Tuple[int, ...]], ts: torch.Tensor,
         pres = torch.tensor([rows[i][1] for i in range_ix],
                             dtype=torch.int32, device=ts.device)
         targets = tsq[:, None, :] - pres[None, :, None]           # (U, Mr, Q)
-        lo = torch.zeros_like(targets)
-        hi = torch.broadcast_to(end0[:, None, :], targets.shape).clone()
         u = ts.shape[0]
-        for _ in range(max(1, (rp - 1).bit_length()) + 1):
-            mid = (lo + hi) >> 1
-            v = torch.gather(ts, 1, mid.clamp(0, rp - 1).reshape(u, -1)
-                             .long()).reshape(mid.shape)
-            go_right = (v < targets) & (lo < hi)
-            lo = torch.where(go_right, mid + 1, lo)
-            hi = torch.where(go_right | (lo >= hi), hi, mid)
+        hi = torch.broadcast_to(end0[:, None, :], targets.shape)
+        lo = first_geq(ts, targets.reshape(u, -1),
+                       torch.zeros_like(targets).reshape(u, -1),
+                       hi.reshape(u, -1)).reshape(targets.shape)
         for row, i in enumerate(range_ix):
             found[i] = lo[:, row]
     starts, ends = [], []
@@ -283,21 +281,13 @@ def _gather_nodes(lvl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _prefix_at(proxy, lvl: torch.Tensor, offs: List[int], e: torch.Tensor,
                rp: int) -> torch.Tensor:
-    """Scan prefix of rows [0, e) (e >= 1): MSB-first left fold of e's
-    set-bit blocks, each block the position-aligned tree node covering
-    it — the bracketing of ``associative_scan``."""
-    pos = torch.zeros_like(e)
-    acc = torch.zeros(tuple(e.shape) + (lvl.shape[-1],), dtype=lvl.dtype,
-                      device=lvl.device)
-    first = torch.ones(e.shape, dtype=torch.bool, device=e.device)
-    for k in range(rp.bit_length() - 1, -1, -1):
-        taken = ((e >> k) & 1) == 1
-        node = _gather_nodes(lvl, offs[k] + (pos >> k))
-        cand = torch.where(first[..., None], node, proxy.combine(acc, node))
-        acc = torch.where(taken[..., None], cand, acc)
-        first = first & ~taken
-        pos = pos + torch.where(taken, 1 << k, 0).to(pos.dtype)
-    return acc
+    """Scan prefix of rows [0, e) (e >= 1): ``core.window.prefix_walk``
+    (the bracketing of ``associative_scan``) over the packed levels, each
+    block the position-aligned tree node covering it."""
+    return prefix_walk(
+        proxy.combine,
+        lambda k, i: _gather_nodes(lvl, offs[k] + i.clamp(0, (rp >> k) - 1)),
+        e, rp.bit_length())
 
 
 def _scan_group(grp: LeafGroup, data, ident, starts, ends, rp: int):
@@ -371,7 +361,7 @@ def unit_fold_plain(plan: UnitFoldPlan, data_list: Sequence[torch.Tensor],
     int32 unit positions.  Returns one (U, Mg, Q, F_g) block per group,
     member rows in ``members_ix`` order."""
     rp = ts.shape[1]
-    starts, ends = _bounds(member_rows(plan.specs, r_real), ts, queries, rp)
+    starts, ends = _bounds(member_rows(plan.specs, r_real), ts, queries)
     outs = []
     for grp, data, ident in zip(plan.groups, data_list, ident_list):
         ix = torch.tensor(grp.members_ix, dtype=torch.long,

@@ -1,12 +1,18 @@
 """Online serving engine on the card.
 
 ``FeatureEngine`` is the paper's online request mode as a service: a
-deployed feature script + live store behind ``request_batch()``, with
-§8.2 memory guarding.  The store lives on ``device`` (the card by
-default; ``device="cpu"`` runs the plain versions of the kernels), and
-every batch goes through the fused path: one unit-fold kernel launch per
-window group for the whole batch, and the feature-hash kernel for
-``discrete()``.
+deployed feature script + live store + pre-aggregation states behind
+``request()`` / ``request_batch()``, with §8.2 memory guarding.  The
+store lives on ``device`` (the card by default; ``device="cpu"`` runs
+the plain versions of the kernels).  ``fused_fold=True`` folds every
+window group through one unit-fold kernel launch per batch;
+``fused_fold=False`` (the reference's default) folds through the staged
+per-leaf build/query in plain torch, with the same bits.  ``discrete()``
+runs the feature-hash kernel either way.  With ``use_preagg`` every long
+window (``OPTIONS(long_windows=...)``) keeps §5.1 bucket planes, folded
+on every ingest and bulk load, and requests read them
+(``CompiledScript.online_batch``); a fused engine without pre-agg serves
+through ``online_batch_fast``.
 
 ``offline()`` materializes the script's training features over the
 tables, on the engine's device, through the same unit fold.
@@ -17,8 +23,8 @@ completed when its batch call returned (the call ends by copying the
 features to the host, which waits for the card).
 
 Options that are not ported yet raise ``NotImplementedError`` naming the
-option: pre-aggregation, sharding, replication, checkpoints, retention /
-TTL eviction and the staged (non-fused) fold path.
+option: sharding, replication, checkpoints and retention / TTL
+eviction.
 
 ``ServingEngine`` wraps a model's prefill/decode for batched requests —
 the "online ML" consumer of the features (dense and hybrid families): the
@@ -64,7 +70,7 @@ class FeatureEngine:
                  retention=None, replication: int = 0,
                  checkpoint_dir: Optional[str] = None,
                  fused_fold: bool = False, device="cuda"):
-        for name, on in (("use_preagg", use_preagg), ("ttl_ms", ttl_ms),
+        for name, on in (("ttl_ms", ttl_ms),
                          ("mesh", mesh is not None),
                          ("n_shards", (n_shards or 0) > 1),
                          ("retention", retention is not None),
@@ -72,16 +78,13 @@ class FeatureEngine:
                          ("checkpoint_dir", checkpoint_dir)):
             if on:
                 _not_ported(name)
-        if not fused_fold:
-            raise NotImplementedError(
-                "FeatureEngine option 'fused_fold=False' (the staged fold "
-                "path) is not ported to repro_torch yet; pass "
-                "fused_fold=True")
         self.device = resolve_device(device)
         from ..core.sql import parse
 
         self.cs: CompiledScript = compile_script(
-            parse(script_sql, time_unit=time_unit), tables=tables)
+            parse(script_sql, time_unit=time_unit), tables=tables,
+            fused_unit_fold=fused_fold)
+        self.use_preagg = use_preagg
         self.store = OnlineStore(capacity=capacity, device=self.device)
         self.guard = MemoryGuard(max_memory_bytes)
         part_cols = sorted({w.node.spec.partition_by
@@ -100,6 +103,8 @@ class FeatureEngine:
                 specs[c] = np.float32 if dd.kind == "f" else np.int32
             self.store.create_table(tname, specs)
         self._need = need
+        self.pre_states = (self.cs.init_preagg_states(self.device)
+                           if use_preagg else None)
         self.dicts = {name: t.dicts for name, t in tables.items()}
         self.tables = tables
         self.batcher = RequestBatcher(batch_size, max_wait_ms=max_wait_ms)
@@ -116,7 +121,8 @@ class FeatureEngine:
         self.ingest_many(table, [row])
 
     def ingest_many(self, table: str, rows: Sequence[Dict[str, Any]]):
-        """Bulk insert of N events with one store sort-merge."""
+        """Bulk insert of N events with one store sort-merge (and, with
+        pre-agg, one batched bucket fold, ``PreAgg.update_many``)."""
         if not rows:
             return
         t0 = time.perf_counter()
@@ -135,17 +141,27 @@ class FeatureEngine:
         except Exception:
             self.guard.release(nbytes)   # nothing was stored
             raise
+        if self.use_preagg:
+            self.pre_states = self.cs.preagg_update_many(
+                self.pre_states, table, keys, ts, cols)
         self.ingest_ms.append((time.perf_counter() - t0) * 1e3)
         self.rows_ingested += len(rows)
 
     def bulk_load(self, table: str, rows_table: Table):
-        """LOAD DATA: ingest a whole historical table at once."""
+        """LOAD DATA: ingest a whole historical table at once.  With
+        pre-agg the loaded rows fold into the bucket planes too (one
+        ``update_many``), or long windows would be served from empty
+        planes over the loaded history."""
         cols = {c: rows_table.columns[c].astype(np.float32)
                 for c in self._need[table]}
-        self.store.bulk_load(table, rows_table.columns[self._key_col()],
-                             rows_table.columns[self.cs.script.order_column],
-                             cols)
+        keys = rows_table.columns[self._key_col()]
+        ts = rows_table.columns[self.cs.script.order_column]
+        self.store.bulk_load(table, keys, ts, cols)
         self.guard.charge(len(rows_table) * (64 + 8 * len(cols)))
+        if self.use_preagg:
+            self.pre_states = self.cs.preagg_update_many(
+                self.pre_states, table, np.asarray(keys, np.int32),
+                np.asarray(ts, np.int32), cols)
 
     def load_store_from(self, numpy_states: Dict[str, Dict]) -> None:
         """Take every table's store state as numpy arrays (``keys``,
@@ -156,9 +172,23 @@ class FeatureEngine:
             self.store.load_state(table, st)
 
     # ------------------------------------------------------------ request
+    def request(self, row: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        """Online request mode: features for one (virtually inserted)
+        tuple of the base table."""
+        t0 = time.perf_counter()
+        key, ts, values = self._encode_request(row)
+        feats = self.cs.online(self.store, key, ts, values,
+                               preagg_states=self.pre_states)
+        self.n_requests += 1
+        self.latencies_ms.append((time.perf_counter() - t0) * 1e3)
+        return feats
+
     def request_batch(self, rows: Sequence[Dict[str, Any]]
                       ) -> List[Dict[str, np.ndarray]]:
-        """Features for B requests in one fused batched call."""
+        """Features for B requests in one batched call: a fused engine
+        without pre-agg takes the fast path (``online_batch_fast``),
+        every other one ``online_batch`` (the staged fold and/or the
+        pre-agg planes)."""
         if not rows:
             return []
         t0 = time.perf_counter()
@@ -167,7 +197,11 @@ class FeatureEngine:
         ts = [e[1] for e in enc]
         values = {c: [e[2][c] for e in enc]
                   for c in self._need[self.cs.script.base_table]}
-        feats = self.cs.online_batch_fast(self.store, keys, ts, values)
+        if not self.use_preagg and self.cs.ctx.fused_unit_fold:
+            feats = self.cs.online_batch_fast(self.store, keys, ts, values)
+        else:
+            feats = self.cs.online_batch(self.store, keys, ts, values,
+                                         preagg_states=self.pre_states)
         dt_ms = (time.perf_counter() - t0) * 1e3
         self.n_requests += len(rows)
         # the batch wall time IS each request's real service latency

@@ -113,7 +113,7 @@ def test_single_request_online_equals_batched_path():
 
 
 @pytest.mark.parametrize("option", [
-    {"use_preagg": True}, {"n_shards": 2}, {"mesh": object()},
+    {"n_shards": 2}, {"mesh": object()},
     {"replication": 1}, {"kill_shard_at": 3}])
 def test_unported_options_raise(option):
     tables = make_action_tables(**ACTION_TABLES)

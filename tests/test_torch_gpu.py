@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core import compile_script
 from repro_torch.core.lowering import windows as TW
+from repro_torch.core.types import Table
 from repro_torch.data.synthetic import make_action_tables
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.feature_hash import ops as fh_ops
@@ -185,6 +186,100 @@ def test_engine_on_card_matches_cpu_engine():
                                            atol=EW_ATOL)
             else:
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def _assert_rows(a_rows, b_rows, loose=("ew",)):
+    for a, b in zip(a_rows, b_rows):
+        assert set(a) == set(b)
+        for k in a:
+            if k in loose:
+                np.testing.assert_allclose(a[k], b[k], rtol=EW_RTOL,
+                                           atol=EW_ATOL, err_msg=k)
+            else:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.gpu
+def test_staged_fold_on_card_matches_fused():
+    """``fused_fold=False`` on the card (plain torch ops, no unit-fold
+    launch) against the fused kernel path: requests, single requests
+    and ``offline()``."""
+    require_cuda()
+    tables = make_action_tables(n_actions=3000, n_orders=1500, n_users=10,
+                                horizon_ms=600_000, seed=5,
+                                with_profile=False)
+    actions = tables["actions"]
+    fused, staged = (FeatureEngine(SMOKE_SQL, tables, capacity=5000,
+                                   fused_fold=f, device="cuda")
+                     for f in (True, False))
+    for eng in (fused, staged):
+        eng.bulk_load("orders", tables["orders"])
+        eng.ingest_many("actions", [actions.row(i) for i in range(2000)])
+    rows = [dict(actions.row(2000 + i)) for i in range(37)]
+    dispatch.reset_launch_counts()
+    got = staged.request_batch(rows)
+    assert dispatch.launch_counts().get("unit_fold", 0) == 0
+    _assert_rows(got, fused.request_batch(rows))
+    _assert_rows([staged.request(rows[0])], got[:1], loose=())
+    off_s, off_f = staged.offline(), fused.offline()
+    for k in off_f:
+        if k == "ew":
+            np.testing.assert_allclose(off_s[k], off_f[k], rtol=EW_RTOL,
+                                       atol=EW_ATOL)
+        else:
+            np.testing.assert_array_equal(off_s[k], off_f[k], err_msg=k)
+
+
+LONG_SQL = """
+SELECT sum(price) OVER wl AS s_l, count(price) OVER wl AS c_l,
+  min(price) OVER wl AS mn_l, max(price) OVER wl AS mx_l,
+  distinct_count(category) OVER wl AS dc_l,
+  drawdown(price) OVER wl AS dd_l, ew_avg(price, 0.5) OVER wl AS ew_l,
+  sum(price) OVER w AS s
+FROM actions
+WINDOW wl AS (UNION orders PARTITION BY userid ORDER BY ts
+              ROWS_RANGE BETWEEN 3000s PRECEDING AND CURRENT ROW),
+       w AS (UNION orders PARTITION BY userid ORDER BY ts
+             ROWS_RANGE BETWEEN 10s PRECEDING AND CURRENT ROW)
+OPTIONS (long_windows = "wl:100s")
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "staged"])
+def test_preagg_on_card_matches_cpu(fused):
+    """Pre-agg planes after bulk load and ingest, and long-window
+    requests, on the card against the CPU port: planes bitwise (drawdown
+    and EW within rtol 1e-5), features bitwise (drawdown, EW within
+    ``EW_RTOL``)."""
+    require_cuda()
+    tables = make_action_tables(n_actions=2000, n_orders=1000, n_users=6,
+                                horizon_ms=12_000_000, seed=6,
+                                with_profile=False)
+    actions = tables["actions"]
+    engines = [FeatureEngine(LONG_SQL, tables, capacity=4000,
+                             use_preagg=True, fused_fold=fused, device=d)
+               for d in ("cuda", "cpu")]
+    for eng in engines:
+        eng.bulk_load("orders", tables["orders"])
+        eng.bulk_load("actions", Table(
+            actions.schema, {c: v[:1500] for c, v in
+                             actions.columns.items()}, dicts=actions.dicts))
+        eng.ingest_many("actions", [actions.row(i)
+                                    for i in range(1500, 1900)])
+    gpu, cpu = (e.pre_states[0] for e in engines)
+    for lvl in ("fine", "coarse"):
+        for k, v in cpu[lvl].items():
+            a, b = gpu[lvl][k].cpu().numpy(), v.numpy()
+            if k.startswith(("dd:", "ew:")):
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=k)
+        np.testing.assert_array_equal(gpu[f"{lvl}_epoch"].cpu().numpy(),
+                                      cpu[f"{lvl}_epoch"].numpy())
+    rows = [dict(actions.row(1900 + i)) for i in range(33)]
+    _assert_rows(engines[0].request_batch(rows),
+                 engines[1].request_batch(rows), loose=("dd_l", "ew_l"))
 
 
 def _bwf_inputs(c, f, b, seed, dev):

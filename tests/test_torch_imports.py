@@ -25,10 +25,11 @@ def _imported_roots(path: pathlib.Path):
             yield node.lineno, node.module.split(".")[0]
 
 
-# modules of the offline and model-serving slices: each must exist and
-# import without JAX
+# modules of the offline, model-serving, staged-fold and pre-aggregation
+# slices: each must exist and import without JAX
 SLICE_MODULES = (
     "core.hll", "core.skew", "core.multiwindow", "core.consistency",
+    "core.window", "core.preagg",
     "core.lowering.windows", "core.lowering.joins", "core.lowering.drivers",
     "kernels.batch_windowfold", "kernels.batch_windowfold.ref",
     "kernels.batch_windowfold.kernel", "kernels.batch_windowfold.ops",

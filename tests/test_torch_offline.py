@@ -283,6 +283,3 @@ def test_unported_offline_schedules_raise():
     cs = torch_compile(SMOKE_SQL, tables=t)
     with pytest.raises(NotImplementedError, match="offline_sharded"):
         cs.offline_sharded(t, n_shards=2)
-    with pytest.raises(NotImplementedError,
-                       match="offline_reference_serial"):
-        multiwindow.run_reference_serial(cs, t, device="cpu")

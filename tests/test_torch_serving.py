@@ -110,17 +110,9 @@ def test_null_prices_served_like_the_reference(action_tables):
         assert any(np.isnan(f[k]) for f in want), k
 
 
-def test_staged_fold_is_refused_at_compile(micro_sql):
-    from repro_torch.core import compile_script
-
-    with pytest.raises(NotImplementedError, match="fused_unit_fold"):
-        compile_script(micro_sql, fused_unit_fold=False)
-
-
 @pytest.mark.parametrize("option", [
-    {"use_preagg": True}, {"n_shards": 2}, {"replication": 1},
-    {"checkpoint_dir": "ckpt"}, {"retention": "auto"}, {"ttl_ms": 1000},
-    {"fused_fold": False}])
+    {"n_shards": 2}, {"replication": 1},
+    {"checkpoint_dir": "ckpt"}, {"retention": "auto"}, {"ttl_ms": 1000}])
 def test_unported_options_raise(option, micro_sql):
     kw = dict(capacity=64, fused_fold=True, device="cpu")
     kw.update(option)
