@@ -35,7 +35,7 @@ Phases (each prints its own lines; any failure exits non-zero):
              ``scaled_dot_product_attention`` call;
 4. main paths, each with the launch counts set to 0 just before it and
              read just after, at deployment size (1.5 M rows; run in
-             the order a, b, e, f, c, d):
+             the order a, b, e, f, g, c, d):
    a. serving — ``FeatureEngine`` (capacity 1.6 M) bulk load + 4,096 live
              rows, ``request_batch`` at B = 1, 64, 256; the B = 64 batch
              must equal a CPU engine (plain versions) on a copy of the
@@ -63,6 +63,23 @@ Phases (each prints its own lines; any failure exits non-zero):
              first request equals ``offline()`` over its history; then
              ``verify_consistency(use_preagg=True)`` over every 300th
              row, the reference certifier's bitwise columns bitwise;
+   g. serving loop — a retention engine (``retention="auto"``,
+             ``compact_every=256``: orders keep 60 s, actions all) with
+             both tables bulk-loaded below one time cut and the rows
+             after it streamed in ts order: (a) a snapshot serves B = 64
+             byte-identically across an ``ingest_many`` that compacts
+             orders to its last 60 s, and after ``refresh()`` equals
+             a CPU engine on copies of the store and, within the prefix
+             bound on the sums, a card engine without retention; (b)
+             ``ServeLoop`` under ``SystemClock``: 2,000 open-loop Poisson
+             arrivals through a deadline and a count-only loop, then 100
+             waves of 64 requests + 64 streamed rows (TP50/99/999,
+             resident rows and binlog bounded, one flush's launches and
+             busy share); (c) a trace recorded on a CPU engine replays on
+             the card with equal bytes and final store; (d)
+             ``record_consistency_trace`` over a prefix (integer prices,
+             mid-trace eviction) holds ``verify_consistency(bitwise=
+             True)`` and replays bitwise;
    c. additive folds — ``store_windowfold`` on the serving store at
              B = 1, 64, 256 and ``bucket_build`` over the action rows;
    d. model serving — hymba-1.5b at full width and depth (random
@@ -172,6 +189,22 @@ GATE_STRIDE = 300                  # the pre-agg gate replays every 300th row
 # the thinned tables (no C-BUF, C-PREAGG-EDGE or C-KEYCARD there); the
 # other columns take the reference's tolerance
 GATE_BITWISE = ("c_l", "mn_l", "mx_l", "dc_l", "s", "c", "cat_h")
+
+# phase 4g: the serving loop over the serving deployment with retention.
+# Both tables are bulk-loaded below one time cut (8,448 action rows
+# before the end) and the rows after it stream in ts order.
+LOOP_STREAM = 2 * N_LIVE + max(BATCHES)   # action rows after the cut
+COMPACT_EVERY = 256
+RETAINED = {"actions": None, "orders": WINDOW_MS}   # wr is a ROWS frame
+SNAP_ROWS = 1024           # (a) streamed rows: at least one orders tick
+LOOP_BATCH, LOOP_WAIT_MS, LOOP_SLO_MS = 64, 5.0, 25.0
+LOOP_SPARSE = 2000         # (b) open-loop requests per batching policy
+LOOP_WAVES = 100           # (b) closed loop: waves of 64 requests + 64 rows
+TRACE_HISTORY_MS = 20 * 60_000   # (c) history the trace's engines load
+TRACE_CAPACITY = 65_536
+TRACE_ROWS = 1_600         # (c) streamed rows: two orders ticks or more
+GATE_LOOP_ROWS = 3_000     # (d) prefix events; past 60 s, so rows evict
+GATE_LOOP_COMPACT = 64
 
 
 def log(msg: str) -> None:
@@ -1057,14 +1090,20 @@ def compare_tolerance(name: str, got, want, exact) -> float:
     return err
 
 
-def key_history_abs(tables, col: str = "price") -> np.ndarray:
-    """Per base row, the sum of |col| over its key's rows in every
-    table: the magnitude the seed baseline's prefixes reach."""
+def key_abs_totals(tables, col: str = "price") -> np.ndarray:
+    """Per key, the sum of |col| over its rows in every table: the
+    magnitude a prefix over the key's history reaches."""
     keys = [t.columns["userid"] for t in tables.values()]
     tot = np.zeros(int(max(k.max() for k in keys)) + 1)
     for t, k in zip(tables.values(), keys):
         np.add.at(tot, k, np.abs(t.columns[col].astype(np.float64)))
-    return tot[tables["actions"].columns["userid"]]
+    return tot
+
+
+def key_history_abs(tables, col: str = "price") -> np.ndarray:
+    """Per base row, the sum of |col| over its key's rows in every
+    table: the magnitude the seed baseline's prefixes reach."""
+    return key_abs_totals(tables, col)[tables["actions"].columns["userid"]]
 
 
 def compare_seed(got, want, tables) -> float:
@@ -1346,6 +1385,442 @@ def long_windows(card):
             "gate_rows": n_thin, "gate_s": t_gate}, paths
 
 
+# ---------------------------------------------------------------- phase 4g
+
+
+def merged_stream(tables, lo_ts: int):
+    """Rows of both tables with ts >= ``lo_ts`` as (table, row) in the
+    offline order: ts, then orders before actions, then arrival."""
+    ev = []
+    for name, t in tables.items():
+        ts = t.columns["ts"]
+        start = int(np.searchsorted(ts, lo_ts, side="left"))
+        ev += [(int(ts[i]), name != "orders", i, name)
+               for i in range(start, len(t))]
+    ev.sort()
+    return [(name, tables[name].row(i)) for _, _, i, name in ev]
+
+
+def table_runs(stream, max_rows: int = 1 << 30):
+    """Consecutive rows of one table as ingest batches (table, rows)."""
+    out = []
+    for name, row in stream:
+        if not out or out[-1][0] != name or len(out[-1][1]) >= max_rows:
+            out.append((name, []))
+        out[-1][1].append(row)
+    return out
+
+
+def same_features(name: str, a, b) -> None:
+    """Byte-identical per-request features."""
+    if len(a) != len(b):
+        raise AssertionError(f"{name}: {len(a)} rows != {len(b)}")
+    for i, (x, y) in enumerate(zip(a, b)):
+        if set(x) != set(y):
+            raise AssertionError(f"{name}: features differ")
+        for k in x:
+            if np.asarray(x[k]).tobytes() != np.asarray(y[k]).tobytes():
+                raise AssertionError(f"{name}: {k}[{i}] {x[k]} != {y[k]}")
+
+
+def compare_retained(got, want, bar) -> float:
+    """A retention engine against one without: counts, distinct counts,
+    min, max, drawdown and the hash bitwise, ``ew`` within ``EW_RTOL``,
+    the sums within ``bar`` (eviction moves the prefix anchor)."""
+    err = 0.0
+    for i, (x, y) in enumerate(zip(got, want)):
+        for k in y:
+            a = np.asarray(x[k], np.float64)
+            b = np.asarray(y[k], np.float64)
+            d = float(np.max(np.abs(a - b)))
+            if k in SEED_ADDITIVE:
+                ok = d <= bar[i]
+            elif k == "ew":
+                ok = np.allclose(a, b, rtol=EW_RTOL, atol=1e-6)
+            else:
+                ok = np.array_equal(np.asarray(x[k]), np.asarray(y[k]))
+            if not ok:
+                raise AssertionError(f"retention vs none: {k}[{i}] {x[k]} "
+                                     f"!= {y[k]}")
+            err = max(err, d)
+    return err
+
+
+def open_loop(loop, arrivals, rows) -> None:
+    """Open-loop load: arrivals fire on schedule whether or not earlier
+    requests completed; the loop steps whenever a flush is due (the
+    arrival loop of ``benchmarks/bench_serve_loop.py``)."""
+    clock = loop.clock
+    t0 = clock.now()
+    i = 0
+    while i < len(arrivals) or loop.batcher.queue:
+        now = clock.now()
+        if i < len(arrivals) and now - t0 >= arrivals[i]:
+            loop.submit(rows[i % len(rows)], now=now)
+            i += 1
+            continue
+        if loop.batcher.ready(now):
+            loop.step(now=now)
+            continue
+        if i >= len(arrivals):
+            loop.run_until_idle()
+            break
+        time.sleep(50e-6)
+    loop.flush()
+
+
+def warm_loop(loop, rows) -> None:
+    """Plan every pad class the loop can hit on its snapshot, then drop
+    the samples."""
+    b = 1
+    while b <= loop.batch_size:
+        loop.engine.request_batch(rows[:b], snapshot=loop.snap)
+        b *= 2
+    loop.reset_stats()
+
+
+def loop_pcts(loop):
+    p = loop.latency_percentiles()
+    return {k: p[k] for k in ("TP50", "TP99", "TP999", "max_ms")}
+
+
+def int_priced(tables):
+    """Copies of ``tables`` with integer-valued float32 prices (every
+    sum exact, whatever rows a compaction removed)."""
+    from repro_torch.core.types import Table
+
+    return {name: Table(t.schema, {
+        c: (np.floor(v).astype(np.float32) if c == "price" else v.copy())
+        for c, v in t.columns.items()}, dicts=t.dicts)
+        for name, t in tables.items()}
+
+
+def serving_loop(tables, card):
+    """``ServeLoop`` over a retention engine at deployment size: (a)
+    snapshot isolation across a compaction, (b) latency under the loop,
+    (c) a CPU-recorded trace replayed on the card, (d) the consistency
+    gate through the loop."""
+    from repro_torch.core import verify_consistency
+    from repro_torch.kernels import dispatch
+    from repro_torch.serve import (ServeLoop, SystemClock, TraceRecorder,
+                                   VirtualClock, load_trace,
+                                   record_consistency_trace, replay,
+                                   save_trace)
+    from repro_torch.serve.engine import FeatureEngine
+    from repro_torch.serve.trace import (outputs_in_base_order,
+                                         store_state_arrays)
+
+    actions, orders = tables["actions"], tables["orders"]
+    ts_a, ts_o = actions.columns["ts"], orders.columns["ts"]
+    cut_ts = int(ts_a[len(actions) - LOOP_STREAM])
+    cut_a = int(np.searchsorted(ts_a, cut_ts, side="left"))
+    cut_o = int(np.searchsorted(ts_o, cut_ts, side="left"))
+    stream = merged_stream(tables, cut_ts)
+    kw = dict(fused_fold=True, retention="auto",
+              compact_every=COMPACT_EVERY)
+    eng = FeatureEngine(SMOKE_SQL, tables, capacity=CAPACITY, device="cuda",
+                        **kw)
+    if eng.retention_ms != RETAINED:
+        raise AssertionError(f"retention {eng.retention_ms} != {RETAINED}")
+    _, t_load = timed(lambda: (
+        eng.bulk_load("actions", slice_table(actions, 0, cut_a)),
+        eng.bulk_load("orders", slice_table(orders, 0, cut_o))))
+    plain = FeatureEngine(SMOKE_SQL, tables, capacity=CAPACITY,
+                          fused_fold=True, device="cuda")
+    plain.load_store_from(store_arrays(eng))
+    compactions = []
+    store_evict = eng.store.evict
+
+    def timed_evict(table, horizon):
+        before = eng.store.n_rows(table)
+        _, dt = timed(lambda: store_evict(table, horizon))
+        compactions.append({"table": table, "before": before,
+                            "after": eng.store.n_rows(table), "s": dt})
+
+    eng.store.evict = timed_evict
+    log(f"4g cut at ts {cut_ts}: bulk_load {cut_a} actions + {cut_o} "
+        f"orders in {t_load:.1f} s; {len(stream)} rows stream after it; "
+        f"retention {eng.retention_ms}, compact_every {COMPACT_EVERY}")
+
+    # (a) snapshot isolation across a compaction
+    ahead = [dict(r) for name, r in stream[SNAP_ROWS:SNAP_ROWS + 512]
+             if name == "actions"]
+    probe = ahead[:LOOP_BATCH]
+    snap = eng.snapshot()
+
+    def isolation():
+        first = eng.request_batch(probe, snapshot=snap)
+        for name, rows in table_runs(stream[:SNAP_ROWS]):
+            eng.ingest_many(name, rows)
+            plain.ingest_many(name, rows)
+        again = eng.request_batch(probe, snapshot=snap)
+        snap.refresh()
+        return first, again, eng.request_batch(probe, snapshot=snap)
+
+    (first, again, fresh), counts = run_path(
+        "serving loop: snapshot", isolation, ("unit_fold", "feature_hash"))
+    paths = {"loop_snapshot": counts}
+    same_features("old snapshot across the compaction", first, again)
+    if not compactions or compactions[0]["table"] != "orders":
+        raise AssertionError(f"no orders compaction in (a): {compactions}")
+    cpu = FeatureEngine(SMOKE_SQL, tables, capacity=CAPACITY,
+                        fused_fold=True, device="cpu")
+    cpu.load_store_from(store_arrays(eng))
+    err_cpu = compare_features(fresh, cpu.request_batch(probe))
+    del cpu
+    key_abs = key_abs_totals(tables)[[int(r["userid"]) for r in probe]]
+    bar = SEED_TOL["atol"] + SEED_PREFIX_ULPS * 2.0**-24 * key_abs
+    err_plain = compare_retained(fresh, plain.request_batch(probe), bar)
+    del plain
+    c0 = compactions[0]
+    log(f"(a) snapshot served B={LOOP_BATCH} byte-identical before and "
+        f"after ingest_many of {SNAP_ROWS} streamed rows; first orders "
+        f"compaction {c0['before']} -> {c0['after']} resident rows in "
+        f"{c0['s'] * 1e3:.2f} ms ({len(compactions)} compactions, "
+        f"{sum(x['table'] == 'orders' for x in compactions)} of orders); "
+        f"refreshed: equal to a CPU engine on copies of the store "
+        f"(bitwise, ew within rtol {EW_RTOL}; max abs diff {err_cpu}); "
+        f"against a card engine without retention: c, dc, mn, mx, dd, "
+        f"cat_h bitwise, s and a within {SEED_PREFIX_ULPS} ulps of the "
+        f"key history (max abs diff {err_plain})  [{card}]")
+
+    # (b) latency under the loop, SystemClock
+    b1 = []
+    for _ in range(60):
+        t0 = time.perf_counter()
+        eng.request_batch(probe[:1], snapshot=snap)
+        b1.append((time.perf_counter() - t0) * 1e3)
+    p50_b1 = float(np.percentile(b1[10:], 50))
+    rng = np.random.default_rng(0)
+    arrivals = np.cumsum(rng.exponential(2 * p50_b1 * 1e-3,
+                                         size=LOOP_SPARSE))
+
+    def latency():
+        out = {"b1_p50_ms": p50_b1, "gap_ms": 2 * p50_b1}
+        for mode, wait in (("deadline", LOOP_WAIT_MS), ("count_only", None)):
+            loop = ServeLoop(eng, clock=SystemClock(), batch_size=LOOP_BATCH,
+                             max_wait_ms=wait, slo_ms=LOOP_SLO_MS)
+            warm_loop(loop, ahead)
+            open_loop(loop, arrivals, ahead)
+            out[mode] = dict(loop_pcts(loop), **{
+                k: loop.stats[k] for k in ("served", "deadline_flushes",
+                                           "size_flushes", "forced_flushes",
+                                           "deadline_misses")})
+        loop = ServeLoop(eng, clock=SystemClock(), batch_size=LOOP_BATCH,
+                         max_wait_ms=LOOP_WAIT_MS, slo_ms=LOOP_SLO_MS)
+        warm_loop(loop, ahead)
+        pos = SNAP_ROWS
+        for _ in range(LOOP_WAVES):
+            wave = [dict(r) for name, r in stream[pos:pos + 256]
+                    if name == "actions"][:LOOP_BATCH]
+            for r in wave:
+                loop.submit(r)
+            loop.step()
+            for name, rows in table_runs(stream[pos:pos + LOOP_BATCH]):
+                loop.ingest(name, rows)
+            loop.drain_ingest()
+            pos += LOOP_BATCH
+        loop.run_until_idle()
+        out["mixed"] = dict(loop_pcts(loop), **{
+            k: loop.stats[k] for k in ("served", "snapshot_swaps",
+                                       "ingest_applies", "deadline_misses",
+                                       "backpressure_applies")})
+        out["mixed"]["ingest"] = eng.ingest_stats()
+        out["resident_orders"] = eng.store.n_rows("orders")
+        out["resident_actions"] = eng.store.n_rows("actions")
+        out["binlog"] = len(eng.store.binlog)
+        before = dispatch.launch_counts()
+        for r in probe:
+            loop.submit(r)
+        loop.step()
+        after = dispatch.launch_counts()
+        out["flush_launches"] = {k: after[k] - before.get(k, 0)
+                                 for k in after}
+        out["profile_flush"] = profile_calls(
+            lambda: ([loop.submit(r) for r in probe], loop.step()), 5)
+        # the loop's own cost: a flush through it (64 submits + step)
+        # against request_batch on the same snapshot, in turns
+        via_loop, direct = [], []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            for r in probe:
+                loop.submit(r)
+            loop.step()
+            via_loop.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            eng.request_batch(probe, snapshot=loop.snap)
+            direct.append((time.perf_counter() - t0) * 1e3)
+        out["flush_loop_ms"] = float(np.median(via_loop))
+        out["flush_direct_ms"] = float(np.median(direct))
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            loop.snap.refresh()
+        out["refresh_us"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    lat, counts = run_path("serving loop: latency", latency,
+                           ("unit_fold", "feature_hash"))
+    paths["loop_latency"] = counts
+    # resident orders: at most a window's worth after a tick, plus the
+    # rows of one tick interval and one ingest chunk
+    per_window = int(np.max(np.searchsorted(ts_o, ts_o + WINDOW_MS,
+                                            side="right")
+                            - np.arange(len(ts_o))))
+    if lat["resident_orders"] > per_window + COMPACT_EVERY + LOOP_BATCH:
+        raise AssertionError(f"orders not bounded: {lat['resident_orders']}"
+                             f" > {per_window} + {COMPACT_EVERY} + "
+                             f"{LOOP_BATCH}")
+    if lat["binlog"] > 2 * COMPACT_EVERY + LOOP_BATCH:
+        raise AssertionError(f"binlog not bounded: {lat['binlog']}")
+    fl = lat["flush_launches"]
+    if fl.get("unit_fold", 0) != 2 or fl.get("feature_hash", 0) != 1:
+        raise AssertionError(f"one flush launched {fl}")
+    for mode in ("deadline", "count_only", "mixed"):
+        r = lat[mode]
+        rest = {k: v for k, v in r.items()
+                if k not in ("TP50", "TP99", "TP999", "max_ms")}
+        log(f"(b) {mode}: TP50 {r['TP50']:.3f} / TP99 {r['TP99']:.3f} / "
+            f"TP999 {r['TP999']:.3f} / max {r['max_ms']:.3f} ms; {rest}  "
+            f"[{card}]")
+    log(f"(b) sparse arrivals: Poisson, mean gap {lat['gap_ms']:.3f} ms (2x "
+        f"the B=1 p50 {lat['b1_p50_ms']:.3f} ms); after the mixed loop: "
+        f"{lat['resident_orders']} orders and {lat['resident_actions']} "
+        f"actions resident, binlog {lat['binlog']} entries; "
+        f"{len(compactions)} compactions in all, orders ones "
+        f"{[round(x['s'] * 1e3, 2) for x in compactions if x['table'] == 'orders']} ms")
+    log(f"(b) one flush of B={LOOP_BATCH}: launches {fl}; median of 50 "
+        f"through the loop {lat['flush_loop_ms']:.3f} ms, request_batch "
+        f"on the same snapshot {lat['flush_direct_ms']:.3f} ms; snapshot "
+        f"refresh {lat['refresh_us']:.2f} us  [{card}]")
+    log_profile(f"loop flush B={LOOP_BATCH}", lat["profile_flush"], card)
+
+    # (c) a CPU-recorded trace replayed on the card
+    lo_ts = cut_ts - TRACE_HISTORY_MS
+    hist = {name: slice_table(t, int(np.searchsorted(
+        t.columns["ts"], lo_ts, side="left")), cut)
+        for (name, t), cut in zip((("actions", actions),
+                                   ("orders", orders)), (cut_a, cut_o))}
+
+    def trace_engine(device):
+        e = FeatureEngine(SMOKE_SQL, tables, capacity=TRACE_CAPACITY,
+                          device=device, **kw)
+        for name, t in hist.items():
+            e.bulk_load(name, t)
+        return e
+
+    loop_kw = dict(batch_size=LOOP_BATCH, max_wait_ms=LOOP_WAIT_MS,
+                   slo_ms=LOOP_SLO_MS,
+                   service_model=lambda n: 1.0 + 0.02 * n)
+    rec, clock = TraceRecorder(), VirtualClock()
+    t0 = time.perf_counter()
+    rec_loop = ServeLoop(trace_engine("cpu"), clock=clock, recorder=rec,
+                         **loop_kw)
+    chunks = table_runs(stream[:TRACE_ROWS], max_rows=16)
+    t = 0.0
+    for k, (name, rows) in enumerate(chunks):
+        t += 2e-3
+        if k % 2 == 0:
+            rec_loop.submit(ahead[(k // 2) % len(ahead)], now=t)
+        rec_loop.ingest(name, rows, now=t)
+        rec_loop.step(now=t)
+        if k % 50 == 49:
+            rec_loop.flush(now=t)
+    rec_loop.flush(now=t + 1.0)
+    rec_loop.drain_ingest(now=t + 1.0)
+    t_rec = time.perf_counter() - t0
+    n_orders = sum(name == "orders" for name, _ in stream[:TRACE_ROWS])
+    if n_orders < 2 * COMPACT_EVERY or rec_loop.engine.store._binlog_base \
+            == 0:
+        raise AssertionError(f"the trace crossed no two orders ticks "
+                             f"({n_orders} orders rows)")
+    path = ROOT / "build" / "chip_smoke" / "loop_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save_trace(rec.events, str(path))
+    t0 = time.perf_counter()
+    card_loop, counts = run_path(
+        "serving loop: trace replay",
+        lambda: replay(load_trace(str(path)),
+                       lambda: trace_engine("cuda"), **loop_kw),
+        ("unit_fold", "feature_hash"))
+    t_replay = time.perf_counter() - t0
+    paths["loop_replay"] = counts
+    if card_loop.stats != rec_loop.stats:
+        raise AssertionError(f"replay stats {card_loop.stats} != "
+                             f"{rec_loop.stats}")
+    ids = sorted(rec_loop.results)
+    if sorted(card_loop.results) != ids:
+        raise AssertionError("replay served other request ids")
+    err_trace = compare_features([card_loop.results[i] for i in ids],
+                                 [rec_loop.results[i] for i in ids])
+    for (pa, a), (pb, b) in zip(store_state_arrays(card_loop.engine),
+                                store_state_arrays(rec_loop.engine)):
+        if pa != pb or a.tobytes() != b.tobytes():
+            raise AssertionError(f"replayed store differs at {pa}")
+    log(f"(c) trace of {len(rec.events)} events ({len(ids)} requests, "
+        f"{TRACE_ROWS} streamed rows, {n_orders} orders rows) recorded on "
+        f"the CPU in {t_rec:.1f} s, replayed on the card in "
+        f"{t_replay:.1f} s: stats {card_loop.stats}; features equal "
+        f"(bitwise, ew within rtol {EW_RTOL}; max abs diff {err_trace}); "
+        f"final store bitwise")
+    del rec_loop, card_loop
+
+    # (d) the consistency gate through the loop
+    gate = int_priced(prefix_tables(tables, GATE_LOOP_ROWS))
+    n_gate = sum(len(t) for t in gate.values())
+
+    def gate_engine():
+        return FeatureEngine(SMOKE_SQL, gate, capacity=2 * n_gate,
+                             fused_fold=True, retention="auto",
+                             compact_every=GATE_LOOP_COMPACT, device="cuda")
+
+    t0 = time.perf_counter()
+    (g_loop, events, rids), counts = run_path(
+        "serving loop: gate",
+        lambda: record_consistency_trace(gate_engine(), gate),
+        ("unit_fold", "feature_hash"))
+    t_gate = time.perf_counter() - t0
+    paths["loop_gate"] = counts
+    g_cs = g_loop.engine.cs
+    out = outputs_in_base_order(g_loop, rids, gate, g_cs)
+    rep = verify_consistency(g_cs, gate, bitwise=True, online_outputs=out,
+                             device="cuda")
+    if not (rep.passed and rep.bitwise_equal):
+        raise AssertionError(f"loop-driven gate: {rep}")
+    evicted = n_gate - sum(g_loop.engine.store.n_rows(n) for n in gate)
+    if evicted <= 0:
+        raise AssertionError("the loop-driven gate evicted no row")
+    gpath = path.with_name("gate_trace.json")
+    save_trace(events, str(gpath))
+    t0 = time.perf_counter()
+    again = replay(load_trace(str(gpath)), gate_engine, batch_size=1,
+                   max_wait_ms=0.0, slo_ms=1e6)
+    t_again = time.perf_counter() - t0
+    out2 = outputs_in_base_order(again, rids, gate, g_cs)
+    for k in out:
+        if out2[k].tobytes() != out[k].tobytes():
+            raise AssertionError(f"gate replay: {k} differs")
+    for (pa, a), (_, b) in zip(store_state_arrays(again.engine),
+                               store_state_arrays(g_loop.engine)):
+        if a.tobytes() != b.tobytes():
+            raise AssertionError(f"gate replay store differs at {pa}")
+    log(f"(d) record_consistency_trace on the card over {n_gate} rows "
+        f"({len(rids)} requests; integer prices; {evicted} rows evicted "
+        f"mid-trace, compact_every {GATE_LOOP_COMPACT}): {rep} in "
+        f"{t_gate:.1f} s; replayed again in {t_again:.1f} s, bitwise "
+        f"equal outputs and store  [{card}]")
+    c_orders = [x for x in compactions if x["table"] == "orders"]
+    return {"cut_ts": cut_ts, "bulk_load_s": t_load,
+            "compactions": compactions,
+            "first_compaction": c_orders[0], "err_cpu": err_cpu,
+            "err_no_retention": err_plain, "latency": lat,
+            "trace": {"events": len(rec.events), "requests": len(ids),
+                      "record_s": t_rec, "replay_s": t_replay,
+                      "max_abs_err": err_trace},
+            "gate": {"rows": n_gate, "requests": len(rids),
+                     "evicted": evicted, "s": t_gate,
+                     "replay_s": t_again}}, paths
+
+
 def widest_units(cs, tables):
     """(widest rp, [(rp, variant)] per unit block) of an offline plan."""
     from repro_torch.core.lowering import drivers
@@ -1558,6 +2033,13 @@ def main(argv) -> int:
     paths.update(counts)
     torch.cuda.empty_cache()
 
+    phase("4g serving loop at deployment size")
+    t0 = time.perf_counter()
+    loop_res, counts = serving_loop(tables, card)
+    paths.update(counts)
+    log(f"phase 4g took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
     phase("4c additive folds (store_windowfold, bucket_build)")
     state = eng.store.tables["actions"]
     vals = store_vals(state)
@@ -1696,6 +2178,7 @@ def main(argv) -> int:
                         "consistency_s": t_cons},
             "launches_per_path": paths, "model_serving": model,
             "staged": staged, "long_windows": longw,
+            "serving_loop": loop_res,
             "decode_partials_shapes": res_fd, "segagg_shapes": seg_shapes,
             "load_s": t_load, "ingest_s": t_ingest}, indent=1))
     print(json.dumps({"kernels": kernels}))

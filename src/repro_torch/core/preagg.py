@@ -41,6 +41,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..kernels.dispatch import resolve_device
 from ..kernels.unit_fold import ref as _uf
 from .functions import Leaf
 from .window import WindowSpec, sorted_perm, tree_fold
@@ -143,7 +144,10 @@ class PreAgg:
                 "advice": advice}
 
     # ------------------------------------------------------------------ state
-    def init_state(self, device="cpu") -> Dict[str, Any]:
+    def init_state(self, device="cuda") -> Dict[str, Any]:
+        """Identity bucket planes on ``device``: the card unless the caller
+        asks for the CPU; a CUDA device without a card raises."""
+        device = resolve_device(device)
         fine, coarse = {}, {}
         for k, leaf in self.leaves.items():
             ident = leaf.identity().to(device)

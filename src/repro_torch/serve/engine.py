@@ -20,11 +20,26 @@ tables, on the engine's device, through the same unit fold.
 ``flush()`` drains the queue through the batched path.  ``latencies_ms``
 holds real request completion samples only: every request of a batch
 completed when its batch call returned (the call ends by copying the
-features to the host, which waits for the card).
+features to the host, which waits for the card).  Write-path timing
+lives apart, in ``ingest_ms`` / ``ingest_stats()``.
+
+Retention lifecycle: ``ttl_ms`` evicts below (newest ingested ts -
+``ttl_ms``) on every ingest; ``retention="auto"`` derives each table's
+horizon from the widest ROWS_RANGE window span sourcing it (an int is a
+floor on that span), and every ``compact_every`` ingested rows of a
+table evicts + compacts it below (its high-watermark ts - horizon) and
+truncates the binlog below the consumed offset, so resident rows and
+the binlog stay bounded by the window span, not by total ingest.
+
+Snapshot double buffer: ``snapshot()`` cuts an ``EngineSnapshot`` (the
+store's tables and the pre-agg states, O(#tables), no tensor copies:
+every mutation replaces tensors) and ``request_batch(...,
+snapshot=snap)`` serves from it while ``ingest_many`` and compaction
+mutate the live store; ``serve.loop.ServeLoop`` swaps it between
+flushes.
 
 Options that are not ported yet raise ``NotImplementedError`` naming the
-option: sharding, replication, checkpoints and retention / TTL
-eviction.
+option: sharding, replication and checkpoints.
 
 ``ServingEngine`` wraps a model's prefill/decode for batched requests —
 the "online ML" consumer of the features (dense and hybrid families): the
@@ -49,12 +64,38 @@ from ..storage.memest import MemoryGuard
 from ..storage.timestore import OnlineStore
 from .batcher import RequestBatcher
 
-__all__ = ["FeatureEngine", "ServingEngine"]
+__all__ = ["FeatureEngine", "EngineSnapshot", "ServingEngine"]
 
 
 def _not_ported(name: str):
     raise NotImplementedError(f"FeatureEngine option {name!r} is not "
                               f"ported to repro_torch yet")
+
+
+class EngineSnapshot:
+    """Point-in-time view of what the request path reads: the store
+    (``StoreSnapshot``) and the pre-aggregation states.  The states'
+    tensors are never written in place, but the engine rebinds planes in
+    its ``pre_states`` dict, so the snapshot keeps a shallow copy of the
+    dict.  ``refresh()`` re-cuts both from the live engine; readers see
+    the old view or the new one, never a mix."""
+
+    def __init__(self, engine: "FeatureEngine"):
+        self._engine = engine
+        self.store = engine.store.snapshot()
+        self.pre_states = _copy_states(engine.pre_states)
+        self.version = 0
+
+    def refresh(self) -> int:
+        """Re-cut from the live engine; returns the new version."""
+        self.store.refresh()
+        self.pre_states = _copy_states(self._engine.pre_states)
+        self.version += 1
+        return self.version
+
+
+def _copy_states(pre_states):
+    return dict(pre_states) if pre_states is not None else None
 
 
 class FeatureEngine:
@@ -67,13 +108,12 @@ class FeatureEngine:
                  batch_size: int = 64, max_wait_ms: float = 5.0,
                  latency_window: int = 16384,
                  mesh=None, n_shards: Optional[int] = None,
-                 retention=None, replication: int = 0,
+                 retention=None, compact_every: int = 256,
+                 replication: int = 0,
                  checkpoint_dir: Optional[str] = None,
                  fused_fold: bool = False, device="cuda"):
-        for name, on in (("ttl_ms", ttl_ms),
-                         ("mesh", mesh is not None),
+        for name, on in (("mesh", mesh is not None),
                          ("n_shards", (n_shards or 0) > 1),
-                         ("retention", retention is not None),
                          ("replication", replication),
                          ("checkpoint_dir", checkpoint_dir)):
             if on:
@@ -85,6 +125,7 @@ class FeatureEngine:
             parse(script_sql, time_unit=time_unit), tables=tables,
             fused_unit_fold=fused_fold)
         self.use_preagg = use_preagg
+        self.ttl_ms = ttl_ms
         self.store = OnlineStore(capacity=capacity, device=self.device)
         self.guard = MemoryGuard(max_memory_bytes)
         part_cols = sorted({w.node.spec.partition_by
@@ -108,12 +149,79 @@ class FeatureEngine:
         self.dicts = {name: t.dicts for name, t in tables.items()}
         self.tables = tables
         self.batcher = RequestBatcher(batch_size, max_wait_ms=max_wait_ms)
+        self.compact_every = max(1, int(compact_every))
+        self.retention_ms = self._derive_retention(retention)
+        self._pending_rows: Dict[str, int] = {t: 0 for t in need}
+        self._hwm_ts: Dict[str, int] = {t: -(2**31) for t in need}
+        self._consumed_offset = 0
         self.n_requests = 0
         self.latencies_ms: Deque[float] = collections.deque(
             maxlen=latency_window)
         self.ingest_ms: Deque[float] = collections.deque(
             maxlen=latency_window)
         self.rows_ingested = 0
+
+    # ---------------------------------------------------------- retention
+    def _derive_retention(self, retention) -> Dict[str, Optional[int]]:
+        """Per-table retention horizon (ms): the widest ROWS_RANGE span
+        among the windows sourcing the table (rows older than the
+        high-watermark minus it can enter no window again).  Tables read
+        by a ROWS frame or a LAST JOIN get ``None`` (no time horizon); a
+        numeric ``retention`` only ever widens a span."""
+        if retention is None:
+            return {}
+        fixed = None if retention == "auto" else int(retention)
+        join_tables = {js.right_table for js in self.cs.script.last_joins}
+        spans: Dict[str, Optional[int]] = {}
+        for t in self._need:
+            if t in join_tables:
+                spans[t] = None
+                continue
+            span: Optional[int] = None
+            for w in self.cs.windows:
+                if t not in w.sources:
+                    continue
+                spec = w.node.spec
+                if spec.frame_rows:
+                    span = None
+                    break
+                span = max(span or 0, min(spec.preceding, 2**30))
+            if span is not None and fixed is not None:
+                span = max(span, fixed)
+            spans[t] = span
+        return spans
+
+    def _evict_release(self, table: str, horizon_ts: int):
+        """Evict + compact below ``horizon_ts`` and credit the memory
+        guard for the dropped rows."""
+        before = self.store.n_rows(table)
+        self.store.evict(table, horizon_ts)
+        evicted = before - self.store.n_rows(table)
+        if evicted > 0:
+            self.guard.release(evicted * (64 + 8 * len(self._need[table])))
+
+    def _after_ingest(self, table: str, n_rows: int, max_ts: int):
+        """Scheduled retention tick on the ingest path: pre-aggregation
+        folds at ingest, so the written binlog is consumed; every
+        ``compact_every`` rows of a table evict + compact it and truncate
+        the binlog below the consumed offset."""
+        self._hwm_ts[table] = max(self._hwm_ts[table], max_ts)
+        self._consumed_offset = self.store._binlog_offset
+        if not self.retention_ms:
+            return
+        self._pending_rows[table] += n_rows
+        if self._pending_rows[table] < self.compact_every:
+            return
+        self._pending_rows[table] = 0
+        horizon = self.retention_ms[table]
+        if horizon is not None:
+            self._evict_release(table, self._hwm_ts[table] - horizon)
+        self.store.truncate_binlog(self._durable_offset())
+
+    def _durable_offset(self) -> int:
+        """Binlog truncation low-watermark: the consumed offset (there are
+        no replicas or recovery snapshots to hold it back)."""
+        return self._consumed_offset
 
     # ------------------------------------------------------------- ingest
     def ingest(self, table: str, row: Dict[str, Any]):
@@ -144,6 +252,10 @@ class FeatureEngine:
         if self.use_preagg:
             self.pre_states = self.cs.preagg_update_many(
                 self.pre_states, table, keys, ts, cols)
+        max_ts = int(ts.max())
+        if self.ttl_ms:
+            self._evict_release(table, max_ts - self.ttl_ms)
+        self._after_ingest(table, len(rows), max_ts)
         self.ingest_ms.append((time.perf_counter() - t0) * 1e3)
         self.rows_ingested += len(rows)
 
@@ -162,6 +274,9 @@ class FeatureEngine:
             self.pre_states = self.cs.preagg_update_many(
                 self.pre_states, table, np.asarray(keys, np.int32),
                 np.asarray(ts, np.int32), cols)
+        if len(ts):
+            # high-watermark and consumed offset, no pending-row tick
+            self._after_ingest(table, 0, int(np.max(ts)))
 
     def load_store_from(self, numpy_states: Dict[str, Dict]) -> None:
         """Take every table's store state as numpy arrays (``keys``,
@@ -183,12 +298,14 @@ class FeatureEngine:
         self.latencies_ms.append((time.perf_counter() - t0) * 1e3)
         return feats
 
-    def request_batch(self, rows: Sequence[Dict[str, Any]]
+    def request_batch(self, rows: Sequence[Dict[str, Any]],
+                      snapshot: Optional[EngineSnapshot] = None
                       ) -> List[Dict[str, np.ndarray]]:
         """Features for B requests in one batched call: a fused engine
         without pre-agg takes the fast path (``online_batch_fast``),
         every other one ``online_batch`` (the staged fold and/or the
-        pre-agg planes)."""
+        pre-agg planes).  With ``snapshot=`` the batch reads the frozen
+        ``EngineSnapshot`` instead of the live store and states."""
         if not rows:
             return []
         t0 = time.perf_counter()
@@ -197,17 +314,24 @@ class FeatureEngine:
         ts = [e[1] for e in enc]
         values = {c: [e[2][c] for e in enc]
                   for c in self._need[self.cs.script.base_table]}
+        store = self.store if snapshot is None else snapshot.store
+        pre = self.pre_states if snapshot is None else snapshot.pre_states
         if not self.use_preagg and self.cs.ctx.fused_unit_fold:
-            feats = self.cs.online_batch_fast(self.store, keys, ts, values)
+            feats = self.cs.online_batch_fast(store, keys, ts, values)
         else:
-            feats = self.cs.online_batch(self.store, keys, ts, values,
-                                         preagg_states=self.pre_states)
+            feats = self.cs.online_batch(store, keys, ts, values,
+                                         preagg_states=pre)
         dt_ms = (time.perf_counter() - t0) * 1e3
         self.n_requests += len(rows)
         # the batch wall time IS each request's real service latency
         self.latencies_ms.extend([dt_ms] * len(rows))
         return [{k: v[i] for k, v in feats.items()}
                 for i in range(len(rows))]
+
+    def snapshot(self) -> EngineSnapshot:
+        """Cut a frozen view of (store, pre-agg states) for the
+        double-buffered serving loop (O(#tables); no tensor copies)."""
+        return EngineSnapshot(self)
 
     def submit_request(self, row: Dict[str, Any]) -> int:
         """Enqueue a request for batched execution; returns its id."""
@@ -260,6 +384,19 @@ class FeatureEngine:
         arr = np.asarray(self.latencies_ms)
         return {f"TP{p}": float(np.percentile(arr, p))
                 for p in (50, 90, 95, 99)}
+
+    def ingest_stats(self) -> Dict[str, float]:
+        """Write-path timing, apart from request latencies: wall times of
+        the ``ingest`` / ``ingest_many`` calls and the rows ingested ({}
+        when none)."""
+        if not self.ingest_ms:
+            return {}
+        arr = np.asarray(self.ingest_ms)
+        return {"rows": float(self.rows_ingested),
+                "calls": float(arr.size),
+                "TP50": float(np.percentile(arr, 50)),
+                "TP99": float(np.percentile(arr, 99)),
+                "max_ms": float(arr.max())}
 
     def reset_stats(self):
         """Drop warm-up samples before measuring percentiles."""

@@ -16,7 +16,9 @@ contiguous scan) in dense device tensors:
 timestamps and positions stay int32; they become int64 only where a
 torch sort, search or gather needs it.  Every mutation replaces a
 table's state dict with new tensors (nothing is written in place), so a
-shallow copy of ``tables`` is a consistent snapshot.
+shallow copy of ``tables`` is a consistent snapshot.  ``evict_before``
+is the batch TTL deletion (§7.2): one stable compaction that keeps the
+live rows with ``ts >= horizon``, in order.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ INT_MAX = np.int32(2**31 - 1)
 INT_MIN = -(2**31)
 
 __all__ = ["StoreState", "OnlineStore", "StoreSnapshot", "make_state",
-           "insert_many", "range_bounds", "gather_window",
+           "insert_many", "evict_before", "range_bounds", "gather_window",
            "gather_key_unit", "composite", "next_pow2"]
 
 StoreState = Dict
@@ -94,6 +96,34 @@ def insert_many(state: StoreState, keys: torch.Tensor, ts: torch.Tensor,
     return {
         "keys": all_keys[perm], "ts": all_ts[perm], "cols": new_cols,
         "count": state["count"] + int(n_new), "comp": all_comp[perm],
+    }
+
+
+def evict_before(state: StoreState, horizon_ts: int) -> StoreState:
+    """Batch TTL eviction (§7.2): a new state without the rows whose ts
+    is below ``horizon_ts``.  One stable compaction: the kept live rows
+    are gathered in order into fresh padded tensors (padding ``INT_MAX``
+    keys and ts, zero values), ``comp`` is rebuilt from them, and the
+    tensors of ``state`` are left as they were (a snapshot may hold
+    them)."""
+    horizon = int(np.int32(horizon_ts))
+    keys, ts = state["keys"], state["ts"]
+    cap = keys.shape[0]
+    live = torch.arange(cap, device=keys.device) < state["count"]
+    kept = torch.nonzero(live & (ts >= horizon)).flatten()
+    n = kept.shape[0]
+
+    def compact(arr, fill):
+        pad = torch.full((cap - n,), fill, dtype=arr.dtype, device=arr.device)
+        return torch.cat([arr[kept], pad])
+
+    new_keys = compact(keys, int(INT_MAX))
+    new_ts = compact(ts, int(INT_MAX))
+    return {
+        "keys": new_keys, "ts": new_ts,
+        "cols": {k: compact(v, 0) for k, v in state["cols"].items()},
+        "count": torch.tensor(n, dtype=torch.int32, device=keys.device),
+        "comp": composite(new_keys, new_ts),
     }
 
 
@@ -291,6 +321,10 @@ class OnlineStore(_BinlogMixin):
              {c: float(cols[c][i]) for c in cols}) for i in range(n))
         self._binlog_offset += n
         return off
+
+    def evict(self, table: str, horizon_ts: int) -> None:
+        """Batch TTL eviction + slot compaction (one pass, §7.2)."""
+        self.tables[table] = evict_before(self.tables[table], horizon_ts)
 
     def n_rows(self, table: str) -> int:
         return int(self.tables[table]["count"])

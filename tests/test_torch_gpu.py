@@ -23,6 +23,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.feature_hash import ops as fh_ops
 from repro_torch.kernels.feature_hash.ref import feature_hash_ref
 from repro_torch.kernels.unit_fold import ops as uf_ops
+from repro_torch.serve import ServeLoop, VirtualClock
 from repro_torch.serve.engine import FeatureEngine
 
 from torch_port_cases import (EW_ATOL, EW_RTOL, SMOKE_SQL, SQLS,
@@ -280,6 +281,105 @@ def test_preagg_on_card_matches_cpu(fused):
     rows = [dict(actions.row(1900 + i)) for i in range(33)]
     _assert_rows(engines[0].request_batch(rows),
                  engines[1].request_batch(rows), loose=("dd_l", "ew_l"))
+
+
+def _serving_tables(seed):
+    tables = make_action_tables(n_actions=1200, n_orders=800, n_users=6,
+                                horizon_ms=1_200_000, seed=seed,
+                                with_profile=False)
+    for t in tables.values():          # integer prices: exact sums
+        t.columns["price"] = np.floor(t.columns["price"]).astype(np.float32)
+    return tables
+
+
+def _merged_rows(tables, lo, hi):
+    """Rows ``lo:hi`` of both tables merged in ts order, as ingest
+    batches of one table each."""
+    ev = sorted((int(t.columns["ts"][i]), name, i)
+                for name, t in tables.items() for i in range(len(t)))[lo:hi]
+    out = []
+    for _, name, i in ev:
+        if not out or out[-1][0] != name:
+            out.append((name, []))
+        out[-1][1].append(tables[name].row(i))
+    return out
+
+
+@pytest.mark.gpu
+def test_snapshot_isolated_from_compaction_on_card():
+    """A snapshot on the card serves the same bytes before and after an
+    ``ingest_many`` that compacts the live store, and after ``refresh()``
+    the bytes of a CPU engine on copies of the compacted store."""
+    require_cuda()
+    tables = _serving_tables(9)
+    eng = FeatureEngine(SMOKE_SQL, tables, capacity=4000, fused_fold=True,
+                        retention="auto", compact_every=64, device="cuda")
+    assert eng.retention_ms == {"actions": None, "orders": 60000}
+    for name, rows in _merged_rows(tables, 0, 1000):
+        eng.ingest_many(name, rows)
+    snap = eng.snapshot()
+    probe = [dict(tables["actions"].row(i)) for i in range(1100, 1132)]
+    dispatch.reset_launch_counts()
+    before = eng.request_batch(probe, snapshot=snap)
+    assert dispatch.launch_counts().get("unit_fold", 0) == 2
+    n_orders = eng.store.n_rows("orders")
+    for name, rows in _merged_rows(tables, 1000, 1600):
+        eng.ingest_many(name, rows)
+    assert eng.store.n_rows("orders") < n_orders + 600
+    _assert_rows(eng.request_batch(probe, snapshot=snap), before, loose=())
+    snap.refresh()
+    got = eng.request_batch(probe, snapshot=snap)
+    cpu = FeatureEngine(SMOKE_SQL, tables, capacity=4000, fused_fold=True,
+                        device="cpu")
+    cpu.load_store_from({t: {"keys": st["keys"].cpu().numpy(),
+                             "ts": st["ts"].cpu().numpy(),
+                             "count": st["count"].cpu().numpy(),
+                             "cols": {c: v.cpu().numpy()
+                                      for c, v in st["cols"].items()}}
+                         for t, st in eng.store.tables.items()})
+    _assert_rows(got, cpu.request_batch(probe))
+
+
+@pytest.mark.gpu
+def test_cpu_recorded_trace_replays_on_card(tmp_path):
+    """A mixed trace recorded on a CPU engine replays through a card
+    engine: the same served bytes (``ew`` within ``EW_RTOL``) and the
+    same final store, bit for bit."""
+    from repro_torch.serve import trace
+
+    require_cuda()
+    tables = _serving_tables(10)
+    kw = dict(capacity=4000, fused_fold=True, retention="auto",
+              compact_every=64)
+    loop_kw = dict(batch_size=8, max_wait_ms=2.0, slo_ms=25.0,
+                   service_model=lambda n: 0.5 + 0.05 * n)
+    rec = trace.TraceRecorder()
+    cpu = ServeLoop(FeatureEngine(SMOKE_SQL, tables, device="cpu", **kw),
+                    clock=VirtualClock(), recorder=rec, **loop_kw)
+    for name, rows in _merged_rows(tables, 0, 1000):
+        cpu.ingest(name, rows, now=0.0)
+    cpu.drain_ingest(now=0.0)
+    t = 0.0
+    for k, (name, rows) in enumerate(_merged_rows(tables, 1000, 1800)):
+        t += 1e-3
+        cpu.submit(dict(tables["actions"].row(1000 + k % 190)), now=t)
+        cpu.ingest(name, rows, now=t)
+        cpu.step(now=t)
+    cpu.flush(now=t + 1.0)
+    cpu.drain_ingest(now=t + 1.0)
+    path = str(tmp_path / "trace.json")
+    trace.save_trace(rec.events, path)
+    gpu = trace.replay(trace.load_trace(path), lambda: FeatureEngine(
+        SMOKE_SQL, tables, device="cuda", **kw), **loop_kw)
+    assert gpu.stats == cpu.stats and sorted(gpu.results) == \
+        sorted(cpu.results)
+    assert cpu.engine.store._binlog_base > 0
+    ids = sorted(cpu.results)
+    _assert_rows([gpu.results[i] for i in ids], [cpu.results[i] for i in ids])
+    for (pa, a), (pb, b) in zip(trace.store_state_arrays(gpu.engine),
+                                trace.store_state_arrays(cpu.engine)):
+        assert pa == pb
+        np.testing.assert_array_equal(a, b, err_msg=pa)
 
 
 def _bwf_inputs(c, f, b, seed, dev):

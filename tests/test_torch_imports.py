@@ -25,8 +25,8 @@ def _imported_roots(path: pathlib.Path):
             yield node.lineno, node.module.split(".")[0]
 
 
-# modules of the offline, model-serving, staged-fold and pre-aggregation
-# slices: each must exist and import without JAX
+# modules of the offline, model-serving, staged-fold, pre-aggregation and
+# serving-loop slices: each must exist and import without JAX
 SLICE_MODULES = (
     "core.hll", "core.skew", "core.multiwindow", "core.consistency",
     "core.window", "core.preagg",
@@ -42,7 +42,9 @@ SLICE_MODULES = (
     "kernels.flash_decode", "kernels.flash_decode.ref",
     "kernels.flash_decode.kernel", "kernels.flash_decode.ops",
     "models", "models.layers", "models.model", "serve.engine",
-    "launch", "launch.serve")
+    "launch", "launch.serve",
+    "serve.clock", "serve.loop", "serve.trace", "storage.memest",
+    "storage.timestore")
 
 
 def test_port_has_files():

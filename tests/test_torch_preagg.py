@@ -176,7 +176,7 @@ def test_update_many_matches_reference(order):
     keys, ts, vals = _rows(61, 3, sort=order == "in-order")
     assert tpa._batch_in_order(keys, ts) == (order == "in-order")
     want = jpa.update_many(jpa.init_state(), keys, ts, vals)
-    got = tpa.update_many(tpa.init_state(), keys, ts, vals)
+    got = tpa.update_many(tpa.init_state("cpu"), keys, ts, vals)
     _assert_planes(got, want)
     assert int(got["fine_epoch"].min()) < -1
     # a second batch on top, past the ring's capacity
@@ -191,11 +191,11 @@ def test_update_equals_update_many(order):
     when timestamps regress within a key (the run-splitting path)."""
     _, tpa = _pair()
     keys, ts, vals = _rows(37, 5, sort=order == "in-order")
-    seq = tpa.init_state()
+    seq = tpa.init_state("cpu")
     for i in range(keys.shape[0]):
         seq = tpa.update(seq, int(keys[i]), int(ts[i]),
                          {c: v[i] for c, v in vals.items()})
-    bat = tpa.update_many(tpa.init_state(), keys, ts, vals)
+    bat = tpa.update_many(tpa.init_state("cpu"), keys, ts, vals)
     for lvl in ("fine", "coarse"):
         for k in seq[lvl]:
             np.testing.assert_array_equal(seq[lvl][k].numpy(),
@@ -236,7 +236,7 @@ def test_fold_online_matches_reference():
         st.create_table("t", {"c": np.float32, "x": np.float32})
         st.put_many("t", keys, ts, vals)
     jstate = jpa.update_many(jpa.init_state(), keys, ts, vals)
-    tstate = tpa.update_many(tpa.init_state(), keys, ts, vals)
+    tstate = tpa.update_many(tpa.init_state("cpu"), keys, ts, vals)
 
     class W:                        # the window fields the gather reads
         sources = ("t",)

@@ -111,8 +111,7 @@ def test_null_prices_served_like_the_reference(action_tables):
 
 
 @pytest.mark.parametrize("option", [
-    {"n_shards": 2}, {"replication": 1},
-    {"checkpoint_dir": "ckpt"}, {"retention": "auto"}, {"ttl_ms": 1000}])
+    {"n_shards": 2}, {"replication": 1}, {"checkpoint_dir": "ckpt"}])
 def test_unported_options_raise(option, micro_sql):
     kw = dict(capacity=64, fused_fold=True, device="cpu")
     kw.update(option)
