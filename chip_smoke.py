@@ -35,7 +35,7 @@ Phases (each prints its own lines; any failure exits non-zero):
              ``scaled_dot_product_attention`` call;
 4. main paths, each with the launch counts set to 0 just before it and
              read just after, at deployment size (1.5 M rows; run in
-             the order a, b, e, f, g, c, d):
+             the order a, b, e, f, g, h, c, d):
    a. serving — ``FeatureEngine`` (capacity 1.6 M) bulk load + 4,096 live
              rows, ``request_batch`` at B = 1, 64, 256; the B = 64 batch
              must equal a CPU engine (plain versions) on a copy of the
@@ -80,6 +80,22 @@ Phases (each prints its own lines; any failure exits non-zero):
              ``record_consistency_trace`` over a prefix (integer prices,
              mid-trace eviction) holds ``verify_consistency(bitwise=
              True)`` and replays bitwise;
+   h. sharded serving with replicas — the serving deployment over 8 key
+             shards with 2 followers each (OpenMLDB's default
+             PARTITIONNUM 8, REPLICANUM 3), ``route_slots=1024``,
+             ``ship_every=64``, per-shard capacity from the host routing:
+             bulk load below 4g's cut, the rest streamed through
+             ``ingest_many`` with the hottest key's shard killed halfway
+             and healed a quarter later (lag at the kill,
+             ``recovery_s``); B = 1, 64, 256 equal to 4a's features
+             (bitwise, ew at rtol 1e-5) with 4a's unit-fold and hash
+             launches; latency, kernels per batch and busy share beside
+             4a's engine, in turns; ``offline_sharded`` bitwise 4b's
+             ``offline()``; a rebalance of 4b's zipf tables (rows moved,
+             seconds, imbalance before and after, features unchanged);
+             ``verify_consistency(bitwise=True, n_shards=8,
+             replication=2, kill_shard_at=k)`` over a 2,000-row prefix;
+             ``LONG_SQL`` on 8-shard pre-agg planes, B = 64 against 4f;
    c. additive folds — ``store_windowfold`` on the serving store at
              B = 1, 64, 256 and ``bucket_build`` over the action rows;
    d. model serving — hymba-1.5b at full width and depth (random
@@ -205,6 +221,14 @@ TRACE_CAPACITY = 65_536
 TRACE_ROWS = 1_600         # (c) streamed rows: two orders ticks or more
 GATE_LOOP_ROWS = 3_000     # (d) prefix events; past 60 s, so rows evict
 GATE_LOOP_COMPACT = 64
+
+# phase 4h: the serving deployment key-sharded with replicas, as OpenMLDB
+# deploys a table by default (PARTITIONNUM 8, REPLICANUM 3: a leader and
+# two followers); the same cut and stream as phase 4g
+SHARDS, REPLICAS, ROUTE_SLOTS, SHIP_EVERY = 8, 2, 1024, 64
+SHARD_HEADROOM = 4096      # rows per shard above the routed rows
+SHARD_REPS = 50            # timed batches per B and engine, in turns
+SHARD_GATE_ROWS = 2_000    # the failover gate's prefix events
 
 
 def log(msg: str) -> None:
@@ -1262,7 +1286,9 @@ def long_windows(card):
     """``use_preagg`` serving of LONG_SQL at deployment size: planes
     maintained by bulk load and ingest, requests against a CPU engine on
     copies of the store and planes and against ``offline()``, and
-    ``verify_consistency(use_preagg=True)`` over every 300th row."""
+    ``verify_consistency(use_preagg=True)`` over every 300th row.  Also
+    returns the B = 64 features (phase 4h holds its sharded planes to
+    them)."""
     from repro_torch.core import (compile_script, replay_online,
                                   verify_consistency)
     from repro_torch.data.synthetic import make_action_tables
@@ -1382,7 +1408,7 @@ def long_windows(card):
             "profile_b256": prof, "bulk_load_s": t_load,
             "planes_load_s": t_planes_load, "update_many": prof_update,
             "ingest_s": t_ingest, "planes_ingest_s": t_planes_ingest,
-            "gate_rows": n_thin, "gate_s": t_gate}, paths
+            "gate_rows": n_thin, "gate_s": t_gate}, paths, served[64]
 
 
 # ---------------------------------------------------------------- phase 4g
@@ -1821,6 +1847,273 @@ def serving_loop(tables, card):
                      "replay_s": t_again}}, paths
 
 
+# ---------------------------------------------------------------- phase 4h
+
+
+def shard_counts(key_cols, assignment=None):
+    """Per-shard row counts of each key column under the routing a
+    ``ShardedOnlineStore`` of ``SHARDS`` shards starts with (the static
+    hash) or under ``assignment``, computed on the host."""
+    from repro_torch.storage.timestore import ShardedOnlineStore
+
+    router = ShardedOnlineStore(1, n_shards=SHARDS, n_route_slots=ROUTE_SLOTS,
+                                device="cpu")
+    if assignment is not None:
+        router.assignment = assignment
+    return [np.bincount(router.owner_of_keys(k), minlength=SHARDS)
+            for k in key_cols]
+
+
+def shard_capacity(counts) -> int:
+    """Per-shard capacity: the largest shard of any table, plus headroom,
+    rounded up to a multiple of 1,024."""
+    top = int(max(int(c.max()) for c in counts)) + SHARD_HEADROOM
+    return (top + 1023) // 1024 * 1024
+
+
+def paired_latencies(engines, rows, reps: int):
+    """p50/p99 of ``request_batch(rows[:b])`` per engine and B, the
+    engines timed in turns (a, b, b, a) within this call (CUDA events;
+    every call ends by copying features to the host)."""
+    out = {name: {} for name in engines}
+    order = list(engines) + list(engines)[::-1]
+    for b in BATCHES:
+        samples = {name: [] for name in engines}
+        for name in order:
+            fn = engines[name].request_batch
+            for _ in range(3):
+                fn(rows[:b])
+            for _ in range(reps // 2):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(rows[:b])
+                end.record()
+                end.synchronize()
+                samples[name].append(start.elapsed_time(end))
+        for name, v in samples.items():
+            out[name][b] = {"p50_ms": float(np.percentile(v, 50)),
+                            "p99_ms": float(np.percentile(v, 99))}
+    return out
+
+
+def sharded_replicas(tables, skewed, eng, served, serving_counts, off,
+                     offline_counts, long_b64, card):
+    """Phase 4h: the serving deployment over ``SHARDS`` key shards with
+    ``REPLICAS`` followers each: bulk load below 4g's cut, stream the rest
+    (a kill + heal of the hottest key's shard mid-stream), B = 1, 64, 256
+    against 4a's features and launches, latency beside 4a's engine in
+    turns, ``offline_sharded`` against 4b, a rebalance of the zipf table
+    set, the failover gate over a prefix, and the long-window script's
+    sharded planes against 4f."""
+    from repro_torch.core import compile_script, verify_consistency
+    from repro_torch.core.union import LoadBalancer
+    from repro_torch.data.synthetic import make_action_tables
+    from repro_torch.serve.engine import FeatureEngine
+    from repro_torch.storage.timestore import route_slots
+
+    actions, orders = tables["actions"], tables["orders"]
+    n_act = len(actions)
+    hist_end = n_act - N_LIVE - max(BATCHES)
+    live_end = hist_end + N_LIVE                 # 4a's stored actions
+    ts_a, ts_o = actions.columns["ts"], orders.columns["ts"]
+    cut_ts = int(ts_a[n_act - LOOP_STREAM])
+    cut_a = int(np.searchsorted(ts_a, cut_ts, side="left"))
+    cut_o = int(np.searchsorted(ts_o, cut_ts, side="left"))
+    counts = shard_counts([actions.columns["userid"][:live_end],
+                           orders.columns["userid"]])
+    cap = shard_capacity(counts)
+    kw = dict(n_shards=SHARDS, replication=REPLICAS, route_slots=ROUTE_SLOTS,
+              ship_every=SHIP_EVERY, fused_fold=True)
+    sh = FeatureEngine(SMOKE_SQL, tables, capacity=cap, device="cuda", **kw)
+    _, t_load = timed(lambda: (
+        sh.bulk_load("actions", slice_table(actions, 0, cut_a)),
+        sh.bulk_load("orders", slice_table(orders, 0, cut_o))))
+    stream = merged_stream({"actions": slice_table(actions, 0, live_end),
+                            "orders": orders}, cut_ts)
+    runs = table_runs(stream, max_rows=64)
+    hot = int(np.bincount(actions.columns["userid"][:live_end]).argmax())
+    victim = int(sh.store.owner_of_keys([hot])[0])
+    kill_at, heal_at = len(runs) // 2, (3 * len(runs)) // 4
+    t0 = time.perf_counter()
+    for i, (name, rows) in enumerate(runs):
+        if i == kill_at:
+            killed = sh.kill_shard(victim)
+        if i == heal_at:
+            (rec,) = sh.heal()
+        sh.ingest_many(name, rows)
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    per_shard = {t: sh.store.n_rows_per_shard(t).tolist()
+                 for t in ("actions", "orders")}
+    for t, routed in zip(("actions", "orders"), counts):
+        if per_shard[t] != routed.tolist():
+            raise AssertionError(f"4h {t} per shard {per_shard[t]} != the "
+                                 f"host routing {routed.tolist()}")
+    repl = sh.replication_stats()
+    log(f"4h: {SHARDS} shards x capacity {cap} (largest routed shard "
+        f"{max(int(c.max()) for c in counts)}), {REPLICAS} followers each, "
+        f"ship every {SHIP_EVERY} rows; bulk_load {cut_a + cut_o} rows "
+        f"{t_load:.2f} s; streamed {len(stream)} rows in {len(runs)} "
+        f"ingest_many calls {t_stream:.2f} s; rows per shard {per_shard}  "
+        f"[{card}]")
+    log(f"4h failover: killed shard {victim} (owner of the hottest key "
+        f"{hot}) after {kill_at} of {len(runs)} ingest calls, lag at the "
+        f"kill {killed['lag_at_kill']} entries, healed after {heal_at}: "
+        f"replica {rec.replica} promoted, {rec.replayed_entries} entries "
+        f"replayed, recovery_s {rec.recovery_s:.4f}  [{card}]")
+
+    reqs = [dict(actions.row(i)) for i in
+            range(live_end, live_end + max(BATCHES))]
+    got, counts_sh = run_path(
+        "sharded serving", lambda: {b: sh.request_batch(reqs[:b])
+                                    for b in BATCHES},
+        ("unit_fold", "feature_hash"))
+    paths = {"sharded_serving": counts_sh}
+    for k in ("unit_fold", "feature_hash"):
+        if counts_sh.get(k) != serving_counts.get(k):
+            raise AssertionError(f"4h: sharded batches launched "
+                                 f"{counts_sh.get(k)} {k}, 4a "
+                                 f"{serving_counts.get(k)}")
+    err = max(compare_features(got[b], served[b]) for b in BATCHES)
+    log(f"4h B=1/64/256 after kill + heal equal to 4a's never-killed "
+        f"unsharded engine (bitwise; ew within rtol {EW_RTOL}; max abs "
+        f"diff {err}); launches {counts_sh} = 4a's {serving_counts}")
+    lat = paired_latencies({"unsharded": eng, "sharded": sh}, reqs,
+                           SHARD_REPS)
+    prof = {}
+    for name, e in (("unsharded", eng), ("sharded", sh)):
+        log_latency(f"4h {name} request_batch", lat[name], SHARD_REPS, card)
+        for b in BATCHES:
+            p = profile_calls(lambda: e.request_batch(reqs[:b]), 3)
+            prof[f"{name}/B{b}"] = {
+                k: p[k] for k in ("kernels_per_call", "device_busy_share",
+                                  "device_ms_per_call", "wall_ms_per_call")}
+            log(f"4h {name} B={b}: {p['kernels_per_call']:.0f} kernels per "
+                f"batch, device {p['device_ms_per_call']:.3f} ms, busy "
+                f"share {p['device_busy_share']:.3f}  [{card}]")
+
+    off_sh, counts_off = run_path("offline sharded", sh.offline,
+                                  ("unit_fold",))
+    paths["offline_sharded"] = counts_off
+    if counts_off["unit_fold"] != offline_counts["unit_fold"]:
+        raise AssertionError(f"4h offline_sharded: {counts_off} launches, "
+                             f"offline() {offline_counts}")
+    for k in off:
+        if not np.array_equal(off_sh[k], off[k]):
+            raise AssertionError(f"4h offline_sharded: {k} != offline()")
+    _, t_off = timed(sh.offline)
+    log(f"4h offline_sharded({SHARDS}) over {n_act + len(orders)} rows "
+        f"bitwise equal to 4b's offline(), {counts_off['unit_fold']} "
+        f"unit-fold launches as there; {t_off * 1e3:.1f} ms per call "
+        f"(plan cached)  [{card}]")
+    del sh, off_sh
+    torch.cuda.empty_cache()
+
+    # rebalance on the zipf table set: the LPT the store will run, from
+    # the same slot loads, sizes the shards before the load
+    keys = [skewed[t].columns["userid"] for t in ("actions", "orders")]
+    router = LoadBalancer(ROUTE_SLOTS, SHARDS, split_threshold=float("inf"))
+    router.observe(sum(np.bincount(route_slots(k, ROUTE_SLOTS),
+                                   minlength=ROUTE_SLOTS).astype(np.float64)
+                       for k in keys))
+    before = shard_counts(keys)
+    after = shard_counts(keys, router.rebalance())
+    cap_r = shard_capacity(before + after)
+    rb = FeatureEngine(SMOKE_SQL, skewed, capacity=cap_r, n_shards=SHARDS,
+                       route_slots=ROUTE_SLOTS, fused_fold=True,
+                       device="cuda")
+    for t in ("actions", "orders"):
+        rb.bulk_load(t, skewed[t])
+    probe = [dict(skewed["actions"].row(len(skewed["actions"]) - 1 - i))
+             for i in range(64)]
+    owner0 = rb.store.owner_of_keys(np.concatenate(keys))
+    ahead = rb.request_batch(probe)
+    rows_before = sum(rb.store.n_rows_per_shard(t) for t in ("actions",
+                                                             "orders"))
+    moved, t_rebal = timed(rb.rebalance)
+    rows_after = sum(rb.store.n_rows_per_shard(t) for t in ("actions",
+                                                            "orders"))
+    n_moved = int((rb.store.owner_of_keys(np.concatenate(keys))
+                   != owner0).sum())
+    same_features("4h rebalance", rb.request_batch(probe), ahead)
+    imb = [float(r.max() / r.mean()) for r in (rows_before, rows_after)]
+    if not moved or imb[1] >= imb[0]:
+        raise AssertionError(f"4h rebalance: moved={moved}, imbalance "
+                             f"{imb[0]:.3f} -> {imb[1]:.3f}")
+    log(f"4h rebalance (zipf {SKEW_ALPHA}, capacity {cap_r}): {n_moved} "
+        f"rows moved in {t_rebal:.3f} s; rows per shard "
+        f"{rows_before.tolist()} -> {rows_after.tolist()}; imbalance "
+        f"(max / mean) {imb[0]:.3f} -> {imb[1]:.3f}; B=64 bitwise equal "
+        f"before and after  [{card}]")
+    del rb
+    torch.cuda.empty_cache()
+
+    # the failover gate over a prefix: the owner of base request k is
+    # killed and failed over just before serving it
+    prefix = prefix_tables(tables, SHARD_GATE_ROWS)
+    n_req = len(prefix["actions"])
+    t0 = time.perf_counter()
+    rep, counts_gate = run_path(
+        "sharded failover gate",
+        lambda: verify_consistency(
+            compile_script(SMOKE_SQL, tables=prefix), prefix, bitwise=True,
+            n_shards=SHARDS, replication=REPLICAS,
+            kill_shard_at=n_req // 2, device="cuda"),
+        ("unit_fold", "feature_hash"))
+    t_gate = time.perf_counter() - t0
+    paths["sharded_gate"] = counts_gate
+    if not (rep.passed and rep.bitwise_equal):
+        raise AssertionError(f"4h failover gate: {rep}")
+    log(f"4h verify_consistency(bitwise, n_shards={SHARDS}, replication="
+        f"{REPLICAS}, kill_shard_at={n_req // 2}) over a {SHARD_GATE_ROWS}-"
+        f"row prefix ({n_req} requests): {rep}; {t_gate:.1f} s  [{card}]")
+
+    # the long-window script on sharded planes against 4f's engine
+    long_t = make_action_tables(**DEPLOYMENT_LONG)
+    la, lo = long_t["actions"], long_t["orders"]
+    l_hist = len(la) - N_LIVE - max(BATCHES)
+    l_counts = shard_counts([la.columns["userid"][:l_hist + N_LIVE],
+                             lo.columns["userid"]])
+    lsh = FeatureEngine(LONG_SQL, long_t, capacity=shard_capacity(l_counts),
+                        use_preagg=True, fused_fold=True, n_shards=SHARDS,
+                        route_slots=ROUTE_SLOTS, device="cuda")
+    _, t_lload = timed(lambda: (
+        lsh.bulk_load("actions", slice_table(la, 0, l_hist)),
+        lsh.bulk_load("orders", lo)))
+    lsh.ingest_many("actions", [la.row(i) for i in
+                                range(l_hist, l_hist + N_LIVE)])
+    base = l_hist + N_LIVE
+    lreqs = [dict(la.row(i)) for i in range(base, base + 64)]
+    lgot, counts_long = run_path("sharded long windows",
+                                 lambda: lsh.request_batch(lreqs),
+                                 ("unit_fold", "feature_hash"))
+    paths["sharded_long_windows"] = counts_long
+    err_l = compare_features(lgot, long_b64, loose=LONG_LOOSE)
+    log(f"4h long windows on {SHARDS}-shard planes: bulk_load "
+        f"{l_hist + len(lo)} rows {t_lload:.2f} s; B=64 equal to 4f's "
+        f"unsharded engine (bitwise; {LONG_LOOSE} within rtol {EW_RTOL}; "
+        f"max abs diff {err_l})  [{card}]")
+    del lsh
+    torch.cuda.empty_cache()
+    return {"capacity": cap, "rows_per_shard": per_shard,
+            "bulk_load_s": t_load, "stream_s": t_stream,
+            "stream_rows": len(stream), "killed": killed,
+            "promotion": {"shard": rec.shard, "replica": rec.replica,
+                          "replayed_entries": rec.replayed_entries,
+                          "recovery_s": rec.recovery_s},
+            "replication": {k: repl[k] for k in (
+                "max_lag_seen", "n_shipped", "safe_offset")},
+            "latency": lat, "profile": prof, "offline_ms": t_off * 1e3,
+            "rebalance": {"rows_moved": n_moved, "s": t_rebal,
+                          "imbalance": imb, "capacity": cap_r,
+                          "rows_before": rows_before.tolist(),
+                          "rows_after": rows_after.tolist()},
+            "gate": {"rows": SHARD_GATE_ROWS, "requests": n_req,
+                     "s": t_gate},
+            "long_bulk_load_s": t_lload}, paths
+
+
 def widest_units(cs, tables):
     """(widest rp, [(rp, variant)] per unit block) of an offline plan."""
     from repro_torch.core.lowering import drivers
@@ -2029,7 +2322,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     phase("4f long windows (pre-aggregation) at deployment size")
-    longw, counts = long_windows(card)
+    longw, counts, long_b64 = long_windows(card)
     paths.update(counts)
     torch.cuda.empty_cache()
 
@@ -2038,6 +2331,18 @@ def main(argv) -> int:
     loop_res, counts = serving_loop(tables, card)
     paths.update(counts)
     log(f"phase 4g took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    phase("4h sharded serving with replicas at deployment size")
+    t0 = time.perf_counter()
+    shard_res, counts = sharded_replicas(
+        tables, skewed, eng, served, paths["serving"], off,
+        paths["offline"], long_b64, card)
+    paths.update(counts)
+    del long_b64
+    t_4h = time.perf_counter() - t0
+    shard_res["phase_s"] = t_4h
+    log(f"phase 4h took {t_4h:.1f} s")
     torch.cuda.empty_cache()
 
     phase("4c additive folds (store_windowfold, bucket_build)")
@@ -2178,7 +2483,7 @@ def main(argv) -> int:
                         "consistency_s": t_cons},
             "launches_per_path": paths, "model_serving": model,
             "staged": staged, "long_windows": longw,
-            "serving_loop": loop_res,
+            "serving_loop": loop_res, "sharded": shard_res,
             "decode_partials_shapes": res_fd, "segagg_shapes": seg_shapes,
             "load_s": t_load, "ingest_s": t_ingest}, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,10 @@ fused fast path) are thin executors over that lowering
 the offline ones (``core.consistency``).  Long windows keep §5.1
 pre-aggregation planes (``core.preagg``), maintained from the ingest
 path through ``preagg_update`` / ``preagg_update_many`` and read by
-``online`` / ``online_batch`` with ``preagg_states``.
+``online`` / ``online_batch`` with ``preagg_states``.  Key-sharded
+deployments (§5 tablets) serve through ``online_sharded_batch`` and
+materialize through ``offline_sharded``, with per-shard planes
+(``init_preagg_states_sharded``, ``preagg_update_many_sharded``).
 Compilation-level optimizations from §4.2: window merging
 (``plan.build_plan``), cycle binding (``lowering.windows.unique_leaves``)
 and the plan cache (``lowering.cache``).
@@ -133,10 +136,18 @@ class CompiledScript:
 
     def offline_sharded(self, tables: Dict[str, Table], mesh=None,
                         n_shards: Optional[int] = None,
-                        axis: str = "shard") -> Dict[str, np.ndarray]:
-        raise NotImplementedError(
-            "CompiledScript.offline_sharded (key-sharded offline execution) "
-            "is not ported to repro_torch yet")
+                        axis: str = "shard", device="cuda"
+                        ) -> Dict[str, np.ndarray]:
+        """Key-partitioned, skew-aware offline execution over
+        ``n_shards`` shards stacked on ``device`` (bitwise equal to
+        ``offline``; see ``lowering.drivers.offline_sharded``).  ``mesh``
+        (one shard per device) is not ported and raises."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "CompiledScript.offline_sharded option 'mesh' (one shard "
+                "per device) is not ported to repro_torch yet")
+        return _drv.offline_sharded(self, tables, resolve_device(device),
+                                    int(n_shards or 1))
 
     # ======================================================================
     # ONLINE driver (request mode against the live store)
@@ -159,6 +170,40 @@ class CompiledScript:
         is given); bitwise equal to B single ``online`` calls."""
         return _drv.online_batch(self, store, keys, ts, values,
                                  preagg_states=preagg_states)
+
+    # -- key-sharded serving -------------------------------------------------
+    def sharded_eligible(self) -> Tuple[bool, str]:
+        """Whether the script can serve from a key-sharded store: every
+        row a request touches must live on the request key's shard, i.e.
+        all windows partition by one column and every LAST JOIN routes by
+        that same column."""
+        part = {w.node.spec.partition_by for w in self.windows}
+        if not part:
+            return False, "no window partition column to shard by"
+        if len(part) > 1:
+            return (False,
+                    f"windows partition by multiple columns "
+                    f"{sorted(part)}: requests can only be routed by "
+                    f"one key")
+        for js in self.script.last_joins:
+            if js.left_key not in part:
+                return (False,
+                        f"LAST JOIN keys on {js.left_key!r}, not the "
+                        f"window partition column {sorted(part)[0]!r}: "
+                        f"the joined row may live on another shard")
+        return True, ""
+
+    def online_sharded_batch(self, store, keys: Sequence[int],
+                             ts: Sequence[int],
+                             values: Dict[str, Sequence[float]],
+                             preagg_states: Optional[Dict[int, Any]] = None
+                             ) -> Dict[str, np.ndarray]:
+        """Features for B requests against a ``ShardedOnlineStore`` (or
+        its snapshot), on the store's device: host key-routing, one run
+        of the request trace over the shard blocks, request-order
+        reassembly; bitwise equal to the unsharded path."""
+        return _drv.online_sharded_batch(self, store, keys, ts, values,
+                                         preagg_states=preagg_states)
 
     def required_store_columns(self) -> Dict[str, List[str]]:
         """Which columns each table's online store must retain."""
@@ -206,6 +251,44 @@ class CompiledScript:
         dev = resolve_device(device)
         return {wi: w.preagg.init_state(dev)
                 for wi, w in enumerate(self.windows) if w.preagg is not None}
+
+    def init_preagg_states_sharded(self, n_shards: int, device="cuda"
+                                   ) -> Dict[int, Any]:
+        """Per-shard bucket planes (a leading shard dimension on every
+        plane), on ``device``."""
+        dev = resolve_device(device)
+        return {wi: w.preagg.init_state_stacked(n_shards, dev)
+                for wi, w in enumerate(self.windows) if w.preagg is not None}
+
+    def preagg_owned_masks(self, owner_fn, n_shards: int
+                           ) -> Dict[int, np.ndarray]:
+        """Per-window one-hot (n_shards, n_keys) host ownership masks:
+        ``owner_fn`` (the store's ``owner_of_keys``) evaluated over each
+        window's key universe [0, n_keys).  They change only on
+        rebalance, so callers cache them."""
+        masks = {}
+        for wi, w in enumerate(self.windows):
+            if w.preagg is None:
+                continue
+            nk = w.preagg.n_keys
+            owned = np.zeros((n_shards, nk), bool)
+            owned[np.asarray(owner_fn(np.arange(nk))), np.arange(nk)] = True
+            masks[wi] = owned
+        return masks
+
+    def preagg_update_many_sharded(self, pre_states: Dict[int, Any],
+                                   table: str, keys, ts,
+                                   values: Dict[str, Any],
+                                   owned_masks: Dict[int, Any]):
+        """Batched pre-agg maintenance on key-sharded planes: each
+        window's ownership mask restricts the scatter to the planes each
+        shard owns (see ``PreAgg.update_many_sharded``)."""
+        for wi, w in enumerate(self.windows):
+            if w.preagg is None or table not in w.sources:
+                continue
+            pre_states[wi] = w.preagg.update_many_sharded(
+                pre_states[wi], keys, ts, values, owned_masks[wi])
+        return pre_states
 
     def preagg_update(self, pre_states: Dict[int, Any], table: str,
                       key: int, ts: int, values: Dict[str, float]):

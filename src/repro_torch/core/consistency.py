@@ -12,10 +12,14 @@ Replay contract: events are presented in the offline tie-break order —
 (ts, table-rank, arrival) — which is exactly the order the store's
 insert-after-peers policy reconstructs.
 
-Ported: unsharded serving, raw and pre-aggregated (``use_preagg``: the
-replay folds every ingested row into the §5.1 bucket planes and serves
-long windows from them).  Sharding, replication and fault injection are
-not ported yet and raise ``NotImplementedError`` naming the option.
+The replay runs unsharded or key-sharded (``n_shards``: the offline side
+through ``offline_sharded``, the online side through a
+``ShardedOnlineStore`` served by ``online_sharded_batch``), raw or
+pre-aggregated (``use_preagg``: every ingested row folds into the §5.1
+bucket planes, which serve the long windows), and with ``replication``
+and ``kill_shard_at`` through a mid-replay shard failure and failover.
+``mesh`` (one shard per device) is not ported and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..kernels.dispatch import resolve_device
-from ..storage.timestore import OnlineStore
+from ..storage.replication import (FailoverController, ReplicationManager,
+                                   recover_preagg_shard)
+from ..storage.timestore import OnlineStore, ShardedOnlineStore
 from .compiler import CompiledScript
 from .types import Table
 
@@ -65,12 +71,11 @@ class ConsistencyReport:
                    else ""))
 
 
-def _not_ported(**options) -> None:
-    for name, on in options.items():
-        if on:
-            raise NotImplementedError(
-                f"consistency option {name!r} is not ported to repro_torch "
-                f"yet")
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "consistency option 'mesh' (one shard per device) is not ported "
+            "to repro_torch yet; n_shards= stacks the shards on one device")
 
 
 def _event_stream(cs: CompiledScript, tables: Dict[str, Table]):
@@ -101,22 +106,32 @@ def replay_online(cs: CompiledScript, tables: Dict[str, Table],
                   n_shards: Optional[int] = None, mesh=None,
                   replication: int = 0,
                   kill_shard_at: Optional[int] = None,
+                  ship_every: int = 3,
                   device="cuda") -> Dict[str, np.ndarray]:
     """Feed rows through an online store on ``device`` in arrival order;
     collect the request-mode features of every base-table row, in base
     row order.  With ``use_preagg`` every replayed row is also folded
-    into the pre-aggregation planes (``preagg_update``), which serve the
-    long windows."""
-    _not_ported(n_shards=n_shards is not None,
-                mesh=mesh is not None, replication=replication,
-                kill_shard_at=kill_shard_at is not None)
+    into the pre-aggregation planes, which serve the long windows.
+
+    With ``n_shards`` the replay drives the key-sharded serving path: a
+    ``ShardedOnlineStore`` with routed ingest, per-shard pre-agg planes,
+    and every request served by ``online_sharded_batch``.  With
+    ``replication=R`` it also runs R followers per shard, shipped every
+    ``ship_every`` events, and ``kill_shard_at=k`` kills the shard owning
+    base request k's key just before serving it (rows and planes wiped),
+    fails it over (follower promoted, binlog tail replayed, planes
+    recovered from the watermark-0 snapshot) and serves the request from
+    the promoted leader."""
+    _no_mesh(mesh)
     dev = resolve_device(device)
     base = cs.script.base_table
     need = cs.required_store_columns()
     tables = {k: v for k, v in tables.items() if k in need}
     total = sum(len(t) for t in tables.values())
-    store = OnlineStore(capacity=capacity or max(64, total + 8),
-                        device=dev)
+    cap = capacity or max(64, total + 8)
+    sharded = n_shards is not None
+    store = (ShardedOnlineStore(capacity=cap, n_shards=n_shards, device=dev)
+             if sharded else OnlineStore(capacity=cap, device=dev))
     for tname, cols in need.items():
         table = tables[tname]
         specs = {}
@@ -124,7 +139,28 @@ def replay_online(cs: CompiledScript, tables: Dict[str, Table],
             dd = table.schema.column(c).ctype.device_dtype
             specs[c] = np.float32 if dd.kind == "f" else np.int32
         store.create_table(tname, specs)
-    pre_states = cs.init_preagg_states(dev) if use_preagg else None
+    owned = None
+    if not use_preagg:
+        pre_states = None
+    elif sharded:
+        pre_states = cs.init_preagg_states_sharded(store.n_shards, dev)
+        owned = cs.preagg_owned_masks(store.owner_of_keys, store.n_shards)
+    else:
+        pre_states = cs.init_preagg_states(dev)
+
+    repl = controller = snap = None
+    if replication:
+        if not sharded:
+            raise ValueError("replication needs a sharded replay "
+                             "(n_shards=)")
+        repl = ReplicationManager(store, replication)
+        controller = FailoverController(repl)
+        # the replay never truncates its binlog, so the recovery snapshot
+        # is the identity planes at watermark 0
+        snap = dict(pre_states) if pre_states is not None else None
+    elif kill_shard_at is not None:
+        raise ValueError("kill_shard_at needs replication >= 1 "
+                         "(no follower to promote)")
 
     n_base = len(tables[base])
     outputs: Dict[str, List[np.ndarray]] = {}
@@ -132,18 +168,50 @@ def replay_online(cs: CompiledScript, tables: Dict[str, Table],
     join_keys = {j.left_key for j in cs.script.last_joins}
     # the store key column: the partition key (single-key scripts)
     key_col = next(iter(part_keys)) if part_keys else next(iter(join_keys))
+    n_events = n_served = 0
 
     for ts, _, i, tname in _event_stream(cs, tables):
         table = tables[tname]
         key = int(table.columns[key_col][i])
         values = {c: float(table.columns[c][i]) for c in need[tname]}
         if tname == base:
-            for k, v in cs.online(store, key, ts, values,
-                                  preagg_states=pre_states).items():
+            if controller is not None and n_served == kill_shard_at:
+                shard = int(store.owner_of_keys(np.asarray([key]))[0])
+                store.wipe_shard(shard)
+                if pre_states is not None:
+                    empty = cs.init_preagg_states_sharded(store.n_shards,
+                                                          dev)
+                    for wi in empty:
+                        pre_states[wi] = cs.windows[
+                            wi].preagg.restore_shard_plane(
+                                pre_states[wi], empty[wi], shard)
+                controller.mark_dead(shard)
+                controller.failover(shard)
+                if pre_states is not None:
+                    pre_states = recover_preagg_shard(
+                        cs, pre_states, snap, 0, store, shard, owned)
+            if sharded:
+                feats = {k: v[0] for k, v in cs.online_sharded_batch(
+                    store, [key], [ts], {c: [v] for c, v in values.items()},
+                    preagg_states=pre_states).items()}
+            else:
+                feats = cs.online(store, key, ts, values,
+                                  preagg_states=pre_states)
+            for k, v in feats.items():
                 outputs.setdefault(k, []).append(np.asarray(v))
+            n_served += 1
         store.put(tname, key, ts, values)
-        if use_preagg:
+        if use_preagg and sharded:
+            pre_states = cs.preagg_update_many_sharded(
+                pre_states, tname, np.asarray([key], np.int32),
+                np.asarray([ts], np.int32),
+                {c: np.asarray([v], np.float32) for c, v in values.items()},
+                owned)
+        elif use_preagg:
             pre_states = cs.preagg_update(pre_states, tname, key, ts, values)
+        n_events += 1
+        if repl is not None and n_events % max(1, ship_every) == 0:
+            repl.ship()
 
     # rows were replayed in ts order; restore original base-row order
     base_ts = tables[base].columns[cs.script.order_column]
@@ -159,6 +227,7 @@ def verify_consistency(cs: CompiledScript, tables: Dict[str, Table],
                        mesh=None, bitwise: Optional[bool] = None,
                        replication: int = 0,
                        kill_shard_at: Optional[int] = None,
+                       ship_every: int = 3,
                        online_outputs: Optional[Dict[str, np.ndarray]]
                        = None, device="cuda") -> ConsistencyReport:
     """Offline-vs-online replay gate on ``device`` (the card unless the
@@ -173,16 +242,23 @@ def verify_consistency(cs: CompiledScript, tables: Dict[str, Table],
     precomputed online-side feature arrays (already in offline row
     order) instead of running ``replay_online`` — the hook that lets
     another serving harness be held to the same gate.
+
+    With ``n_shards`` BOTH executors run sharded (``offline_sharded`` and
+    the sharded replay); ``replication`` + ``kill_shard_at`` run the
+    online side through a shard failure and failover (see
+    ``replay_online``) that the offline side never sees, so a bitwise
+    pass shows the recovery is exact.
     """
-    _not_ported(n_shards=n_shards is not None,
-                mesh=mesh is not None, replication=replication,
-                kill_shard_at=kill_shard_at is not None)
+    _no_mesh(mesh)
     if bitwise is None:
         bitwise = not use_preagg
-    offline = cs.offline(tables, device=device)
+    offline = (cs.offline_sharded(tables, n_shards=n_shards, device=device)
+               if n_shards is not None else cs.offline(tables, device=device))
     online = (online_outputs if online_outputs is not None
               else replay_online(cs, tables, use_preagg=use_preagg,
-                                 device=device))
+                                 n_shards=n_shards, replication=replication,
+                                 kill_shard_at=kill_shard_at,
+                                 ship_every=ship_every, device=device))
     mism: List[str] = []
     max_abs = 0.0
     max_rel = 0.0

@@ -10,6 +10,13 @@ the schedules:
 * ``offline_serial`` — window groups one by one with a device barrier in
                        between;
 * ``offline_branch`` — one window branch alone (ConcatJoin alignment);
+* ``offline_sharded`` — every group's partition units LPT-assigned to
+                       shards and re-blocked into (S, U_pad, R) stacks
+                       with all-invalid padding units, each stack folded
+                       as one (S·U_pad, R) block: the units and their
+                       folds are ``offline_fused``'s, so the result is
+                       bitwise equal for any shard count, with one fold
+                       launch per block class as there;
 * ``offline_reference_serial`` — the SEED algorithm (per-window merge +
                        sort + global segmented-scan / segment-tree fold,
                        ``core.window.fold_windows``) with a barrier
@@ -33,7 +40,13 @@ then the LAST JOIN lookups and the scalar tail (``discrete()`` through
 the feature-hash kernel).  ``online_batch`` follows the script's fold
 selector and takes pre-agg states; ``online_batch_fast`` always takes the
 fused fold and serves every window raw; ``online`` is ``online_batch``
-at B = 1.  Batches are padded to a power-of-two pad class, and a
+at B = 1; ``online_sharded_batch`` serves a ``ShardedOnlineStore``:
+requests are routed on the host into (S, b_pad) shard blocks and the
+same trace runs once over the shard-major (S·b_pad,) batch, whose seeks
+run batched over the stacked (S, capacity) tables
+(``timestore.range_bounds``), so a sharded batch launches the fold and
+hash kernels as often as an unsharded one.  Batches are padded to a
+power-of-two pad class, and a
 per-(store, pad class) cache keeps each group's fold plan and its
 identity vectors on the device.  Every request row's computation is
 independent of the others', so a batch gives the bits of B single
@@ -51,6 +64,7 @@ import torch
 
 from ...kernels.unit_fold import ops as unit_fold_ops
 from ...storage import timestore
+from .. import skew
 from ..window import (fold_windows, segment_starts, sorted_perm,
                       window_bounds)
 from . import joins, scalars
@@ -60,9 +74,10 @@ from .windows import (GroupLowering, LoweredWindow, fold_impl, fold_unit,
                       lower_group_offline, unique_leaves)
 
 __all__ = ["plan_offline", "offline_fused", "offline_serial",
-           "offline_branch", "offline_reference_serial", "pad_batch",
-           "batch_plan", "online_window_unit", "online_fn",
-           "online_batch", "online_batch_fast", "online"]
+           "offline_branch", "offline_sharded", "offline_reference_serial",
+           "pad_batch", "batch_plan", "online_window_unit", "online_fn",
+           "online_batch", "online_batch_fast", "online_sharded_batch",
+           "online"]
 
 
 # ===========================================================================
@@ -218,6 +233,81 @@ def offline_serial(cs, tables, device) -> Dict[str, np.ndarray]:
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _stack_window(gl: GroupLowering, n_shards: int
+                  ) -> List[Dict[str, np.ndarray]]:
+    """LPT-assign one group's units to shards and re-block every unit
+    class into per-shard stacks (S, U_pad, R), flattened to (S·U_pad, R):
+    padding units index the sentinel pad row and are all-invalid, so
+    they emit nothing."""
+    n_units = sum(b.unit_ids.size for b in gl.blocks)
+    sizes = np.zeros(max(1, n_units), np.int64)
+    for b in gl.blocks:
+        sizes[b.unit_ids] = b.sizes
+    owner = skew.assign_units_lpt(sizes, n_shards)
+    n_flat = gl.ts.shape[0] - 1
+    stacked = []
+    for b in gl.blocks:
+        b_owner = owner[b.unit_ids] if b.unit_ids.size else \
+            np.zeros((0,), np.int32)
+        u, r = b.idx.shape
+        counts = np.bincount(b_owner, minlength=n_shards)
+        u_pad = max(1, int(counts.max()))
+        idx = np.full((n_shards, u_pad, r), n_flat, b.idx.dtype)
+        valid = np.zeros((n_shards, u_pad, r), bool)
+        emit = np.zeros((n_shards, u_pad, r), bool)
+        for s in range(n_shards):
+            sel = np.flatnonzero(b_owner == s)
+            idx[s, :sel.size] = b.idx[sel]
+            valid[s, :sel.size] = b.valid[sel]
+            emit[s, :sel.size] = b.emit[sel]
+        stacked.append({"idx": idx.reshape(-1, r),
+                        "valid": valid.reshape(-1, r),
+                        "emit": emit.reshape(-1, r)})
+    return stacked
+
+
+def _sharded_device_args(gl: GroupLowering, n_shards: int, device
+                         ) -> Dict[str, Any]:
+    """``device_args`` with the shard-stacked blocks, cached on the
+    lowering per (device, shard count)."""
+    key = f"{torch.device(device)}/shards={n_shards}"
+    hit = gl._dev.get(key)
+    if hit is None:
+        base = gl.device_args(device)
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        hit = dict(base, blocks=[
+            {"idx": put(b["idx"]), "valid": put(b["valid"]),
+             "emit": put(b["emit"]),
+             "rows": put(gl.orig[b["idx"]][b["emit"]].astype(np.int64))}
+            for b in _stack_window(gl, n_shards)])
+        gl._dev[key] = hit
+    return hit
+
+
+def offline_sharded(cs, tables, device, n_shards: int
+                    ) -> Dict[str, np.ndarray]:
+    """Key-partitioned offline execution (§6) in the stacked layout on
+    one device.  Every group's partition units (whole cold keys; hot
+    keys time-sliced with halo rows — ``core.skew``) are LPT-assigned to
+    ``n_shards`` shards; each unit class folds as one (S·U_pad, R) block
+    with the same per-unit program ``offline_fused`` runs, so the
+    features are bitwise equal for every shard count.  LAST JOINs and
+    scalar items are per-base-row lookups with no window state; they run
+    once."""
+    lws, arrays, n_base = plan_offline(cs, tables)
+    impl = fold_impl(cs.ctx)
+    out: Dict[str, torch.Tensor] = {}
+    for gl in lws:
+        dev = _sharded_device_args(gl, max(1, int(n_shards)), device)
+        _scatter_group(dev, _group_feats(gl.members, dev, impl), n_base,
+                       out)
+    out.update(_join_scalar_fn(cs)(_arrays_on(arrays, device)))
+    return _to_host(cs, out)
 
 
 def offline_reference_serial(cs, tables, device) -> Dict[str, np.ndarray]:
@@ -417,6 +507,72 @@ def online_batch_fast(cs, store, keys, ts, values) -> Dict[str, np.ndarray]:
     versions on a CPU store); returns host arrays of the real rows."""
     return _serve(cs, store, keys, ts, values,
                   (True, cs.ctx.unit_fold_kernel))
+
+
+def _route(owner: np.ndarray, n_shards: int):
+    """(S, b_pad) request blocks from each request's owner shard: the
+    per-shard sub-batch is padded to a power of two while small, then to
+    a multiple of 32 (near-balanced routing would waste up to 2x under
+    pure pow2 padding).  Returns ``(req_idx, pick)``: which request each
+    block slot computes — padding repeats the shard's last request, an
+    empty shard computes request 0; both are discarded — and where each
+    request's result lies in the flattened (S·b_pad,) batch."""
+    counts = np.bincount(owner, minlength=n_shards)
+    c_max = int(max(1, counts.max()))
+    b_pad = (timestore.next_pow2(c_max) if c_max <= 32
+             else ((c_max + 31) // 32) * 32)
+    b = owner.shape[0]
+    order = np.argsort(owner, kind="stable")
+    slot = np.empty(b, np.int64)
+    slot[order] = np.arange(b) - (np.cumsum(counts) - counts)[owner[order]]
+    req_idx = np.zeros((n_shards, b_pad), np.int64)
+    req_idx[owner, slot] = np.arange(b)
+    last = req_idx[np.arange(n_shards), np.maximum(counts - 1, 0)]
+    req_idx = np.where(np.arange(b_pad) < counts[:, None], req_idx,
+                       last[:, None])
+    return req_idx.reshape(-1), owner * b_pad + slot
+
+
+def online_sharded_batch(cs, store, keys, ts, values, preagg_states=None
+                         ) -> Dict[str, np.ndarray]:
+    """Features for B requests against a ``ShardedOnlineStore`` (or its
+    snapshot): host key-routing into (S, b_pad) shard blocks, ONE run of
+    the request trace over the shard-major (S·b_pad,) batch — every seek
+    reads its own shard of the stacked tables, every pre-agg query its
+    owner shard's planes — and reassembly in request order.  Window
+    folds never gather across shards, so the features are bitwise those
+    of the unsharded path, and each window group folds in one launch as
+    there."""
+    ok, why = cs.sharded_eligible()
+    if not ok:
+        raise ValueError(f"script not shardable by key: {why}")
+    keys = np.asarray(keys, np.int32)
+    tsa = np.asarray(ts, np.int32)
+    if keys.shape[0] == 0:
+        raise ValueError("empty request batch")
+    use_pre = preagg_states is not None
+    if use_pre:
+        # the sharded pre-agg update's bounded-universe contract: a key
+        # >= n_keys would read another shard's alias plane
+        nks = [w.preagg.n_keys for w in cs.windows if w.preagg is not None]
+        if nks and (int(keys.max()) >= min(nks) or int(keys.min()) < 0):
+            raise ValueError(
+                f"request key outside the pre-agg key universe "
+                f"[0, {min(nks)}) — not servable bit-exactly from "
+                f"key-sharded bucket planes")
+    flat, pick = _route(store.owner_of_keys(keys), store.n_shards)
+    dev = store.device
+    impl = fold_impl(cs.ctx)
+    groups = batch_plan(cs, store, flat.shape[0], impl, use_pre)
+    vals = {k: torch.from_numpy(np.asarray(v, np.float32)[flat]).to(dev)
+            for k, v in values.items()}
+    out = online_fn(cs, store.tables, torch.from_numpy(keys[flat]).to(dev),
+                    torch.from_numpy(tsa[flat]).to(dev), vals, groups,
+                    impl=impl, preagg_states=preagg_states)
+    if use_pre:
+        cs._observe_queries(tsa.tolist())
+    pick_t = torch.from_numpy(pick).to(dev)
+    return {k: v[pick_t].cpu().numpy() for k, v in out.items()}
 
 
 def online(cs, store, key: int, ts: int, values: Dict[str, float],

@@ -67,15 +67,18 @@ def resolve_last(right_table: str, cols: Dict[str, torch.Tensor],
 
 def online_last_join(states, js: LastJoinSpec, join_cols, env, key, ts):
     """Request executor over (B,) request rows: the newest in-range row
-    of the pre-ranked store is one range lookup."""
+    of the pre-ranked store is one range lookup (on a stacked sharded
+    state, in each request's shard: positions index the flattened
+    columns)."""
     st = states[js.right_table]
     jk = env.get(js.left_key)
     jk = key if jk is None else jk.to(torch.int32)
     lo, hi = timestore.range_bounds(st, jk, torch.full_like(ts, INT_MIN),
                                     ts)
-    return resolve_last(js.right_table, st["cols"],
+    return resolve_last(js.right_table,
+                        {c: v.reshape(-1) for c, v in st["cols"].items()},
                         join_cols.get(js.right_table, []), hi - 1, lo,
-                        int(st["keys"].shape[0]))
+                        int(st["keys"].numel()))
 
 
 def offline_last_join(arrays, js: LastJoinSpec, script: FeatureScript,

@@ -268,6 +268,101 @@ class PreAgg:
                                                  info)
         return out
 
+    # ------------------------------------------------------- sharded state
+    def init_state_stacked(self, n_shards: int, device="cuda"
+                           ) -> Dict[str, Any]:
+        """Per-shard bucket states: every plane and epoch array gains a
+        leading shard dimension.  Shard s only receives the rows of the
+        keys it owns, so its (n_keys, slots) plane is the global state
+        restricted to owned keys (the others stay identity, epoch -1)."""
+        return _map_planes(
+            lambda t: t.expand((n_shards,) + tuple(t.shape)).contiguous(),
+            self.init_state(device))
+
+    def update_many_sharded(self, state, keys, ts, values: Dict[str, Any],
+                            owned):
+        """Fold M ingested rows into per-shard buckets, bitwise as the
+        reference's broadcast fold (every shard folds the whole sorted
+        batch, ``owned`` restricting each shard's scatter to its keys):
+        each key's (slots, *S) plane is gathered from its owner shard
+        into one (n_keys, ...) state, the ordered ``update_many`` fold
+        runs ONCE over it, and the owned keys' planes are scattered back
+        into new stacked tensors.  ``owned`` is the (n_shards, n_keys)
+        bool mask with at most one owner per key; a key no shard owns
+        keeps its planes (the recovery replay restricts the mask to one
+        shard so).
+
+        Keys must lie in the bounded universe [0, n_keys): under sharding
+        a request routes by the RAW key while a clipped key's plane would
+        live on ``owner(n_keys - 1)``, so out-of-range keys raise instead
+        of serving short aggregates."""
+        keys = np.asarray(keys, np.int32)
+        ts = np.asarray(ts, np.int32)
+        if keys.shape[0] == 0:
+            return state
+        if int(keys.max()) >= self.n_keys or int(keys.min()) < 0:
+            raise ValueError(
+                f"key outside the bounded universe [0, {self.n_keys}): "
+                f"sharded pre-agg routes by raw key, so clip-aliasing "
+                f"would break shard locality — raise the cardinality "
+                f"(CompileContext) or dictionary-encode the key column")
+        owned = np.asarray(owned, bool)
+        if (owned.sum(axis=0) > 1).any():
+            raise ValueError("pre-agg ownership mask gives a key more than "
+                             "one shard")
+        dev = state["fine_epoch"].device
+        rows = owned.argmax(axis=0) * self.n_keys + np.arange(self.n_keys)
+        kept = np.flatnonzero(owned.any(axis=0))
+        rows_t = torch.from_numpy(rows).to(dev)
+        dst = torch.from_numpy(rows[kept]).to(dev)
+        src = torch.from_numpy(kept).to(dev)
+        flat = _map_planes(lambda t: t.flatten(0, 1), state)
+        new = self.update_many(
+            _map_planes(lambda t: t[rows_t], flat), keys, ts, values)
+        lead = tuple(state["fine_epoch"].shape[:2])
+        return _zip_planes(
+            lambda old, upd: old.index_copy(0, dst, upd[src]).view(
+                lead + tuple(old.shape[1:])), flat, new)
+
+    def migrate_state_sharded(self, state, old_owner, new_owner):
+        """Move per-key bucket planes between shards after a routing
+        change: key k's plane moves from ``old_owner[k]`` to
+        ``new_owner[k]``; every other row resets to identity / epoch -1.
+        New tensors throughout."""
+        dev = state["fine_epoch"].device
+        ar = np.arange(self.n_keys)
+        src = torch.from_numpy(np.asarray(old_owner) * self.n_keys + ar).to(
+            dev)
+        dst = torch.from_numpy(np.asarray(new_owner) * self.n_keys + ar).to(
+            dev)
+        lead = tuple(state["fine_epoch"].shape[:2])
+        out = {}
+        for lvl in ("fine", "coarse"):
+            out[lvl] = {}
+            for k, leaf in self.leaves.items():
+                flat = state[lvl][k].flatten(0, 1)
+                moved = leaf.identity().to(dev).expand(flat.shape).clone()
+                moved[dst] = flat[src]
+                out[lvl][k] = moved.view(lead + tuple(flat.shape[1:]))
+            ep = state[f"{lvl}_epoch"].flatten(0, 1)
+            moved = torch.full_like(ep, -1)
+            moved[dst] = ep[src]
+            out[f"{lvl}_epoch"] = moved.view(lead + tuple(ep.shape[1:]))
+        return out
+
+    def restore_shard_plane(self, state, source, shard: int):
+        """Replace shard ``shard``'s planes in a stacked state with
+        ``source``'s planes of the same shard, every other shard's
+        untouched (recovery: the plane comes back from a snapshot cut at
+        a binlog watermark — or the identity when wiping — and the binlog
+        tail is then replayed through ``update_many_sharded``, whose
+        slot-seeded fold is batch-boundary independent).  New tensors."""
+        dev = state["fine_epoch"].device
+        idx = torch.tensor([shard], device=dev)
+        return _zip_planes(
+            lambda live, src: live.index_copy(
+                0, idx, src.to(dev)[shard:shard + 1]), state, source)
+
     # ------------------------------------------------------------------ query
     def fold_online(self, states, w, keys: torch.Tensor, ts: torch.Tensor,
                     values: Dict[str, torch.Tensor], pre_state,
@@ -292,6 +387,14 @@ class PreAgg:
         fine_l_end = torch.where(has_coarse, cb0 * f, fbr)
         fine_r_start = torch.where(has_coarse, cb1 * f, fbr)
         key_c = keys.clamp(0, self.n_keys - 1).long()
+        if pre_state["fine_epoch"].dim() == 3:
+            # stacked planes, requests laid out shard-major (request i of
+            # the (S·b,) batch reads shard i // b): index the planes
+            # flattened to (S·n_keys, ...)
+            n_shards = pre_state["fine_epoch"].shape[0]
+            shard = torch.arange(b, device=keys.device) // (b // n_shards)
+            key_c = key_c + shard * self.n_keys
+            pre_state = _map_planes(lambda t: t.flatten(0, 1), pre_state)
 
         env_l = gather(states, w, keys, t0, fb0 * g)
         env_r = _append_request(
@@ -349,6 +452,20 @@ class PreAgg:
         for i in range(st.shape[1]):                   # static, small
             acc = fam.combine(acc, st[:, i])
         return acc
+
+
+def _map_planes(fn, state):
+    """``fn`` applied to every plane and epoch tensor of a state."""
+    return {lvl: ({k: fn(v) for k, v in state[lvl].items()}
+                  if isinstance(state[lvl], dict) else fn(state[lvl]))
+            for lvl in ("fine", "coarse", "fine_epoch", "coarse_epoch")}
+
+
+def _zip_planes(fn, a, b):
+    """``fn(x, y)`` over the matching tensors of two states."""
+    return {lvl: ({k: fn(v, b[lvl][k]) for k, v in a[lvl].items()}
+                  if isinstance(a[lvl], dict) else fn(a[lvl], b[lvl]))
+            for lvl in ("fine", "coarse", "fine_epoch", "coarse_epoch")}
 
 
 def _group_info(k_s: torch.Tensor, b_s: torch.Tensor, capacity: int,

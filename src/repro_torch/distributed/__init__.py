@@ -1,0 +1,8 @@
+"""Fault tolerance for the sharded serving path: checkpoints, liveness,
+promotion policy, elastic re-planning and straggler mitigation
+(``distributed.fault``)."""
+
+from .fault import (CheckpointManager, ElasticPlanner,  # noqa: F401
+                    HeartbeatMonitor, MeshPlan, StragglerMitigator,
+                    most_caught_up, tree_flatten, tree_map,
+                    tree_unflatten)

@@ -38,8 +38,26 @@ snapshot=snap)`` serves from it while ``ingest_many`` and compaction
 mutate the live store; ``serve.loop.ServeLoop`` swaps it between
 flushes.
 
-Options that are not ported yet raise ``NotImplementedError`` naming the
-option: sharding, replication and checkpoints.
+Sharded serving (paper §5 tablets): ``n_shards=S`` swaps the store for
+a ``ShardedOnlineStore`` that hash-partitions keys over S shards stacked
+on the engine's device, keeps per-shard pre-agg planes, and routes
+``request`` / ``request_batch`` / ``flush`` / ``ingest_many`` /
+``bulk_load`` / ``offline`` through the sharded drivers
+(``CompiledScript.online_sharded_batch`` / ``offline_sharded``), bitwise
+equal to the unsharded engine.  ``rebalance()`` migrates hot keys between
+shards (``core.union.LoadBalancer`` greedy LPT) together with their
+pre-agg planes.  ``mesh=`` (one shard per device) is not ported and
+raises ``NotImplementedError``.
+
+Replicated serving: ``replication=R`` attaches R follower replicas per
+shard (``storage.replication.ReplicationManager``) fed from the store
+binlog every ``ship_every`` ingested rows, a ``FailoverController`` that
+promotes the most-caught-up follower when a shard dies, and a pre-agg
+recovery snapshot (with ``checkpoint_dir=``, also a checkpoint on disk).
+``kill_shard()`` / ``heal()`` inject a failure and recover from it;
+serving after ``heal`` is bitwise that of an engine never killed.
+Eviction is a replication barrier, and binlog truncation never passes
+the least acked follower offset or the snapshot's watermark.
 
 ``ServingEngine`` wraps a model's prefill/decode for batched requests —
 the "online ML" consumer of the features (dense and hybrid families): the
@@ -50,6 +68,7 @@ flash-decode kernel in every layer.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import time
 from typing import Any, Deque, Dict, List, Optional, Sequence
 
@@ -58,23 +77,23 @@ import torch
 
 from ..core.compiler import CompiledScript, compile_script
 from ..core.types import Table
+from ..distributed.fault import CheckpointManager
 from ..kernels.dispatch import resolve_device
 from ..models.model import decode_step, forward_prefill, init_decode_state
 from ..storage.memest import MemoryGuard
-from ..storage.timestore import OnlineStore
+from ..storage.replication import (FailoverController, PromotionRecord,
+                                   ReplicationManager,
+                                   recover_preagg_shard)
+from ..storage.timestore import OnlineStore, ShardedOnlineStore
 from .batcher import RequestBatcher
 
 __all__ = ["FeatureEngine", "EngineSnapshot", "ServingEngine"]
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(f"FeatureEngine option {name!r} is not "
-                              f"ported to repro_torch yet")
-
-
 class EngineSnapshot:
     """Point-in-time view of what the request path reads: the store
-    (``StoreSnapshot``) and the pre-aggregation states.  The states'
+    (``StoreSnapshot``: frozen tables and, when sharded, frozen routing)
+    and the pre-aggregation states.  The states'
     tensors are never written in place, but the engine rebinds planes in
     its ``pre_states`` dict, so the snapshot keeps a shallow copy of the
     dict.  ``refresh()`` re-cuts both from the live engine; readers see
@@ -108,16 +127,17 @@ class FeatureEngine:
                  batch_size: int = 64, max_wait_ms: float = 5.0,
                  latency_window: int = 16384,
                  mesh=None, n_shards: Optional[int] = None,
+                 shard_axis: str = "shard", route_slots: int = 1024,
                  retention=None, compact_every: int = 256,
-                 replication: int = 0,
+                 replication: int = 0, ship_every: int = 64,
                  checkpoint_dir: Optional[str] = None,
+                 heartbeat_timeout_s: float = 60.0,
                  fused_fold: bool = False, device="cuda"):
-        for name, on in (("mesh", mesh is not None),
-                         ("n_shards", (n_shards or 0) > 1),
-                         ("replication", replication),
-                         ("checkpoint_dir", checkpoint_dir)):
-            if on:
-                _not_ported(name)
+        if mesh is not None:
+            raise NotImplementedError(
+                "FeatureEngine option 'mesh' (one shard per device) is not "
+                "ported to repro_torch yet; n_shards= stacks the shards on "
+                "one device")
         self.device = resolve_device(device)
         from ..core.sql import parse
 
@@ -126,7 +146,16 @@ class FeatureEngine:
             fused_unit_fold=fused_fold)
         self.use_preagg = use_preagg
         self.ttl_ms = ttl_ms
-        self.store = OnlineStore(capacity=capacity, device=self.device)
+        self.sharded = (n_shards or 0) > 1
+        if self.sharded:
+            ok, why = self.cs.sharded_eligible()
+            if not ok:
+                raise ValueError(f"script not shardable by key: {why}")
+            self.store = ShardedOnlineStore(
+                capacity=capacity, n_shards=n_shards, axis=shard_axis,
+                n_route_slots=route_slots, device=self.device)
+        else:
+            self.store = OnlineStore(capacity=capacity, device=self.device)
         self.guard = MemoryGuard(max_memory_bytes)
         part_cols = sorted({w.node.spec.partition_by
                             for w in self.cs.windows})
@@ -144,8 +173,13 @@ class FeatureEngine:
                 specs[c] = np.float32 if dd.kind == "f" else np.int32
             self.store.create_table(tname, specs)
         self._need = need
-        self.pre_states = (self.cs.init_preagg_states(self.device)
-                           if use_preagg else None)
+        if not use_preagg:
+            self.pre_states = None
+        elif self.sharded:
+            self.pre_states = self.cs.init_preagg_states_sharded(
+                self.store.n_shards, self.device)
+        else:
+            self.pre_states = self.cs.init_preagg_states(self.device)
         self.dicts = {name: t.dicts for name, t in tables.items()}
         self.tables = tables
         self.batcher = RequestBatcher(batch_size, max_wait_ms=max_wait_ms)
@@ -160,6 +194,26 @@ class FeatureEngine:
         self.ingest_ms: Deque[float] = collections.deque(
             maxlen=latency_window)
         self.rows_ingested = 0
+        # ---- replication (per-shard followers + failover) ------------
+        self.replication = int(replication)
+        if self.replication and not self.sharded:
+            raise ValueError("replication=R needs a sharded engine "
+                             "(n_shards=); an unsharded store has no shard "
+                             "to replicate")
+        self.ckpt = (CheckpointManager(checkpoint_dir)
+                     if checkpoint_dir else None)
+        self.failovers: List[PromotionRecord] = []
+        self.repl = self.controller = None
+        if self.replication:
+            self.repl = ReplicationManager(self.store, self.replication)
+            self.controller = FailoverController(
+                self.repl, timeout_s=heartbeat_timeout_s)
+            self.ship_every = max(1, int(ship_every))
+            self._rows_since_ship = 0
+            # pre-agg recovery snapshot: (binlog watermark, planes at it);
+            # planes are never written in place, so a shallow copy of the
+            # dict is a point-in-time snapshot
+            self._snapshot = (0, _copy_states(self.pre_states))
 
     # ---------------------------------------------------------- retention
     def _derive_retention(self, retention) -> Dict[str, Optional[int]]:
@@ -193,20 +247,34 @@ class FeatureEngine:
 
     def _evict_release(self, table: str, horizon_ts: int):
         """Evict + compact below ``horizon_ts`` and credit the memory
-        guard for the dropped rows."""
+        guard for the dropped rows.  With replicas it is a replication
+        barrier: shipping replays puts only, so every follower first
+        applies the log to its head and then runs the same eviction (a
+        lagging follower could otherwise keep a row the leader dropped,
+        and promotion would not be bitwise)."""
         before = self.store.n_rows(table)
         self.store.evict(table, horizon_ts)
         evicted = before - self.store.n_rows(table)
         if evicted > 0:
             self.guard.release(evicted * (64 + 8 * len(self._need[table])))
+        if self.repl is not None:
+            self.repl.ship()
+            self.repl.evict(table, horizon_ts)
 
     def _after_ingest(self, table: str, n_rows: int, max_ts: int):
         """Scheduled retention tick on the ingest path: pre-aggregation
         folds at ingest, so the written binlog is consumed; every
         ``compact_every`` rows of a table evict + compact it and truncate
-        the binlog below the consumed offset."""
+        the binlog below the durable offset.  With replicas, every
+        ``ship_every`` rows ship the log to the followers."""
         self._hwm_ts[table] = max(self._hwm_ts[table], max_ts)
         self._consumed_offset = self.store._binlog_offset
+        if self.repl is not None:
+            self._rows_since_ship += n_rows
+            if self._rows_since_ship >= self.ship_every:
+                self._rows_since_ship = 0
+                self.repl.ship()
+                self.controller.beat()
         if not self.retention_ms:
             return
         self._pending_rows[table] += n_rows
@@ -219,9 +287,15 @@ class FeatureEngine:
         self.store.truncate_binlog(self._durable_offset())
 
     def _durable_offset(self) -> int:
-        """Binlog truncation low-watermark: the consumed offset (there are
-        no replicas or recovery snapshots to hold it back)."""
-        return self._consumed_offset
+        """Binlog truncation low-watermark: entries below it are folded
+        into the pre-agg planes (consumed), applied by every follower
+        (``ReplicationLog.safe_offset``) and below the recovery
+        snapshot's watermark — so no catch-up, promotion replay or
+        snapshot + replay recovery can need a truncated entry."""
+        off = self._consumed_offset
+        if self.repl is not None:
+            off = min(off, self.repl.log.safe_offset(), self._snapshot[0])
+        return off
 
     # ------------------------------------------------------------- ingest
     def ingest(self, table: str, row: Dict[str, Any]):
@@ -250,8 +324,7 @@ class FeatureEngine:
             self.guard.release(nbytes)   # nothing was stored
             raise
         if self.use_preagg:
-            self.pre_states = self.cs.preagg_update_many(
-                self.pre_states, table, keys, ts, cols)
+            self._fold_preagg(table, keys, ts, cols)
         max_ts = int(ts.max())
         if self.ttl_ms:
             self._evict_release(table, max_ts - self.ttl_ms)
@@ -271,12 +344,29 @@ class FeatureEngine:
         self.store.bulk_load(table, keys, ts, cols)
         self.guard.charge(len(rows_table) * (64 + 8 * len(cols)))
         if self.use_preagg:
-            self.pre_states = self.cs.preagg_update_many(
-                self.pre_states, table, np.asarray(keys, np.int32),
-                np.asarray(ts, np.int32), cols)
+            self._fold_preagg(table, np.asarray(keys, np.int32),
+                              np.asarray(ts, np.int32), cols)
         if len(ts):
             # high-watermark and consumed offset, no pending-row tick
             self._after_ingest(table, 0, int(np.max(ts)))
+        if self.repl is not None:
+            # a load is a snapshot barrier: it overwrites store state and
+            # logs its rows in sorted, not arrival, order, so no replay
+            # may cross it — followers re-seed from the loaded leaders and
+            # the recovery watermark moves past the load
+            self.repl.resync()
+            self.checkpoint()
+
+    def _fold_preagg(self, table: str, keys, ts, cols):
+        """Fold ingested rows into the pre-agg planes (per-shard planes
+        under the ownership masks when sharded)."""
+        if self.sharded:
+            self.pre_states = self.cs.preagg_update_many_sharded(
+                self.pre_states, table, keys, ts, cols,
+                self._preagg_owned())
+        else:
+            self.pre_states = self.cs.preagg_update_many(
+                self.pre_states, table, keys, ts, cols)
 
     def load_store_from(self, numpy_states: Dict[str, Dict]) -> None:
         """Take every table's store state as numpy arrays (``keys``,
@@ -290,6 +380,8 @@ class FeatureEngine:
     def request(self, row: Dict[str, Any]) -> Dict[str, np.ndarray]:
         """Online request mode: features for one (virtually inserted)
         tuple of the base table."""
+        if self.sharded:   # a one-request batch through the shard routing
+            return self.request_batch([row])[0]
         t0 = time.perf_counter()
         key, ts, values = self._encode_request(row)
         feats = self.cs.online(self.store, key, ts, values,
@@ -301,10 +393,11 @@ class FeatureEngine:
     def request_batch(self, rows: Sequence[Dict[str, Any]],
                       snapshot: Optional[EngineSnapshot] = None
                       ) -> List[Dict[str, np.ndarray]]:
-        """Features for B requests in one batched call: a fused engine
-        without pre-agg takes the fast path (``online_batch_fast``),
-        every other one ``online_batch`` (the staged fold and/or the
-        pre-agg planes).  With ``snapshot=`` the batch reads the frozen
+        """Features for B requests in one batched call: a sharded engine
+        through ``online_sharded_batch``, a fused engine without pre-agg
+        through the fast path (``online_batch_fast``), every other one
+        through ``online_batch`` (the staged fold and/or the pre-agg
+        planes).  With ``snapshot=`` the batch reads the frozen
         ``EngineSnapshot`` instead of the live store and states."""
         if not rows:
             return []
@@ -316,7 +409,10 @@ class FeatureEngine:
                   for c in self._need[self.cs.script.base_table]}
         store = self.store if snapshot is None else snapshot.store
         pre = self.pre_states if snapshot is None else snapshot.pre_states
-        if not self.use_preagg and self.cs.ctx.fused_unit_fold:
+        if self.sharded:
+            feats = self.cs.online_sharded_batch(store, keys, ts, values,
+                                                 preagg_states=pre)
+        elif not self.use_preagg and self.cs.ctx.fused_unit_fold:
             feats = self.cs.online_batch_fast(store, keys, ts, values)
         else:
             feats = self.cs.online_batch(store, keys, ts, values,
@@ -348,13 +444,144 @@ class FeatureEngine:
                 out[rid] = f
         return out
 
+    # ---------------------------------------------------------- rebalance
+    def rebalance(self) -> bool:
+        """Hot-key rebalancing for the sharded engine: recompute the key ->
+        shard map from the observed ingest load (greedy LPT over the
+        ``LoadBalancer`` cost EMA) and migrate both the resident rows and
+        the per-shard pre-agg planes to the new owners.  Returns True if
+        any key moved; served features do not change."""
+        if not self.sharded:
+            return False
+        store: ShardedOnlineStore = self.store
+        n_keys = {wi: w.preagg.n_keys for wi, w in enumerate(self.cs.windows)
+                  if w.preagg is not None and self.use_preagg}
+        old_owner = {wi: store.owner_of_keys(np.arange(nk))
+                     for wi, nk in n_keys.items()}
+        if not store.rebalance():
+            return False
+        if self.use_preagg:
+            pre = dict(self.pre_states)
+            for wi, nk in n_keys.items():
+                pre[wi] = self.cs.windows[wi].preagg.migrate_state_sharded(
+                    pre[wi], old_owner[wi], store.owner_of_keys(
+                        np.arange(nk)))
+            self.pre_states = pre
+        if self.repl is not None:
+            # ownership changed under shipped history: followers re-seed
+            # from the migrated leaders and the recovery snapshot is re-cut,
+            # so no replay crosses a rebalance
+            self.repl.resync()
+            self.checkpoint()
+        return True
+
+    # --------------------------------------------------------- replication
+    def _require_replication(self):
+        if self.repl is None:
+            raise ValueError("engine was built without replication=R")
+
+    def ship_replicas(self) -> int:
+        """Ship the unacked binlog tail to every follower now (the ingest
+        path does so every ``ship_every`` rows)."""
+        self._require_replication()
+        n = self.repl.ship()
+        self.controller.beat()
+        return n
+
+    def checkpoint(self) -> int:
+        """Cut a recovery snapshot at the current binlog offset: the pre-agg
+        planes in memory and, with ``checkpoint_dir=``, the stacked store
+        tables and planes on disk (step == binlog watermark, so cold
+        recovery is restore + replay of the tail).  Returns the
+        watermark."""
+        wm = self.store._binlog_offset
+        pre = _copy_states(self.pre_states)
+        if self.repl is not None:
+            self._snapshot = (wm, pre)
+        if self.ckpt is not None:
+            self.ckpt.save(wm, {"tables": dict(self.store.tables),
+                                "pre": pre})
+        return wm
+
+    def kill_shard(self, shard: int) -> Dict[str, Any]:
+        """Fault injection: shard ``shard`` dies — its resident rows and
+        pre-agg planes are wiped and the controller marks it dead.  Serving
+        continues (its keys read empty) until ``heal()``.  Returns the
+        replication lag at the moment of death (entries each follower was
+        behind)."""
+        self._require_replication()
+        end = self.store._binlog_offset
+        lag = {r: int(v) for r, v in enumerate(
+            self.repl.log.lag(end)[shard])}
+        self.store.wipe_shard(shard)
+        if self.pre_states is not None:
+            empty = self.cs.init_preagg_states_sharded(self.store.n_shards,
+                                                       self.device)
+            pre = dict(self.pre_states)
+            for wi in empty:
+                pre[wi] = self.cs.windows[wi].preagg.restore_shard_plane(
+                    pre[wi], empty[wi], shard)
+            self.pre_states = pre
+        self.controller.mark_dead(shard)
+        return {"shard": shard, "leader_offset": end, "lag_at_kill": lag}
+
+    def heal(self) -> List[PromotionRecord]:
+        """Fail over every dead shard: promote its most-caught-up follower
+        (unacked tail replayed through the same ordered apply) into the
+        leader slot, and rebuild its pre-agg planes from the snapshot plus
+        a binlog replay restricted to the shard.  ``recovery_s`` covers
+        both."""
+        self._require_replication()
+        healed = []
+        for shard in self.controller.dead_shards():
+            t0 = time.perf_counter()
+            rec = self.controller.failover(shard)
+            if self.pre_states is not None:
+                wm, snap = self._snapshot
+                self.pre_states = recover_preagg_shard(
+                    self.cs, dict(self.pre_states), snap, wm, self.store,
+                    shard, self._preagg_owned())
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            rec.recovery_s = time.perf_counter() - t0
+            healed.append(rec)
+        self.failovers.extend(healed)
+        return healed
+
+    def replication_stats(self) -> Dict[str, Any]:
+        """Lag and recovery observability."""
+        if self.repl is None:
+            return {"n_replicas": 0}
+        st = self.repl.stats()
+        st["snapshot_watermark"] = self._snapshot[0]
+        st["dead_shards"] = self.controller.dead_shards()
+        st["failovers"] = [dataclasses.asdict(r) for r in self.failovers]
+        return st
+
+    def _preagg_owned(self):
+        """Per-window ownership masks, cached against the store's
+        rebalance count (they change only on rebalance)."""
+        ver = self.store.n_rebalances
+        cached = getattr(self, "_owned_cache", None)
+        if cached is None or cached[0] != ver:
+            cached = (ver, self.cs.preagg_owned_masks(
+                self.store.owner_of_keys, self.store.n_shards))
+            self._owned_cache = cached
+        return cached[1]
+
     # ------------------------------------------------------------- offline
     def offline(self, tables: Optional[Dict[str, Table]] = None
                 ) -> Dict[str, np.ndarray]:
         """Offline (training-set) feature materialization for this
         deployment's script, on the engine's device: the same fold that
-        serves the requests computes the training features."""
-        return self.cs.offline(tables or self.tables, device=self.device)
+        serves the requests computes the training features.  A sharded
+        engine materializes through ``offline_sharded`` over its shard
+        count, bitwise equal to ``offline``."""
+        tables = tables or self.tables
+        if self.sharded:
+            return self.cs.offline_sharded(
+                tables, n_shards=self.store.n_shards, device=self.device)
+        return self.cs.offline(tables, device=self.device)
 
     # ------------------------------------------------------------ helpers
     def _key_col(self) -> str:

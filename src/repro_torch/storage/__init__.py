@@ -1,4 +1,9 @@
-"""Online time-series store and runtime memory guard."""
+"""Online time-series store (unsharded and key-sharded), per-shard
+replication with failover, and the runtime memory guard."""
 
-from .timestore import OnlineStore, StoreSnapshot  # noqa: F401
+from .timestore import (OnlineStore, ShardedOnlineStore,  # noqa: F401
+                        StoreSnapshot, StoreState)
 from .memest import MemoryGuard  # noqa: F401
+from .replication import (FailoverController, PromotionRecord,  # noqa: F401
+                          ReplicationLog, ReplicationManager,
+                          cold_recover_shard, recover_preagg_shard)

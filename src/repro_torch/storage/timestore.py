@@ -19,11 +19,21 @@ table's state dict with new tensors (nothing is written in place), so a
 shallow copy of ``tables`` is a consistent snapshot.  ``evict_before``
 is the batch TTL deletion (§7.2): one stable compaction that keeps the
 live rows with ``ts >= horizon``, in order.
+
+``ShardedOnlineStore`` partitions tables by key (the paper's tablets, §5,
+§7.2) into a STACKED layout on one device: every leaf gains a leading
+shard dimension — ``keys: (n_shards, capacity)`` etc., ``count:
+(n_shards,)`` — and all rows of one key live on one shard.  The reads
+take such a state directly: a (S·b,) request batch laid out shard-major
+(request i reads shard i // b) seeks with one batched
+``torch.searchsorted`` over the (S, capacity) composite and gathers
+from the flattened columns at ``s * capacity + pos``, so a sharded batch
+runs the same launches as an unsharded one of S·b requests.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,9 +41,11 @@ import torch
 INT_MAX = np.int32(2**31 - 1)
 INT_MIN = -(2**31)
 
-__all__ = ["StoreState", "OnlineStore", "StoreSnapshot", "make_state",
-           "insert_many", "evict_before", "range_bounds", "gather_window",
-           "gather_key_unit", "composite", "next_pow2"]
+__all__ = ["StoreState", "OnlineStore", "ShardedOnlineStore",
+           "StoreSnapshot", "make_state", "make_state_stacked",
+           "insert_many", "insert_many_stacked", "evict_before",
+           "evict_before_stacked", "range_bounds", "gather_window",
+           "gather_key_unit", "composite", "next_pow2", "route_slots"]
 
 StoreState = Dict
 
@@ -127,13 +139,112 @@ def evict_before(state: StoreState, horizon_ts: int) -> StoreState:
     }
 
 
+def make_state_stacked(n_shards: int, capacity: int,
+                       col_specs: Dict[str, np.dtype], device) -> StoreState:
+    """(n_shards, capacity) empty tables: every leaf of ``make_state``
+    with a leading shard dimension."""
+    base = make_state(capacity, col_specs, device)
+
+    def stack(t):
+        return t.expand((n_shards,) + tuple(t.shape)).contiguous()
+
+    return {"keys": stack(base["keys"]), "ts": stack(base["ts"]),
+            "cols": {c: stack(v) for c, v in base["cols"].items()},
+            "count": stack(base["count"]), "comp": stack(base["comp"])}
+
+
+def insert_many_stacked(state: StoreState, keys: torch.Tensor,
+                        ts: torch.Tensor, values: Dict[str, torch.Tensor],
+                        n_new: torch.Tensor) -> StoreState:
+    """``insert_many`` for every shard at once: ``keys``/``ts`` are
+    (S, M) blocks whose unused slots hold INT_MAX padding (composite
+    2^63 - 1, the capacity padding's), ``n_new`` (S,) the real rows per
+    shard.  One batched stable sort along the rows merges every shard;
+    per shard it is the permutation ``insert_many`` takes."""
+    cap = state["keys"].shape[1]
+    keys = keys.to(torch.int32)
+    ts = ts.to(torch.int32)
+    all_keys = torch.cat([state["keys"], keys], dim=1)
+    all_ts = torch.cat([state["ts"], ts], dim=1)
+    all_comp = torch.cat([state["comp"], composite(keys, ts)], dim=1)
+    perm = torch.sort(all_comp, dim=1, stable=True).indices[:, :cap]
+    new_cols = {}
+    for name, arr in state["cols"].items():
+        v = values.get(name)
+        v = (torch.zeros(keys.shape, dtype=arr.dtype, device=arr.device)
+             if v is None else v.to(arr.dtype))
+        new_cols[name] = torch.gather(torch.cat([arr, v], dim=1), 1, perm)
+    return {
+        "keys": torch.gather(all_keys, 1, perm),
+        "ts": torch.gather(all_ts, 1, perm), "cols": new_cols,
+        "count": state["count"] + n_new.to(torch.int32),
+        "comp": torch.gather(all_comp, 1, perm),
+    }
+
+
+def evict_before_stacked(state: StoreState, horizon_ts: int) -> StoreState:
+    """``evict_before`` on every shard: one stable compaction of the
+    (S, capacity) rows into fresh tensors (kept rows in order, then
+    padding)."""
+    horizon = int(np.int32(horizon_ts))
+    keys, ts = state["keys"], state["ts"]
+    s, cap = keys.shape
+    pos = torch.arange(cap, device=keys.device)
+    keep = (pos < state["count"][:, None]) & (ts >= horizon)
+    dest = torch.cumsum(keep, dim=1) - 1
+    base = torch.arange(s, device=keys.device)[:, None] * cap
+    src = torch.nonzero(keep.reshape(-1)).flatten()
+    to = (dest + base).reshape(-1)[src]
+
+    def compact(arr, fill):
+        out = torch.full((s * cap,), fill, dtype=arr.dtype, device=arr.device)
+        out[to] = arr.reshape(-1)[src]
+        return out.view(s, cap)
+
+    new_keys = compact(keys, int(INT_MAX))
+    new_ts = compact(ts, int(INT_MAX))
+    return {
+        "keys": new_keys, "ts": new_ts,
+        "cols": {k: compact(v, 0) for k, v in state["cols"].items()},
+        "count": keep.sum(dim=1, dtype=torch.int32),
+        "comp": composite(new_keys, new_ts),
+    }
+
+
+def route_slots(keys, n_route_slots: int) -> np.ndarray:
+    """Key -> route slot: splitmix64 of the key as uint64, modulo the
+    slot count (the hash-bounded key universe the balancer works on)."""
+    from ..core.hll import splitmix64
+
+    k = np.atleast_1d(np.asarray(keys)).astype(np.uint64)
+    return (splitmix64(k) % np.uint64(n_route_slots)).astype(np.int64)
+
+
 def range_bounds(state: StoreState, key: torch.Tensor, t0: torch.Tensor,
                  t1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """[lo, hi) of rows with keys==key and ts in [t0, t1], batched over
     (B,) requests (peers at t1 included — the querying row inserts after
-    its peers).  Two searches of the composite key, O(log capacity)."""
+    its peers).  Two searches of the composite key, O(log capacity).
+
+    On a stacked (S, capacity) state the requests are laid out
+    shard-major, request i of the (S·b,) batch seeking in shard i // b:
+    the searches run batched over the shards, each result is clamped to
+    its shard's ``count`` and returned as a position in the flattened
+    (S·capacity) columns."""
     n = state["count"]
     comp = state["comp"]
+    if comp.dim() == 2:
+        s, cap = comp.shape
+        q0 = composite(key, t0).view(s, -1)
+        q1 = composite(key, t1).view(s, -1)
+        lo = torch.searchsorted(comp, q0).to(torch.int32)
+        hi = torch.searchsorted(comp, q1, right=True).to(torch.int32)
+        lo = torch.minimum(lo, n[:, None])
+        hi = torch.minimum(hi, n[:, None])
+        base = (torch.arange(s, dtype=torch.int32, device=comp.device)
+                * cap)[:, None]
+        return ((torch.minimum(lo, hi) + base).view(-1),
+                (hi + base).view(-1))
     lo = torch.searchsorted(comp, composite(key, t0)).to(torch.int32)
     hi = torch.searchsorted(comp, composite(key, t1),
                             right=True).to(torch.int32)
@@ -147,14 +258,16 @@ def gather_window(state: StoreState, lo: torch.Tensor, hi: torch.Tensor,
                   ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
                              torch.Tensor]:
     """Gather the newest ``max_rows`` rows of each [lo, hi) into fixed
-    (B, max_rows) buffers: (cols, ts, valid), rows in time order."""
+    (B, max_rows) buffers: (cols, ts, valid), rows in time order.
+    Positions index the flattened columns (a stacked state's
+    ``range_bounds`` returns them so)."""
     start = torch.maximum(lo, hi - max_rows)
     idx = start[:, None] + torch.arange(max_rows, dtype=torch.int32,
                                         device=lo.device)
     valid = idx < hi[:, None]
-    safe = idx.clamp(0, state["keys"].shape[0] - 1).long()
-    cols = {c: state["cols"][c][safe] for c in col_names}
-    return cols, state["ts"][safe], valid
+    safe = idx.clamp(0, state["keys"].numel() - 1).long()
+    cols = {c: state["cols"][c].reshape(-1)[safe] for c in col_names}
+    return cols, state["ts"].reshape(-1)[safe], valid
 
 
 def gather_key_unit(state: StoreState, key: torch.Tensor, ts: torch.Tensor,
@@ -170,24 +283,41 @@ def gather_key_unit(state: StoreState, key: torch.Tensor, ts: torch.Tensor,
 
 class StoreSnapshot:
     """Point-in-time read view of a store: every mutation replaces whole
-    table entries, so a shallow copy of ``tables`` is a frozen view.
-    ``refresh()`` re-cuts it from the live store in one rebind."""
+    table entries, so a shallow copy of ``tables`` is a frozen view.  A
+    sharded store's routing (``assignment``) is frozen with it, so a
+    later ``rebalance()`` cannot route the snapshot's requests to shards
+    that no longer hold their rows.  ``refresh()`` re-cuts it from the
+    live store in one rebind per field."""
 
     def __init__(self, store):
         self._store = store
         self.capacity = store.capacity
         self.device = store.device
         self.col_specs = store.col_specs
+        self.sharded = isinstance(store, ShardedOnlineStore)
+        if self.sharded:
+            self.n_shards = store.n_shards
+            self.n_route_slots = store.n_route_slots
         self.version = -1
         self.refresh()
 
     def refresh(self) -> int:
         self.tables = dict(self._store.tables)
+        if self.sharded:
+            self.assignment = self._store.assignment.copy()
         self.version += 1
         return self.version
 
+    def owner_of_keys(self, keys) -> np.ndarray:
+        """Key -> owning shard under the FROZEN assignment."""
+        return self.assignment[route_slots(keys, self.n_route_slots)
+                               ].astype(np.int64)
+
+    def n_rows_per_shard(self, table: str) -> np.ndarray:
+        return self.tables[table]["count"].cpu().numpy()
+
     def n_rows(self, table: str) -> int:
-        return int(self.tables[table]["count"])
+        return int(self.tables[table]["count"].sum())
 
 
 class _BinlogMixin:
@@ -332,3 +462,318 @@ class OnlineStore(_BinlogMixin):
     def snapshot(self) -> StoreSnapshot:
         """Cut an immutable point-in-time read view (O(#tables))."""
         return StoreSnapshot(self)
+
+
+class ShardedOnlineStore(_BinlogMixin):
+    """Key-sharded online store: the paper's tablet partitioning (§5,
+    §7.2) in the stacked layout on one device.
+
+    Every table's state leaf gains a leading shard dimension — ``keys:
+    (n_shards, capacity)``, ``count: (n_shards,)`` etc. — and all rows of
+    one partition key live on exactly one shard, so window folds over a
+    key never cross shards.  Each shard keeps its rows in stable (key,
+    ts, arrival) order, as an ``OnlineStore`` does.
+
+    Routing: key -> route slot (splitmix64 mod ``n_route_slots``) ->
+    shard (the host-side ``assignment``).  The assignment starts as the
+    static hash and is recomputed from the observed per-slot load by
+    ``core.union.LoadBalancer``'s greedy LPT on ``rebalance()``, which
+    migrates resident rows to their new owners.  Keys always move whole
+    (hot-slot splitting is off).
+
+    ``capacity`` is PER SHARD: a skewed key distribution needs headroom.
+
+    Replication (``storage.replication``): slot s of the stacked layout is
+    shard s's LEADER, the only replica the serving path reads;
+    ``shard_state`` / ``install_shard`` / ``wipe_shard`` expose the slices
+    followers are seeded from and promoted into, and the binlog (every
+    entry carries table, key, ts and values) is the shipping stream.
+
+    Every mutation builds new stacked tensors (nothing is written in
+    place), so a snapshot cut earlier keeps its bytes.  ``mesh=`` (one
+    shard per device through ``torch.distributed``) is not ported and
+    raises ``NotImplementedError``.
+    """
+
+    def __init__(self, capacity: int, n_shards: Optional[int] = None,
+                 mesh=None, axis: str = "shard",
+                 n_route_slots: int = 1024, device="cuda"):
+        from ..core.union import LoadBalancer
+
+        if mesh is not None:
+            raise NotImplementedError(
+                "ShardedOnlineStore option 'mesh' (one shard per device) is "
+                "not ported to repro_torch yet; pass n_shards= for the "
+                "stacked layout on one device")
+        if not n_shards or n_shards < 1:
+            raise ValueError("need n_shards >= 1")
+        self.capacity = capacity
+        self.n_shards = int(n_shards)
+        self.axis = axis
+        self.n_route_slots = n_route_slots
+        self.device = torch.device(device)
+        # split_threshold=inf: hot-slot splitting stays OFF so the LPT's
+        # load accounting matches the whole-key moves rebalance() makes
+        self.balancer = LoadBalancer(n_route_slots, self.n_shards,
+                                     split_threshold=float("inf"))
+        self.assignment = self.balancer.assignment.copy()
+        self._slot_counts = np.zeros(n_route_slots, np.float64)
+        self.tables: Dict[str, StoreState] = {}
+        self.col_specs: Dict[str, Dict[str, np.dtype]] = {}
+        self.binlog: List[Tuple[str, int, int, Dict[str, float]]] = []
+        self._binlog_offset = 0
+        self._binlog_base = 0
+        self.n_rebalances = 0
+
+    # ----------------------------------------------------------- routing
+    def route_slots(self, keys) -> np.ndarray:
+        """Key -> route slot (hash-bounded key universe for balancing)."""
+        return route_slots(keys, self.n_route_slots)
+
+    def owner_of_keys(self, keys) -> np.ndarray:
+        """Key -> owning shard under the current assignment."""
+        return self.assignment[self.route_slots(keys)].astype(np.int64)
+
+    def _owners_on_device(self, keys: torch.Tensor,
+                          assignment: np.ndarray) -> torch.Tensor:
+        """Owner of every device key under ``assignment``: the distinct
+        keys are routed on the host, the rows index their owner."""
+        uniq, inv = torch.unique(keys, return_inverse=True)
+        own = assignment[self.route_slots(uniq.cpu().numpy())]
+        return torch.from_numpy(own.astype(np.int64)).to(keys.device)[inv]
+
+    # ------------------------------------------------------------ tables
+    def create_table(self, name: str, col_specs: Dict[str, np.dtype]):
+        self.tables[name] = make_state_stacked(
+            self.n_shards, self.capacity, col_specs, self.device)
+        self.col_specs[name] = dict(col_specs)
+
+    def n_rows_per_shard(self, table: str) -> np.ndarray:
+        return self.tables[table]["count"].cpu().numpy()
+
+    def n_rows(self, table: str) -> int:
+        return int(self.n_rows_per_shard(table).sum())
+
+    def _to_device(self, arr, dtype) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr, dtype)).to(
+            self.device)
+
+    # ------------------------------------------------------------ ingest
+    def put(self, table: str, key: int, ts: int,
+            values: Dict[str, float]) -> int:
+        """Single-row insert: a 1-row ``put_many`` (same routing path)."""
+        cols = {c: np.asarray([v], np.float32) for c, v in values.items()}
+        return self.put_many(table, np.asarray([key], np.int32),
+                             np.asarray([ts], np.int32), cols)
+
+    def put_many(self, table: str, keys, ts,
+                 cols: Dict[str, np.ndarray]) -> int:
+        """Bulk insert routed by key: rows are grouped per owning shard
+        (arrival order kept within a shard) into (S, M) blocks padded
+        with INT_MAX rows and merged by one ``insert_many_stacked``;
+        returns the first binlog offset."""
+        keys = np.asarray(keys, np.int32)
+        ts = np.asarray(ts, np.int32)
+        n = keys.shape[0]
+        if n == 0:
+            return self._binlog_offset
+        slots = self.route_slots(keys)
+        owner = self.assignment[slots].astype(np.int64)
+        counts = np.bincount(owner, minlength=self.n_shards)
+        live = self.n_rows_per_shard(table)
+        over = np.flatnonzero(live + counts > self.capacity)
+        if over.size:
+            s = int(over[0])
+            raise ValueError(
+                f"bulk put overflows shard {s}: {int(live[s])} live + "
+                f"{int(counts[s])} new > per-shard capacity "
+                f"{self.capacity}")
+        m = next_pow2(int(max(1, counts.max())))
+        pos = _rank_within(owner, counts)
+        k_blk = np.full((self.n_shards, m), INT_MAX, np.int32)
+        t_blk = np.full((self.n_shards, m), INT_MAX, np.int32)
+        k_blk[owner, pos] = keys
+        t_blk[owner, pos] = ts
+        vals = {}
+        for name, dtype in self.col_specs[table].items():
+            if name in cols:
+                v = np.zeros((self.n_shards, m), dtype)
+                v[owner, pos] = np.asarray(cols[name], dtype)
+                vals[name] = self._to_device(v, dtype)
+        self.tables[table] = insert_many_stacked(
+            self.tables[table], self._to_device(k_blk, np.int32),
+            self._to_device(t_blk, np.int32), vals,
+            self._to_device(counts, np.int32))
+        self._slot_counts += np.bincount(slots, minlength=self.n_route_slots)
+        off = self._binlog_offset
+        kl, tl = keys.tolist(), ts.tolist()
+        self.binlog.extend(
+            (table, kl[i], tl[i],
+             {c: float(cols[c][i]) for c in cols}) for i in range(n))
+        self._binlog_offset += n
+        return off
+
+    def bulk_load(self, table: str, keys, ts,
+                  cols: Dict[str, np.ndarray]) -> int:
+        """LOAD DATA: route once, sort every shard at once, overwrite the
+        table; the loaded rows enter the binlog in (key, ts, arrival)
+        order."""
+        keys = np.asarray(keys, np.int32)
+        ts = np.asarray(ts, np.int32)
+        n = keys.shape[0]
+        slots = self.route_slots(keys)
+        owner = self.assignment[slots].astype(np.int64)
+        specs = self.col_specs[table]
+        self.tables[table] = self._build_state(
+            table, self._to_device(keys, np.int32),
+            self._to_device(ts, np.int32),
+            {c: self._to_device(cols[c], specs[c]) for c in specs
+             if c in cols},
+            self._to_device(owner, np.int64))
+        # after _build_state: a per-shard overflow must not leave phantom
+        # load in the balancer
+        self._slot_counts += np.bincount(slots, minlength=self.n_route_slots)
+        order = np.lexsort((np.arange(n), ts, keys))
+        ko, tso = keys[order].tolist(), ts[order].tolist()
+        co = {c: np.asarray(cols[c])[order].astype(np.float64).tolist()
+              for c in cols}
+        names = list(co)
+        self.binlog.extend(
+            (table, ko[i], tso[i], {c: co[c][i] for c in names})
+            for i in range(n))
+        self._binlog_offset += n
+        return n
+
+    def _build_state(self, table: str, keys: torch.Tensor, ts: torch.Tensor,
+                     cols: Dict[str, torch.Tensor], owner: torch.Tensor
+                     ) -> StoreState:
+        """Stacked state from device rows given in arrival order: a stable
+        sort by composite key, then a stable sort by owner, lays every
+        shard's rows out in (key, ts, arrival) order — the order per-shard
+        sequential inserts produce — and one scatter places them at
+        ``owner * capacity + rank``."""
+        s, cap = self.n_shards, self.capacity
+        counts = torch.bincount(owner, minlength=s)
+        if int(counts.max()) > cap:
+            sh = int(torch.argmax(counts))
+            raise ValueError(f"shard {sh} gets {int(counts[sh])} rows > "
+                             f"per-shard capacity {cap}")
+        keys = keys.to(torch.int32)
+        ts = ts.to(torch.int32)
+        perm = torch.sort(composite(keys, ts), stable=True).indices
+        perm = perm[torch.sort(owner[perm], stable=True).indices]
+        own_s = owner[perm]
+        starts = torch.cumsum(counts, 0) - counts
+        dest = own_s * cap + (torch.arange(perm.shape[0], device=perm.device)
+                              - starts[own_s])
+        st = make_state_stacked(s, cap, self.col_specs[table], self.device)
+
+        def place(arr, src):
+            out = arr.reshape(-1).clone()
+            out[dest] = src[perm].to(out.dtype)
+            return out.view(s, cap)
+
+        new_keys = place(st["keys"], keys)
+        new_ts = place(st["ts"], ts)
+        return {
+            "keys": new_keys, "ts": new_ts,
+            "cols": {c: place(v, cols[c]) if c in cols else v
+                     for c, v in st["cols"].items()},
+            "count": counts.to(torch.int32),
+            "comp": composite(new_keys, new_ts),
+        }
+
+    def evict(self, table: str, horizon_ts: int) -> None:
+        """Per-shard batch TTL eviction + slot compaction (one pass)."""
+        self.tables[table] = evict_before_stacked(self.tables[table],
+                                                  horizon_ts)
+
+    # --------------------------------------------------------- rebalance
+    def rebalance(self) -> bool:
+        """Hot-key rebalancing (§5.2 mapped to shards): fold the
+        accumulated per-slot load into the LoadBalancer EMA, recompute
+        the slot -> shard map with greedy LPT, and migrate the resident
+        rows whose owner changed.  Returns True if the assignment
+        changed (the engine then migrates its pre-agg planes too).
+
+        Two-phase: every table's migrated state is built before anything
+        is committed, so a per-shard capacity overflow mid-migration
+        leaves routing and tables as they were.  A row's arrival is its
+        global source position ``s * capacity + i`` (all rows of one key
+        live on one source shard, so per-key arrival order holds)."""
+        self.balancer.observe(self._slot_counts)
+        # counts are folded into the EMA exactly once: zero them NOW so a
+        # retry after a failed migration does not double-count the load
+        self._slot_counts[:] = 0.0
+        new_assign = self.balancer.rebalance().copy()
+        if np.array_equal(new_assign, self.assignment):
+            return False
+        new_tables: Dict[str, StoreState] = {}
+        for table, st in self.tables.items():
+            live = (torch.arange(self.capacity, device=self.device)
+                    < st["count"][:, None]).reshape(-1)
+            src = torch.nonzero(live).flatten()   # ascending s*cap + i
+            keys = st["keys"].reshape(-1)[src]
+            new_tables[table] = self._build_state(
+                table, keys, st["ts"].reshape(-1)[src],
+                {c: v.reshape(-1)[src] for c, v in st["cols"].items()},
+                self._owners_on_device(keys, new_assign))
+        self.tables.update(new_tables)
+        self.assignment = new_assign
+        self.n_rebalances += 1
+        return True
+
+    # ------------------------------------------------------- replication
+    def shard_state(self, table: str, shard: int) -> StoreState:
+        """Unstacked copy of one shard's slice of ``table`` — the leader's
+        state, used to seed and resync follower replicas."""
+        st = self.tables[table]
+        return {"keys": st["keys"][shard].clone(),
+                "ts": st["ts"][shard].clone(),
+                "cols": {c: v[shard].clone() for c, v in st["cols"].items()},
+                "count": st["count"][shard].clone(),
+                "comp": st["comp"][shard].clone()}
+
+    def install_shard(self, shard: int,
+                      tables: Dict[str, StoreState]) -> None:
+        """Put per-shard states into stacked slot ``shard`` (follower
+        promotion: the promoted replica becomes the leader of the shard's
+        key range; routing is untouched).  Builds new stacked tensors."""
+        idx = torch.tensor([shard], device=self.device)
+
+        def put(full, part):
+            return full.index_copy(0, idx, part.to(full.device)[None])
+
+        for name, part in tables.items():
+            st = self.tables[name]
+            self.tables[name] = {
+                "keys": put(st["keys"], part["keys"]),
+                "ts": put(st["ts"], part["ts"]),
+                "cols": {c: put(v, part["cols"][c])
+                         for c, v in st["cols"].items()},
+                "count": put(st["count"], part["count"]),
+                "comp": put(st["comp"], composite(part["keys"],
+                                                  part["ts"])),
+            }
+
+    def wipe_shard(self, shard: int) -> None:
+        """Fault injection: shard ``shard`` loses all resident rows (its
+        slot reads as a freshly provisioned, empty store until a replica
+        is promoted into it)."""
+        self.install_shard(shard, {
+            name: make_state(self.capacity, self.col_specs[name],
+                             self.device) for name in self.tables})
+
+    def snapshot(self) -> StoreSnapshot:
+        """Cut a frozen read view: tables AND routing."""
+        return StoreSnapshot(self)
+
+
+def _rank_within(owner: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """Each row's position among the rows of its owner, in arrival
+    order."""
+    order = np.argsort(owner, kind="stable")
+    starts = np.cumsum(counts) - counts
+    pos = np.empty(owner.shape[0], np.int64)
+    pos[order] = np.arange(owner.shape[0]) - starts[owner[order]]
+    return pos

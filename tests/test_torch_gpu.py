@@ -733,3 +733,75 @@ def test_model_serving_kernels_match_plain():
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(
         np.stack([np.argmax(x, -1) for x in logits[0][:-1]], 1), tokens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_preagg", [False, True],
+                         ids=["fused", "preagg"])
+def test_sharded_engine_equals_unsharded_on_card(use_preagg):
+    """A sharded, replicated engine on the card serves the unsharded
+    engine's bytes (after a rebalance and a kill + heal too), and a
+    fused batch launches as many unit-fold and hash kernels as the
+    unsharded batch of the same size."""
+    dev = require_cuda()
+    sql = SMOKE_SQL
+    opts = dict(fused_fold=True)
+    if use_preagg:
+        sql = SMOKE_SQL + 'OPTIONS (long_windows = "w:10s")'
+        opts = dict(use_preagg=True)
+    tables = make_action_tables(n_actions=600, n_orders=300, n_users=12,
+                                horizon_ms=600_000, zipf_alpha=1.2, seed=3,
+                                with_profile=False)
+    engines = [FeatureEngine(sql, tables, capacity=2048, device=dev,
+                             **opts),
+               FeatureEngine(sql, tables, capacity=2048, n_shards=8,
+                             replication=2, ship_every=32, device=dev,
+                             **opts)]
+    for name in ("orders", "actions"):
+        rows = [tables[name].row(i) for i in range(len(tables[name]) - 80)]
+        for e in engines:
+            e.ingest_many(name, rows)
+    probe = [dict(tables["actions"].row(530 + i)) for i in range(64)]
+    counts = []
+    outs = []
+    for e in engines:
+        dispatch.reset_launch_counts()
+        outs.append(e.request_batch(probe))
+        counts.append(dispatch.launch_counts())
+    if not use_preagg:
+        assert counts[0] == counts[1]
+        assert counts[1]["unit_fold"] == 2 and counts[1]["feature_hash"] == 1
+    sharded = engines[1]
+    assert sharded.rebalance()
+    sharded.kill_shard(int(sharded.store.owner_of_keys(
+        [probe[0]["userid"]])[0]))
+    sharded.heal()
+    outs.append(sharded.request_batch(probe))
+    for got in outs[1:]:
+        for g, w in zip(got, outs[0]):
+            for k in w:
+                if k.startswith("ew"):
+                    np.testing.assert_allclose(g[k], w[k], rtol=EW_RTOL,
+                                               atol=EW_ATOL)
+                else:
+                    np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_shards", [1, 3, 8])
+def test_offline_sharded_equals_offline_on_card(n_shards):
+    """``offline_sharded`` on the card, bitwise ``offline()`` for every
+    shard count, each unit class one unit-fold launch as there."""
+    dev = require_cuda()
+    tables = make_action_tables(n_actions=3000, n_orders=1000, n_users=16,
+                                horizon_ms=600_000, zipf_alpha=1.3, seed=4,
+                                with_profile=False)
+    cs = compile_script(SMOKE_SQL, tables=tables, offline_slice_rows=256)
+    dispatch.reset_launch_counts()
+    want = cs.offline(tables, device=dev)
+    n_plain = dispatch.launch_counts()["unit_fold"]
+    dispatch.reset_launch_counts()
+    got = cs.offline_sharded(tables, n_shards=n_shards, device=dev)
+    assert dispatch.launch_counts()["unit_fold"] == n_plain
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

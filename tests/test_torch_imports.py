@@ -25,8 +25,9 @@ def _imported_roots(path: pathlib.Path):
             yield node.lineno, node.module.split(".")[0]
 
 
-# modules of the offline, model-serving, staged-fold, pre-aggregation and
-# serving-loop slices: each must exist and import without JAX
+# modules of the offline, model-serving, staged-fold, pre-aggregation,
+# serving-loop and sharding/replication slices: each must exist and
+# import without JAX
 SLICE_MODULES = (
     "core.hll", "core.skew", "core.multiwindow", "core.consistency",
     "core.window", "core.preagg",
@@ -44,7 +45,8 @@ SLICE_MODULES = (
     "models", "models.layers", "models.model", "serve.engine",
     "launch", "launch.serve",
     "serve.clock", "serve.loop", "serve.trace", "storage.memest",
-    "storage.timestore")
+    "storage.timestore", "core.union", "distributed", "distributed.fault",
+    "storage.replication")
 
 
 def test_port_has_files():

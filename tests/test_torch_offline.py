@@ -279,7 +279,14 @@ def test_offline_on_a_missing_card_raises():
 
 
 def test_unported_offline_schedules_raise():
+    """``offline_sharded`` is ported (bitwise ``offline()``); its
+    ``mesh`` option (one shard per device) is not and raises
+    ``NotImplementedError`` naming it."""
     t = torch_tables(**ACTION_TABLES)
     cs = torch_compile(SMOKE_SQL, tables=t)
-    with pytest.raises(NotImplementedError, match="offline_sharded"):
-        cs.offline_sharded(t, n_shards=2)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        cs.offline_sharded(t, mesh=object(), device="cpu")
+    want = cs.offline(t, device="cpu")
+    got = cs.offline_sharded(t, n_shards=2, device="cpu")
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

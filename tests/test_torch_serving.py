@@ -111,12 +111,33 @@ def test_null_prices_served_like_the_reference(action_tables):
 
 
 @pytest.mark.parametrize("option", [
-    {"n_shards": 2}, {"replication": 1}, {"checkpoint_dir": "ckpt"}])
-def test_unported_options_raise(option, micro_sql):
+    {"n_shards": 2}, {"replication": 1}, {"checkpoint_dir": "ckpt"},
+    {"mesh": object()}])
+def test_unported_options_raise(option, micro_sql, tmp_path):
+    """Of the engine's deployment options only ``mesh`` (one shard per
+    device) is unported: it raises ``NotImplementedError`` naming it.
+    ``n_shards`` builds a sharded engine that serves, ``replication``
+    without sharding raises the reference's ``ValueError``, and
+    ``checkpoint_dir`` writes a checkpoint at the binlog watermark."""
     kw = dict(capacity=64, fused_fold=True, device="cpu")
     kw.update(option)
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
-        TorchEngine(micro_sql, make_action_tables(**ACTION_TABLES), **kw)
+    name = next(iter(option))
+    if name == "checkpoint_dir":
+        kw[name] = str(tmp_path / option[name])
+    tables = make_action_tables(**ACTION_TABLES)
+    if name in ("mesh", "replication"):
+        err = NotImplementedError if name == "mesh" else ValueError
+        with pytest.raises(err, match=name):
+            TorchEngine(micro_sql, tables, **kw)
+        return
+    eng = TorchEngine(micro_sql, tables, **kw)
+    eng.ingest_many("orders", [tables["orders"].row(i) for i in range(20)])
+    if name == "n_shards":
+        assert eng.sharded and eng.store.n_shards == 2
+        assert eng.store.n_rows("orders") == 20
+        assert len(eng.request_batch([dict(tables["actions"].row(0))])) == 1
+    else:
+        assert eng.checkpoint() == 20 == eng.ckpt.latest_step()
 
 
 def test_cuda_device_without_a_card_raises(micro_sql):
