@@ -35,7 +35,7 @@ Phases (each prints its own lines; any failure exits non-zero):
              ``scaled_dot_product_attention`` call;
 4. main paths, each with the launch counts set to 0 just before it and
              read just after, at deployment size (1.5 M rows; run in
-             the order a, b, e, f, g, h, c, d):
+             the order a, b, e, f, g, h, i, c, d):
    a. serving — ``FeatureEngine`` (capacity 1.6 M) bulk load + 4,096 live
              rows, ``request_batch`` at B = 1, 64, 256; the B = 64 batch
              must equal a CPU engine (plain versions) on a copy of the
@@ -62,7 +62,8 @@ Phases (each prints its own lines; any failure exits non-zero):
              and planes (bitwise, drawdown and EW at rtol 1e-5) and the
              first request equals ``offline()`` over its history; then
              ``verify_consistency(use_preagg=True)`` over every 300th
-             row, the reference certifier's bitwise columns bitwise;
+             row, the columns the port's certificate classes bitwise
+             (which must equal the reference certifier's) bitwise;
    g. serving loop — a retention engine (``retention="auto"``,
              ``compact_every=256``: orders keep 60 s, actions all) with
              both tables bulk-loaded below one time cut and the rows
@@ -96,6 +97,21 @@ Phases (each prints its own lines; any failure exits non-zero):
              ``verify_consistency(bitwise=True, n_shards=8,
              replication=2, kill_shard_at=k)`` over a 2,000-row prefix;
              ``LONG_SQL`` on 8-shard pre-agg planes, B = 64 against 4f;
+   i. certifier, preview, pipeline, row format — ``certify`` of the
+             smoke script over 4b's gate prefix (its bitwise columns all
+             matched by 4b's card gate) and over the 1.5 M rows (C-BUF
+             there), of ``LONG_SQL`` in 4f; ``memory_bound`` equal to the
+             card store's and 4f's planes' nbytes; ``explain_sharding``
+             equal to ``sharded_eligible``; ``preview`` on the card at
+             1,000 and 100,000 rows per table (bitwise ``offline()`` on
+             the same tail slice, a cached second call that launches
+             nothing, cold p50 over 10 calls, a script over the limits
+             that launches nothing); ``FeatureDataPipeline`` over the 1.5
+             M rows (``materialize()`` bitwise 4b's ``offline()``, 100
+             batches of 256 on the card, each the matrix rows at the
+             seeded indices); 100,000 action rows through the compact
+             codec on the host, and the §7.1 example (255 B against
+             Spark's 556);
    c. additive folds — ``store_windowfold`` on the serving store at
              B = 1, 64, 256 and ``bucket_build`` over the action rows;
    d. model serving — hymba-1.5b at full width and depth (random
@@ -201,9 +217,11 @@ LONG_PLANES = (32, 632, 41, 39, 128)
 LONG_LOOSE = ("dd_l", "ew_l")      # card vs CPU: rtol 1e-5 (EW, drawdown)
 LONG_EXACT_OFFLINE = ("c_l", "mn_l", "mx_l", "dc_l")
 GATE_STRIDE = 300                  # the pre-agg gate replays every 300th row
-# the reference certifier's bitwise class under pre-agg for LONG_SQL over
-# the thinned tables (no C-BUF, C-PREAGG-EDGE or C-KEYCARD there); the
-# other columns take the reference's tolerance
+# the columns the pre-agg gate holds bitwise come from the port's
+# certificate of LONG_SQL over the thinned tables (no C-BUF,
+# C-PREAGG-EDGE or C-KEYCARD there); this is the class the reference's
+# certifier gives them, which the derived list must equal; the other
+# columns take the reference's tolerance
 GATE_BITWISE = ("c_l", "mn_l", "mx_l", "dc_l", "s", "c", "cat_h")
 
 # phase 4g: the serving loop over the serving deployment with retention.
@@ -229,6 +247,13 @@ SHARDS, REPLICAS, ROUTE_SLOTS, SHIP_EVERY = 8, 2, 1024, 64
 SHARD_HEADROOM = 4096      # rows per shard above the routed rows
 SHARD_REPS = 50            # timed batches per B and engine, in turns
 SHARD_GATE_ROWS = 2_000    # the failover gate's prefix events
+
+# phase 4i: preview at the default budget (1,000 rows per table) and at
+# PREVIEW_ROWS, cold wall p50 over PREVIEW_REPS calls; the training-data
+# pipeline's batches; rows through the compact codec
+PREVIEW_ROWS, PREVIEW_REPS = 100_000, 10
+PIPE_BATCH, PIPE_BATCHES = 256, 100
+ROWFMT_ROWS = 100_000
 
 
 def log(msg: str) -> None:
@@ -1286,10 +1311,11 @@ def long_windows(card):
     """``use_preagg`` serving of LONG_SQL at deployment size: planes
     maintained by bulk load and ingest, requests against a CPU engine on
     copies of the store and planes and against ``offline()``, and
-    ``verify_consistency(use_preagg=True)`` over every 300th row.  Also
-    returns the B = 64 features (phase 4h holds its sharded planes to
-    them)."""
-    from repro_torch.core import (compile_script, replay_online,
+    ``verify_consistency(use_preagg=True)`` over every 300th row, its
+    bitwise columns from the port's certificate.  Also returns the B = 64
+    features (phase 4h holds its sharded planes to them) and the script,
+    the planes' nbytes and the gate's certificate (phase 4i)."""
+    from repro_torch.core import (certify, compile_script, replay_online,
                                   verify_consistency)
     from repro_torch.data.synthetic import make_action_tables
     from repro_torch.serve.engine import FeatureEngine
@@ -1337,6 +1363,9 @@ def long_windows(card):
     same_tree("planes after ingest_many", again, eng.pre_states)
     del before, again
     plane_bytes = pa.plane_bytes(eng.pre_states[wi])
+    plane_nbytes = sum(t.nbytes for st in eng.pre_states.values()
+                       for lvl in ("fine", "coarse")
+                       for t in (*st[lvl].values(), st[f"{lvl}_epoch"]))
     log(f"pre-agg planes {LONG_PLANES[:3]} (keys, fine, coarse slots), "
         f"{plane_bytes} bytes; bulk_load {hist_end + len(orders)} rows "
         f"{t_load:.2f} s, of which planes {t_planes_load:.2f} s; "
@@ -1386,6 +1415,15 @@ def long_windows(card):
     thin = {name: stride_table(t, GATE_STRIDE) for name, t in tables.items()}
     n_thin = sum(len(t) for t in thin.values())
     gate_cs = compile_script(LONG_SQL, tables=thin)
+    cert, t_cert = timed(lambda: certify(gate_cs, tables=thin))
+    gate_bitwise = tuple(cert.bitwise_columns("preagg"))
+    log(f"pre-agg gate's bitwise columns from the port's certificate of "
+        f"LONG_SQL over {n_thin} thinned rows ({t_cert:.3f} s): "
+        f"{gate_bitwise}; GATE_BITWISE (the reference certifier's class): "
+        f"{GATE_BITWISE}  [{card}]")
+    if gate_bitwise != GATE_BITWISE:
+        raise AssertionError(f"certified pre-agg bitwise columns "
+                             f"{gate_bitwise} != {GATE_BITWISE}")
     t0 = time.perf_counter()
     online, counts = run_path(
         "pre-agg gate", lambda: replay_online(gate_cs, thin, use_preagg=True,
@@ -1396,19 +1434,23 @@ def long_windows(card):
     t_gate = time.perf_counter() - t0
     paths["preagg_gate"] = counts
     gate_off = gate_cs.offline(thin, device="cuda")
-    for k in GATE_BITWISE:
+    for k in gate_bitwise:
         if not np.array_equal(online[k], gate_off[k]):
             raise AssertionError(f"pre-agg gate: {k} not bitwise")
     if not rep.passed:
         raise AssertionError(f"verify_consistency(use_preagg=True): {rep}")
     log(f"verify_consistency(use_preagg=True) on the card over {n_thin} "
-        f"rows (every {GATE_STRIDE}th): {rep}; {GATE_BITWISE} bitwise; "
+        f"rows (every {GATE_STRIDE}th): {rep}; {gate_bitwise} bitwise; "
         f"{t_gate:.1f} s  [{card}]")
+    # what phase 4i holds the certifier's memory bound and classes to
+    long_cert = {"cs": cs, "plane_nbytes": plane_nbytes,
+                 "gate_cert": cert, "gate_certify_s": t_cert}
     return {"plane_bytes": plane_bytes, "latency": lat,
             "profile_b256": prof, "bulk_load_s": t_load,
             "planes_load_s": t_planes_load, "update_many": prof_update,
             "ingest_s": t_ingest, "planes_ingest_s": t_planes_ingest,
-            "gate_rows": n_thin, "gate_s": t_gate}, paths, served[64]
+            "gate_rows": n_thin, "gate_s": t_gate,
+            "gate_bitwise": list(gate_bitwise)}, paths, served[64], long_cert
 
 
 # ---------------------------------------------------------------- phase 4g
@@ -1845,6 +1887,197 @@ def serving_loop(tables, card):
             "gate": {"rows": n_gate, "requests": len(rids),
                      "evicted": evicted, "s": t_gate,
                      "replay_s": t_again}}, paths
+
+
+# ---------------------------------------------------------------- phase 4i
+
+
+def tail_tables(tables, n: int):
+    """The newest ``n`` rows of each table (the tables are sorted by ts):
+    the slice preview runs on."""
+    for t in tables.values():
+        if np.any(np.diff(t.columns["ts"]) < 0):
+            raise AssertionError("deployment table not sorted by ts")
+    return {name: slice_table(t, max(0, len(t) - n), len(t))
+            for name, t in tables.items()}
+
+
+def certifier_preview_pipeline(tables, eng, off, prefix, rep_raw, long_cert,
+                               card):
+    """Phase 4i: the deploy-time certifier against 4b's and 4f's card
+    gates and the card's store and planes, Online Preview Mode and the
+    training-data pipeline on the card, and the compact row format (§7.1,
+    host only).  Returns (results, launch counts per path)."""
+    from repro_torch.core import certify, compile_script
+    from repro_torch.core.analysis import explain_sharding, memory_bound
+    from repro_torch.core.preview import PreviewLimits, preview
+    from repro_torch.data import FeatureDataPipeline
+    from repro_torch.storage import CompactRowCodec, row_size_spark
+
+    res = {}
+    # (a) the certificate
+    cert, t_prefix = timed(lambda: certify(
+        compile_script(SMOKE_SQL, tables=prefix), tables=prefix))
+    raw = cert.bitwise_columns("raw")
+    matched = [k for k in cert.features if k not in rep_raw.mismatched]
+    if not set(raw) <= set(matched):
+        raise AssertionError(f"certified bitwise {raw} not all matched by "
+                             f"4b's gate (mismatched {rep_raw.mismatched})")
+    log(f"4i certify SMOKE_SQL over 4b's {sum(map(len, prefix.values()))}-"
+        f"row prefix in {t_prefix:.3f} s: raw bitwise {raw}, all matched "
+        f"bitwise by 4b's gate on the card  [{card}]")
+    full, t_full = timed(lambda: certify(eng.cs, tables=tables))
+    classes = {k: (e["raw"], sorted({h["rule"] for h in e["rules"]}))
+               for k, e in full.consistency["columns"].items()}
+    log(f"4i certify SMOKE_SQL over the {sum(map(len, tables.values()))} "
+        f"deployment rows in {t_full:.3f} s: {classes}  [{card}]")
+    gate = long_cert["gate_cert"]
+    log(f"4i certify LONG_SQL over the thinned tables "
+        f"({long_cert['gate_certify_s']:.3f} s, in 4f): pre-agg bitwise "
+        f"{gate.bitwise_columns('preagg')}, the pre-agg gate's bitwise "
+        f"columns (GATE_BITWISE, the reference certifier's: {GATE_BITWISE})"
+        f"  [{card}]")
+    store_nbytes = sum(t.nbytes for t in _leaves(eng.store.tables))
+    mem = memory_bound(eng.cs, capacity=CAPACITY)
+    mem_long = memory_bound(long_cert["cs"], capacity=CAPACITY)
+    if mem["store_bytes"] != store_nbytes:
+        raise AssertionError(f"memory_bound store {mem['store_bytes']} != "
+                             f"the card store's {store_nbytes} bytes")
+    if mem_long["preagg_bytes"] != long_cert["plane_nbytes"]:
+        raise AssertionError(f"memory_bound planes {mem_long['preagg_bytes']}"
+                             f" != the card planes' "
+                             f"{long_cert['plane_nbytes']} bytes")
+    tree = explain_sharding(eng.cs)
+    if tree["eligible"] != eng.cs.sharded_eligible()[0]:
+        raise AssertionError(f"explain_sharding {tree} != sharded_eligible")
+    log(f"4i memory_bound: store {mem['store_bytes']} bytes = the card "
+        f"store's tensors ({CAPACITY} slots x 2 tables); LONG_SQL planes "
+        f"{mem_long['preagg_bytes']} bytes = 4f's planes on the card; "
+        f"explain_sharding eligible={tree['eligible']} (SMOKE_SQL, 4h's "
+        f"script)")
+    res["certify_s"] = {"prefix": t_prefix, "deployment": t_full,
+                        "long_gate": long_cert["gate_certify_s"]}
+    res["classes_deployment"] = classes
+    res["store_bytes"], res["preagg_bytes"] = (mem["store_bytes"],
+                                               mem_long["preagg_bytes"])
+
+    # (b) preview
+    res["preview"] = {}
+    counts = {}
+    for n in (PreviewLimits().max_rows_per_table, PREVIEW_ROWS):
+        limits = PreviewLimits(max_rows_per_table=n)
+        first, c = run_path(f"preview ({n} rows per table)", lambda: preview(
+            SMOKE_SQL, tables, limits=limits, device="cuda"),
+            ("unit_fold", "feature_hash"))
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        hit, c_hit = run_path(f"preview ({n} rows, cached)", lambda: preview(
+            SMOKE_SQL, tables, limits=limits, device="cuda"), ())
+        if first.cache_hit or not hit.cache_hit or c_hit:
+            raise AssertionError(f"preview cache: first {first.cache_hit}, "
+                                 f"second {hit.cache_hit}, {c_hit}")
+        tail = tail_tables(tables, n)
+        want = compile_script(SMOKE_SQL, tables=tables).offline(tail,
+                                                                "cuda")
+        same_features(f"preview ({n} rows) vs offline()", [first.features],
+                      [want])
+        if first.n_rows != n or not first.truncated:
+            raise AssertionError(f"preview rows {first.n_rows}")
+        walls = []
+        for _ in range(PREVIEW_REPS):
+            _, wall = timed(lambda: preview(SMOKE_SQL, tables, limits=limits,
+                                            use_cache=False, device="cuda"))
+            walls.append(wall * 1e3)
+        res["preview"][n] = {"p50_ms": float(np.percentile(walls, 50)),
+                             "launches_per_call": c}
+        log(f"4i preview SMOKE_SQL at {n} rows per table: features equal "
+            f"offline() on the same tail slice on the card (bitwise); "
+            f"second call a cache hit (no launch); cold p50 "
+            f"{res['preview'][n]['p50_ms']:.3f} ms over {PREVIEW_REPS} "
+            f"calls (use_cache=False), launches per call {c}  [{card}]")
+    over, c_over = run_path("preview over the limits", lambda: preview(
+        SMOKE_SQL, tables, limits=PreviewLimits(max_windows=1),
+        device="cuda"), ())
+    if over.ok or c_over:
+        raise AssertionError(f"over-limit preview: {over.violations}, "
+                             f"{c_over}")
+    log(f"4i preview over the limits (max_windows=1): {over.violations}, "
+        f"no launch")
+    paths = {"preview": counts}
+
+    # (c) the training-data pipeline
+    pipe = FeatureDataPipeline(compile_script(SMOKE_SQL, tables=tables),
+                               tables, batch_size=PIPE_BATCH)
+    (feats, t_mat), c = run_path("pipeline", lambda: timed(pipe.materialize),
+                                 ("unit_fold", "feature_hash"))
+    paths["pipeline"] = c
+    same_features("pipeline materialize() vs 4b offline()", [feats], [off])
+    mat, t_matrix = timed(pipe.feature_matrix)
+    batches, t_batches = timed(lambda: list(pipe.batches(PIPE_BATCHES)))
+    rng = np.random.default_rng(0)
+    labels = (mat[:, 0] > np.median(mat[:, 0])).astype(np.int32)
+    for i, b in enumerate(batches):
+        idx = rng.integers(0, mat.shape[0], PIPE_BATCH)
+        if b["features"].device.type != pipe.device.type or not (
+                np.array_equal(b["features"].cpu().numpy(), mat[idx])
+                and np.array_equal(b["labels"].cpu().numpy(), labels[idx])):
+            raise AssertionError(f"pipeline batch {i} != matrix rows at the "
+                                 f"seeded indices")
+    res["pipeline"] = {"materialize_s": t_mat, "matrix_shape": mat.shape,
+                       "matrix_s": t_matrix, "batches_s": t_batches}
+    log(f"4i FeatureDataPipeline over {len(mat)} rows: materialize() "
+        f"{t_mat:.3f} s, equal to 4b's offline() bitwise, launches {c}; "
+        f"feature_matrix {mat.shape} {t_matrix:.3f} s; {PIPE_BATCHES} "
+        f"batches of {PIPE_BATCH} on the card {t_batches:.3f} s, each the "
+        f"matrix rows at the seeded indices  [{card}]")
+
+    # (d) the compact row format, host only
+    actions = tables["actions"]
+    cats = actions.dicts["category"]
+    rows = [dict(r, category=cats.decode(int(r["category"])))
+            for r in map(actions.row, range(ROWFMT_ROWS))]
+    rows = [{k: (float(v) if k == "price" else v if k == "category"
+                 else int(v)) for k, v in r.items()} for r in rows]
+    codec = CompactRowCodec(actions.schema)
+    bufs, t_enc = timed(lambda: [codec.encode(r) for r in rows])
+    back, t_dec = timed(lambda: [codec.decode(b) for b in bufs])
+    if back != rows:
+        raise AssertionError("compact codec round trip changed a row")
+    spark = sum(row_size_spark(actions.schema, r) for r in rows[:1000])
+    compact = sum(len(b) for b in bufs[:1000])
+    res["row_format"] = {"encode_us_per_row": t_enc / ROWFMT_ROWS * 1e6,
+                         "decode_us_per_row": t_dec / ROWFMT_ROWS * 1e6,
+                         "paper_example": paper_row_sizes(),
+                         "compact_bytes_per_row": compact / 1000,
+                         "spark_bytes_per_row": spark / 1000}
+    log(f"4i compact rows (host only, no device): {ROWFMT_ROWS} action "
+        f"rows encoded {res['row_format']['encode_us_per_row']:.2f} us/row, "
+        f"decoded {res['row_format']['decode_us_per_row']:.2f} us/row, "
+        f"round trip equal; {compact / 1000:.1f} B/row against Spark's "
+        f"{spark / 1000:.1f}; §7.1 example {res['row_format']['paper_example']}"
+        f" (compact, Spark)  [host of {card}]")
+    return res, paths
+
+
+def paper_row_sizes():
+    """The §7.1 example row (20 ints, 20 floats, 20 one-byte strings, 5
+    timestamps): (compact bytes, Spark bytes), which must be (255, 556)."""
+    from repro_torch.core.types import Column, ColumnType, TableSchema
+    from repro_torch.storage import row_size_compact, row_size_spark
+
+    kinds = (("i", ColumnType.INT, 20), ("f", ColumnType.FLOAT, 20),
+             ("s", ColumnType.STRING, 20), ("t", ColumnType.TIMESTAMP, 5))
+    schema = TableSchema("paper", tuple(Column(f"{p}{i}", t) for p, t, n
+                                        in kinds for i in range(n)))
+    row = {}
+    for i in range(20):
+        row[f"i{i}"], row[f"f{i}"], row[f"s{i}"] = i, float(i), "x"
+    for i in range(5):
+        row[f"t{i}"] = 1_000_000 + i
+    sizes = (row_size_compact(schema, row), row_size_spark(schema, row))
+    if sizes != (255, 556):
+        raise AssertionError(f"§7.1 example: {sizes} != (255, 556)")
+    return sizes
 
 
 # ---------------------------------------------------------------- phase 4h
@@ -2322,7 +2555,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     phase("4f long windows (pre-aggregation) at deployment size")
-    longw, counts, long_b64 = long_windows(card)
+    longw, counts, long_b64, long_cert = long_windows(card)
     paths.update(counts)
     torch.cuda.empty_cache()
 
@@ -2343,6 +2576,16 @@ def main(argv) -> int:
     t_4h = time.perf_counter() - t0
     shard_res["phase_s"] = t_4h
     log(f"phase 4h took {t_4h:.1f} s")
+    torch.cuda.empty_cache()
+
+    phase("4i certifier, preview, training-data pipeline, row format")
+    t0 = time.perf_counter()
+    deploy_res, counts = certifier_preview_pipeline(
+        tables, eng, off, prefix, rep, long_cert, card)
+    paths.update(counts)
+    del long_cert
+    deploy_res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 4i took {deploy_res['phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
     phase("4c additive folds (store_windowfold, bucket_build)")
@@ -2484,6 +2727,7 @@ def main(argv) -> int:
             "launches_per_path": paths, "model_serving": model,
             "staged": staged, "long_windows": longw,
             "serving_loop": loop_res, "sharded": shard_res,
+            "certifier_preview_pipeline": deploy_res,
             "decode_partials_shapes": res_fd, "segagg_shapes": seg_shapes,
             "load_s": t_load, "ingest_s": t_ingest}, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-"""repro_torch.core — SQL frontend, plan, leaf algebra, compiler and the
-offline/online consistency gate."""
+"""repro_torch.core — SQL frontend, plan, leaf algebra, compiler, the
+offline/online consistency gate and the deploy-time certifier."""
 
 from .types import Column, ColumnType, Dictionary, Table, TableSchema  # noqa: F401
 from .window import WindowSpec, parse_interval_ms  # noqa: F401
@@ -7,3 +7,4 @@ from .plan import FeatureScript, LastJoinSpec, SelectItem, build_plan  # noqa: F
 from .sql import ParseError, parse  # noqa: F401
 from .compiler import CompileContext, CompiledScript, compile_script  # noqa: F401
 from .consistency import replay_online, verify_consistency  # noqa: F401
+from .analysis import DeploymentCertificate, certify  # noqa: F401

@@ -805,3 +805,77 @@ def test_offline_sharded_equals_offline_on_card(n_shards):
     assert dispatch.launch_counts()["unit_fold"] == n_plain
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _same_features(got, want):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        if k.startswith("ew"):
+            np.testing.assert_allclose(got[k], want[k], rtol=EW_RTOL,
+                                       atol=EW_ATOL, err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.gpu
+def test_preview_and_pipeline_on_card_equal_cpu():
+    """Preview and the training-data pipeline on the card equal the
+    port on the CPU (bitwise, EW at its bar), launch the unit-fold and
+    hash kernels, and yield batches on the card."""
+    from repro_torch.core.preview import PreviewLimits, preview
+    from repro_torch.data import FeatureDataPipeline
+
+    dev = require_cuda()
+    tables = make_action_tables(n_actions=3000, n_orders=1000, n_users=16,
+                                horizon_ms=600_000, seed=5,
+                                with_profile=False)
+    limits = PreviewLimits(max_rows_per_table=500)
+    dispatch.reset_launch_counts()
+    got = preview(SMOKE_SQL, tables, limits=limits, use_cache=False,
+                  device=dev)
+    counts = dispatch.launch_counts()
+    assert counts["unit_fold"] >= 1 and counts["feature_hash"] == 1
+    want = preview(SMOKE_SQL, tables, limits=limits, use_cache=False,
+                   device="cpu")
+    assert (got.n_rows, got.truncated) == (want.n_rows, want.truncated)
+    _same_features(got.features, want.features)
+    cs = compile_script(SMOKE_SQL, tables=tables)
+    pipes = [FeatureDataPipeline(cs, tables, batch_size=64, seed=1,
+                                 device=d) for d in (dev, "cpu")]
+    _same_features(pipes[0].materialize(), pipes[1].materialize())
+    # every SMOKE_SQL feature is one column of the matrix
+    ew = np.asarray([n.startswith("ew") for n in cs.feature_names])
+    for g, w in zip(pipes[0].batches(3), pipes[1].batches(3)):
+        assert g["features"].device.type == "cuda"
+        assert g["labels"].dtype == torch.int32
+        a, b = g["features"].cpu().numpy(), w["features"].numpy()
+        np.testing.assert_array_equal(a[:, ~ew], b[:, ~ew])
+        np.testing.assert_allclose(a[:, ew], b[:, ew], rtol=EW_RTOL,
+                                   atol=EW_ATOL)
+        np.testing.assert_array_equal(g["labels"].cpu().numpy(),
+                                      w["labels"].numpy())
+
+
+@pytest.mark.gpu
+def test_memory_bound_equals_card_store_nbytes():
+    """The certifier's store and plane bytes equal the tensors a card
+    engine holds."""
+    from repro_torch.core.analysis import memory_bound
+
+    dev = require_cuda()
+    tables = make_action_tables(n_actions=600, n_orders=300, n_users=12,
+                                horizon_ms=600_000, seed=3,
+                                with_profile=False)
+    sql = SMOKE_SQL + 'OPTIONS (long_windows = "w:10s")'
+    eng = FeatureEngine(sql, tables, capacity=4096, use_preagg=True,
+                        device=dev)
+    store = sum(t.nbytes for st in eng.store.tables.values()
+                for t in (st["keys"], st["ts"], st["count"], st["comp"],
+                          *st["cols"].values()))
+    planes = sum(w.preagg.plane_bytes(eng.pre_states[wi])
+                 for wi, w in enumerate(eng.cs.windows)
+                 if w.preagg is not None)
+    m = memory_bound(eng.cs, capacity=4096)
+    assert (m["store_bytes"], m["preagg_bytes"]) == (store, planes)
+    assert all(t.device.type == "cuda" for st in eng.store.tables.values()
+               for t in (st["keys"], st["comp"]))

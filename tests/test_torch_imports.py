@@ -26,8 +26,8 @@ def _imported_roots(path: pathlib.Path):
 
 
 # modules of the offline, model-serving, staged-fold, pre-aggregation,
-# serving-loop and sharding/replication slices: each must exist and
-# import without JAX
+# serving-loop, sharding/replication and row-format / preview / certifier
+# / training-data slices: each must exist and import without JAX
 SLICE_MODULES = (
     "core.hll", "core.skew", "core.multiwindow", "core.consistency",
     "core.window", "core.preagg",
@@ -46,7 +46,11 @@ SLICE_MODULES = (
     "launch", "launch.serve",
     "serve.clock", "serve.loop", "serve.trace", "storage.memest",
     "storage.timestore", "core.union", "distributed", "distributed.fault",
-    "storage.replication")
+    "storage.replication",
+    "storage.encoding", "core.preview", "core.analysis",
+    "core.analysis.certificate", "core.analysis.consistency_rules",
+    "core.analysis.memory", "core.analysis.retrace",
+    "core.analysis.sharding", "data.pipeline")
 
 
 def test_port_has_files():
