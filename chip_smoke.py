@@ -27,7 +27,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              the same prepared inputs at both widths, the kernel's passes
              by name under the profiler); 3c, the model
              kernels at the full hymba-1.5b shapes: the linear scan at
-             (8, 1024, 51,200) float32, bitwise, and the decode partials
+             (8, 1024, 51,200) float32, bitwise, its backward at the
+             training micro-batch (2, 2048, 51,200), bitwise, and the
+             decode partials
              at B = 8, Hq = 25, Hkv = 5, D = 64 over a bf16 cache of
              2,048 (live ranges from 0 and, as on a sliding-window layer,
              from lo > 0), rtol 1e-4 / atol 1e-5, timed warm (one cache)
@@ -35,7 +37,7 @@ Phases (each prints its own lines; any failure exits non-zero):
              ``scaled_dot_product_attention`` call;
 4. main paths, each with the launch counts set to 0 just before it and
              read just after, at deployment size (1.5 M rows; run in
-             the order a, b, e, f, g, h, i, c, d):
+             the order a, b, e, f, g, h, i, c, d, j):
    a. serving — ``FeatureEngine`` (capacity 1.6 M) bulk load + 4,096 live
              rows, ``request_batch`` at B = 1, 64, 256; the B = 64 batch
              must equal a CPU engine (plain versions) on a copy of the
@@ -122,6 +124,16 @@ Phases (each prints its own lines; any failure exits non-zero):
              plain versions (prefill and every step's logits within
              rtol/atol 1e-3); then in bf16, timed (prefill, decode per
              token, tokens/s, device busy share under the profiler);
+   j. model training — hymba-1.5b at full width and depth (seeded
+             random f32 master weights, AdamW), bf16 compute, batch 8 x
+             2,048 ``TokenPipeline`` tokens (past the 1,024-token window)
+             in 4 microbatches: one step's loss and every gradient leaf
+             through the kernels equal to the plain versions (bitwise,
+             or within two plain runs' spread if another op is not
+             deterministic); then 8 steps of ``build_train_step``: the
+             first loss within 1 nat of ln(vocab), the last below it,
+             256 ``linear_scan`` and 128 ``linear_scan_bwd`` launches
+             per step; step ms p50, tokens/s, peak memory, busy share;
 5. times   — request latency percentiles, offline wall and device time,
              and each kernel's time beside its bound, its plain version's
              time and, where one exists, one PyTorch call's (CUDA events).
@@ -180,6 +192,13 @@ EW_RTOL = 1e-5                     # 1-ulp expf differences carried by a fold
 MODEL_ARCH = "hymba-1.5b"          # model serving (phase 4d), full size
 MODEL_BATCH, MODEL_PROMPT, MODEL_MAX_LEN, MODEL_TOKENS = 8, 1024, 2048, 32
 MODEL_TOL = 1e-3                   # f32 logits, kernels vs plain versions
+# phase 4j: training hymba-1.5b at full width and depth; the sequence is
+# longer than its 1,024-token window, so the sliding-window layers mask
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 2048, 4, 8
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+# the first loss within 1 nat of ln(vocab): untied random logits of
+# std 0.02 * sqrt(d_model) = 0.8 add ~0.32 nats to the uniform loss
+TRAIN_LOSS_TOL = 1.0
 DECODE_LIVE = (1025, 1056)         # decode live lengths at positions 1,024+
 DECODE_COLD = 8                    # caches rotated for the cold-L2 times
 STAGED_REPS = 100                  # timed batches per B, phases 4e and 4f
@@ -717,6 +736,47 @@ def check_linear_scan(dev, reps):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+def check_linear_scan_bwd(dev, reps):
+    """The scan's backward at hymba-1.5b's training micro-batch,
+    (B / n_micro, T, d_inner * state) = (2, 2048, 51,200) float32, ``y``
+    the forward's output: kernel against plain version bitwise (da and
+    db), two runs bitwise.  No single PyTorch call computes the reverse
+    recurrence (a cumprod/cumsum form divides by running products that
+    underflow), so there is no library time."""
+    from repro_torch.kernels.chunked_scan.kernel import (
+        linear_scan_bwd_cuda, linear_scan_cuda)
+    from repro_torch.kernels.chunked_scan.ref import linear_scan_bwd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    shape = (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, 51_200)
+    a = torch.rand(shape, generator=gen, device=dev) * 0.7 + 0.3
+    y = linear_scan_cuda(a, torch.randn(shape, generator=gen, device=dev))
+    g = torch.randn(shape, generator=gen, device=dev)
+    got = linear_scan_bwd_cuda(a, y, g)
+    again = linear_scan_bwd_cuda(a, y, g)
+    torch.cuda.synchronize()
+    want = linear_scan_bwd_ref(a, y, g)
+    err = 0.0
+    for name, k, r, w in zip(("da", "db"), got, again, want):
+        same_bits(f"linear_scan_bwd {name}", k, r)
+        err = max(err, compare(f"linear_scan_bwd {name}", k, w))
+        if not torch.isfinite(k).all():
+            raise AssertionError(f"linear_scan_bwd {name}: non-finite")
+    del got, again, want
+    ms = cuda_ms(lambda: linear_scan_bwd_cuda(a, y, g), reps)
+    plain_ms = cuda_ms(lambda: linear_scan_bwd_ref(a, y, g), 2)
+    n = a.numel()
+    # least work: a, y and g read once, da and db written once; a
+    # multiply and an add for lam and a multiply for da per element
+    b_ms, b_by = bound(5 * n * 4, 3 * n)
+    log(f"linear_scan_bwd {tuple(shape)} f32: kernel == plain (bitwise), "
+        f"two runs equal; ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={b_ms:.5f} ({b_by}); library: none (no PyTorch call "
+        f"computes the reverse recurrence)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
 def decode_inputs(dev, sliding: bool, draw: int = 0):
     """One decode step of hymba-1.5b's attention at positions 1,024+: q
     (8, 25, 64) float32, a bf16 cache (8, 2,048, 5, 64), live lengths in
@@ -943,6 +1003,166 @@ def model_serving(dev, card):
     del eng, params
     torch.cuda.empty_cache()
     return out, {"model_f32": counts_f32, "model_bf16": counts_bf16}
+
+
+# ---------------------------------------------------------------- phase 4j
+
+
+def busy_share(fn):
+    """Device time and busy share of one call of ``fn``, from the
+    profiler's raw kernel records (CUDA activity only).  A train step
+    launches ~100,000 kernels, and building ``profile_calls``' event
+    tree for them takes about a minute; summing the raw records takes
+    about a second."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    n = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            n += 1
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + (
+                e.end_ns() - e.start_ns()) / 1e6
+    dev_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "kernels": n,
+            "device_busy_share": dev_ms / wall_ms if n else None,
+            "top_kernels_ms": [(k[:90], v) for k, v in top]}
+
+
+def _grads_equal(a, b) -> bool:
+    return torch.equal(a[0], b[0]) and all(
+        torch.equal(x, y) for x, y in zip(_leaves(a[1]), _leaves(b[1])))
+
+
+def model_training(dev, card):
+    """Phase 4j: hymba-1.5b trained at full width and depth on the card
+    (bf16 compute, f32 master weights and AdamW, TokenPipeline tokens)."""
+    import math
+
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, adamw_init, build_train_step
+    from repro_torch.train.steps import loss_and_grads
+
+    cfg = get(MODEL_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = adamw_init(init_params(cfg, torch.Generator(
+        device=dev).manual_seed(0), dtype=torch.float32, device=dev))
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    batches = [{"tokens": torch.from_numpy(pipe.batch_at(i)["tokens"]).to(
+        dev)} for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    log(f"{MODEL_ARCH} training: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, window {cfg.sliding_window}; batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches, bf16 compute, "
+        f"f32 master + AdamW; state and batches ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # one step's loss and gradients from the initial state, kernel route
+    # against the plain route: bitwise, or, if they differ, within the
+    # spread of two plain-route runs (another op not deterministic)
+    def grads(use_kernel):
+        t0 = time.perf_counter()
+        out = loss_and_grads(cfg, state.params, batches[0], TRAIN_MICRO,
+                             torch.bfloat16, use_kernel)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    kern, t_kern = grads(None)
+    plain, t_plain = grads(False)
+    bitwise = _grads_equal(kern, plain)
+    if bitwise:
+        spread = 0.0
+        bar = "bitwise"
+    else:
+        plain2, _ = grads(False)
+        pairs = list(zip((kern[0], *_leaves(kern[1])),
+                         (plain[0], *_leaves(plain[1])),
+                         (plain2[0], *_leaves(plain2[1]))))
+        spread = max(float((p - q).abs().max()) for _, p, q in pairs)
+        for i, (k, p, q) in enumerate(pairs):
+            if float((k - p).abs().max()) > float((p - q).abs().max()):
+                raise AssertionError(f"training: leaf {i} kernel route "
+                                     f"outside two plain runs' spread")
+        del plain2
+        bar = f"within the plain route's run-to-run spread ({spread:.3e})"
+    loss_k = float(kern[0])
+    del kern, plain
+    torch.cuda.empty_cache()
+    log(f"one step's loss and {len(list(_leaves(state.params)))} gradient "
+        f"leaves: kernel route == plain route, {bar}; loss {loss_k:.4f}; "
+        f"{t_kern:.1f} s kernel route, {t_plain:.1f} s plain route")
+
+    # the main path: TRAIN_STEPS steps of the train step
+    step_fn = build_train_step(cfg, AdamWConfig(**TRAIN_OPT),
+                               n_micro=TRAIN_MICRO,
+                               compute_dtype=torch.bfloat16)
+    losses, norms, step_ms = [], [], []
+
+    def train():
+        nonlocal state
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))          # waits
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            norms.append(float(metrics["grad_norm"]))
+        return int(metrics["step"])
+
+    torch.cuda.reset_peak_memory_stats()
+    steps, counts = run_path("training", train,
+                             ("linear_scan", "linear_scan_bwd"))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {k: counts.get(k, 0) / TRAIN_STEPS
+                for k in ("linear_scan", "linear_scan_bwd")}
+    expect = {"linear_scan": cfg.n_layers * TRAIN_MICRO * 2,
+              "linear_scan_bwd": cfg.n_layers * TRAIN_MICRO}
+    if per_step != expect:
+        raise AssertionError(f"training: launches per step {per_step}, "
+                             f"expected {expect}")
+    if steps != TRAIN_STEPS or not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"training: step {steps}, losses {losses}, "
+                             f"grad norms {norms}")
+    ln_v = math.log(cfg.vocab_size)
+    if abs(losses[0] - ln_v) > TRAIN_LOSS_TOL or (
+            bitwise and losses[0] != loss_k):
+        raise AssertionError(f"training: first loss {losses[0]} (ln V = "
+                             f"{ln_v:.4f}, the compared step's "
+                             f"{loss_k})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training: loss did not fall: {losses}")
+    p50 = float(np.percentile(step_ms, 50))
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3)
+    log(f"{TRAIN_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(ln V = {ln_v:.4f}); grad norm {norms[0]:.3f} -> {norms[-1]:.3f}; "
+        f"step p50 {p50:.1f} ms, {tok_s:.0f} tokens/s; peak memory "
+        f"{peak_gb:.2f} GB; launches per step {per_step}  [{card}]")
+    prof = busy_share(lambda: step_fn(state, batches[0]))
+    log(f"profile train step (bf16, one more step): wall "
+        f"{prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms "
+        f"({prof['kernels']} kernels), device busy share "
+        + (f"{prof['device_busy_share']:.3f}" if prof["kernels"] else
+           "not measured (no device events)") + f"  [{card}]")
+    for name, ms in prof["top_kernels_ms"]:
+        log(f"  device {ms:.2f} ms  {name}")
+    out = {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
+           "step_ms_p50": p50, "tokens_per_s": tok_s, "peak_mem_gb": peak_gb,
+           "launches_per_step": per_step, "kernel_vs_plain": bar,
+           "kernel_vs_plain_spread": spread, "compare_kernel_s": t_kern,
+           "compare_plain_s": t_plain, "profile_step": prof}
+    del state, batches, step_fn
+    torch.cuda.empty_cache()
+    return out, {"training": counts}
 
 
 def _leaves(tree):
@@ -2448,6 +2668,7 @@ def main(argv) -> int:
 
     phase("3c model kernels against plain versions (hymba-1.5b shapes)")
     res_ls = check_linear_scan(dev, 10)
+    res_lsb = check_linear_scan_bwd(dev, 10)
     res_fd = check_decode_partials(dev, 50)
     torch.cuda.empty_cache()
 
@@ -2619,6 +2840,13 @@ def main(argv) -> int:
     model, counts = model_serving(dev, card)
     paths.update(counts)
 
+    phase(f"4j model training ({MODEL_ARCH}, full width and depth)")
+    t0 = time.perf_counter()
+    training, counts = model_training(dev, card)
+    paths.update(counts)
+    training["phase_s"] = time.perf_counter() - t0
+    log(f"phase 4j took {training['phase_s']:.1f} s")
+
     phase("5 times")
     latency = latencies(eng.request_batch, reqs, N_LATENCY)
     log_latency("request_batch", latency, N_LATENCY, card)
@@ -2636,7 +2864,8 @@ def main(argv) -> int:
     uf = {k: res_w[k] + res_wr[k] for k in ("ms", "plain_ms", "bound_ms")}
     launches = {k: sum(c.get(k, 0) for c in paths.values())
                 for k in ("unit_fold", "feature_hash", "batch_windowfold",
-                          "segagg", "linear_scan", "decode_partials")}
+                          "segagg", "linear_scan", "linear_scan_bwd",
+                          "decode_partials")}
     kernels = [
         {"name": "unit_fold", "route": "cuda",
          "source": "src/repro_torch/kernels/unit_fold/csrc/unit_fold.cu",
@@ -2670,6 +2899,11 @@ def main(argv) -> int:
                    "linear_scan.cu",
          "replaces": "src/repro/kernels/chunked_scan/kernel.py:68",
          "launches": launches["linear_scan"], **res_ls},
+        {"name": "linear_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/chunked_scan/csrc/"
+                   "linear_scan.cu",
+         "replaces": "src/repro/kernels/chunked_scan/kernel.py:68",
+         "launches": launches["linear_scan_bwd"], **res_lsb},
         {"name": "decode_partials", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_decode/csrc/"
                    "flash_decode.cu",
@@ -2694,6 +2928,9 @@ def main(argv) -> int:
         f"[{card}]")
     log(f"linear_scan (8, 1024, 51,200): ms {res_ls['ms']:.4f}, plain "
         f"{res_ls['plain_ms']:.4f}, bound {res_ls['bound_ms']:.5f}  [{card}]")
+    log(f"linear_scan_bwd (2, 2048, 51,200): ms {res_lsb['ms']:.4f}, plain "
+        f"{res_lsb['plain_ms']:.4f}, bound {res_lsb['bound_ms']:.5f}  "
+        f"[{card}]")
     for name, r in res_fd.items():
         log(f"decode_partials {name} ({r['live_keys']} live keys): ms "
             f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library "
@@ -2725,6 +2962,7 @@ def main(argv) -> int:
                         "consistency_rows": n_prefix,
                         "consistency_s": t_cons},
             "launches_per_path": paths, "model_serving": model,
+            "model_training": training, "linear_scan_bwd": res_lsb,
             "staged": staged, "long_windows": longw,
             "serving_loop": loop_res, "sharded": shard_res,
             "certifier_preview_pipeline": deploy_res,

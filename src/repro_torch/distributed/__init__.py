@@ -1,6 +1,7 @@
-"""Fault tolerance for the sharded serving path: checkpoints, liveness,
-promotion policy, elastic re-planning and straggler mitigation
-(``distributed.fault``)."""
+"""Fault tolerance for the sharded serving path and the trainer:
+checkpoints, liveness, promotion policy, elastic re-planning and
+straggler mitigation (``distributed.fault``); gradient compression with
+error feedback (``distributed.compression``)."""
 
 from .fault import (CheckpointManager, ElasticPlanner,  # noqa: F401
                     HeartbeatMonitor, MeshPlan, StragglerMitigator,

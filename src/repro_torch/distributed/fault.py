@@ -38,7 +38,7 @@ import torch
 
 __all__ = ["CheckpointManager", "ElasticPlanner", "StragglerMitigator",
            "HeartbeatMonitor", "MeshPlan", "most_caught_up",
-           "tree_flatten", "tree_unflatten", "tree_map"]
+           "tree_flatten", "tree_unflatten", "tree_map", "tree_stacks"]
 
 
 def most_caught_up(acked: Dict[int, int]) -> int:
@@ -77,12 +77,14 @@ def tree_flatten(tree: Any) -> Tuple[List[Any], str]:
 
 def tree_unflatten(template: Any, leaves: Sequence[Any]) -> Any:
     """``template``'s structure with its leaves replaced, in
-    ``tree_flatten`` order, by ``leaves``."""
+    ``tree_flatten`` order, by ``leaves`` (a named tuple stays one)."""
     it = iter(leaves)
 
     def build(t):
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t, key=str)}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(build(v) for v in t))
         if isinstance(t, (list, tuple)):
             return type(t)(build(v) for v in t)
         if t is None:
@@ -96,6 +98,32 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     """``fn`` applied to every leaf of a nested state."""
     leaves, _ = tree_flatten(tree)
     return tree_unflatten(tree, [fn(x) for x in leaves])
+
+
+def tree_stacks(tree: Any) -> List[Tuple[List[int], int]]:
+    """Leaves of ``tree`` grouped as the JAX package stacks them, by their
+    indices in ``tree_flatten`` order.  A list whose items share one
+    structure (the model's per-layer dicts) stands for the reference's
+    leading L axis: the leaves at one path in every item form one group,
+    with one more stacked axis.  Returns [(indices, stacked axes)]; a
+    leaf outside such a list is a group of its own with 0."""
+    counter = iter(range(1 << 62))
+
+    def walk(t) -> List[Tuple[List[int], int]]:
+        if isinstance(t, dict):
+            return [g for k in sorted(t, key=str) for g in walk(t[k])]
+        if isinstance(t, (list, tuple)):
+            items = [walk(v) for v in t]
+            if isinstance(t, list) and t and len(
+                    {tree_flatten(v)[1] for v in t}) == 1:
+                return [([i for idx, _ in col for i in idx], col[0][1] + 1)
+                        for col in zip(*items)]
+            return [g for groups in items for g in groups]
+        if t is None:
+            return []
+        return [([next(counter)], 0)]
+
+    return walk(tree)
 
 
 def _host(leaf) -> np.ndarray:
@@ -173,7 +201,7 @@ class CheckpointManager:
                     f"leaf {i}: checkpoint shape {arr.shape} != template "
                     f"{tuple(leaf.shape)}")
             if isinstance(leaf, torch.Tensor):
-                arr = torch.from_numpy(np.ascontiguousarray(arr)).to(
+                arr = torch.from_numpy(np.array(arr, order="C")).to(
                     device=leaf.device, dtype=leaf.dtype)
             restored.append(arr)
         return tree_unflatten(template, restored)

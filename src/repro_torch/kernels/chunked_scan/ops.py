@@ -1,6 +1,8 @@
 """Public op: first-order linear recurrence with kernel/plain dispatch
-(``kernels.dispatch``): the CUDA kernel for tensors on the card, the
-plain version for tensors on the CPU."""
+(``kernels.dispatch``): the CUDA kernels for tensors on the card, the
+plain versions for tensors on the CPU.  The op is differentiable: a
+``torch.autograd.Function`` whose backward runs ``linear_scan_bwd_cuda``
+or ``linear_scan_bwd_ref`` on the route the forward took."""
 
 from __future__ import annotations
 
@@ -9,8 +11,8 @@ from typing import Optional, Tuple
 import torch
 
 from .. import dispatch
-from .kernel import linear_scan_cuda
-from .ref import linear_scan_ref
+from .kernel import linear_scan_bwd_cuda, linear_scan_cuda
+from .ref import linear_scan_bwd_ref, linear_scan_ref
 
 __all__ = ["linear_scan", "pad_to_chunk"]
 
@@ -29,23 +31,67 @@ def pad_to_chunk(a: torch.Tensor, b: torch.Tensor, chunk: int
             torch.cat([b, torch.zeros_like(ones)], dim=-2))
 
 
+class _LinearScan(torch.autograd.Function):
+    """y = scan(a, b) on one route, its gradients on the same route.
+
+    The kernel route pads T to a multiple of ``chunk`` inside the forward
+    (a = 1, b = 0: exact no-ops), saves the padded ``a`` and ``y``, pads
+    the upstream gradient with zeros in the backward and cuts the padded
+    steps' gradients off.  The plain route saves ``a`` and ``y`` as they
+    are."""
+
+    @staticmethod
+    def forward(ctx, a, b, kernel: bool, chunk: int):
+        t = a.shape[-2]
+        a32, b32 = a.to(torch.float32), b.to(torch.float32)
+        if kernel:
+            a32, b32 = pad_to_chunk(a32, b32, chunk)
+            a32 = a32.contiguous()
+            y = linear_scan_cuda(a32, b32.contiguous())
+        else:
+            y = linear_scan_ref(a32, b32)
+        ctx.save_for_backward(a32, y)
+        ctx.kernel, ctx.t = kernel, t
+        ctx.dtypes = (a.dtype, b.dtype)
+        return y[..., :t, :].clone() if y.shape[-2] != t else y
+
+    @staticmethod
+    def backward(ctx, g):
+        a32, y = ctx.saved_tensors
+        t = ctx.t
+        g = g.to(torch.float32)
+        if ctx.kernel:
+            pad = y.shape[-2] - t
+            if pad:
+                g = torch.cat([g, g.new_zeros(g.shape[:-2] + (pad,) +
+                                              g.shape[-1:])], dim=-2)
+            da, db = linear_scan_bwd_cuda(a32, y, g.contiguous())
+            da, db = da[..., :t, :], db[..., :t, :]
+        else:
+            da, db = linear_scan_bwd_ref(a32, y, g)
+        da_dtype, db_dtype = ctx.dtypes
+        return (da.to(da_dtype) if ctx.needs_input_grad[0] else None,
+                db.to(db_dtype) if ctx.needs_input_grad[1] else None,
+                None, None)
+
+
 def linear_scan(a: torch.Tensor, b: torch.Tensor,
                 use_kernel: Optional[bool] = None,
                 chunk: int = 128) -> torch.Tensor:
     """y_t = a_t * y_{t-1} + b_t over the -2 axis, from a zero state.
 
-    a, b: (T, D) or (B, T, D), computed in float32.  The kernel path
-    pads T to a multiple of ``chunk`` (``pad_to_chunk``) and slices the
-    padding off again, as the reference's Pallas path does.
+    a, b: (T, D) or (B, T, D), computed in float32, differentiable in
+    both.  The kernel path pads T to a multiple of ``chunk``
+    (``pad_to_chunk``) and slices the padding off again, as the
+    reference's Pallas path does.
     """
     if chunk < 1 or chunk & (chunk - 1):
         raise ValueError(f"chunk must be a power of two, got {chunk}")
-    if not dispatch.resolve(use_kernel, a):
-        return linear_scan_ref(a, b)
+    kernel = dispatch.resolve(use_kernel, a)
+    if a.shape != b.shape:
+        a, b = torch.broadcast_tensors(a, b)
     squeeze = a.dim() == 2
     if squeeze:
         a, b = a[None], b[None]
-    t = a.shape[-2]
-    a, b = pad_to_chunk(a.to(torch.float32), b.to(torch.float32), chunk)
-    y = linear_scan_cuda(a.contiguous(), b.contiguous())[..., :t, :]
+    y = _LinearScan.apply(a, b, kernel, chunk)
     return y[0] if squeeze else y

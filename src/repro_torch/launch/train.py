@@ -1,0 +1,94 @@
+"""Training driver: ``python -m repro_torch.launch.train --arch <id> [...]``.
+
+Runs real steps of the microbatched train step (``train.steps``) on the
+card unless ``--device cpu``: random f32 weights from seed 0
+(``reduced(arch)`` unless ``--full``), ``TokenPipeline`` batches, f32
+compute as the reference's driver, checkpoint/restart through
+``CheckpointManager`` and straggler bookkeeping.  Step ``i`` always
+trains on ``TokenPipeline.batch_at(i)``, so a resumed run continues the
+token stream where the checkpoint left it (the reference's driver
+restarts the stream at batch 0 on resume) and equals a run that never
+stopped.  The reference builds a mesh over the visible devices; the
+port trains on one card.
+"""
+
+# lint: module-ok J002 — host-eager driver: the training loop deliberately
+# syncs step counters/metrics to the host between steps.
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from ..configs import get, reduced
+from ..data.pipeline import TokenPipeline
+from ..distributed.compression import int8_compress
+from ..distributed.fault import CheckpointManager, StragglerMitigator
+from ..kernels.dispatch import resolve_device
+from ..models import init_params
+from ..train.optimizer import AdamWConfig, adamw_init
+from ..train.steps import build_train_step
+
+
+def main(argv=None):
+    """Train; returns the final ``TrainState``."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--n-micro", type=int, default=1)
+    ap.add_argument("--compress", action="store_true")
+    ap.add_argument("--ckpt-dir", default="checkpoints")
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = reduced(args.arch) if args.reduced else get(args.arch)
+    dev = resolve_device(args.device)
+    print(f"[train] arch={cfg.name} params={cfg.n_params():,} "
+          f"device={dev}")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = adamw_init(init_params(cfg, gen, dtype=torch.float32,
+                                   device=dev),
+                       with_compression=args.compress)
+    mgr = CheckpointManager(args.ckpt_dir)
+    if args.resume and mgr.latest_step() is not None:
+        state = mgr.restore(state)
+        print(f"[train] resumed from step {int(state.step)}")
+
+    step_fn = build_train_step(
+        cfg, AdamWConfig(lr=args.lr, warmup_steps=10,
+                         total_steps=args.steps, weight_decay=0.0),
+        n_micro=args.n_micro,
+        compress=int8_compress if args.compress else None,
+        compute_dtype=torch.float32)
+    pipe = TokenPipeline(cfg.vocab_size, args.batch, args.seq)
+    strag = StragglerMitigator(n_hosts=1)
+
+    for i in range(int(state.step), args.steps):
+        tokens = torch.from_numpy(pipe.batch_at(i)["tokens"]).to(dev)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, {"tokens": tokens})
+        step = int(metrics["step"])           # waits for the step
+        dt = time.perf_counter() - t0
+        strag.observe({0: dt})
+        if step % 10 == 0 or step == args.steps:
+            print(f"step {step:5d} loss={float(metrics['loss']):.4f} "
+                  f"gnorm={float(metrics['grad_norm']):.3f} {dt:.2f}s")
+        if step % args.ckpt_every == 0:
+            mgr.save(step, state)
+    mgr.save(int(state.step), state)
+    print(f"[train] done at step {int(state.step)}; "
+          f"stragglers={strag.stragglers()}")
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -9,8 +9,8 @@ The same functions as ``repro/models/layers.py``, on tensors:
   * prefill attention is *chunked* (flash-style online softmax over KV
     tiles, plain torch, as the reference's is plain jnp); decode
     attention goes through ``kernels.flash_decode.decode_partials`` over
-    the live cache range, the SSM prefill through
-    ``kernels.chunked_scan.linear_scan``.
+    the live cache range, the SSM prefill (and training forward, with
+    its backward) through ``kernels.chunked_scan.linear_scan``.
 
 MLA, MoE, RWKV, ``layer_norm`` and ``gelu_mlp`` (the other families) are
 not ported yet (ROADMAP queue 1, item 8) and raise NotImplementedError.
@@ -292,9 +292,13 @@ def ssm_forward(p: Params, x: torch.Tensor, cfg, *,
     """Diagonal selective-state-space branch.
 
     h_t (di, n):  h = a_t * h + dt_t * x_t ⊗ B_t ;  y = (h · C_t) + D*x.
-    Prefill (S > 1): ``chunked_scan.linear_scan`` over (B, S, di·n)
-    from a zero state.  Decode (S = 1): the one-step update on the
-    carried state.  Returns (y (B, S, d), new_state (B, di, n) float32).
+    Prefill and training (S > 1): ``chunked_scan.linear_scan`` over
+    (B, S, di·n) from a zero state, differentiable on both routes (its
+    backward is the scan's own kernel or plain version; the in-place
+    ``exp_`` writes a product whose backward saved only its inputs).
+    Decode (S = 1): the one-step update on the carried state.  Returns
+    (y (B, S, d), new_state (B, di, n) float32); training drops the
+    state.
     """
     sm = cfg.ssm
     b, s, _ = x.shape

@@ -6,31 +6,38 @@ parallel attention + SSM heads with sliding-window layers):
 
   init_params(cfg, generator, dtype, device)   -> params
   params_from_jax(cfg, params_np, device)      -> params
+  forward_train(cfg, params, batch, remat)     -> (loss, {"logits"})
   forward_prefill(cfg, params, batch, cap)     -> (last logits, state)
   init_decode_state(cfg, batch, max_len, ...)  -> state
   decode_step(cfg, params, state, token)       -> (logits, state)
+  model_input_spec(cfg, shape)                 -> {name: (shape, dtype)}
+  train_state_from_jax(cfg, state_np, device)  -> train.TrainState
 
 Params are a dict ``{"embed", "layers": [one dict per layer],
 "final_norm", "lm_head"}`` with the reference's names and per-layer
 shapes; the decode state is ``{"len": (B,) int32, "layers": [...]}``
 with per-layer ``{"attn": {"k", "v"}, "ssm"}``.  The other families
-(MoE, MLA, RWKV, audio, VLM) raise NotImplementedError; training
-(``forward_train``, ``loss_fn``) is a later slice.
+(MoE, MLA, RWKV, audio, VLM) raise NotImplementedError.  Training runs
+the layer loop with per-layer rematerialisation
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeSpec
 from ..kernels.dispatch import resolve_device
 from . import layers as L
 
-__all__ = ["ATTN_CHUNK", "init_params", "params_from_jax", "forward_prefill",
-           "init_decode_state", "decode_step"]
+__all__ = ["ATTN_CHUNK", "init_params", "params_from_jax", "forward_train",
+           "loss_fn", "forward_prefill", "init_decode_state", "decode_step",
+           "model_input_spec", "train_state_from_jax"]
 
 Params = Dict[str, Any]
 
@@ -121,6 +128,32 @@ def params_from_jax(cfg: ArchConfig, params_np: Params,
     return out
 
 
+def train_state_from_jax(cfg: ArchConfig, state_np, device="cuda"):
+    """The JAX package's ``TrainState`` (its fields as numpy: step,
+    params, mu, nu, compress_err) as the port's ``train.TrainState`` on
+    ``device`` (the card unless the caller passes ``device="cpu"``).
+    Params and moments go through ``params_from_jax``; a residual of
+    0-d zeros (no compression) becomes 0-d zeros per port leaf."""
+    from ..distributed.fault import tree_flatten, tree_map
+    from ..train.optimizer import TrainState
+
+    fields = (state_np._asdict() if hasattr(state_np, "_asdict")
+              else dict(state_np))
+    device = resolve_device(device)
+    params, mu, nu = (params_from_jax(cfg, fields[k], device)
+                      for k in ("params", "mu", "nu"))
+    err = fields["compress_err"]
+    if all(np.ndim(x) == 0 for x in tree_flatten(err)[0]):
+        err = tree_map(lambda p: torch.zeros((), dtype=torch.float32,
+                                             device=device), params)
+    else:
+        err = params_from_jax(cfg, err, device)
+    step = torch.tensor(int(np.asarray(fields["step"])), dtype=torch.int32,
+                        device=device)
+    return TrainState(step=step, params=params, mu=mu, nu=nu,
+                      compress_err=err)
+
+
 def _layer_flags(cfg: ArchConfig) -> np.ndarray:
     """(L,) per-layer global-attention flags (hybrid SWA pattern)."""
     flags = np.zeros((cfg.n_layers,), np.bool_)
@@ -142,7 +175,7 @@ def _windows(cfg: ArchConfig) -> List[int]:
 
 
 # ---------------------------------------------------------------------------
-# layer body (prefill and decode)
+# layer body (training, prefill and decode)
 # ---------------------------------------------------------------------------
 
 
@@ -189,6 +222,77 @@ def _pad_seq(x: torch.Tensor, cap: int) -> torch.Tensor:
                       device=x.device)
     out[:, :s] = x
     return out
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+
+def _embed_inputs(cfg: ArchConfig, params: Params, batch):
+    """Token embedding.  Returns (x (B, S, d), label_mask (B, S) bool),
+    the mask marking positions that carry next-token loss (all of them:
+    the modality prefixes of the VLM and audio families are not
+    ported)."""
+    tokens = batch["tokens"]
+    x = F.embedding(tokens.long(), params["embed"])
+    return x, torch.ones(tokens.shape, dtype=torch.bool,
+                         device=tokens.device)
+
+
+def forward_train(cfg: ArchConfig, params: Params, batch,
+                  remat: bool = True, use_kernel: Optional[bool] = None):
+    """Teacher-forced forward over ``batch["tokens"]`` (B, S); returns
+    (loss, {"logits": (B, S, vocab_padded)}).
+
+    Each layer is ``_layer_fwd`` with no cache (its k/v are dropped);
+    with ``remat`` each runs under ``torch.utils.checkpoint`` (not
+    reentrant), so the backward recomputes one layer at a time: on the
+    hybrid family the scan's forward runs twice per layer and its
+    backward once."""
+    _check_family(cfg)
+    x, label_mask = _embed_inputs(cfg, params, batch)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+    def layer(lp, window, h):
+        return _layer_fwd(cfg, lp, h, positions=positions, window=window,
+                          use_kernel=use_kernel)[0]
+
+    for lp, window in zip(params["layers"], _windows(cfg)):
+        if remat:
+            x = checkpoint(layer, lp, window, x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = layer(lp, window, x)
+    logits = _logits(cfg, params, x)
+    loss = loss_fn(cfg, logits, batch["tokens"], label_mask)
+    return loss, {"logits": logits}
+
+
+def loss_fn(cfg: ArchConfig, logits: torch.Tensor, tokens: torch.Tensor,
+            label_mask: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy over the real vocabulary, float32: the
+    padded vocabulary columns are masked to -1e30 before the logsumexp;
+    the mean is over the positions ``label_mask`` marks (at least 1)."""
+    logits = logits.to(torch.float32)
+    vocab_ok = torch.arange(logits.shape[-1], device=logits.device) \
+        < cfg.vocab_size
+    logits = torch.where(vocab_ok, logits, -1e30)
+    # predict token t+1 at position t (the last token has no target)
+    tgt_mask = label_mask[:, 1:]
+    targets = tokens[:, 1:].long()
+    n_prefix = logits.shape[1] - tokens.shape[1]
+    pred = logits[:, n_prefix:logits.shape[1] - 1]
+    lse = torch.logsumexp(pred, dim=-1)
+    tgt_logit = torch.gather(pred, -1, targets[..., None])[..., 0]
+    nll = (lse - tgt_logit) * tgt_mask[:, -pred.shape[1]:]
+    denom = torch.clamp(tgt_mask.sum().to(torch.float32), min=1.0)
+    return nll.sum() / denom
+
+
+# ---------------------------------------------------------------------------
+# prefill and decode
+# ---------------------------------------------------------------------------
 
 
 def forward_prefill(cfg: ArchConfig, params: Params, batch,
@@ -266,3 +370,20 @@ def decode_step(cfg: ArchConfig, params: Params, state: Dict[str, Any],
     new_state["layers"] = layers
     new_state["len"] = pos + 1
     return logits, new_state
+
+
+# ---------------------------------------------------------------------------
+# input specs (shapes and dtypes; no allocation)
+# ---------------------------------------------------------------------------
+
+
+def model_input_spec(cfg: ArchConfig, shape: ShapeSpec
+                     ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """{input name: (shape, dtype)} of a shape cell, the port's stand-in
+    for the reference's ``jax.ShapeDtypeStruct`` tree: (B, S) int32
+    tokens for training and prefill, one (B, 1) token for decode."""
+    _check_family(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        return {"tokens": ((b, s), torch.int32)}
+    return {"token": ((b, 1), torch.int32)}

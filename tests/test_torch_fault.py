@@ -54,6 +54,24 @@ def test_checkpoint_tensor_leaves_keep_dtype_and_device(tmp_path):
     assert torch.equal(doubled["ids"][1], 2 * torch.ones(2))
 
 
+def test_checkpoint_keeps_0d_tensor_leaves_and_named_tuples(tmp_path):
+    """A 0-d tensor leaf (a train step counter, a mixing weight) comes
+    back 0-d, and a named tuple node as the same named tuple."""
+    from repro_torch.train.optimizer import TrainState
+
+    mgr = CheckpointManager(str(tmp_path))
+    state = TrainState(step=torch.tensor(5, dtype=torch.int32),
+                       params={"w": torch.ones(3), "mix": torch.tensor(.5)},
+                       mu=[torch.zeros(()), torch.ones(2)], nu=None,
+                       compress_err=(torch.zeros(()),))
+    mgr.save(5, state)
+    got = mgr.restore(state)
+    assert isinstance(got, TrainState) and got.nu is None
+    for a, b in zip(tree_flatten(got)[0], tree_flatten(state)[0]):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
 def test_checkpoint_shape_mismatch_rejected(tmp_path):
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(1, {"w": np.ones((2, 2))})

@@ -653,6 +653,85 @@ def test_linear_scan_kernel_matches_plain(b, t, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,t,d", [(1, 64, 8), (3, 1000, 37), (2, 1, 5),
+                                   (2, 2048, 51_200)])
+def test_linear_scan_bwd_kernel_matches_plain(b, t, d):
+    """Bitwise: the backward kernel repeats ``linear_scan_bwd_ref``'s
+    reverse recurrence with the same roundings; two runs equal.  Through
+    autograd (T = 1000 pads to 1024 on the kernel route), the op's
+    gradients equal the plain route's."""
+    from repro_torch.kernels.chunked_scan import linear_scan
+    from repro_torch.kernels.chunked_scan.kernel import linear_scan_bwd_cuda
+    from repro_torch.kernels.chunked_scan.ref import (linear_scan_bwd_ref,
+                                                      linear_scan_ref)
+
+    dev = require_cuda()
+    gen = torch.Generator(device=dev).manual_seed(t)
+    a = torch.rand((b, t, d), generator=gen, device=dev) * 0.7 + 0.3
+    x = torch.randn((b, t, d), generator=gen, device=dev)
+    g = torch.randn((b, t, d), generator=gen, device=dev)
+    y = linear_scan_ref(a, x)
+    before = dispatch.launch_counts().get("linear_scan_bwd", 0)
+    got = linear_scan_bwd_cuda(a, y, g)
+    again = linear_scan_bwd_cuda(a, y, g)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["linear_scan_bwd"] == before + 2
+    for k, r, w in zip(got, again, linear_scan_bwd_ref(a, y, g)):
+        assert torch.equal(k, r) and torch.equal(k, w)
+    if d > 1000:
+        return
+    grads = []
+    for use_kernel in (True, False):
+        la, lx = a.clone().requires_grad_(), x.clone().requires_grad_()
+        linear_scan(la, lx, use_kernel=use_kernel).backward(g)
+        grads.append((la.grad, lx.grad))
+    for k, p in zip(*grads):
+        assert torch.equal(k, p)
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_plain():
+    """A 4-layer reduced hymba (one sliding-window layer), float32, two
+    microbatches of 150 tokens: ``loss_and_grads`` through the scan
+    kernels equals the plain route bit for bit; 2 forward launches
+    (forward and remat recompute) and 1 backward launch per hybrid layer
+    and microbatch; one train step runs and changes the params."""
+    import dataclasses
+
+    from repro_torch.configs import reduced
+    from repro_torch.distributed.fault import tree_flatten
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, adamw_init, build_train_step
+    from repro_torch.train.steps import loss_and_grads
+
+    dev = require_cuda()
+    cfg = dataclasses.replace(reduced("hymba-1.5b"), n_layers=4)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (4, 150)).astype(np.int32)).to(dev)}
+    dispatch.reset_launch_counts()
+    kern = loss_and_grads(cfg, params, batch, n_micro=2,
+                          compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()
+    assert counts["linear_scan"] == 16 and counts["linear_scan_bwd"] == 8
+    plain = loss_and_grads(cfg, params, batch, n_micro=2,
+                           compute_dtype=torch.float32, use_kernel=False)
+    assert torch.equal(kern[0], plain[0])
+    for k, p in zip(tree_flatten(kern[1])[0], tree_flatten(plain[1])[0]):
+        assert torch.equal(k, p)
+    state = adamw_init(params)
+    step = build_train_step(cfg, AdamWConfig(lr=1e-3), n_micro=2,
+                            compute_dtype=torch.bfloat16)
+    state, metrics = step(state, batch)
+    assert int(metrics["step"]) == 1
+    assert bool(torch.isfinite(metrics["loss"]))
+    assert not torch.equal(state.params["embed"], params["embed"])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("hq,hkv,d", [(4, 4, 32), (25, 5, 64),

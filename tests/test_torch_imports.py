@@ -26,8 +26,9 @@ def _imported_roots(path: pathlib.Path):
 
 
 # modules of the offline, model-serving, staged-fold, pre-aggregation,
-# serving-loop, sharding/replication and row-format / preview / certifier
-# / training-data slices: each must exist and import without JAX
+# serving-loop, sharding/replication, row-format / preview / certifier
+# / training-data and training slices: each must exist and import
+# without JAX
 SLICE_MODULES = (
     "core.hll", "core.skew", "core.multiwindow", "core.consistency",
     "core.window", "core.preagg",
@@ -50,7 +51,9 @@ SLICE_MODULES = (
     "storage.encoding", "core.preview", "core.analysis",
     "core.analysis.certificate", "core.analysis.consistency_rules",
     "core.analysis.memory", "core.analysis.retrace",
-    "core.analysis.sharding", "data.pipeline")
+    "core.analysis.sharding", "data.pipeline",
+    "train", "train.optimizer", "train.steps", "distributed.compression",
+    "launch.train")
 
 
 def test_port_has_files():
