@@ -32,12 +32,15 @@ Phases (each prints its own lines; any failure exits non-zero):
              decode partials
              at B = 8, Hq = 25, Hkv = 5, D = 64 over a bf16 cache of
              2,048 (live ranges from 0 and, as on a sliding-window layer,
-             from lo > 0), rtol 1e-4 / atol 1e-5, timed warm (one cache)
-             and cold in L2 (a rotation of eight caches), beside one
+             from lo > 0), and at the D = 128 decode shapes of
+             qwen2-moe-a2.7b (Hq = Hkv = 16) and dbrx-132b (Hq 48, Hkv 8;
+             its weights do not fit the card) over float32 and bf16
+             caches, rtol 1e-4 / atol 1e-5, timed warm (one cache) and
+             cold in L2 (a rotation of eight caches), beside one
              ``scaled_dot_product_attention`` call;
 4. main paths, each with the launch counts set to 0 just before it and
              read just after, at deployment size (1.5 M rows; run in
-             the order a, b, e, f, g, h, i, c, d, j):
+             the order a, b, e, f, g, h, i, c, d, j, k):
    a. serving — ``FeatureEngine`` (capacity 1.6 M) bulk load + 4,096 live
              rows, ``request_batch`` at B = 1, 64, 256; the B = 64 batch
              must equal a CPU engine (plain versions) on a copy of the
@@ -134,6 +137,23 @@ Phases (each prints its own lines; any failure exits non-zero):
              first loss within 1 nat of ln(vocab), the last below it,
              256 ``linear_scan`` and 128 ``linear_scan_bwd`` launches
              per step; step ms p50, tokens/s, peak memory, busy share;
+   k. MoE and MLA families — (a) qwen2-moe-a2.7b at full width and depth
+             (64 allocated experts, 15.15 G seeded random params), phase
+             4d's prompts and cache: in float32 ``generate_greedy`` of
+             four tokens through the kernels (exactly 24 x 4
+             ``decode_partials`` launches), then teacher-forced through
+             the kernels and the plain versions (logits within rtol/atol
+             1e-3, argmax the generated tokens); the f32 weights freed
+             and the bf16 ones drawn anew from the same seed (the bits of
+             the f32 draw cast), timed as in 4d with the peak memory; (b)
+             minicpm3-4b at full width and depth (no ported kernel on its
+             path, none launched): the absorbed decode's logits at each
+             of four steps equal to a prefill over the prompt plus those
+             tokens (float32, within 1e-3), then bf16 timed; (c) one
+             train step of each at full width and 4 layers (bf16
+             compute, f32 master weights and AdamW, batch 2 x 1,024):
+             first loss within 1 nat of ln(vocab), gradient norm finite,
+             time and peak memory;
 5. times   — request latency percentiles, offline wall and device time,
              and each kernel's time beside its bound, its plain version's
              time and, where one exists, one PyTorch call's (CUDA events).
@@ -192,6 +212,17 @@ EW_RTOL = 1e-5                     # 1-ulp expf differences carried by a fold
 MODEL_ARCH = "hymba-1.5b"          # model serving (phase 4d), full size
 MODEL_BATCH, MODEL_PROMPT, MODEL_MAX_LEN, MODEL_TOKENS = 8, 1024, 2048, 32
 MODEL_TOL = 1e-3                   # f32 logits, kernels vs plain versions
+# phase 4k: the MoE and MLA families at full width (depth too, except
+# the train step: minicpm3-4b's f32 master weights and AdamW alone would
+# take ~68 GB), seeded random weights, phase 4d's prompts and cache
+MOE_ARCH, MLA_ARCH = "qwen2-moe-a2.7b", "minicpm3-4b"
+FAMILY_TOKENS = 4                  # f32 checks: decode steps
+FAMILY_TRAIN_LAYERS = 4
+FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ = 2, 1024
+# phase 3c: decode_partials also at the D = 128 decode shapes (Hq, Hkv, D)
+# of qwen2-moe-a2.7b (phase 4k) and dbrx-132b (263 GB of bf16 weights: it
+# does not fit the card, so only its attention shape is run)
+DECODE_SHAPES = {"qwen2-moe-a2.7b": (16, 16, 128), "dbrx-132b": (48, 8, 128)}
 # phase 4j: training hymba-1.5b at full width and depth; the sequence is
 # longer than its 1,024-token window, so the sliding-window layers mask
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 2048, 4, 8
@@ -777,17 +808,22 @@ def check_linear_scan_bwd(dev, reps):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
-def decode_inputs(dev, sliding: bool, draw: int = 0):
-    """One decode step of hymba-1.5b's attention at positions 1,024+: q
-    (8, 25, 64) float32, a bf16 cache (8, 2,048, 5, 64), live lengths in
-    DECODE_LIVE; ``sliding`` starts each live range 1,024 keys back, as
-    on a sliding-window layer.  ``draw`` picks another seed (another
-    cache)."""
-    gen = torch.Generator(device=dev).manual_seed(17 + sliding + 2 * draw)
-    b, hq, hkv, d = MODEL_BATCH, 25, 5, 64
+def decode_inputs(dev, sliding: bool, draw: int = 0, heads=(25, 5, 64),
+                  kv_dtype=torch.bfloat16):
+    """One decode step of a model's attention at positions 1,024+: q
+    (8, Hq, D) float32, a cache (8, 2,048, Hkv, D) of ``kv_dtype``, live
+    lengths in DECODE_LIVE; ``heads`` = (Hq, Hkv, D), hymba-1.5b's by
+    default (DECODE_SHAPES has the others); ``sliding`` starts each live
+    range 1,024 keys back, as on a sliding-window layer.  ``draw`` picks
+    another seed (another cache)."""
+    seed = 17 + sliding + 2 * draw
+    if heads != (25, 5, 64):
+        seed += 7 * sum(heads)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, (hq, hkv, d) = MODEL_BATCH, heads
     q = torch.randn((b, hq, d), generator=gen, device=dev)
     k, v = (torch.randn((b, MODEL_MAX_LEN, hkv, d), generator=gen,
-                        device=dev).to(torch.bfloat16) for _ in range(2))
+                        device=dev).to(kv_dtype) for _ in range(2))
     hi = torch.randint(DECODE_LIVE[0], DECODE_LIVE[1] + 1, (b,),
                        generator=gen, device=dev, dtype=torch.int32)
     lo = torch.clamp(hi - 1024, min=0) if sliding else torch.zeros_like(hi)
@@ -813,19 +849,19 @@ def rotating(fn, inputs):
 
 def check_decode_partials(dev, reps):
     """Kernel against plain version (rtol 1e-4 / atol 1e-5), two runs
-    bitwise, for live ranges from 0 (global layers) and from lo > 0
-    (sliding-window layers); times and bound for both, the library call
-    beside them: warm (one cache, as a loop over one layer finds it in
-    L2) and cold (a rotation of DECODE_COLD caches, 21 MB each, far past
-    the 50 MB L2, as the model's 32 layers find theirs)."""
+    bitwise, at hymba-1.5b's shape for live ranges from 0 (global layers)
+    and from lo > 0 (sliding-window layers), and at the D = 128 shapes of
+    DECODE_SHAPES (qwen2-moe-a2.7b, dbrx-132b; there also over a float32
+    cache, the route phase 4k's f32 check takes); times and bound for
+    each bf16 cache, the library call beside them: warm (one cache, as a
+    loop over one layer finds it in L2) and cold (a rotation of
+    DECODE_COLD caches, 21-67 MB each, past the 50 MB L2 together, as a
+    model's layers find theirs)."""
     from repro_torch.kernels.flash_decode.kernel import decode_partials_cuda
     from repro_torch.kernels.flash_decode.ref import (decode_partials_ref,
                                                       finalize_partials)
 
-    res = {}
-    for sliding in (False, True):
-        name = "sliding" if sliding else "global"
-        q, k, v, lo, hi = decode_inputs(dev, sliding)
+    def held(name, q, k, v, lo, hi):
         got = decode_partials_cuda(q, k, v, lo, hi)
         again = decode_partials_cuda(q, k, v, lo, hi)
         torch.cuda.synchronize()
@@ -835,12 +871,27 @@ def check_decode_partials(dev, reps):
             same_bits(f"decode_partials[{name}/{part}]", a, b)
             err = max(err, compare(f"decode_partials[{name}/{part}]", a, c,
                                    rtol=1e-4, atol=1e-5))
+        return got, err
+
+    res = {}
+    cases = [("global", False, (25, 5, 64)), ("sliding", True, (25, 5, 64))]
+    cases += [(name, False, heads) for name, heads in DECODE_SHAPES.items()]
+    for name, sliding, heads in cases:
+        if heads[2] == 128:
+            _, err32 = held(f"{name}/f32", *decode_inputs(
+                dev, sliding, heads=heads, kv_dtype=torch.float32))
+            log(f"decode_partials[{name}] Hq, Hkv, D = {heads} float32 "
+                f"cache: kernel == plain (rtol 1e-4), two runs equal, "
+                f"max_abs_err={err32}")
+        q, k, v, lo, hi = decode_inputs(dev, sliding, heads=heads)
+        got, err = held(name, q, k, v, lo, hi)
         lib = decode_library(q, k, v, lo, hi).float()
         err_lib = float((finalize_partials(*got) - lib).abs().max())
         ms = cuda_ms(lambda: decode_partials_cuda(q, k, v, lo, hi), reps)
         plain_ms = cuda_ms(lambda: decode_partials_ref(q, k, v, lo, hi), 20)
         lib_ms = cuda_ms(lambda: decode_library(q, k, v, lo, hi), reps)
-        sets = [decode_inputs(dev, sliding, i) for i in range(DECODE_COLD)]
+        sets = [decode_inputs(dev, sliding, i, heads)
+                for i in range(DECODE_COLD)]
         cold_ms = cuda_ms(rotating(decode_partials_cuda, sets), reps)
         cold_lib_ms = cuda_ms(rotating(decode_library, sets), reps)
         del sets
@@ -1163,6 +1214,259 @@ def model_training(dev, card):
     del state, batches, step_fn
     torch.cuda.empty_cache()
     return out, {"training": counts}
+
+
+# ---------------------------------------------------------------- phase 4k
+
+
+def _draw(cfg, dev, dtype):
+    """Seeded random weights at ``cfg``'s widths: seed 0, as phase 4d.
+    ``normal_init`` draws float32 and casts, so a bf16 draw holds the
+    bits of the f32 draw cast to bf16 (no f32 copy needs to stay)."""
+    from repro_torch.models import init_params
+
+    return init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                       dtype=dtype, device=dev)
+
+
+def _free():
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _bf16_serving(cfg, label, prompt, dev, card, expect, probe=None):
+    """A model in bf16, timed: prefill, decode per token p50 / p99 over
+    MODEL_TOKENS, tokens/s, one profiled decode step, peak memory.
+    ``probe`` = (leaf of the params, the f32 draw's leaf cast to bf16):
+    the fresh bf16 draw must hold its bits."""
+    from repro_torch.serve.engine import ServingEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    params = _draw(cfg, dev, torch.bfloat16)
+    if probe is not None and not torch.equal(probe[0](params), probe[1]):
+        raise AssertionError(f"{label}: the bf16 draw is not the f32 draw "
+                             f"cast to bf16")
+    eng = ServingEngine(cfg, params, max_len=MODEL_MAX_LEN,
+                        dtype=torch.bfloat16, device=dev)
+    eng.generate_greedy({"tokens": prompt}, 2)             # warm-up
+    t0 = time.perf_counter()
+    tokens, counts = run_path(f"{label} serving (bf16)",
+                              lambda: eng.generate_greedy(
+                                  {"tokens": prompt}, MODEL_TOKENS), ())
+    t_gen = time.perf_counter() - t0
+    if counts != expect(MODEL_TOKENS):
+        raise AssertionError(f"{label} bf16: launches {counts}, expected "
+                             f"{expect(MODEL_TOKENS)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = eng.prefill({"tokens": prompt})
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    steps = []
+    for i in range(MODEL_TOKENS):
+        t0 = time.perf_counter()
+        last = eng.decode(tokens[:, i:i + 1])
+        steps.append((time.perf_counter() - t0) * 1e3)
+    check_logits([first, last], cfg)
+    tok_s = MODEL_BATCH * MODEL_TOKENS / (sum(steps) / 1e3)
+    prof_dec = profile_calls(lambda: eng.decode(tokens[:, :1]), 4)
+    attn = {k: v for k, v in prof_dec["kernel_ms_per_call"].items()
+            if "decode_split_kernel" in k or "decode_merge_kernel" in k}
+    out = {"bf16_prefill_ms": prefill_ms, "bf16_generate_s": t_gen,
+           "bf16_decode_ms_p50": float(np.percentile(steps, 50)),
+           "bf16_decode_ms_p99": float(np.percentile(steps, 99)),
+           "bf16_decode_ms": steps, "bf16_decode_tokens_per_s": tok_s,
+           "launches_bf16": counts, "profile_decode": prof_dec,
+           "decode_partials_ms_per_step": sum(attn.values()),
+           "bf16_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"{label} bf16 prefill {prefill_ms:.1f} ms (B={MODEL_BATCH} x "
+        f"{MODEL_PROMPT} tokens); decode per token p50 "
+        f"{out['bf16_decode_ms_p50']:.2f} ms, p99 "
+        f"{out['bf16_decode_ms_p99']:.2f} ms over {MODEL_TOKENS} steps; "
+        f"{tok_s:.0f} tokens/s; peak memory {out['bf16_peak_mem_gb']:.2f} "
+        f"GB  [{card}]")
+    log_profile(f"{label} decode step (bf16)", prof_dec, card)
+    log(f"decode_partials in a {label} decode step: "
+        f"{out['decode_partials_ms_per_step']:.4f} ms of "
+        f"{prof_dec['device_ms_per_call']:.3f} ms device time  [{card}]")
+    del eng, params
+    _free()
+    return out, counts
+
+
+def _train_step(cfg, label, dev, card):
+    """One train step at FAMILY_TRAIN_LAYERS layers (bf16 compute, f32
+    master weights and AdamW): the first loss within TRAIN_LOSS_TOL of
+    ln(vocab), the gradients finite (their global norm is), timed."""
+    import math
+
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train import AdamWConfig, adamw_init, build_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    state = adamw_init(_draw(cfg, dev, torch.float32))
+    tokens = TokenPipeline(cfg.vocab_size, FAMILY_TRAIN_BATCH,
+                           FAMILY_TRAIN_SEQ).batch_at(0)["tokens"]
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    step_fn = build_train_step(cfg, AdamWConfig(**TRAIN_OPT),
+                               compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (state, metrics), counts = run_path(f"{label} train step",
+                                        lambda: step_fn(state, batch), ())
+    step_s = time.perf_counter() - t0
+    loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+    ln_v = math.log(cfg.vocab_size)
+    if not (math.isfinite(norm) and abs(loss - ln_v) <= TRAIN_LOSS_TOL):
+        raise AssertionError(f"{label} train step: loss {loss} (ln V = "
+                             f"{ln_v:.4f}), grad norm {norm}")
+    if counts:
+        raise AssertionError(f"{label} train step launched {counts}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    log(f"{label} train step ({cfg.n_layers} of {get(label).n_layers} "
+        f"layers, {n_params / 1e9:.3f} G params, batch "
+        f"{FAMILY_TRAIN_BATCH} x {FAMILY_TRAIN_SEQ}, bf16 compute): loss "
+        f"{loss:.4f} (ln V = {ln_v:.4f}), grad norm {norm:.3f} (finite), "
+        f"{step_s * 1e3:.1f} ms, peak memory {peak:.2f} GB  [{card}]")
+    del state, step_fn, batch
+    _free()
+    return {"loss": loss, "grad_norm": norm, "step_ms": step_s * 1e3,
+            "peak_mem_gb": peak, "params_g": n_params / 1e9,
+            "layers": cfg.n_layers}, counts
+
+
+def family_models(dev, card):
+    """Phase 4k: the MoE and MLA families at full width on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.serve.engine import ServingEngine
+
+    out, paths = {}, {}
+
+    # (a) qwen2-moe-a2.7b at full width and depth: f32 kernel route
+    # against the plain route, then bf16 timings from a fresh bf16 draw
+    cfg = get(MOE_ARCH)
+    prompt = model_prompt(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _draw(cfg, dev, torch.float32)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    probe = params["layers"][-1]["moe"]["w_down"][7].to(torch.bfloat16)
+    log(f"{MOE_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.moe.n_experts} experts ({cfg.moe.n_experts_padded} "
+        f"allocated) of {cfg.moe.d_expert}, top {cfg.moe.top_k}, "
+        f"{cfg.moe.n_shared} shared; {n_params / 1e9:.3f} G params drawn "
+        f"in f32 in {time.perf_counter() - t0:.1f} s")
+
+    def moe_expect(n):
+        return {"decode_partials": cfg.n_layers * n}
+
+    kern = ServingEngine(cfg, params, max_len=MODEL_MAX_LEN,
+                         dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    tokens, counts = run_path(
+        f"{MOE_ARCH} serving (f32)",
+        lambda: kern.generate_greedy({"tokens": prompt}, FAMILY_TOKENS),
+        ("decode_partials",))
+    t_f32 = time.perf_counter() - t0
+    if counts != moe_expect(FAMILY_TOKENS):
+        raise AssertionError(f"{MOE_ARCH}: launches {counts}, expected "
+                             f"{moe_expect(FAMILY_TOKENS)}")
+    paths["moe_f32"] = counts
+    got = teacher_forced(kern, prompt, tokens)
+    del kern
+    _free()
+    plain = ServingEngine(cfg, params, max_len=MODEL_MAX_LEN,
+                          dtype=torch.float32, device=dev, use_kernel=False)
+    want = teacher_forced(plain, prompt, tokens)
+    del plain
+    check_logits(got, cfg)
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not np.allclose(a, b, rtol=MODEL_TOL, atol=MODEL_TOL):
+            raise AssertionError(f"{MOE_ARCH} logits step {i}: kernels != "
+                                 f"plain (max diff {np.abs(a - b).max()})")
+        err = max(err, float(np.abs(a - b).max()))
+    if not np.array_equal(np.stack([x.argmax(-1) for x in got[:-1]], 1),
+                          tokens):
+        raise AssertionError(f"{MOE_ARCH}: teacher-forced argmax differs "
+                             f"from generate_greedy's tokens")
+    peak_f32 = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{MOE_ARCH} f32 generate_greedy {FAMILY_TOKENS} tokens {t_f32:.1f} "
+        f"s; teacher-forced prefill + {FAMILY_TOKENS} steps: kernels == "
+        f"plain versions within {MODEL_TOL} (max abs diff {err:.3e}); "
+        f"argmax reproduces the generated tokens; {cfg.n_layers} x "
+        f"{FAMILY_TOKENS} decode_partials launches; peak memory "
+        f"{peak_f32:.2f} GB  [{card}]")
+    del params, got, want
+    _free()
+    moe, counts = _bf16_serving(
+        cfg, MOE_ARCH, prompt, dev, card, moe_expect,
+        probe=(lambda p: p["layers"][-1]["moe"]["w_down"][7], probe))
+    paths["moe_bf16"] = counts
+    del probe
+    out[MOE_ARCH] = dict(moe, params_g=n_params / 1e9, f32_generate_s=t_f32,
+                         f32_max_abs_diff=err, f32_peak_mem_gb=peak_f32,
+                         launches_f32=paths["moe_f32"])
+
+    # (b) minicpm3-4b at full width and depth: no ported kernel on its
+    # path; the absorbed decode held to the expanded prefill in f32
+    cfg = get(MLA_ARCH)
+    prompt = model_prompt(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _draw(cfg, dev, torch.float32)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"{MLA_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, MLA "
+        f"(q rank {cfg.mla.q_rank}, kv rank {cfg.mla.kv_rank}, rope "
+        f"{cfg.mla.rope_dim}, {cfg.n_heads} heads); {n_params / 1e9:.3f} "
+        f"G params drawn in f32 in {time.perf_counter() - t0:.1f} s")
+    eng = ServingEngine(cfg, params, max_len=MODEL_MAX_LEN,
+                        dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    tokens, counts = run_path(
+        f"{MLA_ARCH} serving (f32)",
+        lambda: eng.generate_greedy({"tokens": prompt}, FAMILY_TOKENS), ())
+    t_f32 = time.perf_counter() - t0
+    if counts:
+        raise AssertionError(f"{MLA_ARCH}: launched {counts}, expected none")
+    paths["mla_f32"] = counts
+    got = teacher_forced(eng, prompt, tokens)
+    check_logits(got, cfg)
+    err_mla = 0.0
+    for t in range(1, FAMILY_TOKENS + 1):
+        seq = np.concatenate([prompt, tokens[:, :t]], axis=1)
+        ref = eng.prefill({"tokens": seq})
+        if not np.allclose(got[t], ref, rtol=MODEL_TOL, atol=MODEL_TOL):
+            raise AssertionError(
+                f"{MLA_ARCH} decode step {t}: absorbed != expanded prefill "
+                f"(max diff {np.abs(got[t] - ref).max()})")
+        err_mla = max(err_mla, float(np.abs(got[t] - ref).max()))
+    peak_f32 = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{MLA_ARCH} f32 generate_greedy {FAMILY_TOKENS} tokens "
+        f"{t_f32:.1f} s; absorbed decode steps 1..{FAMILY_TOKENS} == the "
+        f"expanded prefill over the prompt + those tokens within "
+        f"{MODEL_TOL} (max abs diff {err_mla:.3e}); no kernel launched; "
+        f"peak memory {peak_f32:.2f} GB  [{card}]")
+    del eng, params, got
+    _free()
+    mla, counts = _bf16_serving(cfg, MLA_ARCH, prompt, dev, card,
+                                lambda n: {})
+    paths["mla_bf16"] = counts
+    out[MLA_ARCH] = dict(mla, params_g=n_params / 1e9, f32_generate_s=t_f32,
+                         f32_absorbed_vs_expanded=err_mla,
+                         f32_peak_mem_gb=peak_f32)
+
+    # (c) one train step of each family at full width, depth cut
+    for arch in (MOE_ARCH, MLA_ARCH):
+        cut = dataclasses.replace(get(arch), n_layers=FAMILY_TRAIN_LAYERS)
+        out[arch]["train"], paths[f"train_{arch}"] = _train_step(
+            cut, arch, dev, card)
+    return out, paths
 
 
 def _leaves(tree):
@@ -2847,6 +3151,13 @@ def main(argv) -> int:
     training["phase_s"] = time.perf_counter() - t0
     log(f"phase 4j took {training['phase_s']:.1f} s")
 
+    phase(f"4k MoE and MLA families ({MOE_ARCH}, {MLA_ARCH}, full width)")
+    t0 = time.perf_counter()
+    families, counts = family_models(dev, card)
+    paths.update(counts)
+    families["phase_s"] = time.perf_counter() - t0
+    log(f"phase 4k took {families['phase_s']:.1f} s")
+
     phase("5 times")
     latency = latencies(eng.request_batch, reqs, N_LATENCY)
     log_latency("request_batch", latency, N_LATENCY, card)
@@ -2963,6 +3274,7 @@ def main(argv) -> int:
                         "consistency_s": t_cons},
             "launches_per_path": paths, "model_serving": model,
             "model_training": training, "linear_scan_bwd": res_lsb,
+            "family_models": families,
             "staged": staged, "long_windows": longw,
             "serving_loop": loop_res, "sharded": shard_res,
             "certifier_preview_pipeline": deploy_res,

@@ -7,6 +7,12 @@ after the first is prepended with the rows of earlier slices that fall
 inside the window span of its earliest rows (the *halo*), so every slice
 folds its own rows exactly.
 
+The paper's own pipeline is kept as host code around any fold:
+``assign_part_ids`` gives every row its PART_ID (time slice),
+``expand_partitions`` ships halo rows to the later slices that can see
+them (EXPANDED_ROW), and ``skewed_window_fold`` folds each slice on its
+halo-expanded rows and stitches the non-expanded outputs back.
+
 The **unit planner** (``plan_window_units`` / ``assign_units_lpt``) turns
 one (key, ts)-sorted window input into *partition units* (whole cold
 keys; hot keys split into time slices with halo rows), the schedulable
@@ -26,7 +32,8 @@ import numpy as np
 
 from .hll import HyperLogLog
 
-__all__ = ["SkewPlan", "plan_partitions", "detect_skew", "Unit",
+__all__ = ["SkewPlan", "plan_partitions", "assign_part_ids",
+           "expand_partitions", "skewed_window_fold", "detect_skew", "Unit",
            "plan_time_slices", "plan_window_units", "assign_units_lpt"]
 
 
@@ -63,6 +70,67 @@ def plan_partitions(keys: np.ndarray, ts: np.ndarray, quantile: int,
     return SkewPlan(quantile=quantile, boundaries=boundaries,
                     est_n_keys=hll.estimate(),
                     hot_keys=detect_skew(keys))
+
+
+def assign_part_ids(ts: np.ndarray, plan: SkewPlan) -> np.ndarray:
+    """PART_ID = index of the time slice containing the row."""
+    return np.searchsorted(plan.boundaries, ts, side="right"
+                           ).astype(np.int32)
+
+
+def expand_partitions(keys: np.ndarray, ts: np.ndarray,
+                      part_id: np.ndarray, window_ms: int, plan: SkewPlan
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """Return (row_index, target_part) pairs including halo duplicates.
+
+    A row r with PART_ID=p is also shipped to partition q > p when some row
+    of slice q could still see r in its window: i.e. r.ts >= slice_q_start
+    - window_ms.  EXPANDED_ROW = (target_part != PART_ID).
+    """
+    idx_all: List[np.ndarray] = []
+    part_all: List[np.ndarray] = []
+    n = keys.shape[0]
+    base = np.arange(n, dtype=np.int64)
+    idx_all.append(base)
+    part_all.append(part_id.astype(np.int32))
+
+    starts = np.concatenate([[np.iinfo(ts.dtype).min], plan.boundaries])
+    for q in range(1, plan.quantile):
+        slice_start = starts[q]
+        halo = (part_id < q) & (ts >= slice_start - window_ms)
+        if halo.any():
+            idx_all.append(base[halo])
+            part_all.append(np.full(int(halo.sum()), q, np.int32))
+    return np.concatenate(idx_all), np.concatenate(part_all)
+
+
+def skewed_window_fold(keys: np.ndarray, ts: np.ndarray,
+                       values: np.ndarray, window_ms: int, quantile: int,
+                       fold_fn, seed: int = 0) -> np.ndarray:
+    """Full §6.2 pipeline around a single-partition window fold.
+
+    ``fold_fn(keys, ts, values) -> per-row window aggregates`` is the
+    ordinary (unpartitioned) computation; it runs independently per
+    PART_ID partition on halo-expanded data and the non-expanded outputs
+    are stitched back.  Output order matches the input rows.
+    """
+    plan = plan_partitions(keys, ts, quantile, seed=seed)
+    part_id = assign_part_ids(ts, plan)
+    row_idx, target = expand_partitions(keys, ts, part_id, window_ms, plan)
+    expanded = target != part_id[row_idx]
+
+    out = np.zeros(values.shape[0], dtype=np.float64)
+    for q in range(plan.quantile):
+        sel = target == q
+        if not sel.any():
+            continue
+        rid = row_idx[sel]
+        exp = expanded[sel]
+        # fold over the augmented slice (the halo gives left context)
+        vals = fold_fn(keys[rid], ts[rid], values[rid])
+        keep = ~exp
+        out[rid[keep]] = np.asarray(vals)[keep]
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

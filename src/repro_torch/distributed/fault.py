@@ -53,45 +53,49 @@ def most_caught_up(acked: Dict[int, int]) -> int:
 # ------------------------------------------------------------------ trees
 
 
+def _walk(t, leaves: List[Any]) -> str:
+    if isinstance(t, dict):
+        keys = sorted(t, key=str)
+        return "{" + ", ".join(f"{k!r}: {_walk(t[k], leaves)}"
+                               for k in keys) + "}"
+    if isinstance(t, (list, tuple)):
+        inner = ", ".join(_walk(v, leaves) for v in t)
+        return f"[{inner}]" if isinstance(t, list) else f"({inner})"
+    if t is None:
+        return "None"
+    leaves.append(t)
+    return "*"
+
+
 def tree_flatten(tree: Any) -> Tuple[List[Any], str]:
     """Leaves of a nested state in a fixed order, and its structure as a
     stable string.  Dicts (keys in sorted order), lists and tuples are
-    nodes, ``None`` an empty node; everything else is a leaf ``*``."""
+    nodes, ``None`` an empty node; everything else is a leaf ``*``.
+
+    The walkers are module functions, not recursive closures: a closure
+    that calls itself is a reference cycle, and one holding the leaves
+    kept every tensor of the tree alive until the garbage collector ran
+    (a train step's whole state, on the card)."""
     leaves: List[Any] = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(t) -> str:
-        if isinstance(t, dict):
-            keys = sorted(t, key=str)
-            return "{" + ", ".join(f"{k!r}: {walk(t[k])}"
-                                   for k in keys) + "}"
-        if isinstance(t, (list, tuple)):
-            inner = ", ".join(walk(v) for v in t)
-            return f"[{inner}]" if isinstance(t, list) else f"({inner})"
-        if t is None:
-            return "None"
-        leaves.append(t)
-        return "*"
 
-    return leaves, walk(tree)
+def _build(t, it):
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t, key=str)}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(_build(v, it) for v in t))
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    if t is None:
+        return None
+    return next(it)
 
 
 def tree_unflatten(template: Any, leaves: Sequence[Any]) -> Any:
     """``template``'s structure with its leaves replaced, in
     ``tree_flatten`` order, by ``leaves`` (a named tuple stays one)."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t, key=str)}
-        if isinstance(t, tuple) and hasattr(t, "_fields"):
-            return type(t)(*(build(v) for v in t))
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        if t is None:
-            return None
-        return next(it)
-
-    return build(template)
+    return _build(template, iter(leaves))
 
 
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:

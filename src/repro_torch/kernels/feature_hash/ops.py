@@ -10,7 +10,7 @@ from .. import dispatch
 from .kernel import feature_hash_triton
 from .ref import SALT, feature_hash_ref
 
-__all__ = ["feature_hash"]
+__all__ = ["feature_hash", "signature_batch"]
 
 
 def feature_hash(codes: torch.Tensor, dim: int, salt: int = SALT,
@@ -21,3 +21,18 @@ def feature_hash(codes: torch.Tensor, dim: int, salt: int = SALT,
     if dispatch.resolve(use_kernel, codes):
         return feature_hash_triton(codes, dim, salt=salt)
     return feature_hash_ref(codes, dim, salt=salt)
+
+
+def signature_batch(discrete_codes: torch.Tensor, continuous: torch.Tensor,
+                    dim: int, use_kernel: Optional[bool] = None):
+    """Assemble an ML-ready (indices, values) sparse batch + dense block:
+    LibSVM-style output without materializing the high-dim space.
+
+    discrete_codes: (N, Cd) int32; continuous: (N, Cc) float32.
+    Returns (hash_idx (N, Cd) int32, ones (N, Cd) float32, continuous
+    float32); the hash runs the Triton kernel on a CUDA tensor.
+    """
+    idx = feature_hash(discrete_codes, dim, use_kernel=use_kernel)
+    vals = torch.ones(discrete_codes.shape, dtype=torch.float32,
+                      device=discrete_codes.device)
+    return idx, vals, continuous.to(torch.float32)

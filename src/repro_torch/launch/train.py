@@ -4,12 +4,11 @@ Runs real steps of the microbatched train step (``train.steps``) on the
 card unless ``--device cpu``: random f32 weights from seed 0
 (``reduced(arch)`` unless ``--full``), ``TokenPipeline`` batches, f32
 compute as the reference's driver, checkpoint/restart through
-``CheckpointManager`` and straggler bookkeeping.  Step ``i`` always
-trains on ``TokenPipeline.batch_at(i)``, so a resumed run continues the
-token stream where the checkpoint left it (the reference's driver
-restarts the stream at batch 0 on resume) and equals a run that never
-stopped.  The reference builds a mesh over the visible devices; the
-port trains on one card.
+``CheckpointManager`` and straggler bookkeeping.  As in the reference's
+launcher, the token stream starts at batch 0 in every run: a run resumed
+from step ``k`` trains steps ``k+1 ..`` on batches 0, 1, ...  The
+reference builds a mesh over the visible devices; the port trains on one
+card.
 """
 
 # lint: module-ok J002 — host-eager driver: the training loop deliberately
@@ -72,8 +71,8 @@ def main(argv=None):
     pipe = TokenPipeline(cfg.vocab_size, args.batch, args.seq)
     strag = StragglerMitigator(n_hosts=1)
 
-    for i in range(int(state.step), args.steps):
-        tokens = torch.from_numpy(pipe.batch_at(i)["tokens"]).to(dev)
+    for batch in pipe.batches(args.steps - int(state.step)):
+        tokens = torch.from_numpy(batch["tokens"]).to(dev)
         t0 = time.perf_counter()
         state, metrics = step_fn(state, {"tokens": tokens})
         step = int(metrics["step"])           # waits for the step

@@ -1,4 +1,4 @@
-"""Layer primitives of the dense and hybrid families, in PyTorch.
+"""Layer primitives of the dense, hybrid, MoE and MLA families, in PyTorch.
 
 The same functions as ``repro/models/layers.py``, on tensors:
 
@@ -10,10 +10,18 @@ The same functions as ``repro/models/layers.py``, on tensors:
     tiles, plain torch, as the reference's is plain jnp); decode
     attention goes through ``kernels.flash_decode.decode_partials`` over
     the live cache range, the SSM prefill (and training forward, with
-    its backward) through ``kernels.chunked_scan.linear_scan``.
+    its backward) through ``kernels.chunked_scan.linear_scan``;
+  * MLA (minicpm3) prefill expands K/V per head into the same chunked
+    attention; its decode is absorbed attention over the latent cache,
+    plain torch ops as in the reference (no Pallas call there);
+  * MoE (qwen2-moe, dbrx) routes with the reference's sort-based,
+    capacity-bounded dispatch; the grouped expert products are plain
+    batched matmuls and the combine sums each token's contributions in
+    a fixed order (no float atomics).
 
-MLA, MoE, RWKV, ``layer_norm`` and ``gelu_mlp`` (the other families) are
-not ported yet (ROADMAP queue 1, item 8) and raise NotImplementedError.
+RWKV, ``layer_norm`` and ``gelu_mlp`` (the RWKV6, audio and VLM families)
+are not ported yet (ROADMAP queue 1, item 2) and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,7 +38,9 @@ from ..kernels.flash_decode import decode_partials, finalize_partials
 __all__ = ["rms_norm", "swiglu", "rope_tables", "apply_rope",
            "chunked_attention", "init_gqa", "gqa_forward", "init_ssm",
            "ssm_forward", "layer_norm", "gelu_mlp", "init_mla",
-           "mla_forward", "init_moe", "moe_forward", "init_rwkv",
+           "mla_forward", "init_moe", "moe_route",
+           "moe_capacity",
+           "moe_forward", "init_rwkv",
            "rwkv_time_mix", "rwkv_channel_mix", "not_ported",
            "normal_init"]
 
@@ -41,8 +51,8 @@ _NEG = -1e30
 
 def not_ported(name: str):
     raise NotImplementedError(
-        f"{name} is not ported to repro_torch yet (ROADMAP queue 1, item 8: "
-        f"the MLA, MoE, RWKV, audio and VLM families)")
+        f"{name} is not ported to repro_torch yet (ROADMAP queue 1, item 2: "
+        f"the VLM, audio and RWKV6 families)")
 
 
 def normal_init(shape, scale: float, generator: torch.Generator, dtype,
@@ -228,24 +238,204 @@ def gqa_forward(p: Params, x: torch.Tensor, cfg, *, positions,
 
 
 # ---------------------------------------------------------------------------
-# not ported yet: MLA, MoE, RWKV
+# MLA attention (MiniCPM3 / DeepSeek-style latent attention)
 # ---------------------------------------------------------------------------
 
 
-def init_mla(generator, cfg, dtype, device) -> Params:
-    not_ported("MLA attention (init_mla)")
+def init_mla(generator: torch.Generator, cfg, dtype, device) -> Params:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    s = d ** -0.5
+    shapes = (("q_down", (d, m.q_rank), s),
+              ("q_up", (m.q_rank, h * (m.nope_dim + m.rope_dim)),
+               m.q_rank ** -0.5),
+              ("kv_down", (d, m.kv_rank + m.rope_dim), s),
+              ("k_up", (m.kv_rank, h * m.nope_dim), m.kv_rank ** -0.5),
+              ("v_up", (m.kv_rank, h * m.v_dim), m.kv_rank ** -0.5),
+              ("wo", (h * m.v_dim, d), s))
+    return {name: normal_init(shape, scale, generator, dtype, device)
+            for name, shape, scale in shapes}
 
 
-def mla_forward(p, x, cfg, *, positions, cache=None, chunk=1024):
-    not_ported("MLA attention (mla_forward)")
+def mla_forward(p: Params, x: torch.Tensor, cfg, *, positions,
+                cache: Optional[Dict] = None, chunk: int = 1024):
+    """MLA: queries/keys split into nope + shared-rope parts; the cache
+    keeps only the latent (kv_rank + rope_dim per position).
+
+    Prefill (cache None) expands K/V per head (the rope half of K is one
+    head, broadcast to all) through ``chunked_attention``, whose scale is
+    (nope + rope)^-0.5 from q's last dim, and returns this sequence's
+    {"latent"}.  Decode writes the latent at ``len`` into
+    ``cache["latent"]`` (B, Smax, kv_rank + rope_dim) **in place** and
+    runs *absorbed* attention against the whole latent cache: float32
+    scores masked where t >= len + 1, a softmax, then ``v_up``, cast to
+    x's dtype before ``wo`` -- plain torch ops, as the reference's plain
+    jnp.
+    """
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = m.nope_dim, m.rope_dim, m.v_dim
+    f32 = torch.float32
+
+    q = ((x @ p["q_down"]) @ p["q_up"]).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    latent = x @ p["kv_down"]
+    c_kv = latent[..., :m.kv_rank]
+    cos, sin = rope_tables(positions, dr, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(latent[:, :, None, m.kv_rank:], cos, sin)[:, :, 0]
+    # what the cache keeps per position: c_kv beside the roped k_rope
+    lat = torch.cat([c_kv, k_rope], dim=-1)
+
+    if cache is None:
+        k_nope = (c_kv @ p["k_up"]).reshape(b, s, h, dn)
+        v = (c_kv @ p["v_up"]).reshape(b, s, h, dv)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
+                      dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        out = chunked_attention(qq, k, v, chunk=chunk)
+        y = out.reshape(b, s, h * dv) @ p["wo"]
+        return y, {"latent": lat}
+
+    if s != 1:
+        raise ValueError(f"cached decode takes one token, got {s}")
+    pos = cache["len"]                                        # (B,)
+    cl = cache["latent"]
+    rows = torch.arange(b, device=cl.device)
+    cl[rows, pos.long()] = lat[:, 0].to(cl.dtype)
+    c_cache = cl[..., :m.kv_rank].to(f32)
+    r_cache = cl[..., m.kv_rank:].to(f32)
+
+    k_up = p["k_up"].reshape(m.kv_rank, h, dn).to(f32)
+    q_abs = torch.einsum("bshn,rhn->bshr", q_nope.to(f32), k_up)
+    scores = torch.einsum("bshr,btr->bhst", q_abs, c_cache)
+    scores = scores + torch.einsum("bshr,btr->bhst", q_rope.to(f32),
+                                   r_cache)
+    scores = scores * (dn + dr) ** -0.5
+    t_pos = torch.arange(cl.shape[1], dtype=torch.int32, device=cl.device)
+    live = t_pos[None, :] < (pos + 1)[:, None]
+    scores = torch.where(live[:, None, None, :], scores, _NEG)
+    pattn = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", pattn, c_cache)
+    v_up = p["v_up"].reshape(m.kv_rank, h, dv).to(f32)
+    out = torch.einsum("bshr,rhv->bshv", o_lat, v_up)
+    y = out.reshape(b, s, h * dv).to(x.dtype) @ p["wo"]
+    return y, {"latent": cl, "len": pos + 1}
 
 
-def init_moe(generator, cfg, dtype, device) -> Params:
-    not_ported("MoE FFN (init_moe)")
+# ---------------------------------------------------------------------------
+# MoE FFN (sort-based grouped dispatch, static shapes)
+# ---------------------------------------------------------------------------
 
 
-def moe_forward(p, x, cfg):
-    not_ported("MoE FFN (moe_forward)")
+def init_moe(generator: torch.Generator, cfg, dtype, device) -> Params:
+    e = cfg.moe
+    d, ep, f = cfg.d_model, e.n_experts_padded, e.d_expert
+    s = d ** -0.5
+    shapes = [("router", (d, ep), s), ("w_gate", (ep, d, f), s),
+              ("w_up", (ep, d, f), s), ("w_down", (ep, f, d), f ** -0.5)]
+    if e.n_shared:
+        f_sh = e.n_shared * f
+        shapes += [("shared_gate", (d, f_sh), s), ("shared_up", (d, f_sh), s),
+                   ("shared_down", (f_sh, d), f_sh ** -0.5)]
+    return {name: normal_init(shape, scale, generator, dtype, device)
+            for name, shape, scale in shapes}
+
+
+def moe_route(p: Params, xf: torch.Tensor, cfg):
+    """Top-k routing of (n, d) tokens: float32 router logits (padded
+    experts at -1e30, never routed), the k largest in descending order,
+    and a softmax over the k.  Returns (weights (n, k) float32, experts
+    (n, k) int64).
+
+    ``lax.top_k`` breaks a tie toward the lower expert index;
+    ``torch.topk`` does not (it returned 39, 40, 41, 38 for 64 equal
+    logits on the CPU), so the k come from a stable descending sort."""
+    e = cfg.moe
+    ep = e.n_experts_padded
+    logits = xf.to(torch.float32) @ p["router"].to(torch.float32)
+    if ep > e.n_experts:
+        pad = torch.arange(ep, device=xf.device) >= e.n_experts
+        logits = torch.where(pad[None, :], _NEG, logits)
+    top_w, top_i = torch.sort(logits, dim=-1, descending=True, stable=True)
+    top_w, top_i = top_w[:, :e.top_k], top_i[:, :e.top_k]
+    return torch.softmax(top_w, dim=-1), top_i
+
+
+def moe_capacity(moe, n_tokens: int) -> int:
+    """Slots per expert for ``n_tokens`` routed tokens: ceil(n k /
+    n_experts * capacity_factor), from the unpadded expert count.
+    qwen2-moe-a2.7b: 683 at a prefill of 8 x 1,024 tokens, 1 at a decode
+    of 8 (where tokens are dropped, as in the reference)."""
+    return int(math.ceil(n_tokens * moe.top_k / moe.n_experts
+                         * moe.capacity_factor))
+
+
+def moe_forward(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Top-k routed experts via the reference's sort-based grouped matmul.
+
+    (token, expert) pairs are sorted by expert (stable: token order within
+    an expert), ranked within their expert, and the first ``cap`` of each
+    take its slots of an (ep, cap, d) buffer, ``cap = ceil(n k / n_experts
+    * capacity_factor)`` from the unpadded count (an over-capacity pair is
+    dropped: it contributes nothing).  The dispatch writes into an (ep cap
+    + 1, d) buffer whose last row takes the dropped pairs and is cut off.
+    The grouped products are batched matmuls over experts.  The combine
+    sums each token's k weighted contributions in ``x.dtype`` from zero,
+    in the order of their sorted positions (the order of the reference's
+    ``.at[].add`` scatter): gathers and adds only, no float atomics.
+    """
+    e = cfg.moe
+    b, s, d = x.shape
+    n = b * s
+    ep, k = e.n_experts_padded, e.top_k
+    xf = x.reshape(n, d)
+    top_w, top_i = moe_route(p, xf, cfg)
+
+    flat_expert = top_i.reshape(-1).to(torch.int32)            # (n k,)
+    order = torch.argsort(flat_expert, stable=True)
+    se = flat_expert[order]
+    st = torch.div(order, k, rounding_mode="floor")            # token
+    sw = top_w.reshape(-1)[order]
+    grp_start = torch.searchsorted(
+        se, torch.arange(ep, dtype=torch.int32, device=x.device),
+        side="left").to(torch.int32)
+    rank = torch.arange(n * k, dtype=torch.int32, device=x.device) \
+        - grp_start[se.long()]
+    cap = moe_capacity(e, n)
+    keep = rank < cap
+    slot = torch.where(keep, se * cap + rank,
+                       torch.full_like(rank, ep * cap)).long()
+
+    buf = torch.zeros((ep * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((slot,), xf[st])[:ep * cap]
+    h = buf.reshape(ep, cap, d)
+    gate = torch.bmm(h, p["w_gate"])
+    up = torch.bmm(h, p["w_up"])
+    act = F.silu(gate.to(torch.float32)).to(x.dtype) * up
+    y = torch.bmm(act, p["w_down"]).reshape(ep * cap, d)
+
+    # a dropped pair reads the zero row past the buffer
+    y = torch.cat([y, torch.zeros((1, d), dtype=y.dtype, device=y.device)])
+    contrib = y[slot] * sw[:, None].to(x.dtype)                 # (n k, d)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(n * k, device=x.device)
+    pos = torch.sort(inv.reshape(n, k), dim=1).values           # (n, k)
+    parts = contrib[pos]                                        # (n, k, d)
+    out = torch.zeros((n, d), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        out = out + parts[:, j]
+
+    if e.n_shared:
+        out = out + swiglu(xf, p["shared_gate"], p["shared_up"],
+                           p["shared_down"])
+    return out.reshape(b, s, d)
+
+
+# ---------------------------------------------------------------------------
+# not ported yet: RWKV
+# ---------------------------------------------------------------------------
 
 
 def init_rwkv(generator, cfg, dtype, device) -> Params:

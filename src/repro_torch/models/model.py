@@ -1,8 +1,9 @@
-"""The dense and hybrid model families, in PyTorch.
+"""The dense, hybrid, MoE and MLA model families, in PyTorch.
 
 The same entry points as ``repro/models/model.py`` for the families the
-port serves (``dense``: llama3-8b and its kin; ``hybrid``: hymba-1.5b,
-parallel attention + SSM heads with sliding-window layers):
+port serves (``dense``: llama3-8b, qwen3-8b, granite-3-8b, and with MLA
+attention minicpm3-4b; ``hybrid``: hymba-1.5b, parallel attention + SSM
+heads with sliding-window layers; ``moe``: qwen2-moe-a2.7b, dbrx-132b):
 
   init_params(cfg, generator, dtype, device)   -> params
   params_from_jax(cfg, params_np, device)      -> params
@@ -16,8 +17,10 @@ parallel attention + SSM heads with sliding-window layers):
 Params are a dict ``{"embed", "layers": [one dict per layer],
 "final_norm", "lm_head"}`` with the reference's names and per-layer
 shapes; the decode state is ``{"len": (B,) int32, "layers": [...]}``
-with per-layer ``{"attn": {"k", "v"}, "ssm"}``.  The other families
-(MoE, MLA, RWKV, audio, VLM) raise NotImplementedError.  Training runs
+with per-layer ``{"attn": {"k", "v"} (GQA) or {"latent"} (MLA),
+"ssm"}``; an MoE layer holds ``"moe"`` where a dense one holds ``"mlp"``.
+The other families (RWKV, audio, VLM) raise NotImplementedError.
+Training runs
 the layer loop with per-layer rematerialisation
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
 """
@@ -44,14 +47,13 @@ Params = Dict[str, Any]
 # attention chunk used by the flash-style online softmax
 ATTN_CHUNK = 1024
 
-_FAMILIES = ("dense", "hybrid")
+_FAMILIES = ("dense", "hybrid", "moe")
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in _FAMILIES or cfg.attn_type != "gqa" \
-            or cfg.moe is not None:
+    if cfg.family not in _FAMILIES or cfg.attn_type not in ("gqa", "mla"):
         L.not_ported(f"the {cfg.family!r} family ({cfg.name}, attention "
-                     f"{cfg.attn_type!r}{', MoE' if cfg.moe else ''})")
+                     f"{cfg.attn_type!r})")
 
 
 # ---------------------------------------------------------------------------
@@ -61,13 +63,17 @@ def _check_family(cfg: ArchConfig) -> None:
 
 def _init_layer(cfg: ArchConfig, generator, dtype, device) -> Params:
     d, f = cfg.d_model, cfg.d_ff
+    init_attn = L.init_mla if cfg.attn_type == "mla" else L.init_gqa
     p: Params = {"norm1": torch.ones((d,), dtype=dtype, device=device),
                  "norm2": torch.ones((d,), dtype=dtype, device=device),
-                 "attn": L.init_gqa(generator, cfg, dtype, device)}
+                 "attn": init_attn(generator, cfg, dtype, device)}
     if cfg.family == "hybrid":
         p["ssm"] = L.init_ssm(generator, cfg, dtype, device)
         p["mix_a"] = torch.full((), 0.5, dtype=dtype, device=device)
         p["mix_s"] = torch.full((), 0.5, dtype=dtype, device=device)
+    if cfg.moe is not None:
+        p["moe"] = L.init_moe(generator, cfg, dtype, device)
+        return p
     s = d ** -0.5
     p["mlp"] = {
         "w_gate": L.normal_init((d, f), s, generator, dtype, device),
@@ -182,15 +188,21 @@ def _windows(cfg: ArchConfig) -> List[int]:
 def _layer_fwd(cfg: ArchConfig, p: Params, x, *, positions, window: int,
                cache=None, use_kernel=None):
     """One layer.  Returns (y, layer cache): prefill gives this
-    sequence's {"attn": {"k", "v"}, "ssm"}; decode updates ``cache``."""
+    sequence's {"attn": {"k", "v"} or {"latent"}, "ssm"}; decode updates
+    ``cache``."""
     eps = cfg.norm_eps
     h = L.rms_norm(x, p["norm1"], eps)
     attn_cache = None if cache is None else cache["attn"]
-    attn_out, attn_cache = L.gqa_forward(
-        p["attn"], h, cfg, positions=positions, cache=attn_cache,
-        window=window, chunk=ATTN_CHUNK, use_kernel=use_kernel)
+    if cfg.attn_type == "mla":
+        attn_out, attn_cache = L.mla_forward(
+            p["attn"], h, cfg, positions=positions, cache=attn_cache,
+            chunk=ATTN_CHUNK)
+    else:
+        attn_out, attn_cache = L.gqa_forward(
+            p["attn"], h, cfg, positions=positions, cache=attn_cache,
+            window=window, chunk=ATTN_CHUNK, use_kernel=use_kernel)
     new_cache: Dict[str, Any] = {
-        "attn": {"k": attn_cache["k"], "v": attn_cache["v"]}}
+        "attn": {k: t for k, t in attn_cache.items() if k != "len"}}
     if cfg.family == "hybrid":
         ssm_out, new_cache["ssm"] = L.ssm_forward(
             p["ssm"], h, cfg, state=None if cache is None else cache["ssm"],
@@ -202,8 +214,11 @@ def _layer_fwd(cfg: ArchConfig, p: Params, x, *, positions, window: int,
     else:
         x = x + attn_out
     h = L.rms_norm(x, p["norm2"], eps)
-    y = L.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                 p["mlp"]["w_down"])
+    if cfg.moe is not None:
+        y = L.moe_forward(p["moe"], h, cfg)
+    else:
+        y = L.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                     p["mlp"]["w_down"])
     return x + y, new_cache
 
 
@@ -299,8 +314,8 @@ def forward_prefill(cfg: ArchConfig, params: Params, batch,
                     cache_capacity: Optional[int] = None,
                     use_kernel: Optional[bool] = None):
     """Serving prefill: full-sequence forward over ``batch["tokens"]``
-    (B, S) that also emits the decode state (per-layer KV padded to
-    ``cache_capacity`` and SSM states) and the last token's logits
+    (B, S) that also emits the decode state (per-layer KV, or the MLA
+    latent, padded to ``cache_capacity``, and SSM states) and the last token's logits
     (B, vocab_padded)."""
     _check_family(cfg)
     tokens = batch["tokens"]
@@ -323,18 +338,25 @@ def forward_prefill(cfg: ArchConfig, params: Params, batch,
 
 def init_decode_state(cfg: ArchConfig, batch_size: int, max_len: int,
                       dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
-    """An empty decode state: zero KV caches (B, max_len, Hkv, Dh) and,
+    """An empty decode state: zero KV caches (B, max_len, Hkv, Dh), or
+    for MLA a zero latent cache (B, max_len, kv_rank + rope_dim), and,
     for the hybrid family, zero SSM states (B, d_inner, state) float32,
     on ``device`` (the card unless the caller passes ``device="cpu"``)."""
     _check_family(cfg)
     device = resolve_device(device)
-    b, hkv, dh = batch_size, cfg.n_kv_heads, cfg.head_dim
+    b = batch_size
+
+    def zeros(*shape):
+        return torch.zeros((b, max_len) + shape, dtype=dtype, device=device)
+
     layers = []
     for _ in range(cfg.n_layers):
-        lc = {"attn": {"k": torch.zeros((b, max_len, hkv, dh), dtype=dtype,
-                                        device=device),
-                       "v": torch.zeros((b, max_len, hkv, dh), dtype=dtype,
-                                        device=device)}}
+        if cfg.attn_type == "mla":
+            lc = {"attn": {"latent": zeros(cfg.mla.kv_rank
+                                           + cfg.mla.rope_dim)}}
+        else:
+            lc = {"attn": {"k": zeros(cfg.n_kv_heads, cfg.head_dim),
+                           "v": zeros(cfg.n_kv_heads, cfg.head_dim)}}
         if cfg.family == "hybrid":
             sm = cfg.ssm
             lc["ssm"] = torch.zeros((b, sm.expand * cfg.d_model,
@@ -349,8 +371,8 @@ def decode_step(cfg: ArchConfig, params: Params, state: Dict[str, Any],
                 token: torch.Tensor, use_kernel: Optional[bool] = None):
     """One token for every sequence in the batch.  token: (B, 1) int.
 
-    Returns (logits (B, vocab_padded), new state).  The KV caches of
-    ``state`` are written in place (the new state holds the same
+    Returns (logits (B, vocab_padded), new state).  The KV (or MLA
+    latent) caches of ``state`` are written in place (the new state holds the same
     tensors); SSM states and ``len`` are replaced.
     """
     _check_family(cfg)

@@ -663,7 +663,10 @@ class ServingEngine:
 
     def prefill(self, batch) -> np.ndarray:
         """Prefill ``batch["tokens"]`` (B, S); keeps the decode state
-        (KV caches padded to ``max_len``) and returns the last logits."""
+        (KV or MLA latent caches padded to ``max_len``) and returns the
+        last logits.  The previous state is released first, so one
+        state's caches are held at a time."""
+        self.state = None
         logits, self.state = forward_prefill(
             self.cfg, self.params, {"tokens": self._tokens(batch["tokens"])},
             cache_capacity=self.max_len, use_kernel=self.use_kernel)

@@ -43,7 +43,7 @@ INT_MIN = -(2**31)
 
 __all__ = ["StoreState", "OnlineStore", "ShardedOnlineStore",
            "StoreSnapshot", "make_state", "make_state_stacked",
-           "insert_many", "insert_many_stacked", "evict_before",
+           "insert", "insert_pos", "insert_many", "insert_many_stacked", "evict_before",
            "evict_before_stacked", "range_bounds", "gather_window",
            "gather_key_unit", "composite", "next_pow2", "route_slots"]
 
@@ -77,6 +77,45 @@ def make_state(capacity: int, col_specs: Dict[str, np.dtype],
                  for name, dt in col_specs.items()},
         "count": torch.zeros((), dtype=torch.int32, device=device),
         "comp": composite(keys, ts),
+    }
+
+
+def insert_pos(state: StoreState, key, ts) -> torch.Tensor:
+    """First index i with (keys[i], ts[i]) > (key, ts), at most ``count``
+    (a 0-d int32 tensor): a new row lands *after* its peers, which keeps
+    arrival order among equal timestamps."""
+    dev = state["keys"].device
+    c = composite(torch.as_tensor(key, device=dev).to(torch.int32),
+                  torch.as_tensor(ts, device=dev).to(torch.int32))
+    pos = torch.searchsorted(state["comp"], c.reshape(1), right=True)[0]
+    return torch.minimum(pos, state["count"].to(torch.int64)).to(torch.int32)
+
+
+def insert(state: StoreState, key, ts,
+           values: Dict[str, object]) -> StoreState:
+    """Sorted insert of one row: every column shifted one place right
+    from ``insert_pos`` on (the last row falls off a full store), the row
+    written there, ``count`` + 1.  No host read of the position."""
+    pos = insert_pos(state, key, ts)
+    dev = state["keys"].device
+    idx = torch.arange(state["keys"].shape[0], dtype=torch.int32,
+                       device=dev)
+
+    def shifted(arr, new_val):
+        out = torch.where(idx > pos, torch.roll(arr, 1), arr)
+        new = torch.as_tensor(new_val, device=dev).to(arr.dtype)
+        return torch.where(idx == pos, new, out)
+
+    keys = shifted(state["keys"], key)
+    tss = shifted(state["ts"], ts)
+    return {
+        "keys": keys, "ts": tss,
+        "cols": {name: shifted(arr, values.get(name, 0))
+                 for name, arr in state["cols"].items()},
+        "count": state["count"] + 1,
+        "comp": shifted(state["comp"], composite(
+            torch.as_tensor(key).to(torch.int32),
+            torch.as_tensor(ts).to(torch.int32))),
     }
 
 

@@ -27,7 +27,7 @@ def _imported_roots(path: pathlib.Path):
 
 # modules of the offline, model-serving, staged-fold, pre-aggregation,
 # serving-loop, sharding/replication, row-format / preview / certifier
-# / training-data and training slices: each must exist and import
+# / training-data, training and MoE/MLA slices: each must exist and import
 # without JAX
 SLICE_MODULES = (
     "core.hll", "core.skew", "core.multiwindow", "core.consistency",
@@ -53,7 +53,9 @@ SLICE_MODULES = (
     "core.analysis.memory", "core.analysis.retrace",
     "core.analysis.sharding", "data.pipeline",
     "train", "train.optimizer", "train.steps", "distributed.compression",
-    "launch.train")
+    "launch.train",
+    "configs.qwen3_8b", "configs.granite_3_8b", "configs.minicpm3_4b",
+    "configs.qwen2_moe_a2_7b", "configs.dbrx_132b")
 
 
 def test_port_has_files():
@@ -88,6 +90,15 @@ def test_no_jax_or_reference_import(path):
     bad = [(line, root) for line, root in _imported_roots(path)
            if root in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_chip_smoke_imports_no_jax_or_reference():
+    """``chip_smoke.py`` drives the port on the card, where JAX is not
+    installed: it imports neither JAX nor the JAX package."""
+    path = PORT.parent.parent / "chip_smoke.py"
+    bad = [(line, root) for line, root in _imported_roots(path)
+           if root in FORBIDDEN]
+    assert not bad, f"chip_smoke.py imports {bad}"
 
 
 def test_checker_catches_a_forbidden_import(tmp_path):

@@ -167,12 +167,13 @@ def test_cpu_serving_launches_no_kernel(model_pair):
         forced.generate_greedy({"tokens": prompt}, 2)
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "qwen2-moe-a2.7b",
-                                  "dbrx-132b", "rwkv6-7b", "whisper-tiny",
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "whisper-tiny",
                                   "llava-next-34b"])
 def test_other_families_raise(arch):
+    """The families not ported yet (the MoE and MLA ones are held to the
+    reference in ``test_torch_moe.py`` / ``test_torch_mla.py``)."""
     cfg = reduced(arch)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
         TM.init_params(cfg, torch.Generator().manual_seed(0),
                        dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError):

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from repro.configs import reduced as jax_reduced
+from repro.distributed.fault import CheckpointManager as JaxCheckpointManager
+from repro.launch import train as jax_launch_train
 from repro.models import model as JM
 from repro.train import optimizer as JO
 from repro_torch.configs import reduced
@@ -23,6 +25,7 @@ from repro_torch.models import model as TM
 from repro_torch.models import train_state_from_jax
 from repro_torch.train import optimizer as TO
 from repro_torch.train import steps as TS
+from torch_port_cases import per_layer
 
 S = 20              # > the reduced sliding window of 8
 
@@ -85,23 +88,69 @@ def test_checkpoint_resume_equals_a_continuous_run(tmp_path, compress):
         assert torch.equal(a, b)
 
 
-def test_launcher_runs_and_resumes_on_the_cpu(tmp_path, capsys):
+def _launch_both(tmp_path, monkeypatch, args):
+    """Both packages' launchers on one reduced config from the same initial
+    weights (the port's ``init_params`` returns the reference's draw
+    through ``params_from_jax``); returns (port state, reference state
+    restored from its last checkpoint, reference config)."""
+    jcfg = jax_reduced(args[1])
+    tcfg = reduced(args[1])
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
+    monkeypatch.setattr(launch_train, "init_params",
+                        lambda cfg, gen, dtype, device: TM.params_from_jax(
+                            tcfg, jax.tree.map(np.asarray, jparams),
+                            device=device))
+    tdir, jdir = tmp_path / "port", tmp_path / "reference"
+    port = launch_train.main(args + ["--device", "cpu", "--ckpt-dir",
+                                     str(tdir)])
+    jax_launch_train.main(args + ["--ckpt-dir", str(jdir)])
+    return port, tdir, jdir, jcfg, jparams
+
+
+def test_launcher_runs_and_resumes_on_the_cpu(tmp_path, monkeypatch,
+                                              capsys):
     """``python -m repro_torch.launch.train`` on a reduced config: 4
     steps with checkpoints at 2 and 4; with the step-4 checkpoint removed
-    ``--resume`` continues from step 2 and ends bitwise where the first
-    run ended."""
-    args = ["--arch", "hymba-1.5b", "--device", "cpu", "--steps", "4",
-            "--batch", "4", "--seq", "16", "--n-micro", "2",
-            "--ckpt-every", "2", "--ckpt-dir", str(tmp_path)]
-    first = launch_train.main(args)
+    ``--resume`` continues from step 2 and, as the reference's launcher
+    does, feeds the token stream from batch 0 again.  The port's resumed
+    run equals the reference launcher's resumed run leaf by leaf (params,
+    moments; both start from the reference's weights) at rtol 1e-4 /
+    atol 1e-6, the bar of ``tests/test_torch_train.py``, a param element
+    allowed up to 2 lr per step taken (at most 0.1% of a leaf: Adam turns
+    a gradient ~0 against its rounding into a step of either sign); and
+    it differs from the run that never stopped (which saw batches 2 and
+    3)."""
+    args = ["--arch", "hymba-1.5b", "--steps", "4", "--batch", "4",
+            "--seq", "16", "--n-micro", "2", "--ckpt-every", "2"]
+    first, tdir, jdir, jcfg, jparams = _launch_both(tmp_path, monkeypatch,
+                                                    args)
     assert int(first.step) == 4
-    for p in tmp_path.glob("step_00000004*"):
-        p.unlink()
-    again = launch_train.main(args + ["--resume"])
+    for d in (tdir, jdir):
+        for p in d.glob("step_00000004*"):
+            p.unlink()
+    again, _, _, _, _ = _launch_both(tmp_path, monkeypatch,
+                                     args + ["--resume"])
     out = capsys.readouterr().out
-    assert "resumed from step 2" in out and "done at step 4" in out
-    for a, b in zip(tree_flatten(first)[0], tree_flatten(again)[0]):
-        assert torch.equal(a, b)
+    assert out.count("resumed from step 2") == 2
+    assert "done at step 4" in out
+    want = JaxCheckpointManager(str(jdir)).restore(
+        JO.adamw_init(jparams))
+    assert int(again.step) == int(want.step) == 4
+    lr_steps = 3e-3 * 4                 # the default lr, steps taken
+    for field in ("params", "mu", "nu"):
+        got = tree_flatten(getattr(again, field))[0]
+        ref = tree_flatten(per_layer(jax.tree.map(
+            np.asarray, getattr(want, field)), jcfg.n_layers))[0]
+        assert len(got) == len(ref)
+        for i, (g, w) in enumerate(zip(got, ref)):
+            g = g.numpy()
+            miss = ~np.isclose(g, w, rtol=1e-4, atol=1e-6)
+            assert field == "params" or not miss.any(), (field, i)
+            if miss.any():
+                assert np.abs(g - w)[miss].max() <= 2 * lr_steps, i
+                assert miss.mean() <= 0.001, (i, miss.mean())
+    assert any(not torch.equal(a, b) for a, b in
+               zip(tree_flatten(first)[0], tree_flatten(again)[0]))
 
 
 def test_train_constructors_default_to_the_card():

@@ -105,3 +105,17 @@ def unit_block(u, r, seed, n_valid=None, nan_rows=()):
     for i, j in nan_rows:
         price[i, j] = np.nan
     return {"ts": ts, "price": price, "item": item, "__valid__": valid}
+
+
+def per_layer(tree_np, n_layers):
+    """The JAX package's model tree (per-layer leaves stacked on a leading
+    L axis under ``"layers"``) in the port's layout: one dict per layer."""
+    out = {k: v for k, v in tree_np.items() if k != "layers"}
+
+    def unstack(t, i):
+        if isinstance(t, dict):
+            return {k: unstack(v, i) for k, v in t.items()}
+        return t[i]
+
+    out["layers"] = [unstack(tree_np["layers"], i) for i in range(n_layers)]
+    return out
