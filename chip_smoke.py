@@ -32,15 +32,17 @@ Phases (each prints its own lines; any failure exits non-zero):
              decode partials
              at B = 8, Hq = 25, Hkv = 5, D = 64 over a bf16 cache of
              2,048 (live ranges from 0 and, as on a sliding-window layer,
-             from lo > 0), and at the D = 128 decode shapes of
-             qwen2-moe-a2.7b (Hq = Hkv = 16) and dbrx-132b (Hq 48, Hkv 8;
-             its weights do not fit the card) over float32 and bf16
-             caches, rtol 1e-4 / atol 1e-5, timed warm (one cache) and
+             from lo > 0), at the D = 128 decode shapes of
+             qwen2-moe-a2.7b (Hq = Hkv = 16), dbrx-132b (Hq 48, Hkv 8;
+             its weights do not fit the card) and llava-next-34b (Hq 56,
+             Hkv 8) over float32 and bf16 caches, and at whisper-tiny's
+             (Hq = Hkv = 6, D = 64), rtol 1e-4 / atol 1e-5, timed warm
+             (one cache) and
              cold in L2 (a rotation of eight caches), beside one
              ``scaled_dot_product_attention`` call;
 4. main paths, each with the launch counts set to 0 just before it and
              read just after, at deployment size (1.5 M rows; run in
-             the order a, b, e, f, g, h, i, c, d, j, k):
+             the order a, b, e, f, g, h, i, c, d, j, k, l):
    a. serving — ``FeatureEngine`` (capacity 1.6 M) bulk load + 4,096 live
              rows, ``request_batch`` at B = 1, 64, 256; the B = 64 batch
              must equal a CPU engine (plain versions) on a copy of the
@@ -154,6 +156,26 @@ Phases (each prints its own lines; any failure exits non-zero):
              compute, f32 master weights and AdamW, batch 2 x 1,024):
              first loss within 1 nat of ln(vocab), gradient norm finite,
              time and peak memory;
+   l. VLM, audio and RWKV6 families — seeded bf16 patch and frame
+             embeddings stand in for the frontends, as in the reference:
+             (a) llava-next-34b (34.39 G params) with B = 2 prompts of
+             576 patches + 1,024 tokens: in float32 at 8 of its 60
+             layers, ``generate_greedy`` of four tokens through the
+             kernels (8 x 4 ``decode_partials`` launches), teacher-forced
+             through the kernels and the plain versions (within 1e-3);
+             then at full depth in bf16 (the bits of the f32 draw cast),
+             timed as in 4d, 60 launches per token; (b) whisper-tiny at
+             full width and depth, 8 utterances of 1,500 frames, decoder
+             prompts of 224 tokens, ``max_len`` 448: the same two checks,
+             4 launches per token; (c) rwkv6-7b at full width and depth
+             (no ported kernel on its path, none launched), phase 4d's
+             prompts: each of four f32 decode steps' logits equal to a
+             prefill over the prompt plus those tokens (within 1e-3),
+             then bf16 timed, and a prefill of 128 tokens profiled (the
+             WKV loop's launches and busy share); (d) one train step of
+             each at full width and 4 layers, batch 2 x 1,024 positions:
+             the first loss within 1 nat of ln(vocab) + s^2 / 2, s = 0.02
+             sqrt(d_model) (random logits' logsumexp), gradients finite;
 5. times   — request latency percentiles, offline wall and device time,
              and each kernel's time beside its bound, its plain version's
              time and, where one exists, one PyTorch call's (CUDA events).
@@ -219,10 +241,22 @@ MOE_ARCH, MLA_ARCH = "qwen2-moe-a2.7b", "minicpm3-4b"
 FAMILY_TOKENS = 4                  # f32 checks: decode steps
 FAMILY_TRAIN_LAYERS = 4
 FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ = 2, 1024
-# phase 3c: decode_partials also at the D = 128 decode shapes (Hq, Hkv, D)
-# of qwen2-moe-a2.7b (phase 4k) and dbrx-132b (263 GB of bf16 weights: it
-# does not fit the card, so only its attention shape is run)
-DECODE_SHAPES = {"qwen2-moe-a2.7b": (16, 16, 128), "dbrx-132b": (48, 8, 128)}
+# phase 4l: the VLM, audio and RWKV6 families at full width.  llava's
+# 68.8 GB of bf16 weights leave room for a batch of 2 (B = 8 would add
+# the f32 chunked attention's temporaries past 80 GB), and its f32 check
+# runs 8 of 60 layers (21.5 GB; 137 GB at full depth); whisper's decoder
+# context is 448 tokens; the rwkv6-7b prefill is profiled over its first
+# 128 tokens (its WKV loop costs the same at every step)
+VLM_ARCH, AUDIO_ARCH, RWKV_ARCH = "llava-next-34b", "whisper-tiny", "rwkv6-7b"
+VLM_BATCH, VLM_F32_LAYERS = 2, 8
+AUDIO_PROMPT, AUDIO_MAX_LEN = 224, 448
+RWKV_PROFILE_TOKENS = 128
+# phase 3c: decode_partials also at the decode shapes (Hq, Hkv, D) of
+# qwen2-moe-a2.7b (phase 4k), dbrx-132b (263 GB of bf16 weights: it does
+# not fit the card, so only its attention shape is run), llava-next-34b
+# and whisper-tiny (phase 4l)
+DECODE_SHAPES = {"qwen2-moe-a2.7b": (16, 16, 128), "dbrx-132b": (48, 8, 128),
+                 "llava-next-34b": (56, 8, 128), "whisper-tiny": (6, 6, 64)}
 # phase 4j: training hymba-1.5b at full width and depth; the sequence is
 # longer than its 1,024-token window, so the sliding-window layers mask
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 2048, 4, 8
@@ -922,24 +956,24 @@ def check_decode_partials(dev, reps):
 # ---------------------------------------------------------------- phase 4d
 
 
-def model_prompt(cfg):
+def model_prompt(cfg, b=MODEL_BATCH, t=MODEL_PROMPT):
     gen = torch.Generator().manual_seed(5)
-    return torch.randint(0, cfg.vocab_size, (MODEL_BATCH, MODEL_PROMPT),
-                         generator=gen, dtype=torch.int32).numpy()
+    return torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
+                         dtype=torch.int32).numpy()
 
 
-def teacher_forced(engine, prompt, tokens):
-    """Prefill, then decode the given tokens; every step's logits."""
-    out = [engine.prefill({"tokens": prompt})]
+def teacher_forced(engine, batch, tokens):
+    """Prefill ``batch``, then decode the given tokens; every step's
+    logits."""
+    out = [engine.prefill(batch)]
     for i in range(tokens.shape[1]):
         out.append(engine.decode(tokens[:, i:i + 1]))
     return out
 
 
-def check_logits(logits, cfg):
+def check_logits(logits, cfg, b=MODEL_BATCH):
     for i, x in enumerate(logits):
-        if x.shape != (MODEL_BATCH, cfg.vocab_padded) or \
-                not np.isfinite(x).all():
+        if x.shape != (b, cfg.vocab_padded) or not np.isfinite(x).all():
             raise AssertionError(f"model logits {i}: shape {x.shape} or "
                                  f"non-finite values")
 
@@ -981,11 +1015,11 @@ def model_serving(dev, card):
     if tokens.shape != (MODEL_BATCH, MODEL_TOKENS) or tokens.min() < 0 or \
             tokens.max() >= cfg.vocab_padded:
         raise AssertionError(f"generate_greedy: bad tokens {tokens.shape}")
-    got = teacher_forced(kern, prompt, tokens)
+    got = teacher_forced(kern, {"tokens": prompt}, tokens)
     del kern
     plain = ServingEngine(cfg, params, max_len=MODEL_MAX_LEN,
                           dtype=torch.float32, device=dev, use_kernel=False)
-    want = teacher_forced(plain, prompt, tokens)
+    want = teacher_forced(plain, {"tokens": prompt}, tokens)
     del plain
     check_logits(got, cfg)
     err = 0.0
@@ -1234,40 +1268,145 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def _bf16_serving(cfg, label, prompt, dev, card, expect, probe=None):
+def model_batch(cfg, tokens, dev):
+    """A model batch: the tokens, and seeded bf16 stand-ins on the card
+    for the VLM family's patch embeddings and the audio family's frame
+    embeddings (the reference's frontends are stubs that take them
+    precomputed, ``model_input_spec``)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b = tokens.shape[0]
+    batch = {"tokens": tokens}
+    if cfg.vlm is not None:
+        batch["patches"] = torch.randn(
+            (b, cfg.vlm.n_patches, cfg.d_model), generator=gen,
+            device=dev).to(torch.bfloat16)
+    if cfg.encdec is not None:
+        batch["frames"] = torch.randn(
+            (b, cfg.encdec.n_frames, cfg.d_model), generator=gen,
+            device=dev).to(torch.bfloat16)
+    return batch
+
+
+def _kernel_vs_plain(cfg, label, params, batch, dev, card, expect,
+                     max_len=MODEL_MAX_LEN):
+    """float32 ``generate_greedy`` of FAMILY_TOKENS tokens through the
+    kernels (``expect(FAMILY_TOKENS)`` launches exactly), then
+    teacher-forced through the kernels and the plain versions: logits
+    within MODEL_TOL, argmax the generated tokens.  Returns (seconds of
+    the generation, max abs diff, launch counts)."""
+    from repro_torch.serve.engine import ServingEngine
+
+    b = batch["tokens"].shape[0]
+    kern = ServingEngine(cfg, params, max_len=max_len, dtype=torch.float32,
+                         device=dev)
+    t0 = time.perf_counter()
+    tokens, counts = run_path(
+        f"{label} serving (f32)",
+        lambda: kern.generate_greedy(batch, FAMILY_TOKENS),
+        tuple(expect(FAMILY_TOKENS)))
+    t_f32 = time.perf_counter() - t0
+    if counts != expect(FAMILY_TOKENS):
+        raise AssertionError(f"{label}: launches {counts}, expected "
+                             f"{expect(FAMILY_TOKENS)}")
+    got = teacher_forced(kern, batch, tokens)
+    del kern
+    _free()
+    plain = ServingEngine(cfg, params, max_len=max_len, dtype=torch.float32,
+                          device=dev, use_kernel=False)
+    want = teacher_forced(plain, batch, tokens)
+    del plain
+    check_logits(got, cfg, b)
+    err = 0.0
+    for i, (x, y) in enumerate(zip(got, want)):
+        if not np.allclose(x, y, rtol=MODEL_TOL, atol=MODEL_TOL):
+            raise AssertionError(f"{label} logits step {i}: kernels != "
+                                 f"plain (max diff {np.abs(x - y).max()})")
+        err = max(err, float(np.abs(x - y).max()))
+    if not np.array_equal(np.stack([x.argmax(-1) for x in got[:-1]], 1),
+                          tokens):
+        raise AssertionError(f"{label}: teacher-forced argmax differs "
+                             f"from generate_greedy's tokens")
+    log(f"{label} f32 generate_greedy {FAMILY_TOKENS} tokens {t_f32:.1f} "
+        f"s; teacher-forced prefill + {FAMILY_TOKENS} steps: kernels == "
+        f"plain versions within {MODEL_TOL} (max abs diff {err:.3e}); "
+        f"argmax reproduces the generated tokens; launches {counts}  "
+        f"[{card}]")
+    return t_f32, err, counts
+
+
+def _decode_vs_prefill(cfg, label, params, batch, dev, card, how):
+    """float32 ``generate_greedy`` of FAMILY_TOKENS tokens (no kernel on
+    the path, none launched), then the logits of each decode step t
+    against a prefill over the prompt plus the first t tokens (within
+    MODEL_TOL); ``how`` names the two routes.  Returns (seconds of the
+    generation, max abs diff, launch counts)."""
+    from repro_torch.serve.engine import ServingEngine
+
+    eng = ServingEngine(cfg, params, max_len=MODEL_MAX_LEN,
+                        dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    tokens, counts = run_path(
+        f"{label} serving (f32)",
+        lambda: eng.generate_greedy(batch, FAMILY_TOKENS), ())
+    t_f32 = time.perf_counter() - t0
+    if counts:
+        raise AssertionError(f"{label}: launched {counts}, expected none")
+    got = teacher_forced(eng, batch, tokens)
+    check_logits(got, cfg, batch["tokens"].shape[0])
+    err = 0.0
+    for t in range(1, FAMILY_TOKENS + 1):
+        seq = np.concatenate([batch["tokens"], tokens[:, :t]], axis=1)
+        ref = eng.prefill(dict(batch, tokens=seq))
+        if not np.allclose(got[t], ref, rtol=MODEL_TOL, atol=MODEL_TOL):
+            raise AssertionError(
+                f"{label} decode step {t}: {how} (max diff "
+                f"{np.abs(got[t] - ref).max()})")
+        err = max(err, float(np.abs(got[t] - ref).max()))
+    del eng
+    log(f"{label} f32 generate_greedy {FAMILY_TOKENS} tokens {t_f32:.1f} "
+        f"s; decode steps 1..{FAMILY_TOKENS}: {how} within {MODEL_TOL} "
+        f"(max abs diff {err:.3e}); no kernel launched  [{card}]")
+    return t_f32, err, counts
+
+
+def _bf16_serving(cfg, label, batch, dev, card, expect, probe=None,
+                  max_len=MODEL_MAX_LEN, extra=None):
     """A model in bf16, timed: prefill, decode per token p50 / p99 over
     MODEL_TOKENS, tokens/s, one profiled decode step, peak memory.
     ``probe`` = (leaf of the params, the f32 draw's leaf cast to bf16):
-    the fresh bf16 draw must hold its bits."""
+    the fresh bf16 draw must hold its bits.  ``extra(engine)`` adds its
+    dict of measurements before the engine is freed."""
     from repro_torch.serve.engine import ServingEngine
 
+    b, t = batch["tokens"].shape
     torch.cuda.reset_peak_memory_stats()
     params = _draw(cfg, dev, torch.bfloat16)
+    n_params = sum(p.numel() for p in _leaves(params))
     if probe is not None and not torch.equal(probe[0](params), probe[1]):
         raise AssertionError(f"{label}: the bf16 draw is not the f32 draw "
                              f"cast to bf16")
-    eng = ServingEngine(cfg, params, max_len=MODEL_MAX_LEN,
-                        dtype=torch.bfloat16, device=dev)
-    eng.generate_greedy({"tokens": prompt}, 2)             # warm-up
+    eng = ServingEngine(cfg, params, max_len=max_len, dtype=torch.bfloat16,
+                        device=dev)
+    eng.generate_greedy(batch, 2)                          # warm-up
     t0 = time.perf_counter()
     tokens, counts = run_path(f"{label} serving (bf16)",
                               lambda: eng.generate_greedy(
-                                  {"tokens": prompt}, MODEL_TOKENS), ())
+                                  batch, MODEL_TOKENS), ())
     t_gen = time.perf_counter() - t0
     if counts != expect(MODEL_TOKENS):
         raise AssertionError(f"{label} bf16: launches {counts}, expected "
                              f"{expect(MODEL_TOKENS)}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    first = eng.prefill({"tokens": prompt})
+    first = eng.prefill(batch)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     steps = []
     for i in range(MODEL_TOKENS):
         t0 = time.perf_counter()
         last = eng.decode(tokens[:, i:i + 1])
         steps.append((time.perf_counter() - t0) * 1e3)
-    check_logits([first, last], cfg)
-    tok_s = MODEL_BATCH * MODEL_TOKENS / (sum(steps) / 1e3)
+    check_logits([first, last], cfg, b)
+    tok_s = b * MODEL_TOKENS / (sum(steps) / 1e3)
     prof_dec = profile_calls(lambda: eng.decode(tokens[:, :1]), 4)
     attn = {k: v for k, v in prof_dec["kernel_ms_per_call"].items()
             if "decode_split_kernel" in k or "decode_merge_kernel" in k}
@@ -1277,9 +1416,12 @@ def _bf16_serving(cfg, label, prompt, dev, card, expect, probe=None):
            "bf16_decode_ms": steps, "bf16_decode_tokens_per_s": tok_s,
            "launches_bf16": counts, "profile_decode": prof_dec,
            "decode_partials_ms_per_step": sum(attn.values()),
-           "bf16_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    log(f"{label} bf16 prefill {prefill_ms:.1f} ms (B={MODEL_BATCH} x "
-        f"{MODEL_PROMPT} tokens); decode per token p50 "
+           "bf16_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "params_g": n_params / 1e9}
+    inputs = "".join(f" + {k} {tuple(v.shape)}" for k, v in batch.items()
+                     if k != "tokens")
+    log(f"{label} bf16 prefill {prefill_ms:.1f} ms (B={b} x {t} tokens"
+        f"{inputs}); decode per token p50 "
         f"{out['bf16_decode_ms_p50']:.2f} ms, p99 "
         f"{out['bf16_decode_ms_p99']:.2f} ms over {MODEL_TOKENS} steps; "
         f"{tok_s:.0f} tokens/s; peak memory {out['bf16_peak_mem_gb']:.2f} "
@@ -1288,15 +1430,19 @@ def _bf16_serving(cfg, label, prompt, dev, card, expect, probe=None):
     log(f"decode_partials in a {label} decode step: "
         f"{out['decode_partials_ms_per_step']:.4f} ms of "
         f"{prof_dec['device_ms_per_call']:.3f} ms device time  [{card}]")
+    if extra is not None:
+        out.update(extra(eng))
     del eng, params
     _free()
     return out, counts
 
 
-def _train_step(cfg, label, dev, card):
-    """One train step at FAMILY_TRAIN_LAYERS layers (bf16 compute, f32
-    master weights and AdamW): the first loss within TRAIN_LOSS_TOL of
-    ln(vocab), the gradients finite (their global norm is), timed."""
+def _train_step(cfg, label, dev, card, loss_offset=0.0):
+    """One train step at the depth of ``cfg`` (bf16 compute, f32 master
+    weights and AdamW), batch FAMILY_TRAIN_BATCH x FAMILY_TRAIN_SEQ
+    positions (VLM: the patches, then the tokens): the first loss within
+    TRAIN_LOSS_TOL of ln(vocab) + ``loss_offset``, the gradients finite
+    (their global norm is), timed."""
     import math
 
     from repro_torch.configs import get
@@ -1305,9 +1451,10 @@ def _train_step(cfg, label, dev, card):
 
     torch.cuda.reset_peak_memory_stats()
     state = adamw_init(_draw(cfg, dev, torch.float32))
+    n_tok = FAMILY_TRAIN_SEQ - (cfg.vlm.n_patches if cfg.vlm else 0)
     tokens = TokenPipeline(cfg.vocab_size, FAMILY_TRAIN_BATCH,
-                           FAMILY_TRAIN_SEQ).batch_at(0)["tokens"]
-    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+                           n_tok).batch_at(0)["tokens"]
+    batch = model_batch(cfg, torch.from_numpy(tokens).to(dev), dev)
     step_fn = build_train_step(cfg, AdamWConfig(**TRAIN_OPT),
                                compute_dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -1317,9 +1464,11 @@ def _train_step(cfg, label, dev, card):
     step_s = time.perf_counter() - t0
     loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
     ln_v = math.log(cfg.vocab_size)
-    if not (math.isfinite(norm) and abs(loss - ln_v) <= TRAIN_LOSS_TOL):
+    if not (math.isfinite(norm)
+            and abs(loss - ln_v - loss_offset) <= TRAIN_LOSS_TOL):
         raise AssertionError(f"{label} train step: loss {loss} (ln V = "
-                             f"{ln_v:.4f}), grad norm {norm}")
+                             f"{ln_v:.4f}, + {loss_offset:.4f}), grad norm "
+                             f"{norm}")
     if counts:
         raise AssertionError(f"{label} train step launched {counts}")
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1327,13 +1476,27 @@ def _train_step(cfg, label, dev, card):
     log(f"{label} train step ({cfg.n_layers} of {get(label).n_layers} "
         f"layers, {n_params / 1e9:.3f} G params, batch "
         f"{FAMILY_TRAIN_BATCH} x {FAMILY_TRAIN_SEQ}, bf16 compute): loss "
-        f"{loss:.4f} (ln V = {ln_v:.4f}), grad norm {norm:.3f} (finite), "
-        f"{step_s * 1e3:.1f} ms, peak memory {peak:.2f} GB  [{card}]")
+        f"{loss:.4f} (ln V = {ln_v:.4f}, expected + {loss_offset:.4f}), "
+        f"grad norm {norm:.3f} (finite), {step_s * 1e3:.1f} ms, peak "
+        f"memory {peak:.2f} GB  [{card}]")
     del state, step_fn, batch
     _free()
-    return {"loss": loss, "grad_norm": norm, "step_ms": step_s * 1e3,
-            "peak_mem_gb": peak, "params_g": n_params / 1e9,
-            "layers": cfg.n_layers}, counts
+    return {"loss": loss, "ln_v": ln_v, "loss_offset": loss_offset,
+            "grad_norm": norm, "step_ms": step_s * 1e3, "peak_mem_gb": peak,
+            "params_g": n_params / 1e9, "layers": cfg.n_layers}, counts
+
+
+def _drawn(cfg, label, dev, what=""):
+    """The f32 draw of ``cfg``, timed and logged; (params, G params)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _draw(cfg, dev, torch.float32)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"{label}: {cfg.n_layers} layers{what}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads; {n_params / 1e9:.3f} G params drawn in f32 "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return params, n_params / 1e9
 
 
 def family_models(dev, card):
@@ -1341,123 +1504,54 @@ def family_models(dev, card):
     import dataclasses
 
     from repro_torch.configs import get
-    from repro_torch.serve.engine import ServingEngine
 
     out, paths = {}, {}
 
     # (a) qwen2-moe-a2.7b at full width and depth: f32 kernel route
     # against the plain route, then bf16 timings from a fresh bf16 draw
     cfg = get(MOE_ARCH)
-    prompt = model_prompt(cfg)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = _draw(cfg, dev, torch.float32)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    batch = {"tokens": model_prompt(cfg)}
+    params, n_params = _drawn(cfg, MOE_ARCH, dev,
+                              f" ({cfg.moe.n_experts} experts, "
+                              f"{cfg.moe.n_experts_padded} allocated, of "
+                              f"{cfg.moe.d_expert}, top {cfg.moe.top_k}, "
+                              f"{cfg.moe.n_shared} shared)")
     probe = params["layers"][-1]["moe"]["w_down"][7].to(torch.bfloat16)
-    log(f"{MOE_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.moe.n_experts} experts ({cfg.moe.n_experts_padded} "
-        f"allocated) of {cfg.moe.d_expert}, top {cfg.moe.top_k}, "
-        f"{cfg.moe.n_shared} shared; {n_params / 1e9:.3f} G params drawn "
-        f"in f32 in {time.perf_counter() - t0:.1f} s")
 
     def moe_expect(n):
         return {"decode_partials": cfg.n_layers * n}
 
-    kern = ServingEngine(cfg, params, max_len=MODEL_MAX_LEN,
-                         dtype=torch.float32, device=dev)
-    t0 = time.perf_counter()
-    tokens, counts = run_path(
-        f"{MOE_ARCH} serving (f32)",
-        lambda: kern.generate_greedy({"tokens": prompt}, FAMILY_TOKENS),
-        ("decode_partials",))
-    t_f32 = time.perf_counter() - t0
-    if counts != moe_expect(FAMILY_TOKENS):
-        raise AssertionError(f"{MOE_ARCH}: launches {counts}, expected "
-                             f"{moe_expect(FAMILY_TOKENS)}")
-    paths["moe_f32"] = counts
-    got = teacher_forced(kern, prompt, tokens)
-    del kern
-    _free()
-    plain = ServingEngine(cfg, params, max_len=MODEL_MAX_LEN,
-                          dtype=torch.float32, device=dev, use_kernel=False)
-    want = teacher_forced(plain, prompt, tokens)
-    del plain
-    check_logits(got, cfg)
-    err = 0.0
-    for i, (a, b) in enumerate(zip(got, want)):
-        if not np.allclose(a, b, rtol=MODEL_TOL, atol=MODEL_TOL):
-            raise AssertionError(f"{MOE_ARCH} logits step {i}: kernels != "
-                                 f"plain (max diff {np.abs(a - b).max()})")
-        err = max(err, float(np.abs(a - b).max()))
-    if not np.array_equal(np.stack([x.argmax(-1) for x in got[:-1]], 1),
-                          tokens):
-        raise AssertionError(f"{MOE_ARCH}: teacher-forced argmax differs "
-                             f"from generate_greedy's tokens")
+    t_f32, err, paths["moe_f32"] = _kernel_vs_plain(
+        cfg, MOE_ARCH, params, batch, dev, card, moe_expect)
     peak_f32 = torch.cuda.max_memory_allocated() / 1e9
-    log(f"{MOE_ARCH} f32 generate_greedy {FAMILY_TOKENS} tokens {t_f32:.1f} "
-        f"s; teacher-forced prefill + {FAMILY_TOKENS} steps: kernels == "
-        f"plain versions within {MODEL_TOL} (max abs diff {err:.3e}); "
-        f"argmax reproduces the generated tokens; {cfg.n_layers} x "
-        f"{FAMILY_TOKENS} decode_partials launches; peak memory "
-        f"{peak_f32:.2f} GB  [{card}]")
-    del params, got, want
+    log(f"{MOE_ARCH} f32 peak memory {peak_f32:.2f} GB  [{card}]")
+    del params
     _free()
-    moe, counts = _bf16_serving(
-        cfg, MOE_ARCH, prompt, dev, card, moe_expect,
+    moe, paths["moe_bf16"] = _bf16_serving(
+        cfg, MOE_ARCH, batch, dev, card, moe_expect,
         probe=(lambda p: p["layers"][-1]["moe"]["w_down"][7], probe))
-    paths["moe_bf16"] = counts
     del probe
-    out[MOE_ARCH] = dict(moe, params_g=n_params / 1e9, f32_generate_s=t_f32,
+    out[MOE_ARCH] = dict(moe, params_g=n_params, f32_generate_s=t_f32,
                          f32_max_abs_diff=err, f32_peak_mem_gb=peak_f32,
                          launches_f32=paths["moe_f32"])
 
     # (b) minicpm3-4b at full width and depth: no ported kernel on its
     # path; the absorbed decode held to the expanded prefill in f32
     cfg = get(MLA_ARCH)
-    prompt = model_prompt(cfg)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = _draw(cfg, dev, torch.float32)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    log(f"{MLA_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, MLA "
-        f"(q rank {cfg.mla.q_rank}, kv rank {cfg.mla.kv_rank}, rope "
-        f"{cfg.mla.rope_dim}, {cfg.n_heads} heads); {n_params / 1e9:.3f} "
-        f"G params drawn in f32 in {time.perf_counter() - t0:.1f} s")
-    eng = ServingEngine(cfg, params, max_len=MODEL_MAX_LEN,
-                        dtype=torch.float32, device=dev)
-    t0 = time.perf_counter()
-    tokens, counts = run_path(
-        f"{MLA_ARCH} serving (f32)",
-        lambda: eng.generate_greedy({"tokens": prompt}, FAMILY_TOKENS), ())
-    t_f32 = time.perf_counter() - t0
-    if counts:
-        raise AssertionError(f"{MLA_ARCH}: launched {counts}, expected none")
-    paths["mla_f32"] = counts
-    got = teacher_forced(eng, prompt, tokens)
-    check_logits(got, cfg)
-    err_mla = 0.0
-    for t in range(1, FAMILY_TOKENS + 1):
-        seq = np.concatenate([prompt, tokens[:, :t]], axis=1)
-        ref = eng.prefill({"tokens": seq})
-        if not np.allclose(got[t], ref, rtol=MODEL_TOL, atol=MODEL_TOL):
-            raise AssertionError(
-                f"{MLA_ARCH} decode step {t}: absorbed != expanded prefill "
-                f"(max diff {np.abs(got[t] - ref).max()})")
-        err_mla = max(err_mla, float(np.abs(got[t] - ref).max()))
+    batch = {"tokens": model_prompt(cfg)}
+    params, n_params = _drawn(cfg, MLA_ARCH, dev,
+                              f" (MLA q rank {cfg.mla.q_rank}, kv rank "
+                              f"{cfg.mla.kv_rank}, rope {cfg.mla.rope_dim})")
+    t_f32, err_mla, paths["mla_f32"] = _decode_vs_prefill(
+        cfg, MLA_ARCH, params, batch, dev, card,
+        "absorbed decode == the expanded prefill")
     peak_f32 = torch.cuda.max_memory_allocated() / 1e9
-    log(f"{MLA_ARCH} f32 generate_greedy {FAMILY_TOKENS} tokens "
-        f"{t_f32:.1f} s; absorbed decode steps 1..{FAMILY_TOKENS} == the "
-        f"expanded prefill over the prompt + those tokens within "
-        f"{MODEL_TOL} (max abs diff {err_mla:.3e}); no kernel launched; "
-        f"peak memory {peak_f32:.2f} GB  [{card}]")
-    del eng, params, got
+    log(f"{MLA_ARCH} f32 peak memory {peak_f32:.2f} GB  [{card}]")
+    del params
     _free()
-    mla, counts = _bf16_serving(cfg, MLA_ARCH, prompt, dev, card,
-                                lambda n: {})
-    paths["mla_bf16"] = counts
-    out[MLA_ARCH] = dict(mla, params_g=n_params / 1e9, f32_generate_s=t_f32,
+    mla, paths["mla_bf16"] = _bf16_serving(cfg, MLA_ARCH, batch, dev, card,
+                                           lambda n: {})
+    out[MLA_ARCH] = dict(mla, params_g=n_params, f32_generate_s=t_f32,
                          f32_absorbed_vs_expanded=err_mla,
                          f32_peak_mem_gb=peak_f32)
 
@@ -1466,6 +1560,133 @@ def family_models(dev, card):
         cut = dataclasses.replace(get(arch), n_layers=FAMILY_TRAIN_LAYERS)
         out[arch]["train"], paths[f"train_{arch}"] = _train_step(
             cut, arch, dev, card)
+    return out, paths
+
+
+# ---------------------------------------------------------------- phase 4l
+
+
+def modal_families(dev, card):
+    """Phase 4l: the VLM, audio and RWKV6 families at full width on the
+    card (llava-next-34b's f32 check at VLM_F32_LAYERS layers, its batch
+    cut to VLM_BATCH; whisper-tiny and rwkv6-7b at full depth)."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get
+
+    out, paths = {}, {}
+
+    # (a) llava-next-34b: f32 kernel route against the plain route at
+    # VLM_F32_LAYERS layers, then bf16 at full depth
+    t_phase = time.perf_counter()
+    full = get(VLM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=VLM_F32_LAYERS)
+    batch = model_batch(cfg, model_prompt(cfg, VLM_BATCH), dev)
+    params, n_params = _drawn(cfg, VLM_ARCH, dev,
+                              f" of {full.n_layers} (the f32 check), "
+                              f"{cfg.vlm.n_patches} patches")
+    probe = params["layers"][-1]["mlp"]["w_down"].to(torch.bfloat16)
+    t_f32, err, paths["vlm_f32"] = _kernel_vs_plain(
+        cfg, VLM_ARCH, params, batch, dev, card,
+        lambda n: {"decode_partials": cfg.n_layers * n})
+    peak_f32 = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{VLM_ARCH} f32 peak memory {peak_f32:.2f} GB  [{card}]")
+    del params
+    _free()
+    vlm, paths["vlm_bf16"] = _bf16_serving(
+        full, VLM_ARCH, batch, dev, card,
+        lambda n: {"decode_partials": full.n_layers * n},
+        probe=(lambda p: p["layers"][VLM_F32_LAYERS - 1]["mlp"]["w_down"],
+               probe))
+    del probe
+    out[VLM_ARCH] = dict(
+        vlm, f32_params_g=n_params, f32_layers=VLM_F32_LAYERS,
+        f32_generate_s=t_f32, f32_max_abs_diff=err,
+        f32_peak_mem_gb=peak_f32, launches_f32=paths["vlm_f32"],
+        phase_s=time.perf_counter() - t_phase)
+
+    # (b) whisper-tiny at full width and depth: 8 utterances of 1,500
+    # frames, decoder prompts of AUDIO_PROMPT tokens
+    t_phase = time.perf_counter()
+    cfg = get(AUDIO_ARCH)
+    batch = model_batch(cfg, model_prompt(cfg, t=AUDIO_PROMPT), dev)
+    params, n_params = _drawn(cfg, AUDIO_ARCH, dev,
+                              f" + {cfg.encdec.n_enc_layers} encoder "
+                              f"layers over {cfg.encdec.n_frames} frames")
+    probe = params["layers"][-1]["xattn"]["wv"].to(torch.bfloat16)
+
+    def audio_expect(n):
+        return {"decode_partials": cfg.n_layers * n}
+
+    t_f32, err, paths["audio_f32"] = _kernel_vs_plain(
+        cfg, AUDIO_ARCH, params, batch, dev, card, audio_expect,
+        max_len=AUDIO_MAX_LEN)
+    peak_f32 = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    _free()
+    audio, paths["audio_bf16"] = _bf16_serving(
+        cfg, AUDIO_ARCH, batch, dev, card, audio_expect,
+        probe=(lambda p: p["layers"][-1]["xattn"]["wv"], probe),
+        max_len=AUDIO_MAX_LEN)
+    del probe
+    out[AUDIO_ARCH] = dict(audio, params_g=n_params, f32_generate_s=t_f32,
+                           f32_max_abs_diff=err, f32_peak_mem_gb=peak_f32,
+                           launches_f32=paths["audio_f32"],
+                           phase_s=time.perf_counter() - t_phase)
+
+    # (c) rwkv6-7b at full width and depth: no kernel on its path; each
+    # decode step held to a prefill over the prompt plus its tokens
+    t_phase = time.perf_counter()
+    cfg = get(RWKV_ARCH)
+    batch = {"tokens": model_prompt(cfg)}
+    params, n_params = _drawn(cfg, RWKV_ARCH, dev)
+    probe = params["layers"][-1]["rwkv"]["cm_v"].to(torch.bfloat16)
+    t_f32, err_rwkv, paths["rwkv_f32"] = _decode_vs_prefill(
+        cfg, RWKV_ARCH, params, batch, dev, card,
+        "decode after the prefill == a prefill over the longer prompt")
+    peak_f32 = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{RWKV_ARCH} f32 peak memory {peak_f32:.2f} GB  [{card}]")
+    del params
+    _free()
+    # the WKV loop's share of a prefill: a profiled prefill over the
+    # first RWKV_PROFILE_TOKENS tokens (the loop costs the same at every
+    # step: four launches per layer and token)
+    short = {"tokens": batch["tokens"][:, :RWKV_PROFILE_TOKENS]}
+    loop = 4 * cfg.n_layers * RWKV_PROFILE_TOKENS
+
+    def wkv_share(eng):
+        prof = profile_calls(lambda: eng.prefill(short), 1)
+        log_profile(f"{RWKV_ARCH} prefill of {RWKV_PROFILE_TOKENS} tokens "
+                    f"(bf16)", prof, card)
+        log(f"{RWKV_ARCH}: the WKV loop launches {loop} of the "
+            f"{prof['kernels_per_call']:.0f} kernels of that prefill "
+            f"({4 * cfg.n_layers * MODEL_PROMPT} per {MODEL_PROMPT}-token "
+            f"prefill)  [{card}]")
+        return {"profile_prefill_short": prof,
+                "profile_prefill_tokens": RWKV_PROFILE_TOKENS,
+                "wkv_loop_launches_short": loop}
+
+    rwkv, paths["rwkv_bf16"] = _bf16_serving(
+        cfg, RWKV_ARCH, batch, dev, card, lambda n: {},
+        probe=(lambda p: p["layers"][-1]["rwkv"]["cm_v"], probe),
+        extra=wkv_share)
+    del probe
+    out[RWKV_ARCH] = dict(rwkv, f32_generate_s=t_f32,
+                          f32_decode_vs_prefill=err_rwkv,
+                          f32_peak_mem_gb=peak_f32,
+                          phase_s=time.perf_counter() - t_phase)
+
+    # (d) one train step of each family at full width, depth cut to
+    # FAMILY_TRAIN_LAYERS (whisper-tiny's full depth); the first loss is
+    # centred on ln V + s^2 / 2, the logsumexp of V random logits of
+    # spread s = 0.02 sqrt(d_model) (an untied head of std 0.02 over the
+    # unit-RMS final norm): 1.43 nats at llava-next-34b's d_model of 7,168
+    for arch in (VLM_ARCH, AUDIO_ARCH, RWKV_ARCH):
+        cut = dataclasses.replace(get(arch), n_layers=FAMILY_TRAIN_LAYERS)
+        spread = 0.02 * math.sqrt(cut.d_model)
+        out[arch]["train"], paths[f"train_{arch}"] = _train_step(
+            cut, arch, dev, card, loss_offset=spread ** 2 / 2)
     return out, paths
 
 
@@ -3158,6 +3379,17 @@ def main(argv) -> int:
     families["phase_s"] = time.perf_counter() - t0
     log(f"phase 4k took {families['phase_s']:.1f} s")
 
+    phase(f"4l VLM, audio and RWKV6 families ({VLM_ARCH}, {AUDIO_ARCH}, "
+          f"{RWKV_ARCH}, full width)")
+    t0 = time.perf_counter()
+    modal, counts = modal_families(dev, card)
+    paths.update(counts)
+    modal["phase_s"] = time.perf_counter() - t0
+    log(f"phase 4l took {modal['phase_s']:.1f} s (llava "
+        f"{modal[VLM_ARCH]['phase_s']:.1f}, whisper "
+        f"{modal[AUDIO_ARCH]['phase_s']:.1f}, rwkv "
+        f"{modal[RWKV_ARCH]['phase_s']:.1f}, train steps the rest)")
+
     phase("5 times")
     latency = latencies(eng.request_batch, reqs, N_LATENCY)
     log_latency("request_batch", latency, N_LATENCY, card)
@@ -3274,7 +3506,7 @@ def main(argv) -> int:
                         "consistency_s": t_cons},
             "launches_per_path": paths, "model_serving": model,
             "model_training": training, "linear_scan_bwd": res_lsb,
-            "family_models": families,
+            "family_models": families, "modal_families": modal,
             "staged": staged, "long_windows": longw,
             "serving_loop": loop_res, "sharded": shard_res,
             "certifier_preview_pipeline": deploy_res,

@@ -2,8 +2,8 @@
 package (the port keeps its own copy and imports nothing of it).
 
 Every architecture is an ``ArchConfig`` instance; ``registry.get(name)``
-resolves them (per-architecture modules ``repro_torch/configs/<id>.py``
-exist for the families the port serves).  The four shape cells are
+resolves them (each also has its module ``repro_torch/configs/<id>.py``,
+as in the reference).  The four shape cells are
 global (``SHAPES``); per-arch applicability is
 ``ArchConfig.applicable_shapes()``.
 """

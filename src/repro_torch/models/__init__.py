@@ -1,6 +1,7 @@
-"""Model stack of the dense and hybrid families (llama3-8b, hymba-1.5b),
-served through the flash-decode and linear-scan kernels and trained
-through the linear scan's forward and backward kernels."""
+"""Model stack of every family of the JAX package (dense, hybrid, MoE,
+MLA, VLM, audio, RWKV6), served through the flash-decode and linear-scan
+kernels and trained through the linear scan's forward and backward
+kernels."""
 
 from .model import (decode_step, forward_prefill,  # noqa: F401
                     forward_train, init_decode_state, init_params,

@@ -1,4 +1,4 @@
-"""Layer primitives of the dense, hybrid, MoE and MLA families, in PyTorch.
+"""Layer primitives of every model family, in PyTorch.
 
 The same functions as ``repro/models/layers.py``, on tensors:
 
@@ -17,11 +17,12 @@ The same functions as ``repro/models/layers.py``, on tensors:
   * MoE (qwen2-moe, dbrx) routes with the reference's sort-based,
     capacity-bounded dispatch; the grouped expert products are plain
     batched matmuls and the combine sums each token's contributions in
-    a fixed order (no float atomics).
-
-RWKV, ``layer_norm`` and ``gelu_mlp`` (the RWKV6, audio and VLM families)
-are not ported yet (ROADMAP queue 1, item 2) and raise
-NotImplementedError.
+    a fixed order (no float atomics);
+  * ``layer_norm`` and the biased tanh-GELU MLP (the audio family);
+  * RWKV6's time mix runs the WKV recurrence as a Python loop over time
+    in float32 (the reference's sequential ``lax.scan``, no Pallas call
+    there): the projections and decays of every step are batched
+    products before the loop, so a step is four launches.
 """
 
 from __future__ import annotations
@@ -41,18 +42,11 @@ __all__ = ["rms_norm", "swiglu", "rope_tables", "apply_rope",
            "mla_forward", "init_moe", "moe_route",
            "moe_capacity",
            "moe_forward", "init_rwkv",
-           "rwkv_time_mix", "rwkv_channel_mix", "not_ported",
-           "normal_init"]
+           "rwkv_time_mix", "rwkv_channel_mix", "normal_init"]
 
 Params = Dict[str, Any]
 
 _NEG = -1e30
-
-
-def not_ported(name: str):
-    raise NotImplementedError(
-        f"{name} is not ported to repro_torch yet (ROADMAP queue 1, item 2: "
-        f"the VLM, audio and RWKV6 families)")
 
 
 def normal_init(shape, scale: float, generator: torch.Generator, dtype,
@@ -82,12 +76,21 @@ def swiglu(x, w_gate, w_up, w_down):
     return h @ w_down
 
 
-def layer_norm(x, scale, bias, eps=1e-5):
-    not_ported("layer_norm (audio family)")
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5):
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
 
 
 def gelu_mlp(x, w_up, b_up, w_down, b_down):
-    not_ported("gelu_mlp (audio family)")
+    """``jax.nn.gelu`` defaults to the tanh approximation (``F.gelu`` to
+    the exact erf form), in float32."""
+    h = x @ w_up + b_up
+    h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
+    return h @ w_down + b_down
 
 
 def rope_tables(positions: torch.Tensor, dim: int, theta: float
@@ -121,14 +124,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      *, window: int = 0, chunk: int = 1024) -> torch.Tensor:
-    """Causal online-softmax attention over KV tiles (the prefill),
-    float32 accumulators.
+                      *, causal: bool = True, window: int = 0,
+                      chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over KV tiles (the prefill; non-causal
+    for the audio encoder and cross-attention), float32 accumulators.
 
-    q: (B, S, Hq, D); k/v: (B, S, Hkv, D) with Hq = G * Hkv (query head
+    q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D) with Hq = G * Hkv (query head
     h reads KV head h // G).  ``window`` > 0 masks keys ``window`` or more
     positions older than the query (SWA).  Never holds more than
-    (B, Hq, S, chunk) scores.  (The reference's ``kv_len``/``kv_min``
+    (B, Hq, Sq, chunk) scores.  Without ``causal`` nothing masks the zero
+    keys that pad the last chunk, as in the reference: each adds
+    exp(-m) to the softmax's denominator (whisper-tiny's 1,500 frames
+    in chunks of 1,024 carry 548).  (The reference's ``kv_len``/``kv_min``
     decode masks live in ``flash_decode.decode_partials``'s [lo, hi).)
     """
     b, sq, hq, d = q.shape
@@ -153,11 +160,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kb = F.pad(kb, (0, 0, 0, 0, 0, chunk - c))
             vb = F.pad(vb, (0, 0, 0, 0, 0, chunk - c))
         s = torch.einsum("bskgd,bckd->bkgsc", qg, kb) * scale
-        k_pos = c0 + torch.arange(chunk, dtype=torch.int32, device=dev)
-        msk = q_pos[:, None] >= k_pos[None, :]
-        if window:
-            msk &= q_pos[:, None] - k_pos[None, :] < window
-        s = torch.where(msk[None, None, None], s, _NEG)
+        if causal or window:
+            k_pos = c0 + torch.arange(chunk, dtype=torch.int32, device=dev)
+            msk = torch.ones((sq, chunk), dtype=torch.bool, device=dev)
+            if causal:
+                msk &= q_pos[:, None] >= k_pos[None, :]
+            if window:
+                msk &= q_pos[:, None] - k_pos[None, :] < window
+            s = torch.where(msk[None, None, None], s, _NEG)
 
         m_new = torch.maximum(m_acc, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -434,20 +444,94 @@ def moe_forward(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# not ported yet: RWKV
+# RWKV6 (Finch) time mix + channel mix: data-dependent decay
 # ---------------------------------------------------------------------------
 
 
-def init_rwkv(generator, cfg, dtype, device) -> Params:
-    not_ported("RWKV6 (init_rwkv)")
+def init_rwkv(generator: torch.Generator, cfg, dtype, device) -> Params:
+    d, h, dh, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+    s = d ** -0.5
+
+    def normal(shape, scale):
+        return normal_init(shape, scale, generator, dtype, device)
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    return {
+        "wr": normal((d, d), s), "wk": normal((d, d), s),
+        "wv": normal((d, d), s), "wg": normal((d, d), s),
+        "ww": normal((d, d), s * 0.1),
+        "w0": full((d,), -6.0),                       # base decay (slow)
+        "u_bonus": normal((h, dh), 0.1),
+        "wo": normal((d, d), s),
+        "mu": full((5, d), 0.5),                      # token-shift lerp
+        "cm_k": normal((d, f), s), "cm_v": normal((f, d), f ** -0.5),
+        "cm_r": normal((d, d), s),
+        "mu_cm": full((2, d), 0.5),
+    }
 
 
-def rwkv_time_mix(p, x, cfg, *, state=None):
-    not_ported("RWKV6 time mix")
+def _shift_lerps(x: torch.Tensor, shift: torch.Tensor, mu: torch.Tensor):
+    """x with the token before each position (``shift`` before the first)
+    mixed in by each row of ``mu``, in float32, cast to x's dtype."""
+    prev = torch.cat([shift[:, None].to(x.dtype), x[:, :-1]], dim=1)
+    xs, ps = x.to(torch.float32), prev.to(torch.float32)
+    mu = mu.to(torch.float32)
+    return [(xs * m + ps * (1 - m)).to(x.dtype) for m in mu]
 
 
-def rwkv_channel_mix(p, x, *, shift=None):
-    not_ported("RWKV6 channel mix")
+def rwkv_time_mix(p: Params, x: torch.Tensor, cfg, *,
+                  state: Optional[Tuple] = None):
+    """WKV6 recurrence.  state = (shift (B, d), S (B, H, dh, dh) float32).
+
+        S_t = diag(w_t) S_{t-1} + k_t^T v_t
+        y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+
+    r, k, v, g and the decay ``w = exp(-exp(w0 + mix @ ww))`` of every
+    step are batched products; the loop over time (the reference's
+    ``lax.scan``) keeps only the state update, in float32: the outer
+    product, ``S + u kv``, r's product with it, and ``w S + kv`` -- four
+    launches a step.  Returns (out, (x[:, -1], S_final))."""
+    b, s, d = x.shape
+    h, dh = cfg.n_heads, cfg.head_dim
+    f32 = torch.float32
+    if state is None:
+        state = (torch.zeros((b, d), dtype=x.dtype, device=x.device),
+                 torch.zeros((b, h, dh, dh), dtype=f32, device=x.device))
+    shift, S = state
+    mr, mk, mv, mg, mw = _shift_lerps(x, shift, p["mu"])
+    r = (mr @ p["wr"]).to(f32).reshape(b, s, h, 1, dh)
+    k = (mk @ p["wk"]).to(f32).reshape(b, s, h, dh, 1)
+    v = (mv @ p["wv"]).to(f32).reshape(b, s, h, 1, dh)
+    g = mg @ p["wg"]
+    wlog = -torch.exp(p["w0"].to(f32) + (mw @ p["ww"]).to(f32))
+    w = torch.exp(wlog).reshape(b, s, h, dh, 1)              # in (0, 1)
+    u = p["u_bonus"].to(f32).reshape(1, h, dh, 1)
+
+    ys = []
+    for t in range(s):
+        kv = k[:, t] * v[:, t]                                 # (B,H,dh,dh)
+        ys.append(r[:, t] @ torch.addcmul(S, u, kv))           # (B,H,1,dh)
+        S = torch.addcmul(kv, w[:, t], S)
+    y = torch.cat(ys, dim=2).transpose(1, 2).reshape(b, s, d)
+    y = y * F.silu(g.to(f32))
+    return y.to(x.dtype) @ p["wo"], (x[:, -1], S)
+
+
+def rwkv_channel_mix(p: Params, x: torch.Tensor, *,
+                     shift: Optional[torch.Tensor] = None):
+    """relu(k)^2 through ``cm_v`` under a sigmoid gate; returns (out,
+    x[:, -1]), the latter the next call's ``shift``."""
+    b, _, d = x.shape
+    if shift is None:
+        shift = torch.zeros((b, d), dtype=x.dtype, device=x.device)
+    xk, xr = _shift_lerps(x, shift, p["mu_cm"])
+    k = xk @ p["cm_k"]
+    k = torch.square(F.relu(k.to(torch.float32))).to(x.dtype)
+    kv = k @ p["cm_v"]
+    r = torch.sigmoid((xr @ p["cm_r"]).to(torch.float32))
+    return (r * kv.to(torch.float32)).to(x.dtype), x[:, -1]
 
 
 # ---------------------------------------------------------------------------

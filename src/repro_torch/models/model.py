@@ -1,9 +1,13 @@
-"""The dense, hybrid, MoE and MLA model families, in PyTorch.
+"""Every model family of the JAX package, in PyTorch.
 
-The same entry points as ``repro/models/model.py`` for the families the
-port serves (``dense``: llama3-8b, qwen3-8b, granite-3-8b, and with MLA
-attention minicpm3-4b; ``hybrid``: hymba-1.5b, parallel attention + SSM
-heads with sliding-window layers; ``moe``: qwen2-moe-a2.7b, dbrx-132b):
+The same entry points as ``repro/models/model.py``: ``dense`` (llama3-8b,
+qwen3-8b, granite-3-8b, and with MLA attention minicpm3-4b), ``hybrid``
+(hymba-1.5b: parallel attention + SSM heads, sliding-window layers),
+``moe`` (qwen2-moe-a2.7b, dbrx-132b), ``vlm`` (llava-next-34b: a dense
+GQA decoder behind a prefix of precomputed patch embeddings), ``audio``
+(whisper-tiny: a bidirectional encoder over precomputed frame
+embeddings, a decoder with cross-attention, layer norms and a GELU MLP)
+and ``ssm`` (rwkv6-7b: attention-free RWKV6 time and channel mixes):
 
   init_params(cfg, generator, dtype, device)   -> params
   params_from_jax(cfg, params_np, device)      -> params
@@ -15,14 +19,16 @@ heads with sliding-window layers; ``moe``: qwen2-moe-a2.7b, dbrx-132b):
   train_state_from_jax(cfg, state_np, device)  -> train.TrainState
 
 Params are a dict ``{"embed", "layers": [one dict per layer],
-"final_norm", "lm_head"}`` with the reference's names and per-layer
-shapes; the decode state is ``{"len": (B,) int32, "layers": [...]}``
-with per-layer ``{"attn": {"k", "v"} (GQA) or {"latent"} (MLA),
-"ssm"}``; an MoE layer holds ``"moe"`` where a dense one holds ``"mlp"``.
-The other families (RWKV, audio, VLM) raise NotImplementedError.
-Training runs
-the layer loop with per-layer rematerialisation
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
+"final_norm", "lm_head"}`` (+ ``"enc_layers"``, ``"enc_norm"`` for the
+audio encoder) with the reference's names and per-layer shapes; a batch
+is ``{"tokens"}`` (+ ``"patches"`` (B, P, d) for VLM, ``"frames"`` (B,
+n_frames, d) for audio).  The decode state is ``{"len": (B,) int32,
+"layers": [...]}`` (+ ``"enc_out"`` for audio) with per-layer ``{"attn":
+{"k", "v"} (GQA) or {"latent"} (MLA), "ssm"}``, or for RWKV ``{"shift1",
+"S", "shift2"}``; an MoE layer holds ``"moe"`` where a dense one holds
+``"mlp"``.  Training runs the layer loop with per-layer
+rematerialisation (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint``).
 """
 
 from __future__ import annotations
@@ -47,14 +53,6 @@ Params = Dict[str, Any]
 # attention chunk used by the flash-style online softmax
 ATTN_CHUNK = 1024
 
-_FAMILIES = ("dense", "hybrid", "moe")
-
-
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in _FAMILIES or cfg.attn_type not in ("gqa", "mla"):
-        L.not_ported(f"the {cfg.family!r} family ({cfg.name}, attention "
-                     f"{cfg.attn_type!r})")
-
 
 # ---------------------------------------------------------------------------
 # init
@@ -62,25 +60,40 @@ def _check_family(cfg: ArchConfig) -> None:
 
 
 def _init_layer(cfg: ArchConfig, generator, dtype, device) -> Params:
+    """One layer's params, as the reference's ``_init_layer`` (the audio
+    encoder's layers too carry the decoder's ``xattn`` / ``norm_x``)."""
     d, f = cfg.d_model, cfg.d_ff
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    def normal(shape, scale):
+        return L.normal_init(shape, scale, generator, dtype, device)
+
+    p: Params = {"norm1": ones(d), "norm2": ones(d)}
+    if cfg.family == "ssm":
+        p["rwkv"] = L.init_rwkv(generator, cfg, dtype, device)
+        return p
     init_attn = L.init_mla if cfg.attn_type == "mla" else L.init_gqa
-    p: Params = {"norm1": torch.ones((d,), dtype=dtype, device=device),
-                 "norm2": torch.ones((d,), dtype=dtype, device=device),
-                 "attn": init_attn(generator, cfg, dtype, device)}
+    p["attn"] = init_attn(generator, cfg, dtype, device)
     if cfg.family == "hybrid":
         p["ssm"] = L.init_ssm(generator, cfg, dtype, device)
         p["mix_a"] = torch.full((), 0.5, dtype=dtype, device=device)
         p["mix_s"] = torch.full((), 0.5, dtype=dtype, device=device)
+    s = d ** -0.5
     if cfg.moe is not None:
         p["moe"] = L.init_moe(generator, cfg, dtype, device)
-        return p
-    s = d ** -0.5
-    p["mlp"] = {
-        "w_gate": L.normal_init((d, f), s, generator, dtype, device),
-        "w_up": L.normal_init((d, f), s, generator, dtype, device),
-        "w_down": L.normal_init((f, d), f ** -0.5, generator, dtype,
-                                device),
-    }
+    elif cfg.family == "audio":
+        p["mlp"] = {"w_up": normal((d, f), s),
+                    "b_up": torch.zeros((f,), dtype=dtype, device=device),
+                    "w_down": normal((f, d), f ** -0.5),
+                    "b_down": torch.zeros((d,), dtype=dtype, device=device)}
+        # decoder cross-attention (the encoder output as keys and values)
+        p["xattn"] = L.init_gqa(generator, cfg, dtype, device)
+        p["norm_x"] = ones(d)
+    else:
+        p["mlp"] = {"w_gate": normal((d, f), s), "w_up": normal((d, f), s),
+                    "w_down": normal((f, d), f ** -0.5)}
     return p
 
 
@@ -90,7 +103,6 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     values: ``torch.Generator`` draws other numbers than ``jax.random``).
     The generator must live on ``device`` (the card unless the caller
     passes ``device="cpu"``)."""
-    _check_family(cfg)
     device = resolve_device(device)
     vp, d = cfg.vocab_padded, cfg.d_model
     params: Params = {
@@ -102,6 +114,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = L.normal_init((d, vp), 0.02, generator, dtype,
                                           device)
+    if cfg.encdec is not None:
+        params["enc_layers"] = [_init_layer(cfg, generator, dtype, device)
+                                for _ in range(cfg.encdec.n_enc_layers)]
+        params["enc_norm"] = torch.ones((d,), dtype=dtype, device=device)
     return params
 
 
@@ -116,11 +132,14 @@ def _tensor(a, device) -> torch.Tensor:
 def params_from_jax(cfg: ArchConfig, params_np: Params,
                     device="cuda") -> Params:
     """The JAX package's parameter pytree (numpy arrays, per-layer leaves
-    stacked on a leading L axis) as the port's parameters: one dict per
-    layer, same names and dtypes, on ``device`` (the card unless the
-    caller passes ``device="cpu"``)."""
-    _check_family(cfg)
+    stacked on a leading L axis under ``"layers"`` and, for audio,
+    ``"enc_layers"``) as the port's parameters: one dict per layer, same
+    names and dtypes, on ``device`` (the card unless the caller passes
+    ``device="cpu"``)."""
     device = resolve_device(device)
+    stacks = {"layers": cfg.n_layers}
+    if cfg.encdec is not None:
+        stacks["enc_layers"] = cfg.encdec.n_enc_layers
 
     def unstack(tree, i):
         if isinstance(tree, dict):
@@ -128,9 +147,9 @@ def params_from_jax(cfg: ArchConfig, params_np: Params,
         return _tensor(tree[i], device)
 
     out: Params = {k: _tensor(v, device) for k, v in params_np.items()
-                   if k != "layers"}
-    out["layers"] = [unstack(params_np["layers"], i)
-                     for i in range(cfg.n_layers)]
+                   if k not in stacks}
+    for k, n in stacks.items():
+        out[k] = [unstack(params_np[k], i) for i in range(n)]
     return out
 
 
@@ -185,24 +204,83 @@ def _windows(cfg: ArchConfig) -> List[int]:
 # ---------------------------------------------------------------------------
 
 
-def _layer_fwd(cfg: ArchConfig, p: Params, x, *, positions, window: int,
-               cache=None, use_kernel=None):
-    """One layer.  Returns (y, layer cache): prefill gives this
-    sequence's {"attn": {"k", "v"} or {"latent"}, "ssm"}; decode updates
-    ``cache``."""
+def _norm(cfg: ArchConfig, x, scale):
+    """A layer's norm: the audio family's layer norm (zero bias), every
+    other family's RMS norm."""
+    if cfg.family == "audio":
+        return L.layer_norm(x, scale, torch.zeros_like(scale), cfg.norm_eps)
+    return L.rms_norm(x, scale, cfg.norm_eps)
+
+
+def _rwkv_layer(cfg: ArchConfig, p: Params, x, cache):
+    """An RWKV6 layer: time mix, then channel mix, each behind an RMS norm
+    and carrying its token shift; returns (y, {"shift1", "S",
+    "shift2"})."""
     eps = cfg.norm_eps
-    h = L.rms_norm(x, p["norm1"], eps)
-    attn_cache = None if cache is None else cache["attn"]
-    if cfg.attn_type == "mla":
-        attn_out, attn_cache = L.mla_forward(
-            p["attn"], h, cfg, positions=positions, cache=attn_cache,
-            chunk=ATTN_CHUNK)
+    y, (shift1, S) = L.rwkv_time_mix(
+        p["rwkv"], L.rms_norm(x, p["norm1"], eps), cfg,
+        state=None if cache is None else (cache["shift1"], cache["S"]))
+    x = x + y
+    y, shift2 = L.rwkv_channel_mix(
+        p["rwkv"], L.rms_norm(x, p["norm2"], eps),
+        shift=None if cache is None else cache["shift2"])
+    return x + y, {"shift1": shift1, "S": S, "shift2": shift2}
+
+
+def _encoder_gqa(cfg: ArchConfig, p: Params, h, positions):
+    """The audio encoder's bidirectional self-attention (roped)."""
+    b, s, _ = h.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (h @ p["wq"]).reshape(b, s, hq, dh)
+    k = (h @ p["wk"]).reshape(b, s, hkv, dh)
+    v = (h @ p["wv"]).reshape(b, s, hkv, dh)
+    cos, sin = L.rope_tables(positions, dh, cfg.rope_theta)
+    out = L.chunked_attention(L.apply_rope(q, cos, sin),
+                              L.apply_rope(k, cos, sin), v, causal=False,
+                              chunk=ATTN_CHUNK)
+    return out.reshape(b, s, hq * dh) @ p["wo"]
+
+
+def _cross_gqa(cfg: ArchConfig, p: Params, h, enc_out):
+    """The audio decoder's cross-attention over ``enc_out``, without
+    rope; keys and values are projected from ``enc_out`` at every call,
+    decode steps included, as in the reference."""
+    b, s, _ = h.shape
+    t = enc_out.shape[1]
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (h @ p["wq"]).reshape(b, s, hq, dh)
+    k = (enc_out @ p["wk"]).reshape(b, t, hkv, dh)
+    v = (enc_out @ p["wv"]).reshape(b, t, hkv, dh)
+    out = L.chunked_attention(q, k, v, causal=False, chunk=ATTN_CHUNK)
+    return out.reshape(b, s, hq * dh) @ p["wo"]
+
+
+def _layer_fwd(cfg: ArchConfig, p: Params, x, *, positions, window: int,
+               cache=None, enc_out=None, causal: bool = True,
+               use_kernel=None):
+    """One layer.  Returns (y, layer cache): prefill gives this
+    sequence's {"attn": {"k", "v"} or {"latent"}, "ssm"} (RWKV: {"shift1",
+    "S", "shift2"}); decode updates ``cache``.  ``causal=False`` is an
+    audio encoder layer (no cache); ``enc_out`` adds an audio decoder
+    layer's cross-attention."""
+    if cfg.family == "ssm":
+        return _rwkv_layer(cfg, p, x, cache)
+    h = _norm(cfg, x, p["norm1"])
+    new_cache: Dict[str, Any] = {}
+    if not causal:
+        attn_out = _encoder_gqa(cfg, p["attn"], h, positions)
     else:
-        attn_out, attn_cache = L.gqa_forward(
-            p["attn"], h, cfg, positions=positions, cache=attn_cache,
-            window=window, chunk=ATTN_CHUNK, use_kernel=use_kernel)
-    new_cache: Dict[str, Any] = {
-        "attn": {k: t for k, t in attn_cache.items() if k != "len"}}
+        attn_cache = None if cache is None else cache["attn"]
+        if cfg.attn_type == "mla":
+            attn_out, attn_cache = L.mla_forward(
+                p["attn"], h, cfg, positions=positions, cache=attn_cache,
+                chunk=ATTN_CHUNK)
+        else:
+            attn_out, attn_cache = L.gqa_forward(
+                p["attn"], h, cfg, positions=positions, cache=attn_cache,
+                window=window, chunk=ATTN_CHUNK, use_kernel=use_kernel)
+        new_cache["attn"] = {k: t for k, t in attn_cache.items()
+                             if k != "len"}
     if cfg.family == "hybrid":
         ssm_out, new_cache["ssm"] = L.ssm_forward(
             p["ssm"], h, cfg, state=None if cache is None else cache["ssm"],
@@ -213,9 +291,14 @@ def _layer_fwd(cfg: ArchConfig, p: Params, x, *, positions, window: int,
         x = x + mixed
     else:
         x = x + attn_out
-    h = L.rms_norm(x, p["norm2"], eps)
+    if cfg.family == "audio" and enc_out is not None:
+        x = x + _cross_gqa(cfg, p["xattn"], _norm(cfg, x, p["norm_x"]),
+                           enc_out)
+    h = _norm(cfg, x, p["norm2"])
     if cfg.moe is not None:
         y = L.moe_forward(p["moe"], h, cfg)
+    elif cfg.family == "audio":
+        y = L.gelu_mlp(h, **p["mlp"])
     else:
         y = L.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
                      p["mlp"]["w_down"])
@@ -223,6 +306,8 @@ def _layer_fwd(cfg: ArchConfig, p: Params, x, *, positions, window: int,
 
 
 def _logits(cfg: ArchConfig, params: Params, x: torch.Tensor):
+    """The final norm is an RMS norm for every family, audio included,
+    as in the reference."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params.get("lm_head")
     return x @ head if head is not None else x @ params["embed"].T
@@ -245,33 +330,57 @@ def _pad_seq(x: torch.Tensor, cap: int) -> torch.Tensor:
 
 
 def _embed_inputs(cfg: ArchConfig, params: Params, batch):
-    """Token embedding.  Returns (x (B, S, d), label_mask (B, S) bool),
-    the mask marking positions that carry next-token loss (all of them:
-    the modality prefixes of the VLM and audio families are not
-    ported)."""
+    """Token embedding behind the VLM family's patch prefix (``patches``
+    cast to the embedding's dtype).  Returns (x (B, S, d), label_mask (B,
+    S) bool), the mask marking positions that carry next-token loss:
+    False over the patches."""
     tokens = batch["tokens"]
     x = F.embedding(tokens.long(), params["embed"])
-    return x, torch.ones(tokens.shape, dtype=torch.bool,
-                         device=tokens.device)
+    mask = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
+    if cfg.vlm is not None:
+        patches = batch["patches"].to(x.dtype)
+        x = torch.cat([patches, x], dim=1)
+        mask = torch.cat([torch.zeros(patches.shape[:2], dtype=torch.bool,
+                                      device=mask.device), mask], dim=1)
+    return x, mask
+
+
+def _run_encoder(cfg: ArchConfig, params: Params, frames: torch.Tensor):
+    """The audio encoder: its layers, non-causal over ``frames`` (cast to
+    the embedding's dtype), then the layer norm ``enc_norm``."""
+    x = frames.to(params["embed"].dtype)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    for lp in params["enc_layers"]:
+        x, _ = _layer_fwd(cfg, lp, x, positions=positions, window=0,
+                          causal=False)
+    norm = params["enc_norm"]
+    return L.layer_norm(x, norm, torch.zeros_like(norm), cfg.norm_eps)
+
+
+def _encode(cfg: ArchConfig, params: Params, batch):
+    return (_run_encoder(cfg, params, batch["frames"])
+            if cfg.encdec is not None else None)
 
 
 def forward_train(cfg: ArchConfig, params: Params, batch,
                   remat: bool = True, use_kernel: Optional[bool] = None):
-    """Teacher-forced forward over ``batch["tokens"]`` (B, S); returns
-    (loss, {"logits": (B, S, vocab_padded)}).
+    """Teacher-forced forward over ``batch["tokens"]`` (B, T) (behind
+    ``patches`` for VLM; over the encoded ``frames`` for audio); returns
+    (loss, {"logits": (B, S, vocab_padded)}), S = P + T for VLM.
 
     Each layer is ``_layer_fwd`` with no cache (its k/v are dropped);
     with ``remat`` each runs under ``torch.utils.checkpoint`` (not
     reentrant), so the backward recomputes one layer at a time: on the
     hybrid family the scan's forward runs twice per layer and its
-    backward once."""
-    _check_family(cfg)
+    backward once.  The audio encoder runs without remat, as in the
+    reference."""
     x, label_mask = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    enc_out = _encode(cfg, params, batch)
 
     def layer(lp, window, h):
         return _layer_fwd(cfg, lp, h, positions=positions, window=window,
-                          use_kernel=use_kernel)[0]
+                          enc_out=enc_out, use_kernel=use_kernel)[0]
 
     for lp, window in zip(params["layers"], _windows(cfg)):
         if remat:
@@ -313,26 +422,30 @@ def loss_fn(cfg: ArchConfig, logits: torch.Tensor, tokens: torch.Tensor,
 def forward_prefill(cfg: ArchConfig, params: Params, batch,
                     cache_capacity: Optional[int] = None,
                     use_kernel: Optional[bool] = None):
-    """Serving prefill: full-sequence forward over ``batch["tokens"]``
-    (B, S) that also emits the decode state (per-layer KV, or the MLA
-    latent, padded to ``cache_capacity``, and SSM states) and the last token's logits
-    (B, vocab_padded)."""
-    _check_family(cfg)
-    tokens = batch["tokens"]
-    x = params["embed"][tokens.long()]
+    """Serving prefill: full-sequence forward over the batch (tokens,
+    behind ``patches`` for VLM; ``frames`` encoded for audio) that also
+    emits the decode state (per-layer KV, or the MLA latent, padded to
+    ``cache_capacity``; SSM states; RWKV shifts and S; audio's
+    ``enc_out``) and the last position's logits (B, vocab_padded)."""
+    x, _ = _embed_inputs(cfg, params, batch)
     b, s, _ = x.shape
     cap = cache_capacity or s
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    enc_out = _encode(cfg, params, batch)
     layers = []
     for lp, window in zip(params["layers"], _windows(cfg)):
         x, contrib = _layer_fwd(cfg, lp, x, positions=positions,
-                                window=window, use_kernel=use_kernel)
-        contrib["attn"] = {k: _pad_seq(t, cap)
-                           for k, t in contrib["attn"].items()}
+                                window=window, enc_out=enc_out,
+                                use_kernel=use_kernel)
+        if "attn" in contrib:
+            contrib["attn"] = {k: _pad_seq(t, cap)
+                               for k, t in contrib["attn"].items()}
         layers.append(contrib)
     logits = _logits(cfg, params, x[:, -1])
     state = {"layers": layers,
              "len": torch.full((b,), s, dtype=torch.int32, device=x.device)}
+    if enc_out is not None:
+        state["enc_out"] = enc_out
     return logits, state
 
 
@@ -340,31 +453,41 @@ def init_decode_state(cfg: ArchConfig, batch_size: int, max_len: int,
                       dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
     """An empty decode state: zero KV caches (B, max_len, Hkv, Dh), or
     for MLA a zero latent cache (B, max_len, kv_rank + rope_dim), and,
-    for the hybrid family, zero SSM states (B, d_inner, state) float32,
-    on ``device`` (the card unless the caller passes ``device="cpu"``)."""
-    _check_family(cfg)
+    for the hybrid family, zero SSM states (B, d_inner, state) float32;
+    for RWKV zero shifts (B, d) and S (B, H, dh, dh) float32; for audio a
+    zero ``enc_out`` (B, n_frames, d); on ``device`` (the card unless the
+    caller passes ``device="cpu"``)."""
     device = resolve_device(device)
-    b = batch_size
+    b, d = batch_size, cfg.d_model
 
-    def zeros(*shape):
-        return torch.zeros((b, max_len) + shape, dtype=dtype, device=device)
+    def zeros(*shape, dtype=dtype):
+        return torch.zeros((b,) + shape, dtype=dtype, device=device)
 
     layers = []
     for _ in range(cfg.n_layers):
+        if cfg.family == "ssm":
+            layers.append({"shift1": zeros(d),
+                           "S": zeros(cfg.n_heads, cfg.head_dim,
+                                      cfg.head_dim, dtype=torch.float32),
+                           "shift2": zeros(d)})
+            continue
         if cfg.attn_type == "mla":
-            lc = {"attn": {"latent": zeros(cfg.mla.kv_rank
+            lc = {"attn": {"latent": zeros(max_len, cfg.mla.kv_rank
                                            + cfg.mla.rope_dim)}}
         else:
-            lc = {"attn": {"k": zeros(cfg.n_kv_heads, cfg.head_dim),
-                           "v": zeros(cfg.n_kv_heads, cfg.head_dim)}}
+            lc = {"attn": {"k": zeros(max_len, cfg.n_kv_heads, cfg.head_dim),
+                           "v": zeros(max_len, cfg.n_kv_heads,
+                                      cfg.head_dim)}}
         if cfg.family == "hybrid":
             sm = cfg.ssm
-            lc["ssm"] = torch.zeros((b, sm.expand * cfg.d_model,
-                                     sm.state_dim), dtype=torch.float32,
-                                    device=device)
+            lc["ssm"] = zeros(sm.expand * d, sm.state_dim,
+                              dtype=torch.float32)
         layers.append(lc)
-    return {"len": torch.zeros((b,), dtype=torch.int32, device=device),
-            "layers": layers}
+    state = {"len": torch.zeros((b,), dtype=torch.int32, device=device),
+             "layers": layers}
+    if cfg.encdec is not None:
+        state["enc_out"] = zeros(cfg.encdec.n_frames, d)
+    return state
 
 
 def decode_step(cfg: ArchConfig, params: Params, state: Dict[str, Any],
@@ -372,20 +495,22 @@ def decode_step(cfg: ArchConfig, params: Params, state: Dict[str, Any],
     """One token for every sequence in the batch.  token: (B, 1) int.
 
     Returns (logits (B, vocab_padded), new state).  The KV (or MLA
-    latent) caches of ``state`` are written in place (the new state holds the same
-    tensors); SSM states and ``len`` are replaced.
+    latent) caches of ``state`` are written in place (the new state
+    holds the same tensors); SSM and RWKV states and ``len`` are
+    replaced; audio reads ``state["enc_out"]``.
     """
-    _check_family(cfg)
     x = params["embed"][token.long()]                       # (B, 1, d)
     pos = state["len"]
     positions = pos[:, None]
+    enc_out = state.get("enc_out")
     layers = []
     for lp, lc, window in zip(params["layers"], state["layers"],
                               _windows(cfg)):
-        cache = {"attn": dict(lc["attn"], len=pos), "ssm": lc.get("ssm")}
+        cache = lc if cfg.family == "ssm" else {
+            "attn": dict(lc["attn"], len=pos), "ssm": lc.get("ssm")}
         x, new_cache = _layer_fwd(cfg, lp, x, positions=positions,
                                   window=window, cache=cache,
-                                  use_kernel=use_kernel)
+                                  enc_out=enc_out, use_kernel=use_kernel)
         layers.append(new_cache)
     logits = _logits(cfg, params, x)[:, 0]
     new_state = dict(state)
@@ -403,9 +528,18 @@ def model_input_spec(cfg: ArchConfig, shape: ShapeSpec
                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """{input name: (shape, dtype)} of a shape cell, the port's stand-in
     for the reference's ``jax.ShapeDtypeStruct`` tree: (B, S) int32
-    tokens for training and prefill, one (B, 1) token for decode."""
-    _check_family(cfg)
+    tokens for training and prefill (VLM: S - P tokens behind (B, P, d)
+    bf16 ``patches``; audio: (B, n_frames, d) bf16 ``frames`` beside
+    them), one (B, 1) token for decode."""
     b, s = shape.global_batch, shape.seq_len
-    if shape.kind in ("train", "prefill"):
-        return {"tokens": ((b, s), torch.int32)}
-    return {"token": ((b, 1), torch.int32)}
+    if shape.kind not in ("train", "prefill"):
+        return {"token": ((b, 1), torch.int32)}
+    spec = {"tokens": ((b, s), torch.int32)}
+    if cfg.vlm is not None:
+        p = cfg.vlm.n_patches
+        spec["tokens"] = ((b, s - p), torch.int32)
+        spec["patches"] = ((b, p, cfg.d_model), torch.bfloat16)
+    if cfg.encdec is not None:
+        spec["frames"] = ((b, cfg.encdec.n_frames, cfg.d_model),
+                          torch.bfloat16)
+    return spec

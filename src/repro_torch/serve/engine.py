@@ -662,14 +662,19 @@ class ServingEngine:
                                  dtype=self.dtype, device=self.device)
 
     def prefill(self, batch) -> np.ndarray:
-        """Prefill ``batch["tokens"]`` (B, S); keeps the decode state
-        (KV or MLA latent caches padded to ``max_len``) and returns the
-        last logits.  The previous state is released first, so one
-        state's caches are held at a time."""
+        """Prefill ``batch["tokens"]`` (B, S), behind ``patches`` (VLM) or
+        beside ``frames`` (audio), each moved to the engine's device; keeps
+        the decode state (KV or MLA latent caches padded to ``max_len``)
+        and returns the last logits.  The previous state is released
+        first, so one state's caches are held at a time."""
         self.state = None
+        inputs = {"tokens": self._tokens(batch["tokens"])}
+        for name in ("patches", "frames"):
+            if name in batch:
+                inputs[name] = torch.as_tensor(batch[name]).to(self.device)
         logits, self.state = forward_prefill(
-            self.cfg, self.params, {"tokens": self._tokens(batch["tokens"])},
-            cache_capacity=self.max_len, use_kernel=self.use_kernel)
+            self.cfg, self.params, inputs, cache_capacity=self.max_len,
+            use_kernel=self.use_kernel)
         return _host(logits)
 
     def decode(self, tokens: np.ndarray) -> np.ndarray:

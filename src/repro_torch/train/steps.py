@@ -56,8 +56,12 @@ def loss_and_grads(cfg: ArchConfig, params, batch, n_micro: int = 1,
 
     The gradients are of the params cast to ``compute_dtype``: with one
     microbatch they come back in that dtype; with ``n_micro`` > 1 they
-    are summed in f32 over the microbatches (rows ``i*B/n .. (i+1)*B/n``)
-    and divided by ``n_micro``, as the loss is."""
+    are summed in f32 over the microbatches (rows ``i*B/n .. (i+1)*B/n``
+    of every batch input: tokens, and VLM ``patches`` / audio
+    ``frames``) and divided by ``n_micro``, as the loss is.  A leaf the
+    loss does not reach (an audio encoder layer's ``xattn`` / ``norm_x``,
+    which the reference allocates and never reads) gets zeros, as
+    ``jax.grad`` gives it."""
     leaves = tree_flatten(params)[0]
     cast = [p.detach().to(compute_dtype).requires_grad_() for p in leaves]
     params_c = tree_unflatten(params, cast)
@@ -65,7 +69,7 @@ def loss_and_grads(cfg: ArchConfig, params, batch, n_micro: int = 1,
         if n_micro == 1:
             loss, _ = forward_train(cfg, params_c, batch,
                                     use_kernel=use_kernel)
-            grads = torch.autograd.grad(loss, cast)
+            grads = torch.autograd.grad(loss, cast, materialize_grads=True)
             return loss.detach(), tree_unflatten(params, list(grads))
         b = batch["tokens"].shape[0]
         if b % n_micro:
@@ -80,7 +84,8 @@ def loss_and_grads(cfg: ArchConfig, params, batch, n_micro: int = 1,
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             loss, _ = forward_train(cfg, params_c, micro,
                                     use_kernel=use_kernel)
-            for a, g in zip(acc, torch.autograd.grad(loss, cast)):
+            for a, g in zip(acc, torch.autograd.grad(
+                    loss, cast, materialize_grads=True)):
                 a.add_(g.to(torch.float32))
             loss_acc = loss_acc + loss.detach()
     for a in acc:
@@ -92,7 +97,8 @@ def build_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
                      n_micro: int = 1, compress: Optional[Callable] = None,
                      compute_dtype=torch.bfloat16):
     """``train_step(state, batch) -> (state, metrics)``; ``batch`` is
-    {"tokens": (B, S) int tensor on the state's device}.  The state's
+    {"tokens": (B, S) int tensor} (+ ``"patches"`` for VLM, ``"frames"``
+    for audio; ``train_batch_spec``) on the state's device.  The state's
     tensors are updated in place (``adamw_update``).  Metrics: the loss
     (f32), the global norm of the unclipped gradients and the new step,
     as 0-d tensors on the device (no host sync)."""
@@ -124,6 +130,7 @@ def build_decode_step(cfg: ArchConfig):
 
 
 def train_batch_spec(cfg: ArchConfig, shape: ShapeSpec):
-    """{name: (shape, dtype)} of a train batch (tokens only; the labels
-    are the shifted tokens, taken in the loss)."""
+    """{name: (shape, dtype)} of a train batch: the tokens, and the VLM
+    family's bf16 ``patches`` or the audio family's bf16 ``frames`` (the
+    labels are the shifted tokens, taken in the loss)."""
     return model_input_spec(cfg, shape)

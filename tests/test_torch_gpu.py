@@ -736,11 +736,13 @@ def test_train_step_on_card_matches_plain():
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("hq,hkv,d", [(4, 4, 32), (25, 5, 64),
                                       (32, 8, 128), (16, 16, 128),
-                                      (48, 8, 128)])
+                                      (48, 8, 128), (56, 8, 128),
+                                      (6, 6, 64)])
 def test_decode_partials_kernel_matches_plain(kv_dtype, hq, hkv, d):
-    """At hymba-1.5b's shape, llama3-8b's, and the D = 128 shapes of
-    qwen2-moe-a2.7b (one query head per KV head: the f32 cache asks for
-    ~131 KB of shared memory a block) and dbrx-132b (Hq 48, Hkv 8):
+    """At hymba-1.5b's shape, llama3-8b's, whisper-tiny's (Hq = Hkv = 6,
+    D = 64), and the D = 128 shapes of qwen2-moe-a2.7b (one query head
+    per KV head: the f32 cache asks for ~131 KB of shared memory a block),
+    dbrx-132b (Hq 48, Hkv 8) and llava-next-34b (Hq 56, Hkv 8):
     rtol 1e-4 / atol 1e-5 against the plain version computed in
     float64 (the exact value that float32 sums in any order round: the
     row with no live key sums all 2,048 value rows, and two float32
@@ -827,6 +829,52 @@ def test_moe_and_mla_serving_on_card(arch):
         x = torch.randn((8, 128, cfg.d_model), device=dev)
         assert torch.equal(TL.moe_forward(lp, x, cfg),
                            TL.moe_forward(lp, x, cfg))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-tiny",
+                                  "rwkv6-7b"])
+def test_vlm_audio_rwkv_serving_on_card(arch):
+    """Reduced llava-next-34b (patch prefix), whisper-tiny (encoder,
+    cross-attention) and rwkv6-7b (the WKV loop) on the card: the kernel
+    route equals the plain route and a CPU engine on the same weights and
+    inputs (logits within 1e-4, the same tokens teacher-forced into
+    each); llava and whisper decode through ``decode_partials`` once per
+    decoder layer and token, rwkv through no kernel."""
+    from repro_torch.configs import reduced
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import ServingEngine
+
+    dev = require_cuda()
+    cfg = reduced(arch)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (3, 40)).astype(
+        np.int32)}
+    if cfg.vlm is not None:
+        batch["patches"] = rng.standard_normal(
+            (3, cfg.vlm.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.encdec is not None:
+        batch["frames"] = rng.standard_normal(
+            (3, cfg.encdec.n_frames, cfg.d_model)).astype(np.float32)
+    engines = [ServingEngine(cfg, params, max_len=64, dtype=torch.float32,
+                             device=dev, use_kernel=uk)
+               for uk in (None, False)]
+    engines.append(ServingEngine(cfg, params, max_len=64,
+                                 dtype=torch.float32, device="cpu"))
+    dispatch.reset_launch_counts()
+    tokens = engines[0].generate_greedy(batch, 6)
+    counts = dispatch.launch_counts()
+    want = 0 if cfg.family == "ssm" else cfg.n_layers * 6
+    assert counts.get("decode_partials", 0) == want
+    logits = [[e.prefill(batch)] for e in engines]
+    for i in range(tokens.shape[1]):
+        for e, out in zip(engines, logits):
+            out.append(e.decode(tokens[:, i:i + 1]))
+    for a, b, c in zip(*logits):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(a, c, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu

@@ -167,19 +167,6 @@ def test_cpu_serving_launches_no_kernel(model_pair):
         forced.generate_greedy({"tokens": prompt}, 2)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "whisper-tiny",
-                                  "llava-next-34b"])
-def test_other_families_raise(arch):
-    """The families not ported yet (the MoE and MLA ones are held to the
-    reference in ``test_torch_moe.py`` / ``test_torch_mla.py``)."""
-    cfg = reduced(arch)
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        TM.init_params(cfg, torch.Generator().manual_seed(0),
-                       dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TM.init_decode_state(cfg, 1, 8, device="cpu")
-
-
 def test_params_from_jax_takes_bf16_leaves():
     """The reference's default parameter dtype is bfloat16 (numpy arrays
     of ml_dtypes' bfloat16): the same bits in torch.bfloat16."""
@@ -209,8 +196,7 @@ def test_cuda_device_without_a_card_raises():
 def test_model_constructors_default_to_the_card(ctor):
     """Like every entry point of the port, the model's constructors run on
     the card unless the caller passes ``device="cpu"``: without a card the
-    default raises (``dispatch.resolve_device``), after the family
-    check."""
+    default raises (``dispatch.resolve_device``)."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     cfg = reduced("llama3-8b")
@@ -219,8 +205,6 @@ def test_model_constructors_default_to_the_card(ctor):
             "init_decode_state": (cfg, 1, 8)}[ctor]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         getattr(TM, ctor)(*args)
-    with pytest.raises(NotImplementedError):
-        getattr(TM, ctor)(reduced("rwkv6-7b"), *args[1:])
 
 
 def test_launch_serve_runs_on_cpu(capsys):

@@ -158,29 +158,4 @@ def test_compressors_group_moe_and_mla_leaves_like_the_reference(arch,
     reference's (L, E, d, f) expert leaves and (L, ...) MLA leaves are
     one tensor each (one int8 scale, one threshold), the port's per-layer
     leaves are grouped back to them (``fault.tree_stacks``): bitwise."""
-    from repro.distributed import compression as JC
-    from repro_torch.distributed import compression as TC
-    from repro_torch.distributed.fault import tree_flatten
-    from torch_port_cases import per_layer
-
-    jcfg, tcfg, jparams, _, _ = cases.make_pair(arch)
-    rng = np.random.default_rng(len(arch))
-    grads = jax.tree.map(lambda a: (rng.standard_normal(a.shape)
-                                    * rng.uniform(0.1, 10)).astype(
-        np.float32), jax.tree.map(np.asarray, jparams))
-    err = jax.tree.map(lambda a: (rng.standard_normal(a.shape) * 1e-3
-                                  ).astype(np.float32), grads)
-    fn = {"int8": (JC.int8_compress, TC.int8_compress),
-          "topk": (JC.topk_compress, TC.topk_compress)}[scheme]
-    want = fn[0](jax.tree.map(jnp.asarray, grads),
-                 jax.tree.map(jnp.asarray, err))
-    got = fn[1](*(jax.tree.map(lambda a: torch.from_numpy(np.array(a)),
-                               per_layer(t, tcfg.n_layers))
-                  for t in (grads, err)))
-    for g, w in zip(got, want):
-        flat_g = tree_flatten(g)[0]
-        flat_w = tree_flatten(per_layer(jax.tree.map(np.asarray, w),
-                                        tcfg.n_layers))[0]
-        assert len(flat_g) == len(flat_w)
-        for a, b in zip(flat_g, flat_w):
-            np.testing.assert_array_equal(a.numpy(), b)
+    cases.check_compressors(cases.make_pair(arch), scheme, len(arch))

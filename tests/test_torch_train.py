@@ -271,26 +271,17 @@ def test_loss_fn_masks_padded_vocab_like_reference():
 
 
 def test_model_input_spec_matches_reference():
-    for name in ("llama3-8b", "hymba-1.5b"):
+    """Every arch of the registry, every shape cell: names, shapes and
+    dtypes (int32 tokens, bf16 VLM ``patches`` / audio ``frames``)."""
+    for name in ARCHS:
         for shape in SHAPES:
             got = TM.model_input_spec(get(name), SHAPES[shape])
             want = JM.model_input_spec(jax_get(name), JAX_SHAPES[shape])
             assert got.keys() == want.keys()
             for k, (shp, dtype) in got.items():
-                assert shp == want[k].shape and dtype == torch.int32
-                assert want[k].dtype == jnp.int32
+                assert shp == want[k].shape
+                assert str(dtype).split(".")[-1] == str(want[k].dtype)
             assert TS.train_batch_spec(get(name), SHAPES[shape]) == got
-
-
-@pytest.mark.parametrize("name", ["rwkv6-7b", "whisper-tiny",
-                                  "llava-next-34b"])
-def test_other_families_raise_in_training(name):
-    cfg = reduced(name)
-    with pytest.raises(NotImplementedError):
-        TM.forward_train(cfg, {}, {"tokens": torch.zeros((1, 4),
-                                                         dtype=torch.int32)})
-    with pytest.raises(NotImplementedError):
-        TM.model_input_spec(cfg, SHAPES["train_4k"])
 
 
 # ---------------------------------------------------------------- optimizer

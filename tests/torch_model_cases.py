@@ -1,7 +1,9 @@
 """Shared model parity checks of the port's family tests
-(``test_torch_moe.py``, ``test_torch_mla.py``): both packages' models on
-one reduced config, the port's parameters taken from the JAX package's
-draw through ``params_from_jax``, the same numpy tokens through both.
+(``test_torch_moe.py``, ``test_torch_mla.py``, ``test_torch_vlm_audio.py``,
+``test_torch_rwkv.py``): both packages' models on one reduced config, the
+port's parameters taken from the JAX package's draw through
+``params_from_jax``, the same numpy tokens through both, beside seeded
+numpy ``patches`` (VLM) or ``frames`` (audio) where the config has them.
 
 Bars (those ``tests/test_torch_train.py`` states): rtol 1e-4 / atol 1e-6
 on logits, the loss and every gradient leaf (caches: atol 1e-5, see
@@ -57,6 +59,29 @@ def make_pair(arch, **replace):
     return jcfg, tcfg, jparams, tparams, sum(map(ord, jcfg.name))
 
 
+def model_batch(cfg, rng, b, t):
+    """Numpy inputs from ``rng``: (b, t) int32 tokens, then, where the
+    config has them, (b, P, d) float32 ``patches`` or (b, n_frames, d)
+    float32 ``frames``."""
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, t)).astype(
+        np.int32)}
+    if cfg.vlm is not None:
+        batch["patches"] = rng.standard_normal(
+            (b, cfg.vlm.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.encdec is not None:
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.encdec.n_frames, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def as_jax(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def as_torch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
 def close(got, want, what, rtol=RTOL, atol=ATOL):
     np.testing.assert_allclose(np.asarray(got, np.float32),
                                np.asarray(want, np.float32), rtol=rtol,
@@ -87,26 +112,33 @@ def check_params(pair):
 
 
 def check_prefill_decode(pair):
-    """Prefill logits and every layer's cache, then STEPS decode steps'
-    logits and the caches they wrote; the empty state's cache shapes."""
+    """Prefill logits and every layer's cache (k/v, the MLA latent, SSM
+    states, the RWKV shifts and S; audio's ``enc_out``), then STEPS decode
+    steps' logits and the caches they wrote; the empty state's shapes."""
     jcfg, tcfg, jparams, tparams, seed = pair
     rng = np.random.default_rng(seed + 1)
-    prompt = rng.integers(0, jcfg.vocab_size, (B, PROMPT)).astype(np.int32)
-    jlog, jst = JM.forward_prefill(jcfg, jparams,
-                                   {"tokens": jnp.asarray(prompt)},
+    prompt = model_batch(jcfg, rng, B, PROMPT)
+    jlog, jst = JM.forward_prefill(jcfg, jparams, as_jax(prompt),
                                    cache_capacity=CAP)
-    tlog, tst = TM.forward_prefill(tcfg, tparams,
-                                   {"tokens": torch.from_numpy(prompt)},
+    tlog, tst = TM.forward_prefill(tcfg, tparams, as_torch(prompt),
                                    cache_capacity=CAP)
     assert tlog.shape == (B, tcfg.vocab_padded)
     close(tlog.numpy(), jlog, "prefill logits")
 
     def caches(what):
-        for i, lc in enumerate(tst["layers"]):
-            assert lc["attn"].keys() == jst["layers"]["attn"].keys()
-            for name, t in lc["attn"].items():
-                close(t.numpy(), np.asarray(jst["layers"]["attn"][name][i]),
-                      f"{what}: layer {i} cache {name}", atol=CACHE_ATOL)
+        want = per_layer({"layers": jax.tree.map(np.asarray, jst["layers"])},
+                         tcfg.n_layers)["layers"]
+        for i, (lc, wc) in enumerate(zip(tst["layers"], want)):
+            got_l, got_s = tree_flatten(lc)
+            want_l, want_s = tree_flatten(wc)
+            assert got_s == want_s, f"{what}: layer {i} cache {got_s}"
+            for j, (t, w) in enumerate(zip(got_l, want_l)):
+                close(t.numpy(), w, f"{what}: layer {i} cache leaf {j}",
+                      atol=CACHE_ATOL)
+        assert ("enc_out" in tst) == ("enc_out" in jst)
+        if "enc_out" in jst:
+            close(tst["enc_out"].numpy(), jst["enc_out"], f"{what}: enc_out",
+                  atol=CACHE_ATOL)
 
     caches("prefill")
     decode = jax.jit(lambda p, s, t: JM.decode_step(jcfg, p, s, t))
@@ -119,39 +151,47 @@ def check_prefill_decode(pair):
     caches("decode")
     empty = TM.init_decode_state(tcfg, B, CAP, dtype=torch.float32,
                                  device="cpu")
-    jempty = JM.init_decode_state(jcfg, B, CAP, dtype=jnp.float32)
-    for name, t in empty["layers"][0]["attn"].items():
-        assert tuple(t.shape) == jempty["layers"]["attn"][name].shape[1:]
+    jempty = jax.tree.map(np.asarray, JM.init_decode_state(
+        jcfg, B, CAP, dtype=jnp.float32))
+    got = [(tuple(t.shape), t.dtype) for t in tree_flatten(empty)[0]]
+    want = [(w.shape, w.dtype) for w in tree_flatten(
+        per_layer(jempty, tcfg.n_layers))[0]]
+    assert [s for s, _ in got] == [s for s, _ in want]
+    assert [str(d).split(".")[-1] for _, d in got] == \
+        [str(d) for _, d in want]
 
 
 def check_greedy(pair):
     """Both ServingEngines' greedy tokens are equal."""
     jcfg, tcfg, jparams, tparams, seed = pair
     rng = np.random.default_rng(seed + 2)
-    prompt = rng.integers(0, jcfg.vocab_size, (B, PROMPT)).astype(np.int32)
+    prompt = model_batch(jcfg, rng, B, PROMPT)
     want = JaxServingEngine(jcfg, jparams, max_len=CAP,
                             dtype=jnp.float32).generate_greedy(
-        {"tokens": jnp.asarray(prompt)}, n_tokens=STEPS)
+        as_jax(prompt), n_tokens=STEPS)
     eng = ServingEngine(tcfg, tparams, max_len=CAP, dtype=torch.float32,
                         device="cpu")
-    got = eng.generate_greedy({"tokens": prompt}, n_tokens=STEPS)
+    got = eng.generate_greedy(prompt, n_tokens=STEPS)
     np.testing.assert_array_equal(got, np.asarray(want))
-    assert int(eng.state["len"][0]) == PROMPT + STEPS
+    n_prefix = 0 if tcfg.vlm is None else tcfg.vlm.n_patches
+    assert int(eng.state["len"][0]) == n_prefix + PROMPT + STEPS
 
 
 def check_train_grads(pair):
     """forward_train's loss and every gradient leaf (remat per layer)."""
     jcfg, tcfg, jparams, tparams, seed = pair
     rng = np.random.default_rng(seed + 3)
-    tokens = rng.integers(0, jcfg.vocab_size,
-                          (TRAIN_B, TRAIN_S)).astype(np.int32)
+    batch = model_batch(jcfg, rng, TRAIN_B, TRAIN_S)
     jloss, jgrads = jax.jit(jax.value_and_grad(lambda p: JM.forward_train(
-        jcfg, p, {"tokens": jnp.asarray(tokens)})[0]))(jparams)
+        jcfg, p, as_jax(batch))[0]))(jparams)
     leaves = [p.clone().requires_grad_() for p in tree_flatten(tparams)[0]]
     loss, aux = TM.forward_train(tcfg, tree_unflatten(tparams, leaves),
-                                 {"tokens": torch.from_numpy(tokens)})
-    assert aux["logits"].shape == (TRAIN_B, TRAIN_S, tcfg.vocab_padded)
-    grads = torch.autograd.grad(loss, leaves)
+                                 as_torch(batch))
+    n_prefix = 0 if tcfg.vlm is None else tcfg.vlm.n_patches
+    assert aux["logits"].shape == (TRAIN_B, n_prefix + TRAIN_S,
+                                   tcfg.vocab_padded)
+    # unused leaves (an audio encoder layer's xattn) get zeros, as in JAX
+    grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
     close(float(loss.detach()), float(jloss), "loss")
     for i, (g, w) in enumerate(leaf_pairs(tree_unflatten(tparams,
                                                          list(grads)),
@@ -159,23 +199,23 @@ def check_train_grads(pair):
         close(g, w, f"gradient leaf {i}")
 
 
-def check_adamw_step(pair):
-    """One ``build_train_step`` step (f32 compute, weight decay on) from
-    the same state: loss, grad norm, the moments and the params."""
+def check_adamw_step(pair, n_micro=1):
+    """One ``build_train_step`` step (f32 compute, weight decay on, the
+    batch in ``n_micro`` microbatches) from the same state: loss, grad
+    norm, the moments and the params."""
     jcfg, tcfg, jparams, _, seed = pair
     rng = np.random.default_rng(seed + 4)
-    tokens = rng.integers(0, jcfg.vocab_size,
-                          (TRAIN_B, TRAIN_S)).astype(np.int32)
+    batch = model_batch(jcfg, rng, TRAIN_B, TRAIN_S)
     opt = dict(lr=LR, warmup_steps=1, total_steps=10, weight_decay=0.1)
     jstate = JO.adamw_init(jparams)
     tstate = train_state_from_jax(tcfg, jax.tree.map(np.asarray, jstate),
                                   device="cpu")
     jstate, jm = jax.jit(JS.build_train_step(
-        jcfg, JO.AdamWConfig(**opt), compute_dtype=jnp.float32))(
-        jstate, {"tokens": jnp.asarray(tokens)})
+        jcfg, JO.AdamWConfig(**opt), n_micro=n_micro,
+        compute_dtype=jnp.float32))(jstate, as_jax(batch))
     tstate, tm = TS.build_train_step(
-        tcfg, TO.AdamWConfig(**opt), compute_dtype=torch.float32)(
-        tstate, {"tokens": torch.from_numpy(tokens)})
+        tcfg, TO.AdamWConfig(**opt), n_micro=n_micro,
+        compute_dtype=torch.float32)(tstate, as_torch(batch))
     assert int(tm["step"]) == int(jm["step"]) == 1
     close(float(tm["loss"]), float(jm["loss"]), "loss")
     close(float(tm["grad_norm"]), float(jm["grad_norm"]), "grad norm")
@@ -190,3 +230,36 @@ def check_adamw_step(pair):
         if miss.any():
             assert np.abs(g - w)[miss].max() <= 2 * LR, f"param leaf {i}"
             assert np.abs(m[miss]).max() <= ATOL, f"param leaf {i}"
+
+
+def check_compressors(pair, scheme, seed):
+    """int8 / top-k "per tensor" over the model's gradient tree: each of
+    the reference's stacked leaves ((L, ...) under ``layers``, and
+    ``enc_layers``'s own L axis) is one tensor (one int8 scale, one
+    threshold); the port's per-layer leaves are grouped back to it
+    (``fault.tree_stacks``): bitwise.  The gradients and residuals are
+    numpy draws from ``seed``."""
+    from repro.distributed import compression as JC
+    from repro_torch.distributed import compression as TC
+
+    _, tcfg, jparams, _, _ = pair
+    rng = np.random.default_rng(seed)
+    grads = jax.tree.map(lambda a: (rng.standard_normal(a.shape)
+                                    * rng.uniform(0.1, 10)).astype(
+        np.float32), jax.tree.map(np.asarray, jparams))
+    err = jax.tree.map(lambda a: (rng.standard_normal(a.shape) * 1e-3
+                                  ).astype(np.float32), grads)
+    fn = {"int8": (JC.int8_compress, TC.int8_compress),
+          "topk": (JC.topk_compress, TC.topk_compress)}[scheme]
+    want = fn[0](jax.tree.map(jnp.asarray, grads),
+                 jax.tree.map(jnp.asarray, err))
+    got = fn[1](*(jax.tree.map(lambda a: torch.from_numpy(np.array(a)),
+                               per_layer(t, tcfg.n_layers))
+                  for t in (grads, err)))
+    for g, w in zip(got, want):
+        flat_g = tree_flatten(g)[0]
+        flat_w = tree_flatten(per_layer(jax.tree.map(np.asarray, w),
+                                        tcfg.n_layers))[0]
+        assert len(flat_g) == len(flat_w)
+        for a, b in zip(flat_g, flat_w):
+            np.testing.assert_array_equal(a.numpy(), b)

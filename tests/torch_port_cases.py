@@ -109,13 +109,21 @@ def unit_block(u, r, seed, n_valid=None, nan_rows=()):
 
 def per_layer(tree_np, n_layers):
     """The JAX package's model tree (per-layer leaves stacked on a leading
-    L axis under ``"layers"``) in the port's layout: one dict per layer."""
-    out = {k: v for k, v in tree_np.items() if k != "layers"}
+    L axis under ``"layers"``, and the audio encoder's under
+    ``"enc_layers"``) in the port's layout: one dict per layer."""
+    stacks = {"layers": n_layers}
+    if "enc_layers" in tree_np:
+        first = tree_np["enc_layers"]
+        while isinstance(first, dict):
+            first = next(iter(first.values()))
+        stacks["enc_layers"] = len(first)
+    out = {k: v for k, v in tree_np.items() if k not in stacks}
 
     def unstack(t, i):
         if isinstance(t, dict):
             return {k: unstack(v, i) for k, v in t.items()}
         return t[i]
 
-    out["layers"] = [unstack(tree_np["layers"], i) for i in range(n_layers)]
+    for k, n in stacks.items():
+        out[k] = [unstack(tree_np[k], i) for i in range(n)]
     return out
