@@ -39,10 +39,14 @@ Phases (each prints its own lines; any failure exits non-zero):
              (Hq = Hkv = 6, D = 64), rtol 1e-4 / atol 1e-5, timed warm
              (one cache) and
              cold in L2 (a rotation of eight caches), beside one
-             ``scaled_dot_product_attention`` call;
+             ``scaled_dot_product_attention`` call; and at phase 4m's
+             llama3-8b decode_32k shape (B 8, Hq 32, Hkv 8, D 128, a bf16
+             cache of 32,768 with 32,000 live keys) over the whole range
+             (beside SDPA), over one sequence shard's range with the
+             whole cache passed, and over a dead shard's one key;
 4. main paths, each with the launch counts set to 0 just before it and
              read just after, at deployment size (1.5 M rows; run in
-             the order a, b, e, f, g, h, i, c, d, j, k, l):
+             the order a, b, e, f, g, h, m, i, c, d, j, k, l):
    a. serving — ``FeatureEngine`` (capacity 1.6 M) bulk load + 4,096 live
              rows, ``request_batch`` at B = 1, 64, 256; the B = 64 batch
              must equal a CPU engine (plain versions) on a copy of the
@@ -104,6 +108,27 @@ Phases (each prints its own lines; any failure exits non-zero):
              ``verify_consistency(bitwise=True, n_shards=8,
              replication=2, kill_shard_at=k)`` over a 2,000-row prefix;
              ``LONG_SQL`` on 8-shard pre-agg planes, B = 64 against 4f;
+   m. device mesh — (a) 4h's deployment on a ``Mesh`` of 8 entries
+             that all name the card (one shard's state per entry; tables
+             and followers checked on their entries): bulk load, the rest
+             in 64-row ``ingest_many`` calls per table, B = 1, 64, 256
+             equal to 4h's stacked engine (bitwise, ew at rtol 1e-5),
+             launches per batch and p50 / p99 beside 4h's in turns,
+             ``offline()`` bitwise 4b's, a kill + heal of the hottest
+             key's shard (features bitwise before and after,
+             ``recovery_s``), ``verify_consistency(bitwise=True,
+             mesh=...)`` with a failover over 4h's 2,000-row prefix,
+             ``key_shard_mesh()`` over the visible cards against 4a (and
+             with two or more cards the 8-shard deployment over them);
+             (b) llama3-8b (8.03 G seeded random params) at full width
+             and depth against decode_32k's 32,768-position cache filled
+             from the seed to 32,000 (no prefill), a (1, 4) ("data",
+             "model") mesh of the card: float32 at B = 2, four steps
+             through the kernel on the mesh (4 x 32 launches a token)
+             within rtol/atol 2e-4 of the unsharded decode and of the
+             plain versions; bf16 at B = 8 (decode_32k's 128, cut to fit
+             the card), per-token p50 / p99 of mesh and unsharded in
+             turns, launches, busy share, peak memory;
    i. certifier, preview, pipeline, row format — ``certify`` of the
              smoke script over 4b's gate prefix (its bitwise columns all
              matched by 4b's card gate) and over the 1.5 M rows (C-BUF
@@ -331,6 +356,21 @@ SHARDS, REPLICAS, ROUTE_SLOTS, SHIP_EVERY = 8, 2, 1024, 64
 SHARD_HEADROOM = 4096      # rows per shard above the routed rows
 SHARD_REPS = 50            # timed batches per B and engine, in turns
 SHARD_GATE_ROWS = 2_000    # the failover gate's prefix events
+
+# phase 4m: the device mesh.  (a) 4h's deployment on a Mesh of SHARDS
+# entries that all name the card (one shard's state per entry); (b)
+# llama3-8b at full width and depth decoding against decode_32k's cache
+# of 32,768 positions, every sequence filled from the seed to MESH_LIVE
+# (no prefill), sequence-sharded over a (1, MESH_SEQ_SHARDS) ("data",
+# "model") mesh of the card; decode_32k's batch of 128 is cut to
+# MESH_BATCH (bf16: 34.4 GB of cache + 16.1 GB of weights) and to
+# MESH_F32_BATCH for the float32 check (~49 GB)
+MESH_ARCH = "llama3-8b"
+MESH_SEQ, MESH_LIVE, MESH_SEQ_SHARDS = 32_768, 32_000, 4
+MESH_BATCH, MESH_F32_BATCH = 8, 2
+MESH_STEPS = 4             # float32 check: decode steps per route
+MESH_TOKENS = 16           # bf16: timed tokens per route, in two turns
+MESH_TOL = 2e-4            # the reference's bar (tests/test_sharded_decode)
 
 # phase 4i: preview at the default budget (1,000 rows per table) and at
 # PREVIEW_ROWS, cold wall p50 over PREVIEW_REPS calls; the training-data
@@ -951,6 +991,68 @@ def check_decode_partials(dev, reps):
                      "cold_ms": cold_ms, "cold_library_ms": cold_lib_ms,
                      "passes_ms": passes, "live_keys": live}
     return res
+
+
+def check_decode_32k(dev, reps):
+    """``decode_partials`` at phase 4m's decode shape (llama3-8b: Hq 32,
+    Hkv 8, D 128; B = MESH_BATCH over a bf16 cache of MESH_SEQ with
+    MESH_LIVE live keys): kernel against plain version (rtol 1e-4 / atol
+    1e-5) and two runs bitwise, over the whole live range and over one
+    sequence shard's range [S/4, S/2) with the whole cache passed (the
+    call the mesh decode makes); times and bounds, one SDPA call beside
+    the whole range, and the one-key range a dead shard is given."""
+    from repro_torch.kernels.flash_decode.kernel import decode_partials_cuda
+    from repro_torch.kernels.flash_decode.ref import decode_partials_ref
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    b, hq, hkv, d = MESH_BATCH, 32, 8, 128
+    q = torch.randn((b, hq, d), generator=gen, device=dev)
+    k, v = (torch.randn((b, MESH_SEQ, hkv, d), generator=gen,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    s_loc = MESH_SEQ // MESH_SEQ_SHARDS
+
+    def rng(lo, hi):
+        return (torch.full((b,), lo, dtype=torch.int32, device=dev),
+                torch.full((b,), hi, dtype=torch.int32, device=dev))
+
+    out = {}
+    for name, (lo, hi) in (("whole", rng(0, MESH_LIVE)),
+                           ("shard", rng(s_loc, 2 * s_loc)),
+                           ("dead", rng(3 * s_loc, 3 * s_loc + 1))):
+        got = decode_partials_cuda(q, k, v, lo, hi)
+        again = decode_partials_cuda(q, k, v, lo, hi)
+        want = decode_partials_ref(q, k, v, lo, hi)
+        err = 0.0
+        for part, x, y, z in zip("mlo", got, again, want):
+            same_bits(f"decode_partials[32k/{name}/{part}]", x, y)
+            err = max(err, compare(f"decode_partials[32k/{name}/{part}]", x,
+                                   z, rtol=1e-4, atol=1e-5))
+        del got, again, want
+        live = int((hi - lo).sum())
+        # least work: each live K and V row read once (bf16), q read and
+        # the partials written once; 4 * d flops per live key and head
+        nbytes = live * hkv * d * 2 * 2 + b * hq * d * 4 + b * hq * (d + 2) * 4
+        b_ms, b_by = bound(nbytes, live * hq * 4 * d)
+        r = {"live_keys": live, "max_abs_err": err, "bound_ms": b_ms,
+             "bound_by": b_by,
+             "ms": cuda_ms(lambda: decode_partials_cuda(q, k, v, lo, hi),
+                           reps)}
+        if name == "whole":
+            r["plain_ms"] = cuda_ms(
+                lambda: decode_partials_ref(q, k, v, lo, hi), 3)
+            r["library_ms"] = cuda_ms(
+                lambda: decode_library(q, k, v, lo, hi), reps)
+        out[name] = r
+        log(f"decode_partials[32k/{name}] B={b} Hq={hq} Hkv={hkv} D={d} bf16 "
+            f"cache S={MESH_SEQ}, [{int(lo[0])}, {int(hi[0])}) live ({live} "
+            f"keys): kernel == plain (rtol 1e-4), two runs equal, "
+            f"max_abs_err={err}; ms={r['ms']:.4f}"
+            + (f" plain_ms={r['plain_ms']:.4f} library_ms="
+               f"{r['library_ms']:.4f}" if name == "whole" else "")
+            + f" bound_ms={b_ms:.5f} ({b_by})")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- phase 4d
@@ -2883,7 +2985,8 @@ def sharded_replicas(tables, skewed, eng, served, serving_counts, off,
     against 4a's features and launches, latency beside 4a's engine in
     turns, ``offline_sharded`` against 4b, a rebalance of the zipf table
     set, the failover gate over a prefix, and the long-window script's
-    sharded planes against 4f."""
+    sharded planes against 4f.  Returns the sharded engine too (phase 4m
+    holds its mesh engine to it)."""
     from repro_torch.core import compile_script, verify_consistency
     from repro_torch.core.union import LoadBalancer
     from repro_torch.data.synthetic import make_action_tables
@@ -2985,7 +3088,7 @@ def sharded_replicas(tables, skewed, eng, served, serving_counts, off,
         f"bitwise equal to 4b's offline(), {counts_off['unit_fold']} "
         f"unit-fold launches as there; {t_off * 1e3:.1f} ms per call "
         f"(plan cached)  [{card}]")
-    del sh, off_sh
+    del off_sh
     torch.cuda.empty_cache()
 
     # rebalance on the zipf table set: the LPT the store will run, from
@@ -3089,7 +3192,349 @@ def sharded_replicas(tables, skewed, eng, served, serving_counts, off,
                           "rows_after": rows_after.tolist()},
             "gate": {"rows": SHARD_GATE_ROWS, "requests": n_req,
                      "s": t_gate},
-            "long_bulk_load_s": t_lload}, paths
+            "long_bulk_load_s": t_lload}, paths, sh
+
+
+# ---------------------------------------------------------------- phase 4m
+
+
+def mesh_placed(eng, mesh) -> None:
+    """Every shard's tables on its mesh entry's device, one shard each;
+    every follower on the entry (s + 1 + r) % n."""
+    from repro_torch.distributed.sharding import canonical_device
+
+    entries = list(mesh.devices.flat)
+    for t, parts in eng.store.tables.items():
+        for s, st in enumerate(parts):
+            if st["keys"].shape[0] != 1 or \
+                    st["keys"].device != canonical_device(entries[s]):
+                raise AssertionError(f"4m {t} shard {s} lies on "
+                                     f"{st['keys'].device}, not {entries[s]}")
+    if eng.repl is not None:
+        for (s, r), f in eng.repl.followers.items():
+            if f.device is not entries[(s + 1 + r) % len(entries)]:
+                raise AssertionError(f"4m follower ({s}, {r}) on the wrong "
+                                     f"mesh entry")
+
+
+def mesh_features(tables, sh, served, paths, shard_res, off, dev, card):
+    """Phase 4m (a): 4h's deployment (SHARDS shards, REPLICAS followers,
+    ROUTE_SLOTS, SHIP_EVERY) on a ``Mesh`` of SHARDS entries naming the
+    card: bulk load below 4g's cut, the rest through ``ingest_many`` in
+    chunks of 64 per table; B = 1, 64, 256 against 4h's stacked engine
+    ``sh`` (bitwise, ew at rtol 1e-5), launches beside 4h's, latency in
+    turns with ``sh``; ``offline()`` bitwise 4b's; a kill + heal of the
+    hottest key's shard; the failover gate on the mesh over 4h's prefix;
+    ``key_shard_mesh()`` over the visible cards (one on a one-card host)
+    against 4a's features, and with two or more cards the SHARDS-shard
+    deployment over them."""
+    from repro_torch.core import compile_script, verify_consistency
+    from repro_torch.distributed.sharding import (Mesh, cuda_devices,
+                                                  key_shard_mesh)
+    from repro_torch.serve.engine import FeatureEngine
+
+    actions, orders = tables["actions"], tables["orders"]
+    n_act = len(actions)
+    live_end = n_act - max(BATCHES)
+    cut_ts = int(actions.columns["ts"][n_act - LOOP_STREAM])
+    cut_a = int(np.searchsorted(actions.columns["ts"], cut_ts, side="left"))
+    cut_o = int(np.searchsorted(orders.columns["ts"], cut_ts, side="left"))
+    kw = dict(replication=REPLICAS, route_slots=ROUTE_SLOTS,
+              ship_every=SHIP_EVERY, fused_fold=True)
+    mesh = Mesh([dev] * SHARDS, ("shard",))
+    me = FeatureEngine(SMOKE_SQL, tables, capacity=sh.store.capacity,
+                       mesh=mesh, **kw)
+    _, t_load = timed(lambda: (
+        me.bulk_load("actions", slice_table(actions, 0, cut_a)),
+        me.bulk_load("orders", slice_table(orders, 0, cut_o))))
+    rest = {"actions": slice_table(actions, cut_a, live_end),
+            "orders": slice_table(orders, cut_o, len(orders))}
+    n_calls = 0
+    t0 = time.perf_counter()
+    for name, t in rest.items():
+        rows = [t.row(i) for i in range(len(t))]
+        for i in range(0, len(rows), 64):
+            me.ingest_many(name, rows[i:i + 64])
+            n_calls += 1
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    for t in ("actions", "orders"):
+        if me.store.n_rows_per_shard(t).tolist() != \
+                sh.store.n_rows_per_shard(t).tolist():
+            raise AssertionError(f"4m {t}: rows per shard differ from 4h's")
+    mesh_placed(me, mesh)
+    log(f"4m mesh of {SHARDS} entries naming {dev}: bulk_load "
+        f"{cut_a + cut_o} rows {t_load:.2f} s; streamed "
+        f"{sum(len(t) for t in rest.values())} rows in {n_calls} "
+        f"ingest_many calls {t_stream:.2f} s; rows per shard equal 4h's; "
+        f"every shard's tables on its entry, followers on (s + 1 + r) % "
+        f"{SHARDS}  [{card}]")
+
+    reqs = [dict(actions.row(i)) for i in
+            range(live_end, live_end + max(BATCHES))]
+    got, counts_m = run_path(
+        "mesh serving", lambda: {b: me.request_batch(reqs[:b])
+                                 for b in BATCHES},
+        ("unit_fold", "feature_hash"))
+    out_paths = {"mesh_serving": counts_m}
+    err = max(compare_features(got[b], sh.request_batch(reqs[:b]))
+              for b in BATCHES)
+    per_b = {}
+    for b in BATCHES:
+        _, per_b[b] = run_path(f"mesh serving B={b}",
+                               lambda b=b: me.request_batch(reqs[:b]), ())
+    log(f"4m B=1/64/256 equal to 4h's stacked engine (bitwise; ew within "
+        f"rtol {EW_RTOL}; max abs diff {err}); launches for the three "
+        f"batches {counts_m} (4h: {paths['sharded_serving']}); per batch "
+        f"{per_b}")
+    lat = paired_latencies({"stacked": sh, "mesh": me}, reqs, SHARD_REPS)
+    prof = {}
+    for name, e in (("stacked", sh), ("mesh", me)):
+        log_latency(f"4m {name} request_batch", lat[name], SHARD_REPS, card)
+    for b in BATCHES:
+        p = profile_calls(lambda: me.request_batch(reqs[:b]), 3)
+        prof[f"mesh/B{b}"] = {k: p[k] for k in (
+            "kernels_per_call", "device_busy_share", "device_ms_per_call",
+            "wall_ms_per_call")}
+        log(f"4m mesh B={b}: {p['kernels_per_call']:.0f} kernels per batch "
+            f"(4h stacked {shard_res['profile'][f'sharded/B{b}']['kernels_per_call']:.0f}), "
+            f"device {p['device_ms_per_call']:.3f} ms, busy share "
+            f"{p['device_busy_share']:.3f}  [{card}]")
+
+    off_m, counts_off = run_path("mesh offline", me.offline, ("unit_fold",))
+    out_paths["mesh_offline"] = counts_off
+    for k in off:
+        if not np.array_equal(off_m[k], off[k]):
+            raise AssertionError(f"4m mesh offline: {k} != 4b's offline()")
+    del off_m
+    _, t_off = timed(me.offline)
+    log(f"4m mesh offline() over {n_act + len(orders)} rows bitwise equal to "
+        f"4b's; {counts_off['unit_fold']} unit-fold launches (4h stacked "
+        f"{paths['offline_sharded']['unit_fold']}); {t_off * 1e3:.1f} ms per "
+        f"call (plan cached)  [{card}]")
+
+    hot = int(np.bincount(actions.columns["userid"][:live_end]).argmax())
+    victim = int(me.store.owner_of_keys([hot])[0])
+    before = me.request_batch(reqs[:64])
+    me.ship_replicas()        # the followers' tail and a heartbeat
+    killed = me.kill_shard(victim)
+    (rec,) = me.heal()
+    mesh_placed(me, mesh)
+    same_features("4m kill + heal", me.request_batch(reqs[:64]), before)
+    log(f"4m kill of shard {victim} (owner of the hottest key {hot}; lag "
+        f"{killed['lag_at_kill']}) + heal: replica {rec.replica} promoted, "
+        f"{rec.replayed_entries} entries replayed, recovery_s "
+        f"{rec.recovery_s:.4f}; B=64 bitwise equal before and after  "
+        f"[{card}]")
+    del me
+    torch.cuda.empty_cache()
+
+    prefix = prefix_tables(tables, SHARD_GATE_ROWS)
+    n_req = len(prefix["actions"])
+    t0 = time.perf_counter()
+    rep, counts_gate = run_path(
+        "mesh failover gate",
+        lambda: verify_consistency(
+            compile_script(SMOKE_SQL, tables=prefix), prefix, bitwise=True,
+            mesh=Mesh([dev] * SHARDS, ("shard",)), replication=REPLICAS,
+            kill_shard_at=n_req // 2),
+        ("unit_fold", "feature_hash"))
+    t_gate = time.perf_counter() - t0
+    out_paths["mesh_gate"] = counts_gate
+    if not (rep.passed and rep.bitwise_equal):
+        raise AssertionError(f"4m mesh failover gate: {rep}")
+    log(f"4m verify_consistency(bitwise, mesh of {SHARDS} entries, "
+        f"replication={REPLICAS}, kill_shard_at={n_req // 2}) over a "
+        f"{SHARD_GATE_ROWS}-row prefix ({n_req} requests): {rep}; "
+        f"{t_gate:.1f} s (4h stacked {shard_res['gate']['s']:.1f} s)  "
+        f"[{card}]")
+
+    # key_shard_mesh(): one shard per visible card, 4a's store
+    cards = cuda_devices()
+    one = FeatureEngine(SMOKE_SQL, tables, capacity=CAPACITY,
+                        mesh=key_shard_mesh(), fused_fold=True)
+    hist_end = live_end - N_LIVE
+    one.bulk_load("actions", slice_table(actions, 0, hist_end))
+    one.bulk_load("orders", orders)
+    one.ingest_many("actions", [actions.row(i)
+                                for i in range(hist_end, live_end)])
+    got_one, counts_one = run_path(
+        "key_shard_mesh serving", lambda: {b: one.request_batch(reqs[:b])
+                                           for b in BATCHES},
+        ("unit_fold", "feature_hash"))
+    out_paths["key_shard_mesh_serving"] = counts_one
+    err_one = max(compare_features(got_one[b], served[b]) for b in BATCHES)
+    del one
+    torch.cuda.empty_cache()
+    log(f"4m key_shard_mesh() over {len(cards)} visible card(s): "
+        f"{len(cards)} shard(s) of 4a's store, B=1/64/256 equal to 4a's "
+        f"(bitwise; ew within rtol {EW_RTOL}; max abs diff {err_one})  "
+        f"[{card}]")
+    multi = None
+    if len(cards) >= 2:
+        grid = Mesh([cards[i % len(cards)] for i in range(SHARDS)],
+                    ("shard",))
+        mc = FeatureEngine(SMOKE_SQL, tables, capacity=sh.store.capacity,
+                           mesh=grid, **kw)
+        mc.bulk_load("actions", slice_table(actions, 0, live_end))
+        mc.bulk_load("orders", orders)
+        mesh_placed(mc, grid)
+        multi = max(compare_features(mc.request_batch(reqs[:b]),
+                                     sh.request_batch(reqs[:b]))
+                    for b in BATCHES)
+        del mc
+        log(f"4m {SHARDS}-shard deployment over {len(cards)} cards: "
+            f"B=1/64/256 equal to 4h's (max abs diff {multi})")
+    return {"bulk_load_s": t_load, "stream_s": t_stream,
+            "ingest_calls": n_calls, "launches_per_batch": per_b,
+            "latency": lat, "profile": prof, "offline_ms": t_off * 1e3,
+            "promotion": {"shard": rec.shard, "replica": rec.replica,
+                          "replayed_entries": rec.replayed_entries,
+                          "recovery_s": rec.recovery_s},
+            "gate": {"rows": SHARD_GATE_ROWS, "requests": n_req,
+                     "s": t_gate},
+            "visible_cards": len(cards), "multi_card_err": multi}, out_paths
+
+
+def mesh_decode(dev, card):
+    """Phase 4m (b): llama3-8b at full width and depth, every sequence's
+    cache filled from the seed to MESH_LIVE of MESH_SEQ positions, one
+    decode token at a time through the (1, MESH_SEQ_SHARDS) mesh of the
+    card and unsharded: in float32 at MESH_F32_BATCH, MESH_STEPS steps of
+    seeded tokens, the mesh through the kernel against the unsharded
+    decode and against the mesh through the plain versions (logits
+    within MESH_TOL); then in bf16 at MESH_BATCH, per-token p50 / p99 of
+    both in turns, launches a token, busy share, peak memory."""
+    from repro_torch.configs import get
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.models.model import decode_step, init_decode_state
+
+    cfg = get(MESH_ARCH)
+    mesh = Mesh(np.array([[dev] * MESH_SEQ_SHARDS], dtype=object),
+                ("data", "model"))
+
+    def refill(state):
+        gen = torch.Generator(device=dev).manual_seed(23)
+        for lc in state["layers"]:
+            for t in (lc["attn"]["k"], lc["attn"]["v"]):
+                t.normal_(generator=gen)
+        state["len"] = torch.full_like(state["len"], MESH_LIVE)
+        return state
+
+    def tokens(b, n, seed):
+        gen = torch.Generator().manual_seed(seed)
+        return torch.randint(0, cfg.vocab_size, (n, b, 1), generator=gen,
+                             dtype=torch.int32)
+
+    def run(params, state, toks, on_mesh, use_kernel=None):
+        refill(state)
+        out = []
+        with runtime.use_mesh(mesh if on_mesh else None):
+            for t in toks:
+                logits, state = decode_step(cfg, params, state, t.to(dev),
+                                            use_kernel=use_kernel)
+                out.append(logits.float().cpu())
+        return torch.stack(out)
+
+    t_phase = time.perf_counter()
+    # float32: the mesh through the kernel against the unsharded decode
+    # and against the mesh through the plain versions
+    params = _draw(cfg, dev, torch.float32)
+    n_params = sum(p.numel() for p in _leaves(params))
+    state = init_decode_state(cfg, MESH_F32_BATCH, MESH_SEQ,
+                              dtype=torch.float32, device=dev)
+    toks = tokens(MESH_F32_BATCH, MESH_STEPS, 5)
+    got, counts = run_path("mesh decode (f32)",
+                           lambda: run(params, state, toks, True),
+                           ("decode_partials",))
+    want_launch = MESH_SEQ_SHARDS * cfg.n_layers * MESH_STEPS
+    if counts.get("decode_partials") != want_launch:
+        raise AssertionError(f"4m decode: {counts} launches, expected "
+                             f"{want_launch} decode_partials")
+    check_logits([x.numpy() for x in got], cfg, MESH_F32_BATCH)
+    one, counts_one = run_path("unsharded decode (f32)",
+                               lambda: run(params, state, toks, False),
+                               ("decode_partials",))
+    plain, counts_plain = run_path(
+        "mesh decode, plain versions (f32)",
+        lambda: run(params, state, toks, True, use_kernel=False), ())
+    if counts_plain.get("decode_partials", 0):
+        raise AssertionError("4m plain route launched decode_partials")
+    err_one = compare("4m mesh decode vs unsharded", got, one,
+                      rtol=MESH_TOL, atol=MESH_TOL)
+    err_plain = compare("4m mesh decode vs plain", got, plain,
+                        rtol=MESH_TOL, atol=MESH_TOL)
+    peak32 = torch.cuda.max_memory_allocated() / 1e9
+    log(f"4m {MESH_ARCH} ({n_params / 1e9:.3f} G params) f32, B="
+        f"{MESH_F32_BATCH}, cache {MESH_SEQ} filled to {MESH_LIVE}: "
+        f"{MESH_STEPS} steps on the (1, {MESH_SEQ_SHARDS}) mesh "
+        f"({counts['decode_partials']} decode_partials launches, "
+        f"{counts_one['decode_partials']} unsharded) within {MESH_TOL} of "
+        f"the unsharded decode (max abs diff {err_one}) and of the plain "
+        f"versions ({err_plain}); peak {peak32:.2f} GB  [{card}]")
+    del params, state, got, one, plain
+    _free()
+
+    # bf16: timed in turns (unsharded, mesh, mesh, unsharded)
+    torch.cuda.reset_peak_memory_stats()
+    params = _draw(cfg, dev, torch.bfloat16)
+    state = refill(init_decode_state(cfg, MESH_BATCH, MESH_SEQ,
+                                     dtype=torch.bfloat16, device=dev))
+    toks = tokens(MESH_BATCH, 2 * MESH_TOKENS + 16, 7).to(dev)
+    it = iter(toks)
+
+    def step(on_mesh):
+        nonlocal state
+        with runtime.use_mesh(mesh if on_mesh else None):
+            logits, state = decode_step(cfg, params, state, next(it))
+        return logits
+
+    times = {"unsharded": [], "mesh": []}
+    for route in ("unsharded", "mesh", "mesh", "unsharded"):
+        step(route == "mesh")                          # warm-up
+        for _ in range(MESH_TOKENS // 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = step(route == "mesh")
+            torch.cuda.synchronize()
+            times[route].append((time.perf_counter() - t0) * 1e3)
+    check_logits([logits.float().cpu().numpy()], cfg, MESH_BATCH)
+    launches, busy = {}, {}
+    for route in ("unsharded", "mesh"):
+        _, launches[route] = run_path(f"{route} decode token (bf16)",
+                                      lambda r=route: step(r == "mesh"),
+                                      ("decode_partials",))
+        busy[route] = busy_share(lambda r=route: step(r == "mesh"))
+    if launches["mesh"]["decode_partials"] != \
+            MESH_SEQ_SHARDS * launches["unsharded"]["decode_partials"]:
+        raise AssertionError(f"4m bf16 launches {launches}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    res = {"params_g": n_params / 1e9, "f32_err_unsharded": err_one,
+           "f32_err_plain": err_plain, "f32_peak_gb": peak32,
+           "bf16_peak_gb": peak, "launches": launches,
+           "busy": {r: {k: v for k, v in b.items() if k != "top_kernels_ms"}
+                    for r, b in busy.items()},
+           "len_at_end": int(state["len"][0])}
+    for route, v in times.items():
+        res[f"{route}_ms_p50"] = float(np.percentile(v, 50))
+        res[f"{route}_ms_p99"] = float(np.percentile(v, 99))
+        res[f"{route}_ms"] = v
+        log(f"4m {MESH_ARCH} bf16 B={MESH_BATCH} decode ({route}) per token "
+            f"p50 {res[f'{route}_ms_p50']:.2f} ms, p99 "
+            f"{res[f'{route}_ms_p99']:.2f} ms over {len(v)} tokens in two "
+            f"turns; {launches[route]['decode_partials']} decode_partials a "
+            f"token; {busy[route]['kernels']} kernels, device "
+            f"{busy[route]['device_ms']:.2f} ms, busy share "
+            f"{busy[route]['device_busy_share']:.3f}  [{card}]")
+    log(f"4m {MESH_ARCH} bf16 peak memory {peak:.2f} GB (cache "
+        f"{MESH_BATCH} x {MESH_SEQ}); phase 4m (b) "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+    del params, state
+    _free()
+    return res, {"mesh_decode_f32": counts, "unsharded_decode_f32":
+                 counts_one, "mesh_decode_bf16": launches["mesh"],
+                 "unsharded_decode_bf16": launches["unsharded"]}
 
 
 def widest_units(cs, tables):
@@ -3191,10 +3636,12 @@ def main(argv) -> int:
                                  f"variant")
     res_fh = check_feature_hash(dev, 50)
 
-    phase("3c model kernels against plain versions (hymba-1.5b shapes)")
+    phase("3c model kernels against plain versions (hymba-1.5b shapes, "
+          "the decode shapes of 4k, 4l and 4m)")
     res_ls = check_linear_scan(dev, 10)
     res_lsb = check_linear_scan_bwd(dev, 10)
     res_fd = check_decode_partials(dev, 50)
+    res_fd32 = check_decode_32k(dev, 20)
     torch.cuda.empty_cache()
 
     phase("4a serving path at deployment size")
@@ -3314,7 +3761,7 @@ def main(argv) -> int:
 
     phase("4h sharded serving with replicas at deployment size")
     t0 = time.perf_counter()
-    shard_res, counts = sharded_replicas(
+    shard_res, counts, sh = sharded_replicas(
         tables, skewed, eng, served, paths["serving"], off,
         paths["offline"], long_b64, card)
     paths.update(counts)
@@ -3323,6 +3770,20 @@ def main(argv) -> int:
     shard_res["phase_s"] = t_4h
     log(f"phase 4h took {t_4h:.1f} s")
     torch.cuda.empty_cache()
+
+    phase(f"4m device mesh: 4h's deployment on a mesh of {SHARDS} entries, "
+          f"{MESH_ARCH} decode sequence-sharded over {MESH_SEQ_SHARDS}")
+    t0 = time.perf_counter()
+    mesh_res, counts = mesh_features(tables, sh, served, paths, shard_res,
+                                     off, dev, card)
+    paths.update(counts)
+    del sh
+    torch.cuda.empty_cache()
+    t_4ma = time.perf_counter() - t0
+    mesh_res["decode"], counts = mesh_decode(dev, card)
+    paths.update(counts)
+    mesh_res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 4m took {mesh_res['phase_s']:.1f} s ((a) {t_4ma:.1f} s)")
 
     phase("4i certifier, preview, training-data pipeline, row format")
     t0 = time.perf_counter()
@@ -3480,6 +3941,12 @@ def main(argv) -> int:
             f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f}; cold in L2 "
             f"ms {r['cold_ms']:.4f}, library {r['cold_library_ms']:.4f}  "
             f"[{card}]")
+    for name, r in res_fd32.items():
+        log(f"decode_partials 32k/{name} ({r['live_keys']} live keys): ms "
+            f"{r['ms']:.4f}"
+            + (f", plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}"
+               if "plain_ms" in r else "")
+            + f", bound {r['bound_ms']:.5f}  [{card}]")
     for n_buckets, r in seg_shapes.items():
         log(f"segagg S={n_buckets}: ms {r['ms']:.4f}, index_add_ "
             f"{r['library_ms']:.4f}, plain {r['plain_ms']:.4f}, bound "
@@ -3511,6 +3978,7 @@ def main(argv) -> int:
             "serving_loop": loop_res, "sharded": shard_res,
             "certifier_preview_pipeline": deploy_res,
             "decode_partials_shapes": res_fd, "segagg_shapes": seg_shapes,
+            "decode_partials_32k": res_fd32, "mesh": mesh_res,
             "load_s": t_load, "ingest_s": t_ingest}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

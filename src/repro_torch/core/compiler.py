@@ -139,15 +139,20 @@ class CompiledScript:
                         axis: str = "shard", device="cuda"
                         ) -> Dict[str, np.ndarray]:
         """Key-partitioned, skew-aware offline execution over
-        ``n_shards`` shards stacked on ``device`` (bitwise equal to
-        ``offline``; see ``lowering.drivers.offline_sharded``).  ``mesh``
-        (one shard per device) is not ported and raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "CompiledScript.offline_sharded option 'mesh' (one shard "
-                "per device) is not ported to repro_torch yet")
-        return _drv.offline_sharded(self, tables, resolve_device(device),
-                                    int(n_shards or 1))
+        ``n_shards`` shards stacked on ``device``, or with ``mesh`` over
+        the shards of its axis ``axis``, shard s's units folded on its
+        device (``device`` is then not used).  Bitwise equal to
+        ``offline``; see ``lowering.drivers.offline_sharded``."""
+        if mesh is None:
+            return _drv.offline_sharded(self, tables, resolve_device(device),
+                                        int(n_shards or 1))
+        if axis not in mesh.shape:
+            raise ValueError(f"mesh has no axis {axis!r}")
+        if n_shards is not None and n_shards != mesh.shape[axis]:
+            raise ValueError(f"n_shards={n_shards} != mesh axis {axis!r} "
+                             f"size {mesh.shape[axis]}")
+        return _drv.offline_sharded(self, tables, None, mesh.shape[axis],
+                                    mesh=mesh, axis=axis)
 
     # ======================================================================
     # ONLINE driver (request mode against the live store)

@@ -12,14 +12,13 @@ Replay contract: events are presented in the offline tie-break order —
 (ts, table-rank, arrival) — which is exactly the order the store's
 insert-after-peers policy reconstructs.
 
-The replay runs unsharded or key-sharded (``n_shards``: the offline side
-through ``offline_sharded``, the online side through a
-``ShardedOnlineStore`` served by ``online_sharded_batch``), raw or
-pre-aggregated (``use_preagg``: every ingested row folds into the §5.1
-bucket planes, which serve the long windows), and with ``replication``
-and ``kill_shard_at`` through a mid-replay shard failure and failover.
-``mesh`` (one shard per device) is not ported and raises
-``NotImplementedError``.
+The replay runs unsharded or key-sharded (``n_shards``, or ``mesh`` for
+one shard per mesh device: the offline side through ``offline_sharded``,
+the online side through a ``ShardedOnlineStore`` served by
+``online_sharded_batch``), raw or pre-aggregated (``use_preagg``: every
+ingested row folds into the §5.1 bucket planes, which serve the long
+windows), and with ``replication`` and ``kill_shard_at`` through a
+mid-replay shard failure and failover.
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..distributed.sharding import place_stacked
 from ..kernels.dispatch import resolve_device
 from ..storage.replication import (FailoverController, ReplicationManager,
                                    recover_preagg_shard)
@@ -71,13 +71,6 @@ class ConsistencyReport:
                    else ""))
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "consistency option 'mesh' (one shard per device) is not ported "
-            "to repro_torch yet; n_shards= stacks the shards on one device")
-
-
 def _event_stream(cs: CompiledScript, tables: Dict[str, Table]):
     """All rows of all tables merged in (ts, rank, arrival) order.
 
@@ -113,25 +106,30 @@ def replay_online(cs: CompiledScript, tables: Dict[str, Table],
     row order.  With ``use_preagg`` every replayed row is also folded
     into the pre-aggregation planes, which serve the long windows.
 
-    With ``n_shards`` the replay drives the key-sharded serving path: a
-    ``ShardedOnlineStore`` with routed ingest, per-shard pre-agg planes,
-    and every request served by ``online_sharded_batch``.  With
+    With ``n_shards`` (or ``mesh``, a ``distributed.sharding.Mesh``: one
+    shard per device of its ``shard`` axis, ``device`` then unused) the
+    replay drives the key-sharded serving path: a ``ShardedOnlineStore``
+    with routed ingest, per-shard pre-agg planes (beside their shards on
+    a mesh), and every request served by ``online_sharded_batch``.  With
     ``replication=R`` it also runs R followers per shard, shipped every
     ``ship_every`` events, and ``kill_shard_at=k`` kills the shard owning
     base request k's key just before serving it (rows and planes wiped),
     fails it over (follower promoted, binlog tail replayed, planes
     recovered from the watermark-0 snapshot) and serves the request from
     the promoted leader."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
     base = cs.script.base_table
     need = cs.required_store_columns()
     tables = {k: v for k, v in tables.items() if k in need}
     total = sum(len(t) for t in tables.values())
     cap = capacity or max(64, total + 8)
-    sharded = n_shards is not None
-    store = (ShardedOnlineStore(capacity=cap, n_shards=n_shards, device=dev)
-             if sharded else OnlineStore(capacity=cap, device=dev))
+    sharded = n_shards is not None or mesh is not None
+    if sharded:
+        store = ShardedOnlineStore(
+            capacity=cap, n_shards=n_shards, mesh=mesh,
+            device=device if mesh is not None else resolve_device(device))
+    else:
+        store = OnlineStore(capacity=cap, device=resolve_device(device))
+    dev = store.device
     for tname, cols in need.items():
         table = tables[tname]
         specs = {}
@@ -144,6 +142,9 @@ def replay_online(cs: CompiledScript, tables: Dict[str, Table],
         pre_states = None
     elif sharded:
         pre_states = cs.init_preagg_states_sharded(store.n_shards, dev)
+        if mesh is not None:
+            pre_states = {wi: place_stacked(p, store.devices)
+                          for wi, p in pre_states.items()}
         owned = cs.preagg_owned_masks(store.owner_of_keys, store.n_shards)
     else:
         pre_states = cs.init_preagg_states(dev)
@@ -152,7 +153,7 @@ def replay_online(cs: CompiledScript, tables: Dict[str, Table],
     if replication:
         if not sharded:
             raise ValueError("replication needs a sharded replay "
-                             "(n_shards=)")
+                             "(n_shards= or mesh=)")
         repl = ReplicationManager(store, replication)
         controller = FailoverController(repl)
         # the replay never truncates its binlog, so the recovery snapshot
@@ -243,20 +244,23 @@ def verify_consistency(cs: CompiledScript, tables: Dict[str, Table],
     order) instead of running ``replay_online`` — the hook that lets
     another serving harness be held to the same gate.
 
-    With ``n_shards`` BOTH executors run sharded (``offline_sharded`` and
-    the sharded replay); ``replication`` + ``kill_shard_at`` run the
+    With ``n_shards`` or ``mesh`` BOTH executors run sharded
+    (``offline_sharded`` and the sharded replay, on the mesh when one is
+    given); ``replication`` + ``kill_shard_at`` run the
     online side through a shard failure and failover (see
     ``replay_online``) that the offline side never sees, so a bitwise
     pass shows the recovery is exact.
     """
-    _no_mesh(mesh)
     if bitwise is None:
         bitwise = not use_preagg
-    offline = (cs.offline_sharded(tables, n_shards=n_shards, device=device)
-               if n_shards is not None else cs.offline(tables, device=device))
+    offline = (cs.offline_sharded(tables, mesh=mesh, n_shards=n_shards,
+                                  device=device)
+               if n_shards is not None or mesh is not None
+               else cs.offline(tables, device=device))
     online = (online_outputs if online_outputs is not None
               else replay_online(cs, tables, use_preagg=use_preagg,
-                                 n_shards=n_shards, replication=replication,
+                                 n_shards=n_shards, mesh=mesh,
+                                 replication=replication,
                                  kill_shard_at=kill_shard_at,
                                  ship_every=ship_every, device=device))
     mism: List[str] = []

@@ -16,7 +16,9 @@ the schedules:
                        as one (S·U_pad, R) block: the units and their
                        folds are ``offline_fused``'s, so the result is
                        bitwise equal for any shard count, with one fold
-                       launch per block class as there;
+                       launch per block class as there (on a device
+                       mesh, shard s's slice of each class folds on its
+                       device);
 * ``offline_reference_serial`` — the SEED algorithm (per-window merge +
                        sort + global segmented-scan / segment-tree fold,
                        ``core.window.fold_windows``) with a barrier
@@ -45,7 +47,9 @@ requests are routed on the host into (S, b_pad) shard blocks and the
 same trace runs once over the shard-major (S·b_pad,) batch, whose seeks
 run batched over the stacked (S, capacity) tables
 (``timestore.range_bounds``), so a sharded batch launches the fold and
-hash kernels as often as an unsharded one.  Batches are padded to a
+hash kernels as often as an unsharded one (a mesh store runs the trace
+once per shard with requests, on the shard's device).  Batches are
+padded to a
 power-of-two pad class, and a
 per-(store, pad class) cache keeps each group's fold plan and its
 identity vectors on the device.  Every request row's computation is
@@ -151,12 +155,14 @@ def _join_scalar_fn(cs):
     return fn
 
 
-def _group_feats(members: List[LoweredWindow], dev, impl
+def _group_feats(members: List[LoweredWindow], dev, impl, prelift=None
                  ) -> List[Dict[str, torch.Tensor]]:
     """Finalized features per unit block of one group (leaf folds shared
     across member windows; under a fused impl the flat lane lifts are
-    built once here and shared by every block)."""
-    prelift = fused_prelift(members, dev) if impl is not None else None
+    built once — here unless the caller passes them — and shared by
+    every block)."""
+    if impl is not None and prelift is None:
+        prelift = fused_prelift(members, dev)
     out = []
     for blk in dev["blocks"]:
         per_member = fold_units(members, dict(dev, **blk), impl=impl,
@@ -170,17 +176,22 @@ def _group_feats(members: List[LoweredWindow], dev, impl
 
 
 def _scatter_group(dev, feats: List[Dict[str, torch.Tensor]], n_base: int,
-                   out: Dict[str, torch.Tensor]):
+                   out: Dict[str, torch.Tensor], home=None):
     """ConcatJoin on the device: place emitted unit rows back in base-row
-    order (each base row is emitted by exactly one unit)."""
+    order (each base row is emitted by exactly one unit).  The output
+    lives on ``home`` (default: the features' device); a mesh shard's
+    rows are copied there."""
     for blk, bf in zip(dev["blocks"], feats):
         for name, feat in bf.items():
             buf = out.get(name)
             if buf is None:
                 buf = torch.zeros((n_base,) + tuple(feat.shape[2:]),
-                                  dtype=feat.dtype, device=feat.device)
+                                  dtype=feat.dtype,
+                                  device=feat.device if home is None
+                                  else home)
                 out[name] = buf
-            buf[blk["rows"]] = feat[blk["emit"]]
+            buf[blk["rows"].to(buf.device)] = feat[blk["emit"]].to(
+                buf.device)
 
 
 def _to_host(cs, out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -289,23 +300,81 @@ def _sharded_device_args(gl: GroupLowering, n_shards: int, device
     return hit
 
 
-def offline_sharded(cs, tables, device, n_shards: int
-                    ) -> Dict[str, np.ndarray]:
-    """Key-partitioned offline execution (§6) in the stacked layout on
-    one device.  Every group's partition units (whole cold keys; hot
-    keys time-sliced with halo rows — ``core.skew``) are LPT-assigned to
-    ``n_shards`` shards; each unit class folds as one (S·U_pad, R) block
-    with the same per-unit program ``offline_fused`` runs, so the
-    features are bitwise equal for every shard count.  LAST JOINs and
-    scalar items are per-base-row lookups with no window state; they run
-    once."""
+def _mesh_key(mesh, axis: str) -> str:
+    """Stable mesh identity for the placement caches: its devices, axes
+    and the shard axis (two same-size meshes over different devices
+    never share placements; ``id(mesh)`` can alias after gc)."""
+    return (f"mesh={[str(d) for d in mesh.devices.flat]}/"
+            f"{mesh.axis_names}/{axis}")
+
+
+def _mesh_device_args(gl: GroupLowering, devices, key: str
+                      ) -> List[Dict[str, Any]]:
+    """Per mesh shard s, ``device_args`` on ``devices[s]`` with shard s's
+    (U_pad, R) slice of every stacked unit class; a class in which the
+    shard emits no row is left out (it would fold padding only).  Cached
+    on the lowering per mesh."""
+    hit = gl._dev.get(key)
+    if hit is None:
+        n = len(devices)
+        stacked = _stack_window(gl, n)
+        hit = []
+        for s, d in enumerate(devices):
+            def put(a, d=d):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(d)
+
+            blocks = []
+            for b in stacked:
+                u = b["idx"].shape[0] // n
+                part = {k: v[s * u:(s + 1) * u] for k, v in b.items()}
+                if not part["emit"].any():
+                    continue
+                blocks.append(dict(
+                    {k: put(v) for k, v in part.items()},
+                    rows=put(gl.orig[part["idx"]][part["emit"]].astype(
+                        np.int64))))
+            hit.append(dict(gl.device_args(d), blocks=blocks))
+        gl._dev[key] = hit
+    return hit
+
+
+def offline_sharded(cs, tables, device, n_shards: int, mesh=None,
+                    axis: str = "shard") -> Dict[str, np.ndarray]:
+    """Key-partitioned offline execution (§6).  Every group's partition
+    units (whole cold keys; hot keys time-sliced with halo rows —
+    ``core.skew``) are LPT-assigned to ``n_shards`` shards.  Stacked on
+    ``device`` (``mesh`` None), each unit class folds as one (S·U_pad, R)
+    block; on a ``mesh`` (the shards of its axis ``axis``; ``device`` is
+    then its first shard's) shard s's (U_pad, R) blocks fold on its
+    device, and the emitted rows are copied to the first shard's device.
+    Either way every unit folds with the same per-unit program
+    ``offline_fused`` runs, so the features are bitwise equal for every
+    shard count and placement.  LAST JOINs and scalar items are
+    per-base-row lookups with no window state; they run once, on
+    ``device``."""
     lws, arrays, n_base = plan_offline(cs, tables)
     impl = fold_impl(cs.ctx)
     out: Dict[str, torch.Tensor] = {}
-    for gl in lws:
-        dev = _sharded_device_args(gl, max(1, int(n_shards)), device)
-        _scatter_group(dev, _group_feats(gl.members, dev, impl), n_base,
-                       out)
+    if mesh is None:
+        for gl in lws:
+            dev = _sharded_device_args(gl, max(1, int(n_shards)), device)
+            _scatter_group(dev, _group_feats(gl.members, dev, impl), n_base,
+                           out)
+    else:
+        from ...distributed.sharding import stacked_store_sharding
+
+        devices = stacked_store_sharding(mesh, axis)
+        device = devices[0]
+        key = _mesh_key(mesh, axis)
+        for gl in lws:
+            prelift: Dict[str, Any] = {}     # one per distinct device
+            for dev in _mesh_device_args(gl, devices, key):
+                d = str(dev["ts"].device)
+                if impl is not None and d not in prelift:
+                    prelift[d] = fused_prelift(gl.members, dev)
+                _scatter_group(dev, _group_feats(gl.members, dev, impl,
+                                                 prelift.get(d)),
+                               n_base, out, home=device)
     out.update(_join_scalar_fn(cs)(_arrays_on(arrays, device)))
     return _to_host(cs, out)
 
@@ -389,17 +458,18 @@ def pad_batch(keys, ts, values):
     return keys, tsa, vals, b
 
 
-def batch_plan(cs, store, b_pad: int, impl, use_pre: bool = False
-               ) -> List[Dict[str, Any]]:
+def batch_plan(cs, store, b_pad: int, impl, use_pre: bool = False,
+               device=None) -> List[Dict[str, Any]]:
     """Per-(store, pad class, fold impl, pre-agg mode) cache of what every
     batch of that class reuses: the raw-served window groups (all of
     them, or those without a pre-agg plane when ``use_pre``), each with
     its members and, under a fused impl, its fold plan and the plan's
-    identity vectors resident on the store's device (``plan_for``).
-    Bounded by the number of pad classes, logarithmic in the largest
-    batch."""
-    key = (id(store), store.capacity, str(store.device), b_pad, impl,
-           use_pre)
+    identity vectors resident on ``device`` (the store's unless a mesh
+    shard's is given; ``plan_for``).  Bounded by the number of pad
+    classes (times the mesh's distinct devices), logarithmic in the
+    largest batch."""
+    device = store.device if device is None else device
+    key = (id(store), store.capacity, str(device), b_pad, impl, use_pre)
     groups = cs._online_fns.get(key)
     if groups is None:
         raw = [w for w in cs.windows if not (use_pre and w.preagg)]
@@ -411,7 +481,7 @@ def batch_plan(cs, store, b_pad: int, impl, use_pre: bool = False
                     [m.node.spec for m in members], group_leaf_set(members),
                     members[0].node.spec.order_by,
                     [tuple(unique_leaves(m.aggs)) for m in members],
-                    device=store.device)
+                    device=device)
             groups.append(g)
         cs._online_fns[key] = groups
     return groups
@@ -542,7 +612,9 @@ def online_sharded_batch(cs, store, keys, ts, values, preagg_states=None
     owner shard's planes — and reassembly in request order.  Window
     folds never gather across shards, so the features are bitwise those
     of the unsharded path, and each window group folds in one launch as
-    there."""
+    there.  On a mesh store block s runs shard s's trace on its device
+    (a shard without a request runs nothing), and the host reassembles
+    the blocks in request order."""
     ok, why = cs.sharded_eligible()
     if not ok:
         raise ValueError(f"script not shardable by key: {why}")
@@ -560,19 +632,65 @@ def online_sharded_batch(cs, store, keys, ts, values, preagg_states=None
                 f"request key outside the pre-agg key universe "
                 f"[0, {min(nks)}) — not servable bit-exactly from "
                 f"key-sharded bucket planes")
-    flat, pick = _route(store.owner_of_keys(keys), store.n_shards)
-    dev = store.device
+    owner = store.owner_of_keys(keys)
+    flat, pick = _route(owner, store.n_shards)
     impl = fold_impl(cs.ctx)
-    groups = batch_plan(cs, store, flat.shape[0], impl, use_pre)
-    vals = {k: torch.from_numpy(np.asarray(v, np.float32)[flat]).to(dev)
-            for k, v in values.items()}
-    out = online_fn(cs, store.tables, torch.from_numpy(keys[flat]).to(dev),
-                    torch.from_numpy(tsa[flat]).to(dev), vals, groups,
-                    impl=impl, preagg_states=preagg_states)
+    vals_np = {k: np.asarray(v, np.float32)[flat] for k, v in values.items()}
+    if store.mesh is not None:
+        out = _serve_mesh(cs, store, keys[flat], tsa[flat], vals_np,
+                          np.bincount(owner, minlength=store.n_shards),
+                          flat, impl, preagg_states)
+    else:
+        dev = store.device
+        groups = batch_plan(cs, store, flat.shape[0], impl, use_pre)
+        vals = {k: torch.from_numpy(v).to(dev) for k, v in vals_np.items()}
+        res = online_fn(cs, store.tables,
+                        torch.from_numpy(keys[flat]).to(dev),
+                        torch.from_numpy(tsa[flat]).to(dev), vals, groups,
+                        impl=impl, preagg_states=preagg_states)
+        pick_t = torch.from_numpy(pick).to(dev)
+        out = {k: v[pick_t].cpu().numpy() for k, v in res.items()}
     if use_pre:
         cs._observe_queries(tsa.tolist())
-    pick_t = torch.from_numpy(pick).to(dev)
-    return {k: v[pick_t].cpu().numpy() for k, v in out.items()}
+    return out
+
+
+def _serve_mesh(cs, store, keys: np.ndarray, ts: np.ndarray,
+                values: Dict[str, np.ndarray], counts: np.ndarray,
+                flat: np.ndarray, impl, preagg_states
+                ) -> Dict[str, np.ndarray]:
+    """The routed (S·b_pad,) batch over a mesh store: shard s's block
+    runs the request trace on the shard's device against its one-shard
+    tables and planes (every shard's work is launched before any result
+    is read, so distinct cards overlap); the real rows of every block
+    go back to their requests' places on the host."""
+    b_pad = flat.shape[0] // store.n_shards
+    use_pre = preagg_states is not None
+    launched = []
+    for s in np.flatnonzero(counts):
+        dev = store.devices[s]
+        blk = slice(s * b_pad, (s + 1) * b_pad)
+
+        def put(a, dev=dev):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        res = online_fn(
+            cs, {t: st[s] for t, st in store.tables.items()}, put(keys[blk]),
+            put(ts[blk]), {c: put(v[blk]) for c, v in values.items()},
+            batch_plan(cs, store, b_pad, impl, use_pre, device=dev),
+            impl=impl, preagg_states=None if not use_pre else
+            {wi: p[s] for wi, p in preagg_states.items()})
+        launched.append((s, res))
+    out: Dict[str, np.ndarray] = {}
+    for s, res in launched:
+        rows = flat[s * b_pad:s * b_pad + counts[s]]
+        for k, v in res.items():
+            v = v[:counts[s]].cpu().numpy()
+            if k not in out:
+                out[k] = np.empty((int(counts.sum()),) + v.shape[1:],
+                                  v.dtype)
+            out[k][rows] = v
+    return out
 
 
 def online(cs, store, key: int, ts: int, values: Dict[str, float],

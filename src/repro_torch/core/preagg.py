@@ -41,6 +41,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..distributed.sharding import gather_stacked, place_stacked
 from ..kernels.dispatch import resolve_device
 from ..kernels.unit_fold import ref as _uf
 from .functions import Leaf
@@ -290,7 +291,10 @@ class PreAgg:
         into new stacked tensors.  ``owned`` is the (n_shards, n_keys)
         bool mask with at most one owner per key; a key no shard owns
         keeps its planes (the recovery replay restricts the mask to one
-        shard so).
+        shard so).  On a mesh (``state`` a tuple of one-shard states, one
+        per device) each shard folds the rows of the keys it owns on its
+        own device: a key's fold reads only its own rows and planes, so
+        the bits are the same.
 
         Keys must lie in the bounded universe [0, n_keys): under sharding
         a request routes by the RAW key while a clipped key's plane would
@@ -310,6 +314,17 @@ class PreAgg:
         if (owned.sum(axis=0) > 1).any():
             raise ValueError("pre-agg ownership mask gives a key more than "
                              "one shard")
+        if isinstance(state, tuple):
+            row_owner = np.where(owned.any(axis=0), owned.argmax(axis=0),
+                                 -1)[keys]
+            parts = list(state)
+            for s in np.unique(row_owner[row_owner >= 0]):
+                sel = np.flatnonzero(row_owner == s)
+                parts[s] = self.update_many_sharded(
+                    parts[s], keys[sel], ts[sel],
+                    {c: np.asarray(v)[sel] for c, v in values.items()},
+                    owned[s:s + 1])
+            return tuple(parts)
         dev = state["fine_epoch"].device
         rows = owned.argmax(axis=0) * self.n_keys + np.arange(self.n_keys)
         kept = np.flatnonzero(owned.any(axis=0))
@@ -328,7 +343,13 @@ class PreAgg:
         """Move per-key bucket planes between shards after a routing
         change: key k's plane moves from ``old_owner[k]`` to
         ``new_owner[k]``; every other row resets to identity / epoch -1.
-        New tensors throughout."""
+        New tensors throughout.  On a mesh the planes are joined on the
+        first shard's device, moved, and placed back."""
+        if isinstance(state, tuple):
+            devices = [p["fine_epoch"].device for p in state]
+            return place_stacked(self.migrate_state_sharded(
+                gather_stacked(state, devices[0]), old_owner, new_owner),
+                devices)
         dev = state["fine_epoch"].device
         ar = np.arange(self.n_keys)
         src = torch.from_numpy(np.asarray(old_owner) * self.n_keys + ar).to(
@@ -351,17 +372,25 @@ class PreAgg:
         return out
 
     def restore_shard_plane(self, state, source, shard: int):
-        """Replace shard ``shard``'s planes in a stacked state with
+        """Replace shard ``shard``'s planes in a sharded state with
         ``source``'s planes of the same shard, every other shard's
         untouched (recovery: the plane comes back from a snapshot cut at
         a binlog watermark — or the identity when wiping — and the binlog
         tail is then replayed through ``update_many_sharded``, whose
-        slot-seeded fold is batch-boundary independent).  New tensors."""
+        slot-seeded fold is batch-boundary independent).  Either state
+        may be stacked or a mesh tuple.  New tensors."""
+        src = (source[shard] if isinstance(source, tuple) else
+               _map_planes(lambda t: t[shard:shard + 1], source))
+        if isinstance(state, tuple):
+            dev = state[shard]["fine_epoch"].device
+            parts = list(state)
+            parts[shard] = _map_planes(lambda t: t.to(dev, copy=True), src)
+            return tuple(parts)
         dev = state["fine_epoch"].device
         idx = torch.tensor([shard], device=dev)
         return _zip_planes(
-            lambda live, src: live.index_copy(
-                0, idx, src.to(dev)[shard:shard + 1]), state, source)
+            lambda live, one: live.index_copy(0, idx, one.to(dev)), state,
+            src)
 
     # ------------------------------------------------------------------ query
     def fold_online(self, states, w, keys: torch.Tensor, ts: torch.Tensor,

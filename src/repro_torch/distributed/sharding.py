@@ -1,0 +1,398 @@
+"""Device meshes, sharding rules for params, batches and decode caches,
+and the placement of the key-sharded online store.
+
+The mesh is single-controller, as the JAX package's is: one Python
+process holds a ``Mesh`` of ``torch.device``s, every shard's tensors
+live on its device, and each cross-shard step is an explicit, ordered
+copy or merge made by that process (no ``torch.distributed`` process
+group, no collective).  A ``Mesh`` may name one device more than once:
+the multi-shard code paths then run on that one device, which is how the
+CPU tests and a one-card host exercise them.
+
+Strategy (DESIGN.md §5): TP over ``model`` (output-feature / vocab /
+expert / KV-sequence dims), ZeRO-3-style weight sharding over ``data``
+(a second tensor dim), DP over ``pod`` × ``data`` for the batch.  The
+rules are the reference's, leaf for leaf (``auto_pspec``: skip the
+stacked layer axis; ``model`` on the largest divisible dim, preferring
+later dims; ``data`` on the largest remaining divisible dim of at least
+``min_shard`` rows; overrides where the heuristic is wrong).  They run
+over the port's trees, whose leaves may be anything with ``.shape``.
+The port keeps ``"layers"`` (and ``"enc_layers"``) as a list of
+per-layer dicts where the reference stacks them on a leading L axis, so
+a per-layer leaf's spec is the reference's spec of the stacked leaf
+without its leading L entry: the ``stacked`` skip and the overrides'
+leading ``None`` both stand for that axis.  Cache leaves follow the same
+rule: per-layer (B, S, Hkv, D) where the reference has (L, B, S, Hkv, D).
+``named_shardings`` pairs a spec tree with its mesh; applying such
+records to tensors (placing per-tensor shards on distinct cards) is not
+done yet.
+
+Feature-store sharding (paper §5 / §7.2 tablet partitioning): the online
+store is *key*-partitioned, so window folds never cross shards.
+``key_shard_mesh`` builds the 1-D mesh over the visible cards,
+``stacked_store_sharding`` names the device of every shard along the
+mesh axis, and ``place_stacked`` / ``gather_stacked`` split a
+shard-stacked tree into one stacked state of one shard per device and
+join such states back.  Routing (key -> shard) is the host's hash and
+rebalance, owned by ``storage.timestore.ShardedOnlineStore``.  The
+reference's ``shard_map_compat`` is a JAX-version shim and has no
+counterpart here.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import re
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["Mesh", "PartitionSpec", "NamedSharding", "auto_pspec",
+           "megatron_overrides", "STRATEGIES", "param_pspecs",
+           "batch_pspec", "cache_pspecs", "named_shardings",
+           "key_shard_mesh", "stacked_store_sharding", "place_stacked",
+           "gather_stacked", "canonical_device", "cuda_devices"]
+
+
+class PartitionSpec(tuple):
+    """Per-dimension mesh axis names (a name, a tuple of names, or
+    ``None`` for a replicated dimension): the reference's
+    ``jax.sharding.PartitionSpec`` as a plain tuple, normalized as it
+    is (a one-name tuple is the name, an empty one ``None``, a list a
+    tuple)."""
+
+    def __new__(cls, *parts):
+        def norm(p):
+            if isinstance(p, (tuple, list)):
+                p = tuple(p)
+                return None if not p else p[0] if len(p) == 1 else p
+            return p
+        return super().__new__(cls, (norm(p) for p in parts))
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+class Mesh:
+    """An n-D array of ``torch.device``s with named axes: what the
+    reference reads from a ``jax.sharding.Mesh`` — ``devices`` (an object
+    ndarray; ``devices.flat``, ``devices.shape``), ``axis_names``,
+    and ``shape`` (axis -> size).  Entries may repeat a device
+    (several shards on one card, or on the CPU)."""
+
+    def __init__(self, devices, axis_names: Sequence[str]):
+        src = np.asarray(devices, dtype=object)
+        arr = np.empty(src.shape, dtype=object)
+        for i, d in np.ndenumerate(src):
+            arr[i] = torch.device(d)
+        self.axis_names = tuple(axis_names)
+        if arr.ndim != len(self.axis_names):
+            raise ValueError(f"mesh devices of shape {arr.shape} do not "
+                             f"match axes {self.axis_names}")
+        self.devices = arr
+
+    @property
+    def shape(self) -> "collections.OrderedDict[str, int]":
+        return collections.OrderedDict(zip(self.axis_names,
+                                           self.devices.shape))
+
+    def __repr__(self):
+        return (f"Mesh({dict(self.shape)}, "
+                f"devices={[str(d) for d in self.devices.flat]})")
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec paired with its mesh (the reference's
+    ``jax.sharding.NamedSharding``), as a record."""
+
+    mesh: Mesh
+    spec: PartitionSpec
+
+
+def cuda_devices() -> List[torch.device]:
+    """Every visible CUDA device, in index order."""
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def canonical_device(device) -> torch.device:
+    """``device`` with an explicit index for CUDA (``cuda`` is the current
+    card), so two names of one device compare equal."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def key_shard_mesh(n_shards: Optional[int] = None, axis: str = "shard",
+                   devices: Optional[Sequence] = None) -> Mesh:
+    """1-D device mesh for the key-sharded online store.
+
+    One shard per device of ``devices`` (every visible CUDA device unless
+    the caller names others, e.g. the CPU), the first ``n_shards`` of
+    them.  Raises if ``n_shards`` exceeds the device count — callers
+    wanting more *logical* shards than devices use
+    ``ShardedOnlineStore(mesh=None)`` (the stacked layout) or a ``Mesh``
+    that repeats a device."""
+    devs = list(devices) if devices is not None else cuda_devices()
+    n = n_shards or len(devs)
+    if n > len(devs):
+        raise ValueError(
+            f"{n} shards > {len(devs)} devices; use mesh=None for "
+            f"logical sharding on fewer devices")
+    if n < 1:
+        raise ValueError("no device to build a mesh over; pass devices=")
+    return Mesh(devs[:n], (axis,))
+
+
+def stacked_store_sharding(mesh: Mesh, axis: str = "shard"
+                           ) -> List[torch.device]:
+    """The device of every shard of a shard-stacked tree whose dim 0 is
+    placed on the mesh axis ``axis`` (one store shard per device along
+    it; on a mesh of more axes, the entry at index 0 of the others)."""
+    if axis not in mesh.shape:
+        raise ValueError(f"mesh has no axis {axis!r}")
+    ax = mesh.axis_names.index(axis)
+    along = np.moveaxis(mesh.devices, ax, 0).reshape(mesh.shape[axis], -1)
+    return [along[s, 0] for s in range(along.shape[0])]
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def place_stacked(tree, devices: Sequence[torch.device]) -> Tuple:
+    """Split a tree of shard-stacked tensors (dim 0 = shard, one entry per
+    device) into a tuple of trees, shard s's a stacked tree of one shard
+    on ``devices[s]`` (copies: no view of the input survives)."""
+    return tuple(_map_leaves(
+        lambda t, s=s, d=d: t[s:s + 1].to(d, copy=True), tree)
+        for s, d in enumerate(devices))
+
+
+def gather_stacked(parts: Sequence, device) -> Any:
+    """``place_stacked``'s inverse: the per-shard trees joined on
+    ``device`` along dim 0, in shard order."""
+    if isinstance(parts[0], dict):
+        return {k: gather_stacked([p[k] for p in parts], device)
+                for k in parts[0]}
+    return torch.cat([p.to(device) for p in parts])
+
+
+# tensors whose name matches are always replicated (small / per-layer
+# scalars / norm scales / routing tables)
+_REPLICATE_RE = re.compile(
+    r"(norm|mix_a|mix_s|w0|u_bonus|mu|b_dt|d_skip|w_dt|b_up|b_down)")
+
+
+def auto_pspec(path: str, shape: Tuple[int, ...], mesh_shape: Dict[str, int],
+               stacked: bool, min_shard: int = 128) -> PartitionSpec:
+    model_n = mesh_shape.get("model", 1)
+    data_n = mesh_shape.get("data", 1)
+    spec = [None] * len(shape)
+    if _REPLICATE_RE.search(path) or len(shape) == 0:
+        return P(*spec)
+
+    start = 1 if stacked else 0
+    dims = list(range(start, len(shape)))
+    # model axis: largest divisible dim, ties broken toward later dims
+    model_dim = None
+    best = -1
+    for i in dims:
+        if shape[i] % model_n == 0 and shape[i] >= max(min_shard, model_n):
+            if shape[i] >= best:
+                best = shape[i]
+                model_dim = i
+    if model_dim is not None:
+        spec[model_dim] = "model"
+    # data (ZeRO) axis: largest remaining divisible dim
+    data_dim = None
+    best = -1
+    for i in dims:
+        if i == model_dim:
+            continue
+        if shape[i] % data_n == 0 and shape[i] >= max(min_shard, data_n):
+            if shape[i] > best:
+                best = shape[i]
+                data_dim = i
+    if data_dim is not None:
+        spec[data_dim] = "data"
+    return P(*spec)
+
+
+def _divisible(shape, spec: PartitionSpec, mesh_shape) -> bool:
+    for dim, ax in zip(shape, tuple(spec) + (None,) * len(shape)):
+        if ax is None:
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        n = int(np.prod([mesh_shape.get(a, 1) for a in axes]))
+        if dim % n:
+            return False
+    return True
+
+
+def megatron_overrides(zero: bool = False) -> Dict[str, PartitionSpec]:
+    """Megatron-style 1D tensor parallelism: column-parallel up
+    projections, row-parallel down projections, vocab-parallel embedding.
+    ``zero=True`` adds a ``data`` dim on the *unsharded* weight axis
+    (ZeRO-3 weight sharding) for archs whose optimizer state exceeds a
+    16-way split (llava-34b, dbrx attention).  Specs of per-layer
+    tensors lead with the stacked layer axis (``None``), as the
+    reference's do; ``param_pspecs`` drops it for the port's per-layer
+    leaves."""
+    d2 = "data" if zero else None
+    return {
+        r"embed$": P("model", None),
+        r"lm_head$": P(None, "model"),
+        r"attn/(wq|wk|wv)$": P(None, d2, "model"),
+        r"attn/wo$": P(None, "model", d2),
+        r"xattn/(wq|wk|wv)$": P(None, d2, "model"),
+        r"xattn/wo$": P(None, "model", d2),
+        r"mlp/(w_gate|w_up)$": P(None, d2, "model"),
+        r"mlp/w_down$": P(None, "model", d2),
+        r"moe/router$": P(None, None, None),
+        r"moe/(w_gate|w_up)$": P(None, "model", "data", None),
+        r"moe/w_down$": P(None, "model", None, "data"),
+        r"(shared_gate|shared_up)$": P(None, d2, "model"),
+        r"shared_down$": P(None, "model", d2),
+        r"attn/q_down$": P(None, None, None),
+        r"attn/kv_down$": P(None, None, None),
+        r"attn/(q_up|k_up|v_up)$": P(None, None, "model"),
+        r"rwkv/(wr|wk|wv|wg|ww|cm_k|cm_r)$": P(None, d2, "model"),
+        r"rwkv/(wo|cm_v)$": P(None, "model", d2),
+        r"ssm/in_proj$": P(None, d2, "model"),
+        r"ssm/out_proj$": P(None, "model", d2),
+    }
+
+
+STRATEGIES = {
+    "auto": lambda: {},
+    "megatron": lambda: megatron_overrides(zero=False),
+    "megatron_zero": lambda: megatron_overrides(zero=True),
+    "embed_fix": lambda: {r"embed$": P("model", None),
+                          r"lm_head$": P(None, "model")},
+}
+
+
+def _mesh_shape(mesh) -> Dict[str, int]:
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def _map_with_path(fn, tree, path: Tuple[str, ...] = (),
+                   per_layer: bool = False):
+    """``fn(path string, leaf, per_layer)`` over a tree of dicts and
+    lists.  A list stands for the reference's stacked layer axis: its
+    items share the list's path (the reference's path has no index
+    there) and their leaves are per-layer."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),), per_layer)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_with_path(fn, v, path, True) for v in tree]
+    return fn("/".join(path), tree, per_layer)
+
+
+def param_pspecs(cfg, params_tree, mesh,
+                 overrides: Optional[Dict[str, PartitionSpec]] = None,
+                 strategy: str = "auto"):
+    """PartitionSpec tree matching the params tree.
+
+    ``strategy`` selects a named override set (hillclimb knob);
+    ``overrides`` takes precedence.  Overrides that violate divisibility
+    fall back to the auto rule (small archs keep working)."""
+    mesh_shape = _mesh_shape(mesh)
+    merged = dict(STRATEGIES[strategy]())
+    merged.update(overrides or {})
+
+    def leaf_spec(pstr, leaf, per_layer):
+        shape = tuple(leaf.shape)
+        for pat, spec in merged.items():
+            if re.search(pat, pstr):
+                if per_layer:
+                    spec = P(*tuple(spec)[1:])
+                if _divisible(shape, spec, mesh_shape):
+                    return spec
+                break
+        # a per-layer leaf is the stacked leaf less its skipped L axis
+        return auto_pspec(pstr, shape, mesh_shape, stacked=False)
+
+    return _map_with_path(leaf_spec, params_tree)
+
+
+def batch_pspec(batch_tree, mesh):
+    """Batch dim over (pod, data) where divisible; rest replicated."""
+    mesh_shape = _mesh_shape(mesh)
+    dp_axes = tuple(a for a in ("pod", "data") if a in mesh_shape)
+    dp = int(np.prod([mesh_shape[a] for a in dp_axes]))
+
+    def leaf_spec(_, leaf, __):
+        shape = tuple(leaf.shape)
+        if len(shape) == 0:
+            return P()
+        if shape[0] % dp == 0 and shape[0] >= dp:
+            return P(dp_axes, *([None] * (len(shape) - 1)))
+        return P(*([None] * len(shape)))
+
+    return _map_with_path(leaf_spec, batch_tree)
+
+
+def cache_pspecs(cfg, cache_tree, mesh):
+    """Decode cache sharding: batch over data (if divisible), the long
+    KV-sequence axis over ``model`` (context parallelism — required to
+    fit 32k x 128 caches, DESIGN.md §5), heads over model for SSM/RWKV
+    states.  A per-layer leaf (B, S, ...) takes the reference's rule for
+    the stacked (L, B, S, ...) leaf, less the L entry."""
+    mesh_shape = _mesh_shape(mesh)
+    model_n = mesh_shape.get("model", 1)
+    data_n = mesh_shape.get("data", 1)
+
+    def leaf_spec(pstr, leaf, _):
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        spec = [None] * nd
+        if nd == 0 or "len" in pstr:
+            return P(*spec)
+        if pstr.startswith("layers"):
+            # per-layer caches: (B, S, ...) or (B, ...) (the reference's
+            # stacked ones carry a leading L, so its dims are these + 1)
+            if shape[0] % data_n == 0 and shape[0] >= data_n:
+                spec[0] = "data"
+            # KV / latent caches: seq axis = 1 when deep (>= 4096)
+            if nd >= 2 and shape[1] >= 4096 and shape[1] % model_n == 0:
+                spec[1] = "model"
+            elif nd >= 2:
+                # state caches: shard the largest model-divisible dim
+                best, dim = -1, None
+                for i in range(1, nd):
+                    if shape[i] % model_n == 0 and \
+                            shape[i] >= max(128, model_n) and \
+                            shape[i] > best:
+                        best, dim = shape[i], i
+                if dim is not None:
+                    spec[dim] = "model"
+            return P(*spec)
+        if pstr.startswith("enc_out"):
+            if shape[0] % data_n == 0 and shape[0] >= data_n:
+                spec[0] = "data"
+            return P(*spec)
+        return P(*spec)
+
+    return _map_with_path(leaf_spec, cache_tree)
+
+
+def named_shardings(spec_tree, mesh):
+    """``NamedSharding(mesh, spec)`` for every spec of a spec tree."""
+    if isinstance(spec_tree, PartitionSpec):
+        return NamedSharding(mesh, spec_tree)
+    if isinstance(spec_tree, dict):
+        return {k: named_shardings(v, mesh) for k, v in spec_tree.items()}
+    if isinstance(spec_tree, list):
+        return [named_shardings(v, mesh) for v in spec_tree]
+    raise TypeError(f"not a spec tree node: {type(spec_tree).__name__}")

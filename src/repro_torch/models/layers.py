@@ -9,7 +9,8 @@ The same functions as ``repro/models/layers.py``, on tensors:
   * prefill attention is *chunked* (flash-style online softmax over KV
     tiles, plain torch, as the reference's is plain jnp); decode
     attention goes through ``kernels.flash_decode.decode_partials`` over
-    the live cache range, the SSM prefill (and training forward, with
+    the live cache range (once per sequence shard under an active mesh,
+    ``models.sharded_decode``), the SSM prefill (and training forward, with
     its backward) through ``kernels.chunked_scan.linear_scan``;
   * MLA (minicpm3) prefill expands K/V per head into the same chunked
     attention; its decode is absorbed attention over the latent cache,
@@ -33,8 +34,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import runtime
+from ..distributed.sharding import canonical_device
 from ..kernels.chunked_scan import linear_scan
 from ..kernels.flash_decode import decode_partials, finalize_partials
+from .sharded_decode import sharded_decode_attention
 
 __all__ = ["rms_norm", "swiglu", "rope_tables", "apply_rope",
            "chunked_attention", "init_gqa", "gqa_forward", "init_ssm",
@@ -186,6 +190,30 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _decode_mesh(cache_k):
+    """Active mesh for the sequence-sharded decode path — only when the
+    cache's sequence axis divides the decode axis size.  Every device of
+    the mesh must be the cache's: the port places no decode-state chunk on
+    another card yet, so a mesh over distinct devices raises."""
+    mesh = runtime.get_mesh()
+    axis = runtime.decode_axis()
+    if mesh is None or axis is None or axis not in mesh.shape:
+        return None
+    if cache_k.shape[1] % mesh.shape[axis]:
+        return None
+    here = canonical_device(cache_k.device)
+    other = sorted({str(canonical_device(d)) for d in mesh.devices.flat}
+                   - {str(here)})
+    if other:
+        raise ValueError(
+            f"the decode mesh spans {other} beside the cache's {here}: "
+            f"placing decode-state chunks on distinct cards waits for "
+            f"the consumer of distributed.sharding.named_shardings "
+            f"(ROADMAP queue 1 item 6, the model axis over distinct "
+            f"cards)")
+    return mesh
+
+
 def init_gqa(generator: torch.Generator, cfg, dtype, device) -> Params:
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = d ** -0.5
@@ -211,7 +239,10 @@ def gqa_forward(p: Params, x: torch.Tensor, cfg, *, positions,
     Decode writes k/v at ``len`` into the cache **in place** (the
     reference returns updated copies) and runs
     ``flash_decode.decode_partials`` over the live range
-    [max(len + 1 - window, 0), len + 1).
+    [max(len + 1 - window, 0), len + 1); under an active mesh
+    (``distributed.runtime``) whose decode axis divides the cache length,
+    once per sequence shard, merged by
+    ``sharded_decode.sharded_decode_attention``.
     """
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -233,15 +264,23 @@ def gqa_forward(p: Params, x: torch.Tensor, cfg, *, positions,
             raise ValueError(f"cached decode takes one token, got {s}")
         pos = cache["len"]                                    # (B,)
         ck, cv = cache["k"], cache["v"]
-        rows = torch.arange(b, device=ck.device)
-        ck[rows, pos.long()] = k[:, 0].to(ck.dtype)
-        cv[rows, pos.long()] = v[:, 0].to(cv.dtype)
-        hi = (pos + 1).to(torch.int32)
-        lo = (torch.clamp(hi - window, min=0) if window
-              else torch.zeros_like(hi))
-        part = decode_partials(q[:, 0], ck, cv, lo, hi,
-                               use_kernel=use_kernel)
-        out = finalize_partials(*part).to(q.dtype)[:, None]
+        mesh = _decode_mesh(ck)
+        if mesh is not None:
+            # sequence-sharded cache: partial-softmax shard merge
+            # (pre-aggregation at the model layer — DESIGN.md §2)
+            out, ck, cv = sharded_decode_attention(
+                q, ck, cv, k, v, pos, mesh, axis=runtime.decode_axis(),
+                window=window, use_kernel=use_kernel)
+        else:
+            rows = torch.arange(b, device=ck.device)
+            ck[rows, pos.long()] = k[:, 0].to(ck.dtype)
+            cv[rows, pos.long()] = v[:, 0].to(cv.dtype)
+            hi = (pos + 1).to(torch.int32)
+            lo = (torch.clamp(hi - window, min=0) if window
+                  else torch.zeros_like(hi))
+            part = decode_partials(q[:, 0], ck, cv, lo, hi,
+                                   use_kernel=use_kernel)
+            out = finalize_partials(*part).to(q.dtype)[:, None]
         new_cache = {"k": ck, "v": cv, "len": pos + 1}
     y = out.reshape(b, s, hq * dh) @ p["wo"]
     return y, new_cache

@@ -46,8 +46,12 @@ on the engine's device, keeps per-shard pre-agg planes, and routes
 (``CompiledScript.online_sharded_batch`` / ``offline_sharded``), bitwise
 equal to the unsharded engine.  ``rebalance()`` migrates hot keys between
 shards (``core.union.LoadBalancer`` greedy LPT) together with their
-pre-agg planes.  ``mesh=`` (one shard per device) is not ported and
-raises ``NotImplementedError``.
+pre-agg planes.  With ``mesh=`` (a ``distributed.sharding.Mesh``, e.g.
+``key_shard_mesh()``; S is the size of its axis ``shard_axis``) shard s's
+rows and pre-agg planes live on the mesh's device s and its requests and
+offline units run there; ``offline()`` reuses the serving mesh, and
+followers go to other mesh devices.  The mesh is single-controller: this
+process drives every device, and ``device`` is then the first shard's.
 
 Replicated serving: ``replication=R`` attaches R follower replicas per
 shard (``storage.replication.ReplicationManager``) fed from the store
@@ -78,6 +82,7 @@ import torch
 from ..core.compiler import CompiledScript, compile_script
 from ..core.types import Table
 from ..distributed.fault import CheckpointManager
+from ..distributed.sharding import place_stacked
 from ..kernels.dispatch import resolve_device
 from ..models.model import decode_step, forward_prefill, init_decode_state
 from ..storage.memest import MemoryGuard
@@ -133,12 +138,6 @@ class FeatureEngine:
                  checkpoint_dir: Optional[str] = None,
                  heartbeat_timeout_s: float = 60.0,
                  fused_fold: bool = False, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "FeatureEngine option 'mesh' (one shard per device) is not "
-                "ported to repro_torch yet; n_shards= stacks the shards on "
-                "one device")
-        self.device = resolve_device(device)
         from ..core.sql import parse
 
         self.cs: CompiledScript = compile_script(
@@ -146,16 +145,19 @@ class FeatureEngine:
             fused_unit_fold=fused_fold)
         self.use_preagg = use_preagg
         self.ttl_ms = ttl_ms
-        self.sharded = (n_shards or 0) > 1
+        self.sharded = mesh is not None or (n_shards or 0) > 1
         if self.sharded:
             ok, why = self.cs.sharded_eligible()
             if not ok:
                 raise ValueError(f"script not shardable by key: {why}")
             self.store = ShardedOnlineStore(
-                capacity=capacity, n_shards=n_shards, axis=shard_axis,
-                n_route_slots=route_slots, device=self.device)
+                capacity=capacity, n_shards=n_shards, mesh=mesh,
+                axis=shard_axis, n_route_slots=route_slots,
+                device=device if mesh is not None else resolve_device(device))
         else:
-            self.store = OnlineStore(capacity=capacity, device=self.device)
+            self.store = OnlineStore(capacity=capacity,
+                                     device=resolve_device(device))
+        self.device = self.store.device
         self.guard = MemoryGuard(max_memory_bytes)
         part_cols = sorted({w.node.spec.partition_by
                             for w in self.cs.windows})
@@ -176,8 +178,9 @@ class FeatureEngine:
         if not use_preagg:
             self.pre_states = None
         elif self.sharded:
-            self.pre_states = self.cs.init_preagg_states_sharded(
-                self.store.n_shards, self.device)
+            self.pre_states = self._place_pre(
+                self.cs.init_preagg_states_sharded(self.store.n_shards,
+                                                   self.device))
         else:
             self.pre_states = self.cs.init_preagg_states(self.device)
         self.dicts = {name: t.dicts for name, t in tables.items()}
@@ -541,8 +544,7 @@ class FeatureEngine:
                 self.pre_states = recover_preagg_shard(
                     self.cs, dict(self.pre_states), snap, wm, self.store,
                     shard, self._preagg_owned())
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._synchronize()
             rec.recovery_s = time.perf_counter() - t0
             healed.append(rec)
         self.failovers.extend(healed)
@@ -557,6 +559,21 @@ class FeatureEngine:
         st["dead_shards"] = self.controller.dead_shards()
         st["failovers"] = [dataclasses.asdict(r) for r in self.failovers]
         return st
+
+    def _synchronize(self) -> None:
+        """Wait for every card the store's shards live on."""
+        devices = self.store.devices or [self.device]
+        for d in {str(d): d for d in devices}.values():
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    def _place_pre(self, pre_states):
+        """Co-locate stacked pre-agg planes with their store shards: on a
+        mesh, shard s's planes move to the mesh's device s."""
+        if self.store.mesh is None:
+            return pre_states
+        return {wi: place_stacked(p, self.store.devices)
+                for wi, p in pre_states.items()}
 
     def _preagg_owned(self):
         """Per-window ownership masks, cached against the store's
@@ -576,11 +593,13 @@ class FeatureEngine:
         deployment's script, on the engine's device: the same fold that
         serves the requests computes the training features.  A sharded
         engine materializes through ``offline_sharded`` over its shard
-        count, bitwise equal to ``offline``."""
+        count, on its serving mesh if it has one, bitwise equal to
+        ``offline``."""
         tables = tables or self.tables
         if self.sharded:
             return self.cs.offline_sharded(
-                tables, n_shards=self.store.n_shards, device=self.device)
+                tables, mesh=self.store.mesh, n_shards=self.store.n_shards,
+                axis=self.store.axis, device=self.device)
         return self.cs.offline(tables, device=self.device)
 
     # ------------------------------------------------------------ helpers

@@ -1,8 +1,11 @@
 """Per-shard replication, failover and bitwise recovery for the sharded
 serving path (paper §5 deployment: replicated tablets).
 
-Every shard of a ``ShardedOnlineStore`` gets R FOLLOWER replicas: unstacked
-per-shard states on the store's device.  The leader (stacked slot s — the
+Every shard of a ``ShardedOnlineStore`` gets R FOLLOWER replicas:
+unstacked per-shard states on the store's device, or on a mesh store on
+devices distinct from their leader's (``(s + 1 + r) % n_devices`` of the
+mesh's devices, so a card loss never takes a shard and all its replicas
+together).  The leader (slot s — the
 only replica the serving path reads) applies the writes, and the store
 binlog is the shipping stream: ``ReplicationManager.ship`` reads each
 follower's unacked log tail, keeps the entries its shard owns, and applies
@@ -46,7 +49,7 @@ import torch
 from ..distributed.fault import (CheckpointManager, HeartbeatMonitor,
                                  most_caught_up, tree_map)
 from .timestore import (ShardedOnlineStore, StoreState, evict_before,
-                        insert_many, make_state)
+                        insert_many, make_state, unstack_shard)
 
 __all__ = ["ReplicationLog", "ReplicationManager", "FailoverController",
            "PromotionRecord", "apply_entries", "cold_recover_shard",
@@ -144,13 +147,16 @@ def apply_entries(tables: Dict[str, StoreState],
 @dataclasses.dataclass
 class _Follower:
     replica: int
+    device: torch.device
     tables: Dict[str, StoreState]
 
 
 class ReplicationManager:
     """R follower replicas per shard, fed from the store binlog.
-    ``followers[(shard, replica)].tables`` holds per-shard table states on
-    the store's device, outside the serving layout."""
+    ``followers[(shard, replica)].tables`` holds per-shard table states
+    outside the serving layout, on the follower's ``device``: the store's
+    device, or on a mesh store the mesh device ``(s + 1 + r) %
+    n_devices``."""
 
     def __init__(self, store: ShardedOnlineStore, n_replicas: int = 1):
         if n_replicas < 1:
@@ -158,9 +164,11 @@ class ReplicationManager:
         self.store = store
         self.n_replicas = int(n_replicas)
         self.log = ReplicationLog(store.n_shards, n_replicas)
+        devices = (list(store.mesh.devices.flat) if store.mesh is not None
+                   else [store.device])
         self.followers: Dict[Tuple[int, int], _Follower] = {
-            (s, r): _Follower(r, {}) for s in range(store.n_shards)
-            for r in range(n_replicas)}
+            (s, r): _Follower(r, devices[(s + 1 + r) % len(devices)], {})
+            for s in range(store.n_shards) for r in range(n_replicas)}
         self.n_shipped = 0
         self.max_lag_seen = 0
         self._ensure_tables()
@@ -172,7 +180,7 @@ class ReplicationManager:
             for f in self.followers.values():
                 if name not in f.tables:
                     f.tables[name] = make_state(self.store.capacity, specs,
-                                                self.store.device)
+                                                f.device)
 
     def _observe_lag(self) -> None:
         self.max_lag_seen = max(self.max_lag_seen,
@@ -214,9 +222,11 @@ class ReplicationManager:
         shards = range(self.store.n_shards) if shard is None else [shard]
         for s in shards:
             for r in range(self.n_replicas):
+                f = self.followers[(s, r)]
                 for name in self.store.tables:
-                    self.followers[(s, r)].tables[name] = \
-                        self.store.shard_state(name, s)
+                    f.tables[name] = tree_map(
+                        lambda x, d=f.device: x.to(d),
+                        self.store.shard_state(name, s))
                 self.log.acked[s, r] = end
 
     def evict(self, table: str, horizon_ts: int) -> None:
@@ -323,8 +333,7 @@ def cold_recover_shard(store: ShardedOnlineStore, ckpt: CheckpointManager,
     ordered apply.  Returns the replayed entries."""
     step = watermark if watermark is not None else ckpt.latest_step()
     restored = ckpt.restore(dict(store.tables), step=step)
-    slices = {t: tree_map(lambda x: x[shard].clone(), restored[t])
-              for t in restored}
+    slices = {t: unstack_shard(restored[t], shard) for t in restored}
     entries, _ = store.read_binlog(int(step))
     mine = _owned_entries(store, entries, shard)
     if mine:

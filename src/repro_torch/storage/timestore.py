@@ -28,7 +28,9 @@ take such a state directly: a (S·b,) request batch laid out shard-major
 (request i reads shard i // b) seeks with one batched
 ``torch.searchsorted`` over the (S, capacity) composite and gathers
 from the flattened columns at ``s * capacity + pos``, so a sharded batch
-runs the same launches as an unsharded one of S·b requests.
+runs the same launches as an unsharded one of S·b requests.  On a device
+mesh (``mesh=``) a table is instead a tuple of such stacked states of
+one shard each, shard s's on the mesh's device s.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ __all__ = ["StoreState", "OnlineStore", "ShardedOnlineStore",
            "StoreSnapshot", "make_state", "make_state_stacked",
            "insert", "insert_pos", "insert_many", "insert_many_stacked", "evict_before",
            "evict_before_stacked", "range_bounds", "gather_window",
-           "gather_key_unit", "composite", "next_pow2", "route_slots"]
+           "gather_key_unit", "composite", "next_pow2", "route_slots",
+           "shard_counts", "unstack_shard"]
 
 StoreState = Dict
 
@@ -337,6 +340,7 @@ class StoreSnapshot:
         if self.sharded:
             self.n_shards = store.n_shards
             self.n_route_slots = store.n_route_slots
+            self.mesh, self.devices = store.mesh, store.devices
         self.version = -1
         self.refresh()
 
@@ -353,10 +357,10 @@ class StoreSnapshot:
                                ].astype(np.int64)
 
     def n_rows_per_shard(self, table: str) -> np.ndarray:
-        return self.tables[table]["count"].cpu().numpy()
+        return shard_counts(self.tables[table])
 
     def n_rows(self, table: str) -> int:
-        return int(self.tables[table]["count"].sum())
+        return int(shard_counts(self.tables[table]).sum())
 
 
 class _BinlogMixin:
@@ -505,13 +509,26 @@ class OnlineStore(_BinlogMixin):
 
 class ShardedOnlineStore(_BinlogMixin):
     """Key-sharded online store: the paper's tablet partitioning (§5,
-    §7.2) in the stacked layout on one device.
+    §7.2).
 
     Every table's state leaf gains a leading shard dimension — ``keys:
     (n_shards, capacity)``, ``count: (n_shards,)`` etc. — and all rows of
     one partition key live on exactly one shard, so window folds over a
     key never cross shards.  Each shard keeps its rows in stable (key,
     ts, arrival) order, as an ``OnlineStore`` does.
+
+    Layout: with ``mesh=None`` every table is ONE stacked state on
+    ``device``.  With ``mesh`` (a ``distributed.sharding.Mesh``; the
+    shard count is the size of its axis ``axis``) shard s's state lives
+    on the mesh's device s (``stacked_store_sharding``): a table is a
+    tuple of stacked states of one shard each, every mutation runs shard
+    by shard on the shard's device with the stacked code at S = 1, and
+    requests are served shard by shard (``CompiledScript.
+    online_sharded_batch``).  The mesh is single-controller: this process
+    drives every device, and the cross-shard steps (``rebalance``,
+    follower promotion) are explicit copies.  Both layouts hold the same
+    rows in the same order, so they serve the same bits.  ``device`` is
+    the home device of a mesh store: its first shard's.
 
     Routing: key -> route slot (splitmix64 mod ``n_route_slots``) ->
     shard (the host-side ``assignment``).  The assignment starts as the
@@ -522,16 +539,15 @@ class ShardedOnlineStore(_BinlogMixin):
 
     ``capacity`` is PER SHARD: a skewed key distribution needs headroom.
 
-    Replication (``storage.replication``): slot s of the stacked layout is
-    shard s's LEADER, the only replica the serving path reads;
-    ``shard_state`` / ``install_shard`` / ``wipe_shard`` expose the slices
-    followers are seeded from and promoted into, and the binlog (every
-    entry carries table, key, ts and values) is the shipping stream.
+    Replication (``storage.replication``): slot s of the layout is shard
+    s's LEADER, the only replica the serving path reads; ``shard_state``
+    / ``install_shard`` / ``wipe_shard`` expose the slices followers are
+    seeded from and promoted into, and the binlog (every entry carries
+    table, key, ts and values) is the shipping stream.
 
-    Every mutation builds new stacked tensors (nothing is written in
-    place), so a snapshot cut earlier keeps its bytes.  ``mesh=`` (one
-    shard per device through ``torch.distributed``) is not ported and
-    raises ``NotImplementedError``.
+    Every mutation builds new tensors (nothing is written in place, and a
+    mesh table is a new tuple), so a snapshot cut earlier keeps its
+    bytes.
     """
 
     def __init__(self, capacity: int, n_shards: Optional[int] = None,
@@ -539,15 +555,27 @@ class ShardedOnlineStore(_BinlogMixin):
                  n_route_slots: int = 1024, device="cuda"):
         from ..core.union import LoadBalancer
 
+        self.devices: Optional[List[torch.device]] = None
         if mesh is not None:
-            raise NotImplementedError(
-                "ShardedOnlineStore option 'mesh' (one shard per device) is "
-                "not ported to repro_torch yet; pass n_shards= for the "
-                "stacked layout on one device")
+            from ..distributed.sharding import (canonical_device,
+                                                stacked_store_sharding)
+            from ..kernels.dispatch import resolve_device
+
+            if axis not in mesh.shape:
+                raise ValueError(f"mesh has no axis {axis!r}")
+            mesh_n = mesh.shape[axis]
+            if n_shards is not None and n_shards != mesh_n:
+                raise ValueError(f"n_shards={n_shards} != mesh axis "
+                                 f"{axis!r} size {mesh_n}")
+            n_shards = mesh_n
+            self.devices = [canonical_device(resolve_device(d))
+                            for d in stacked_store_sharding(mesh, axis)]
+            device = self.devices[0]
         if not n_shards or n_shards < 1:
-            raise ValueError("need n_shards >= 1")
+            raise ValueError("need n_shards >= 1 or a mesh")
         self.capacity = capacity
         self.n_shards = int(n_shards)
+        self.mesh = mesh
         self.axis = axis
         self.n_route_slots = n_route_slots
         self.device = torch.device(device)
@@ -583,19 +611,24 @@ class ShardedOnlineStore(_BinlogMixin):
 
     # ------------------------------------------------------------ tables
     def create_table(self, name: str, col_specs: Dict[str, np.dtype]):
-        self.tables[name] = make_state_stacked(
-            self.n_shards, self.capacity, col_specs, self.device)
+        if self.mesh is None:
+            self.tables[name] = make_state_stacked(
+                self.n_shards, self.capacity, col_specs, self.device)
+        else:
+            self.tables[name] = tuple(
+                make_state_stacked(1, self.capacity, col_specs, d)
+                for d in self.devices)
         self.col_specs[name] = dict(col_specs)
 
     def n_rows_per_shard(self, table: str) -> np.ndarray:
-        return self.tables[table]["count"].cpu().numpy()
+        return shard_counts(self.tables[table])
 
     def n_rows(self, table: str) -> int:
         return int(self.n_rows_per_shard(table).sum())
 
-    def _to_device(self, arr, dtype) -> torch.Tensor:
+    def _to_device(self, arr, dtype, device=None) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr, dtype)).to(
-            self.device)
+            device or self.device)
 
     # ------------------------------------------------------------ ingest
     def put(self, table: str, key: int, ts: int,
@@ -609,8 +642,9 @@ class ShardedOnlineStore(_BinlogMixin):
                  cols: Dict[str, np.ndarray]) -> int:
         """Bulk insert routed by key: rows are grouped per owning shard
         (arrival order kept within a shard) into (S, M) blocks padded
-        with INT_MAX rows and merged by one ``insert_many_stacked``;
-        returns the first binlog offset."""
+        with INT_MAX rows and merged by one ``insert_many_stacked`` (on a
+        mesh, one per shard that receives rows, on its device); returns
+        the first binlog offset."""
         keys = np.asarray(keys, np.int32)
         ts = np.asarray(ts, np.int32)
         n = keys.shape[0]
@@ -633,16 +667,30 @@ class ShardedOnlineStore(_BinlogMixin):
         t_blk = np.full((self.n_shards, m), INT_MAX, np.int32)
         k_blk[owner, pos] = keys
         t_blk[owner, pos] = ts
-        vals = {}
+        v_blk = {}
         for name, dtype in self.col_specs[table].items():
             if name in cols:
                 v = np.zeros((self.n_shards, m), dtype)
                 v[owner, pos] = np.asarray(cols[name], dtype)
-                vals[name] = self._to_device(v, dtype)
-        self.tables[table] = insert_many_stacked(
-            self.tables[table], self._to_device(k_blk, np.int32),
-            self._to_device(t_blk, np.int32), vals,
-            self._to_device(counts, np.int32))
+                v_blk[name] = v
+        specs = self.col_specs[table]
+
+        def merge(state, rows, dev):
+            return insert_many_stacked(
+                state, self._to_device(k_blk[rows], np.int32, dev),
+                self._to_device(t_blk[rows], np.int32, dev),
+                {c: self._to_device(v[rows], specs[c], dev)
+                 for c, v in v_blk.items()},
+                self._to_device(counts[rows], np.int32, dev))
+
+        if self.mesh is None:
+            self.tables[table] = merge(self.tables[table], slice(None),
+                                       self.device)
+        else:
+            parts = list(self.tables[table])
+            for s in np.flatnonzero(counts):
+                parts[s] = merge(parts[s], slice(s, s + 1), self.devices[s])
+            self.tables[table] = tuple(parts)
         self._slot_counts += np.bincount(slots, minlength=self.n_route_slots)
         off = self._binlog_offset
         kl, tl = keys.tolist(), ts.tolist()
@@ -684,48 +732,35 @@ class ShardedOnlineStore(_BinlogMixin):
         return n
 
     def _build_state(self, table: str, keys: torch.Tensor, ts: torch.Tensor,
-                     cols: Dict[str, torch.Tensor], owner: torch.Tensor
-                     ) -> StoreState:
-        """Stacked state from device rows given in arrival order: a stable
-        sort by composite key, then a stable sort by owner, lays every
-        shard's rows out in (key, ts, arrival) order — the order per-shard
-        sequential inserts produce — and one scatter places them at
-        ``owner * capacity + rank``."""
-        s, cap = self.n_shards, self.capacity
-        counts = torch.bincount(owner, minlength=s)
-        if int(counts.max()) > cap:
+                     cols: Dict[str, torch.Tensor], owner: torch.Tensor):
+        """A table's state from rows given in arrival order (one device):
+        the stacked state, or on a mesh the tuple of per-shard states,
+        each shard's rows selected in order and laid out on its device."""
+        counts = torch.bincount(owner, minlength=self.n_shards)
+        if int(counts.max()) > self.capacity:
             sh = int(torch.argmax(counts))
             raise ValueError(f"shard {sh} gets {int(counts[sh])} rows > "
-                             f"per-shard capacity {cap}")
-        keys = keys.to(torch.int32)
-        ts = ts.to(torch.int32)
-        perm = torch.sort(composite(keys, ts), stable=True).indices
-        perm = perm[torch.sort(owner[perm], stable=True).indices]
-        own_s = owner[perm]
-        starts = torch.cumsum(counts, 0) - counts
-        dest = own_s * cap + (torch.arange(perm.shape[0], device=perm.device)
-                              - starts[own_s])
-        st = make_state_stacked(s, cap, self.col_specs[table], self.device)
-
-        def place(arr, src):
-            out = arr.reshape(-1).clone()
-            out[dest] = src[perm].to(out.dtype)
-            return out.view(s, cap)
-
-        new_keys = place(st["keys"], keys)
-        new_ts = place(st["ts"], ts)
-        return {
-            "keys": new_keys, "ts": new_ts,
-            "cols": {c: place(v, cols[c]) if c in cols else v
-                     for c, v in st["cols"].items()},
-            "count": counts.to(torch.int32),
-            "comp": composite(new_keys, new_ts),
-        }
+                             f"per-shard capacity {self.capacity}")
+        specs = self.col_specs[table]
+        if self.mesh is None:
+            return _stack_rows(keys, ts, cols, owner, counts, self.capacity,
+                               specs, self.device)
+        parts = []
+        for s, dev in enumerate(self.devices):
+            sel = torch.nonzero(owner == s).flatten()
+            parts.append(_stack_rows(
+                keys[sel].to(dev), ts[sel].to(dev),
+                {c: v[sel].to(dev) for c, v in cols.items()},
+                torch.zeros(sel.shape[0], dtype=torch.int64, device=dev),
+                counts[s:s + 1].to(dev), self.capacity, specs, dev))
+        return tuple(parts)
 
     def evict(self, table: str, horizon_ts: int) -> None:
         """Per-shard batch TTL eviction + slot compaction (one pass)."""
-        self.tables[table] = evict_before_stacked(self.tables[table],
-                                                  horizon_ts)
+        st = self.tables[table]
+        self.tables[table] = (
+            evict_before_stacked(st, horizon_ts) if self.mesh is None
+            else tuple(evict_before_stacked(p, horizon_ts) for p in st))
 
     # --------------------------------------------------------- rebalance
     def rebalance(self) -> bool:
@@ -737,9 +772,11 @@ class ShardedOnlineStore(_BinlogMixin):
 
         Two-phase: every table's migrated state is built before anything
         is committed, so a per-shard capacity overflow mid-migration
-        leaves routing and tables as they were.  A row's arrival is its
-        global source position ``s * capacity + i`` (all rows of one key
-        live on one source shard, so per-key arrival order holds)."""
+        leaves routing and tables as they were.  The live rows are
+        collected on one device (the home device on a mesh) in shard
+        order: a row's arrival is its global source position
+        ``s * capacity + i`` (all rows of one key live on one source
+        shard, so per-key arrival order holds)."""
         self.balancer.observe(self._slot_counts)
         # counts are folded into the EMA exactly once: zero them NOW so a
         # retry after a failed migration does not double-count the load
@@ -749,13 +786,9 @@ class ShardedOnlineStore(_BinlogMixin):
             return False
         new_tables: Dict[str, StoreState] = {}
         for table, st in self.tables.items():
-            live = (torch.arange(self.capacity, device=self.device)
-                    < st["count"][:, None]).reshape(-1)
-            src = torch.nonzero(live).flatten()   # ascending s*cap + i
-            keys = st["keys"].reshape(-1)[src]
+            keys, ts, cols = _live_rows(st, self.device)
             new_tables[table] = self._build_state(
-                table, keys, st["ts"].reshape(-1)[src],
-                {c: v.reshape(-1)[src] for c, v in st["cols"].items()},
+                table, keys, ts, cols,
                 self._owners_on_device(keys, new_assign))
         self.tables.update(new_tables)
         self.assignment = new_assign
@@ -766,34 +799,43 @@ class ShardedOnlineStore(_BinlogMixin):
     def shard_state(self, table: str, shard: int) -> StoreState:
         """Unstacked copy of one shard's slice of ``table`` — the leader's
         state, used to seed and resync follower replicas."""
-        st = self.tables[table]
-        return {"keys": st["keys"][shard].clone(),
-                "ts": st["ts"][shard].clone(),
-                "cols": {c: v[shard].clone() for c, v in st["cols"].items()},
-                "count": st["count"][shard].clone(),
-                "comp": st["comp"][shard].clone()}
+        return unstack_shard(self.tables[table], shard)
 
     def install_shard(self, shard: int,
                       tables: Dict[str, StoreState]) -> None:
-        """Put per-shard states into stacked slot ``shard`` (follower
-        promotion: the promoted replica becomes the leader of the shard's
-        key range; routing is untouched).  Builds new stacked tensors."""
-        idx = torch.tensor([shard], device=self.device)
+        """Put per-shard states into slot ``shard`` (follower promotion:
+        the promoted replica becomes the leader of the shard's key range;
+        routing is untouched).  Builds new tensors, on the slot's
+        device."""
+        dev = self.device if self.mesh is None else self.devices[shard]
+        idx = torch.tensor([shard], device=dev)
 
         def put(full, part):
             return full.index_copy(0, idx, part.to(full.device)[None])
 
         for name, part in tables.items():
+            part = dict(part, comp=composite(part["keys"], part["ts"]))
             st = self.tables[name]
-            self.tables[name] = {
-                "keys": put(st["keys"], part["keys"]),
-                "ts": put(st["ts"], part["ts"]),
-                "cols": {c: put(v, part["cols"][c])
-                         for c, v in st["cols"].items()},
-                "count": put(st["count"], part["count"]),
-                "comp": put(st["comp"], composite(part["keys"],
-                                                  part["ts"])),
+            if self.mesh is None:
+                self.tables[name] = {
+                    "keys": put(st["keys"], part["keys"]),
+                    "ts": put(st["ts"], part["ts"]),
+                    "cols": {c: put(v, part["cols"][c])
+                             for c, v in st["cols"].items()},
+                    "count": put(st["count"], part["count"]),
+                    "comp": put(st["comp"], part["comp"]),
+                }
+                continue
+            parts = list(st)
+            parts[shard] = {
+                "keys": part["keys"].to(dev, copy=True)[None],
+                "ts": part["ts"].to(dev, copy=True)[None],
+                "cols": {c: part["cols"][c].to(dev, copy=True)[None]
+                         for c in st[shard]["cols"]},
+                "count": part["count"].to(dev, copy=True)[None],
+                "comp": part["comp"].to(dev, copy=True)[None],
             }
+            self.tables[name] = tuple(parts)
 
     def wipe_shard(self, shard: int) -> None:
         """Fault injection: shard ``shard`` loses all resident rows (its
@@ -806,6 +848,80 @@ class ShardedOnlineStore(_BinlogMixin):
     def snapshot(self) -> StoreSnapshot:
         """Cut a frozen read view: tables AND routing."""
         return StoreSnapshot(self)
+
+
+def shard_counts(state) -> np.ndarray:
+    """Rows per shard of a sharded table: a stacked state or a mesh
+    store's tuple of one-shard states."""
+    if isinstance(state, tuple):
+        return np.concatenate([p["count"].cpu().numpy() for p in state])
+    return state["count"].cpu().numpy()
+
+
+def unstack_shard(state, shard: int) -> StoreState:
+    """Unstacked copy of shard ``shard`` of a sharded table (stacked, or
+    a mesh store's tuple), on the shard's device."""
+    if isinstance(state, tuple):
+        state, shard = state[shard], 0
+    return {"keys": state["keys"][shard].clone(),
+            "ts": state["ts"][shard].clone(),
+            "cols": {c: v[shard].clone() for c, v in state["cols"].items()},
+            "count": state["count"][shard].clone(),
+            "comp": state["comp"][shard].clone()}
+
+
+def _live_rows(state, device):
+    """The live rows of a sharded table on ``device``, shard by shard in
+    slot order: (keys, ts, cols)."""
+    parts = state if isinstance(state, tuple) else (state,)
+    keys, ts, cols = [], [], {c: [] for c in parts[0]["cols"]}
+    for st in parts:
+        cap = st["keys"].shape[1]
+        live = (torch.arange(cap, device=st["keys"].device)
+                < st["count"][:, None]).reshape(-1)
+        src = torch.nonzero(live).flatten()   # ascending s*cap + i
+        keys.append(st["keys"].reshape(-1)[src].to(device))
+        ts.append(st["ts"].reshape(-1)[src].to(device))
+        for c, v in st["cols"].items():
+            cols[c].append(v.reshape(-1)[src].to(device))
+    return (torch.cat(keys), torch.cat(ts),
+            {c: torch.cat(v) for c, v in cols.items()})
+
+
+def _stack_rows(keys: torch.Tensor, ts: torch.Tensor,
+                cols: Dict[str, torch.Tensor], owner: torch.Tensor,
+                counts: torch.Tensor, cap: int,
+                specs: Dict[str, np.dtype], device) -> StoreState:
+    """Stacked state of ``counts.shape[0]`` shards from device rows given
+    in arrival order: a stable sort by composite key, then a stable sort
+    by owner, lays every shard's rows out in (key, ts, arrival) order —
+    the order per-shard sequential inserts produce — and one scatter
+    places them at ``owner * capacity + rank``."""
+    s = counts.shape[0]
+    keys = keys.to(torch.int32)
+    ts = ts.to(torch.int32)
+    perm = torch.sort(composite(keys, ts), stable=True).indices
+    perm = perm[torch.sort(owner[perm], stable=True).indices]
+    own_s = owner[perm]
+    starts = torch.cumsum(counts, 0) - counts
+    dest = own_s * cap + (torch.arange(perm.shape[0], device=perm.device)
+                          - starts[own_s])
+    st = make_state_stacked(s, cap, specs, device)
+
+    def place(arr, src):
+        out = arr.reshape(-1).clone()
+        out[dest] = src[perm].to(out.dtype)
+        return out.view(s, cap)
+
+    new_keys = place(st["keys"], keys)
+    new_ts = place(st["ts"], ts)
+    return {
+        "keys": new_keys, "ts": new_ts,
+        "cols": {c: place(v, cols[c]) if c in cols else v
+                 for c, v in st["cols"].items()},
+        "count": counts.to(torch.int32),
+        "comp": composite(new_keys, new_ts),
+    }
 
 
 def _rank_within(owner: np.ndarray, counts: np.ndarray) -> np.ndarray:

@@ -13,12 +13,14 @@ by the fold).
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import compile_script as jax_compile
 from repro.core import replay_online as jax_replay
 from repro_torch.core import compile_script, replay_online, \
     verify_consistency
 from repro_torch.data.synthetic import make_action_tables
+from repro_torch.distributed.sharding import Mesh
 
 from torch_port_cases import ACTION_TABLES, EW_ATOL, EW_RTOL, SMOKE_SQL
 
@@ -113,23 +115,24 @@ def test_single_request_online_equals_batched_path():
 
 
 @pytest.mark.parametrize("option", [
-    {"n_shards": 2}, {"mesh": object()},
+    {"n_shards": 2}, {"mesh": 2},
     {"replication": 1}, {"kill_shard_at": 3}])
 def test_unported_options_raise(option):
-    """Of the gate's deployment options only ``mesh`` (one shard per
-    device) is unported: it raises ``NotImplementedError`` naming it.
-    ``n_shards`` runs the sharded gate (bitwise), and ``replication`` /
-    ``kill_shard_at`` without a sharded, replicated replay raise the
-    reference's ``ValueError`` naming the option."""
+    """Every deployment option of the gate is ported.  ``n_shards`` and
+    ``mesh`` (here a ``Mesh`` of two CPU entries) run the sharded gate
+    (bitwise), and ``replication`` / ``kill_shard_at`` without a sharded,
+    replicated replay raise the reference's ``ValueError`` naming the
+    option."""
     tables = make_action_tables(**ACTION_TABLES)
     cs = compile_script(SMOKE_SQL, tables=tables)
     name = next(iter(option))
-    if name == "n_shards":
+    if name == "mesh":
+        option = {"mesh": Mesh([torch.device("cpu")] * 2, ("shard",))}
+    if name in ("n_shards", "mesh"):
         rep = verify_consistency(cs, tables, device="cpu", **option)
         assert rep.passed and rep.bitwise_equal, str(rep)
         return
-    err = NotImplementedError if name == "mesh" else ValueError
-    with pytest.raises(err, match=name):
+    with pytest.raises(ValueError, match=name):
         verify_consistency(cs, tables, device="cpu", **option)
-    with pytest.raises(err, match=name):
+    with pytest.raises(ValueError, match=name):
         replay_online(cs, tables, device="cpu", **option)

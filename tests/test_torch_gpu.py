@@ -1055,3 +1055,105 @@ def test_memory_bound_equals_card_store_nbytes():
     assert (m["store_bytes"], m["preagg_bytes"]) == (store, planes)
     assert all(t.device.type == "cuda" for st in eng.store.tables.values()
                for t in (st["keys"], st["comp"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_preagg", [False, True],
+                         ids=["fused", "preagg"])
+def test_mesh_engine_on_one_card_equals_stacked(use_preagg):
+    """A mesh of four entries naming the card (one shard's state each)
+    serves, materializes offline and heals bitwise as the stacked
+    ``n_shards=4`` engine on the card; every shard's tensors lie on the
+    card, and a batch launches the fold and hash kernels once per shard
+    that holds a request."""
+    from repro_torch.distributed.sharding import Mesh
+
+    dev = require_cuda()
+    sql = SMOKE_SQL
+    opts = dict(fused_fold=True)
+    if use_preagg:
+        sql = SMOKE_SQL + 'OPTIONS (long_windows = "w:10s")'
+        opts = dict(use_preagg=True)
+    tables = make_action_tables(n_actions=600, n_orders=300, n_users=12,
+                                horizon_ms=600_000, zipf_alpha=1.2, seed=3,
+                                with_profile=False)
+    mesh = Mesh([dev] * 4, ("shard",))
+    engines = [FeatureEngine(sql, tables, capacity=2048, n_shards=4,
+                             replication=1, device=dev, **opts),
+               FeatureEngine(sql, tables, capacity=2048, mesh=mesh,
+                             replication=1, **opts)]
+    for name in ("orders", "actions"):
+        rows = [tables[name].row(i) for i in range(len(tables[name]) - 80)]
+        for e in engines:
+            e.ingest_many(name, rows)
+    probe = [dict(tables["actions"].row(530 + i)) for i in range(64)]
+    outs, counts = [], []
+    for e in engines:
+        dispatch.reset_launch_counts()
+        outs.append(e.request_batch(probe))
+        counts.append(dispatch.launch_counts())
+    owners = len(set(engines[1].store.owner_of_keys(
+        [r["userid"] for r in probe]).tolist()))
+    assert counts[1]["feature_hash"] == owners * counts[0]["feature_hash"]
+    meshed = engines[1]
+    assert all(t.device.type == "cuda" for parts in meshed.store.tables
+               .values() for st in parts for t in (st["keys"], st["comp"]))
+    meshed.kill_shard(int(meshed.store.owner_of_keys(
+        [probe[0]["userid"]])[0]))
+    meshed.heal()
+    outs.append(meshed.request_batch(probe))
+    for got in outs[1:]:
+        for g, w in zip(got, outs[0]):
+            _same_features(g, w)
+    off = [e.offline() for e in engines]
+    for k in off[0]:
+        np.testing.assert_array_equal(off[1][k], off[0][k], err_msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3-8b", "hymba-1.5b"])
+def test_sequence_sharded_decode_kernel_matches_plain_on_card(arch):
+    """Reduced models in float32 on the card, a (1, 4) mesh of the card:
+    the sequence-sharded decode through the ``decode_partials`` kernel
+    (four launches a layer) equals the same decode through the plain
+    version and the unsharded decode, within 2e-4."""
+    import dataclasses
+
+    from repro_torch.configs import reduced
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.models import model as TM
+
+    dev = require_cuda()
+    cfg = dataclasses.replace(reduced(arch), n_layers=4)
+    params = TM.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12))
+                              .astype(np.int32)).to(dev)
+    steps = rng.integers(0, cfg.vocab_size, (6, 2, 1)).astype(np.int32)
+    mesh = Mesh(np.array([[dev] * 4], dtype=object), ("data", "model"))
+
+    def run(mesh, use_kernel):
+        _, state = TM.forward_prefill(cfg, params, {"tokens": prompt},
+                                      cache_capacity=64,
+                                      use_kernel=use_kernel)
+        out = []
+        dispatch.reset_launch_counts()
+        with runtime.use_mesh(mesh):
+            for t in steps:
+                logits, state = TM.decode_step(
+                    cfg, params, state, torch.from_numpy(t).to(dev),
+                    use_kernel=use_kernel)
+                out.append(logits.cpu().numpy())
+        return np.stack(out), dispatch.launch_counts().get(
+            "decode_partials", 0)
+
+    got, n = run(mesh, None)
+    assert n == 4 * cfg.n_layers * len(steps)
+    plain, n_plain = run(mesh, False)
+    assert n_plain == 0
+    unsharded, n_one = run(None, None)
+    assert n_one == cfg.n_layers * len(steps)
+    np.testing.assert_allclose(got, plain, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got, unsharded, rtol=2e-4, atol=2e-4)

@@ -27,8 +27,8 @@ def _imported_roots(path: pathlib.Path):
 
 # modules of the offline, model-serving, staged-fold, pre-aggregation,
 # serving-loop, sharding/replication, row-format / preview / certifier
-# / training-data, training and MoE/MLA slices: each must exist and import
-# without JAX
+# / training-data, training, MoE/MLA and device-mesh slices: each must
+# exist and import without JAX
 SLICE_MODULES = (
     "core.hll", "core.skew", "core.multiwindow", "core.consistency",
     "core.window", "core.preagg",
@@ -55,7 +55,9 @@ SLICE_MODULES = (
     "train", "train.optimizer", "train.steps", "distributed.compression",
     "launch.train",
     "configs.qwen3_8b", "configs.granite_3_8b", "configs.minicpm3_4b",
-    "configs.qwen2_moe_a2_7b", "configs.dbrx_132b")
+    "configs.qwen2_moe_a2_7b", "configs.dbrx_132b",
+    "distributed.runtime", "distributed.sharding", "launch.mesh",
+    "models.sharded_decode")
 
 
 def test_port_has_files():

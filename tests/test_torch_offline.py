@@ -24,6 +24,7 @@ from repro_torch.core import compile_script as torch_compile
 from repro_torch.core import multiwindow, skew
 from repro_torch.core.lowering import drivers as torch_drivers
 from repro_torch.data.synthetic import make_action_tables as torch_tables
+from repro_torch.distributed.sharding import Mesh
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.unit_fold import kernel as K
 from repro_torch.kernels.unit_fold import ref as torch_ref
@@ -279,14 +280,16 @@ def test_offline_on_a_missing_card_raises():
 
 
 def test_unported_offline_schedules_raise():
-    """``offline_sharded`` is ported (bitwise ``offline()``); its
-    ``mesh`` option (one shard per device) is not and raises
-    ``NotImplementedError`` naming it."""
+    """``offline_sharded`` is ported (bitwise ``offline()``), with its
+    ``mesh`` option (one shard per mesh device) too; a mesh without the
+    shard axis raises a ``ValueError`` naming it."""
     t = torch_tables(**ACTION_TABLES)
     cs = torch_compile(SMOKE_SQL, tables=t)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        cs.offline_sharded(t, mesh=object(), device="cpu")
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="no axis 'shard'"):
+        cs.offline_sharded(t, mesh=Mesh([cpu, cpu], ("model",)))
     want = cs.offline(t, device="cpu")
-    got = cs.offline_sharded(t, n_shards=2, device="cpu")
-    for k in want:
-        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for got in (cs.offline_sharded(t, n_shards=2, device="cpu"),
+                cs.offline_sharded(t, mesh=Mesh([cpu, cpu], ("shard",)))):
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)

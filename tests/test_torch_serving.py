@@ -13,6 +13,7 @@ import torch
 import jax
 from repro.serve.engine import FeatureEngine as JaxEngine
 from repro_torch.data.synthetic import make_action_tables
+from repro_torch.distributed.sharding import Mesh
 from repro_torch.serve.engine import FeatureEngine as TorchEngine
 
 from torch_port_cases import ACTION_TABLES, EW_ATOL, EW_RTOL, SMOKE_SQL
@@ -112,27 +113,28 @@ def test_null_prices_served_like_the_reference(action_tables):
 
 @pytest.mark.parametrize("option", [
     {"n_shards": 2}, {"replication": 1}, {"checkpoint_dir": "ckpt"},
-    {"mesh": object()}])
+    {"mesh": 2}])
 def test_unported_options_raise(option, micro_sql, tmp_path):
-    """Of the engine's deployment options only ``mesh`` (one shard per
-    device) is unported: it raises ``NotImplementedError`` naming it.
-    ``n_shards`` builds a sharded engine that serves, ``replication``
-    without sharding raises the reference's ``ValueError``, and
-    ``checkpoint_dir`` writes a checkpoint at the binlog watermark."""
+    """Every deployment option of the engine is ported.  ``n_shards`` and
+    ``mesh`` (here a ``Mesh`` of two CPU entries) build a sharded engine
+    that serves, ``replication`` without sharding raises the reference's
+    ``ValueError``, and ``checkpoint_dir`` writes a checkpoint at the
+    binlog watermark."""
     kw = dict(capacity=64, fused_fold=True, device="cpu")
     kw.update(option)
     name = next(iter(option))
     if name == "checkpoint_dir":
         kw[name] = str(tmp_path / option[name])
+    if name == "mesh":
+        kw[name] = Mesh([torch.device("cpu")] * option[name], ("shard",))
     tables = make_action_tables(**ACTION_TABLES)
-    if name in ("mesh", "replication"):
-        err = NotImplementedError if name == "mesh" else ValueError
-        with pytest.raises(err, match=name):
+    if name == "replication":
+        with pytest.raises(ValueError, match=name):
             TorchEngine(micro_sql, tables, **kw)
         return
     eng = TorchEngine(micro_sql, tables, **kw)
     eng.ingest_many("orders", [tables["orders"].row(i) for i in range(20)])
-    if name == "n_shards":
+    if name in ("n_shards", "mesh"):
         assert eng.sharded and eng.store.n_shards == 2
         assert eng.store.n_rows("orders") == 20
         assert len(eng.request_batch([dict(tables["actions"].row(0))])) == 1

@@ -1,0 +1,227 @@
+"""Sequence-sharded decode, port against reference, on reduced llama3-8b
+and hymba-1.5b (4 layers: layer 1 slides a window of 8) in float32 on
+the CPU; the JAX package's weights go through ``params_from_jax``.
+
+* the port's (1, 1) host mesh against the reference's singleton-mesh
+  ``decode_step`` (the reference's own test, ``tests/test_sharded_
+  decode.py``: three tokens from an empty state);
+* the port's (1, 2) and (1, 4) meshes over the CPU against the
+  reference's unsharded decode, after a 12-token prompt in a cache of
+  32: hymba's sliding layer has shards its live range misses;
+* a cache length the axis does not divide takes the unsharded path;
+* ``sharded_decode_attention`` alone: a shard with no live key adds the
+  merge identity and reads one key row, never the whole cache (the
+  kernel's rule for an empty row would read every value row);
+* a mesh over distinct devices is refused.
+
+Bar: rtol/atol 2e-4 on logits (the reference's own,
+``tests/test_sharded_decode.py``).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import reduced as jax_reduced
+from repro.distributed import runtime as jax_runtime
+from repro.models import model as JM
+from repro_torch.configs import reduced
+from repro_torch.distributed import runtime
+from repro_torch.distributed.sharding import Mesh
+from repro_torch.kernels.flash_decode import ref as fd_ref
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import model as TM
+from repro_torch.models import sharded_decode as SD
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+B, PROMPT, STEPS, CAP = 2, 12, 6, 32
+CPU = torch.device("cpu")
+CASES = [("llama3-8b", 2), ("hymba-1.5b", 4)]
+
+
+def _mesh(n):
+    return Mesh(np.array([[CPU] * n], dtype=object), ("data", "model"))
+
+
+@pytest.fixture(scope="module", params=CASES,
+                ids=[f"{a}-L{n}" for a, n in CASES])
+def pair(request):
+    arch, n_layers = request.param
+    jcfg = dataclasses.replace(jax_reduced(arch), n_layers=n_layers)
+    tcfg = dataclasses.replace(reduced(arch), n_layers=n_layers)
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    tparams = TM.params_from_jax(tcfg, jax.tree.map(np.asarray, jparams),
+                                 device="cpu")
+    rng = np.random.default_rng(sum(map(ord, arch)) + n_layers)
+    prompt = rng.integers(0, jcfg.vocab_size, (B, PROMPT)).astype(np.int32)
+    steps = rng.integers(0, jcfg.vocab_size, (STEPS, B, 1)).astype(np.int32)
+    return jcfg, tcfg, jparams, tparams, prompt, steps
+
+
+def _port_decode(tcfg, tparams, tokens, mesh, prompt=None, cap=CAP):
+    if prompt is None:
+        state = TM.init_decode_state(tcfg, B, cap, dtype=torch.float32,
+                                     device="cpu")
+    else:
+        _, state = TM.forward_prefill(
+            tcfg, tparams, {"tokens": torch.from_numpy(prompt)},
+            cache_capacity=cap)
+    out = []
+    with runtime.use_mesh(mesh):
+        for t in tokens:
+            logits, state = TM.decode_step(tcfg, tparams, state,
+                                           torch.from_numpy(t))
+            out.append(logits.numpy())
+    return np.stack(out)
+
+
+def _ref_decode(jcfg, jparams, tokens, prompt=None, cap=CAP):
+    if prompt is None:
+        state = JM.init_decode_state(jcfg, B, cap, dtype=jnp.float32)
+    else:
+        _, state = JM.forward_prefill(jcfg, jparams,
+                                      {"tokens": jnp.asarray(prompt)},
+                                      cache_capacity=cap)
+    step = jax.jit(lambda p, s, t: JM.decode_step(jcfg, p, s, t))
+    out = []
+    for t in tokens:
+        logits, state = step(jparams, state, jnp.asarray(t))
+        out.append(np.asarray(logits))
+    return np.stack(out)
+
+
+def _count_shard_calls(monkeypatch):
+    calls = []
+    real = SD.sharded_decode_attention
+
+    def counting(*args, **kw):
+        calls.append(args[6].shape["model"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr("repro_torch.models.layers.sharded_decode_attention",
+                        counting)
+    return calls
+
+
+def test_singleton_mesh_matches_reference_singleton_mesh(pair, monkeypatch):
+    jcfg, tcfg, jparams, tparams, _, _ = pair
+    toks = [np.full((B, 1), t, np.int32) for t in (3, 7, 11)]
+    with jax_runtime.use_mesh(jax.make_mesh((1, 1), ("data", "model")),
+                              decode_axis="model"):
+        want = _ref_decode(jcfg, jparams, toks)
+    calls = _count_shard_calls(monkeypatch)
+    got = _port_decode(tcfg, tparams, toks, make_host_mesh())
+    assert calls and set(calls) == {1}
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sequence_shards_match_reference_unsharded(pair, n, monkeypatch):
+    jcfg, tcfg, jparams, tparams, prompt, steps = pair
+    want = _ref_decode(jcfg, jparams, steps, prompt)
+    calls = _count_shard_calls(monkeypatch)
+    got = _port_decode(tcfg, tparams, steps, _mesh(n), prompt)
+    assert len(calls) == STEPS * tcfg.n_layers and set(calls) == {n}
+    np.testing.assert_allclose(got, want, **TOL)
+    # and the port's own unsharded decode
+    np.testing.assert_allclose(got, _port_decode(tcfg, tparams, steps, None,
+                                                 prompt), **TOL)
+
+
+def test_sliding_layer_misses_whole_shards(pair):
+    """At the 4-shard mesh every layer has shards past its live range at
+    every decode step, and hymba's sliding layer (window 8) also leaves
+    the first shard behind once its window has passed it."""
+    _, tcfg = pair[:2]
+    windows = [w for w in TM._windows(tcfg) if w]
+    assert bool(windows) == (tcfg.family == "hybrid")
+    behind = set()
+    for pos in range(PROMPT, PROMPT + STEPS):
+        p = torch.full((B,), pos, dtype=torch.int32)
+        for w in [0] + windows:
+            live = SD.shard_ranges(p, 4, CAP // 4, w)[2].any(dim=1).tolist()
+            assert not all(live) and any(live)
+            if not live[0]:
+                behind.add(w)
+    assert behind == set(windows)
+
+
+def test_indivisible_cache_takes_the_unsharded_path(pair, monkeypatch):
+    jcfg, tcfg, jparams, tparams, prompt, steps = pair
+    calls = _count_shard_calls(monkeypatch)
+    got = _port_decode(tcfg, tparams, steps, _mesh(4), prompt, cap=30)
+    assert calls == []
+    np.testing.assert_array_equal(
+        got, _port_decode(tcfg, tparams, steps, None, prompt, cap=30))
+    np.testing.assert_allclose(
+        got, _ref_decode(jcfg, jparams, steps, prompt, cap=30), **TOL)
+
+
+@pytest.mark.parametrize("window", [0, 5])
+def test_dead_shards_add_the_identity_and_read_one_key(window, monkeypatch):
+    """Rows whose live range misses a shard: the merged output equals one
+    softmax over the live keys, and each dead (row, shard) hands the
+    partials call a one-key range inside the shard's chunk (the plain
+    version, like the kernel, reads every value row of an empty range)."""
+    rng = np.random.default_rng(window)
+    b, s, hkv, g, d, n = 3, 64, 2, 3, 16, 4
+    q = torch.from_numpy(rng.normal(size=(b, 1, hkv * g, d))
+                         .astype(np.float32))
+    ck = torch.from_numpy(rng.normal(size=(b, s, hkv, d)).astype(np.float32))
+    cv = torch.from_numpy(rng.normal(size=(b, s, hkv, d)).astype(np.float32))
+    kn = torch.from_numpy(rng.normal(size=(b, 1, hkv, d)).astype(np.float32))
+    vn = torch.from_numpy(rng.normal(size=(b, 1, hkv, d)).astype(np.float32))
+    pos = torch.tensor([3, 20, 40], dtype=torch.int32)
+    # the slots past every row's position are poison in the served cache:
+    # a read of them would show
+    bad_k, bad_v = ck.clone(), cv.clone()
+    bad_k[:, 41:], bad_v[:, 41:] = float("nan"), float("nan")
+    seen = []
+    real = SD.decode_partials
+
+    def recording(q_, k_, v_, lo, hi, use_kernel=None):
+        seen.append((lo.clone(), hi.clone()))
+        return real(q_, k_, v_, lo, hi, use_kernel=use_kernel)
+
+    monkeypatch.setattr(SD, "decode_partials", recording)
+    out, ck2, cv2 = SD.sharded_decode_attention(
+        q, bad_k, bad_v, kn, vn, pos, _mesh(n), window=window)
+    assert ck2 is bad_k and cv2 is bad_v          # written in place
+    rows = torch.arange(b)
+    assert torch.equal(ck2[rows, pos.long()], kn[:, 0])
+    assert torch.equal(cv2[rows, pos.long()], vn[:, 0])
+    ck[rows, pos.long()], cv[rows, pos.long()] = kn[:, 0], vn[:, 0]
+    keys = torch.arange(s)
+    hi = (pos + 1)[:, None]
+    lo = torch.clamp(hi - window, min=0) if window else torch.zeros_like(hi)
+    mask = (keys[None, :] >= lo) & (keys[None, :] < hi)
+    want = fd_ref.decode_attention_ref(q[:, 0], ck, cv, mask)
+    assert bool(out.isfinite().all())
+    torch.testing.assert_close(out[:, 0], want, rtol=2e-5, atol=2e-5)
+    assert len(seen) == n
+    s_loc = s // n
+    n_dead = 0
+    for sh, (lo_s, hi_s) in enumerate(seen):
+        live = [max(int(lo[i]), sh * s_loc) < min(int(hi[i]),
+                                                  (sh + 1) * s_loc)
+                for i in range(b)]
+        for i in range(b):
+            assert sh * s_loc <= int(lo_s[i]) < int(hi_s[i]) \
+                <= (sh + 1) * s_loc
+            if not live[i]:
+                n_dead += 1
+                assert (int(lo_s[i]), int(hi_s[i])) == (sh * s_loc,
+                                                        sh * s_loc + 1)
+    assert n_dead > 0
+
+
+def test_mesh_over_distinct_devices_is_refused(pair):
+    _, tcfg, _, tparams, prompt, steps = pair
+    mesh = Mesh(np.array([[CPU, torch.device("meta")]], dtype=object),
+                ("data", "model"))
+    with pytest.raises(ValueError, match="distinct cards"):
+        _port_decode(tcfg, tparams, steps[:1], mesh, prompt)

@@ -17,6 +17,7 @@ import torch
 from repro.storage.timestore import ShardedOnlineStore as JaxStore
 from repro_torch.core import compile_script, verify_consistency
 from repro_torch.data.synthetic import make_action_tables
+from repro_torch.distributed.sharding import Mesh
 from repro_torch.serve.engine import FeatureEngine
 from repro_torch.storage.timestore import ShardedOnlineStore, composite
 
@@ -213,8 +214,11 @@ def test_rebalance_crash_between_build_and_commit(monkeypatch):
 
 
 def test_mesh_is_not_ported():
-    """A mesh (one shard per device) stays unported in every entry
-    point, each naming the option."""
+    """Every entry point takes a mesh (one shard per mesh entry): with a
+    ``Mesh`` of two CPU entries each runs sharded (the store and engine
+    over 2 shards, ``offline_sharded`` bitwise ``offline()``, the gate
+    bitwise), and a mesh without the shard axis raises the reference's
+    ``ValueError`` naming it in each."""
     tables = make_action_tables(n_actions=40, n_orders=0, n_users=4,
                                 seed=1, with_profile=False)
     sql = """
@@ -223,16 +227,22 @@ def test_mesh_is_not_ported():
                  ROWS_RANGE BETWEEN 5s PRECEDING AND CURRENT ROW)
     """
     cs = compile_script(sql, tables=tables)
+    cpu = torch.device("cpu")
+    mesh = Mesh([cpu, cpu], ("shard",))
+    assert ShardedOnlineStore(64, mesh=mesh).n_shards == 2
+    assert FeatureEngine(sql, tables, mesh=mesh).store.n_shards == 2
+    want = cs.offline(tables, device="cpu")
+    got = cs.offline_sharded(tables, mesh=mesh)
+    assert all(np.array_equal(got[k], want[k]) for k in want)
+    rep = verify_consistency(cs, tables, mesh=mesh)
+    assert rep.passed and rep.bitwise_equal, str(rep)
+    bad = Mesh([cpu, cpu], ("model",))
     for call in (
-            lambda: ShardedOnlineStore(64, n_shards=2, mesh=object(),
-                                       device="cpu"),
-            lambda: FeatureEngine(sql, tables, mesh=object(),
-                                  device="cpu"),
-            lambda: cs.offline_sharded(tables, mesh=object(),
-                                       device="cpu"),
-            lambda: verify_consistency(cs, tables, mesh=object(),
-                                       device="cpu")):
-        with pytest.raises(NotImplementedError, match="mesh"):
+            lambda: ShardedOnlineStore(64, n_shards=2, mesh=bad),
+            lambda: FeatureEngine(sql, tables, mesh=bad),
+            lambda: cs.offline_sharded(tables, mesh=bad),
+            lambda: verify_consistency(cs, tables, mesh=bad)):
+        with pytest.raises(ValueError, match="no axis 'shard'"):
             call()
 
 
