@@ -46,7 +46,7 @@ Phases (each prints its own lines; any failure exits non-zero):
              whole cache passed, and over a dead shard's one key;
 4. main paths, each with the launch counts set to 0 just before it and
              read just after, at deployment size (1.5 M rows; run in
-             the order a, b, e, f, g, h, m, i, c, d, j, k, l):
+             the order a, b, e, f, g, h, m, i, c, d, j, k, l, n):
    a. serving — ``FeatureEngine`` (capacity 1.6 M) bulk load + 4,096 live
              rows, ``request_batch`` at B = 1, 64, 256; the B = 64 batch
              must equal a CPU engine (plain versions) on a copy of the
@@ -201,6 +201,29 @@ Phases (each prints its own lines; any failure exits non-zero):
              each at full width and 4 layers, batch 2 x 1,024 positions:
              the first loss within 1 nat of ln(vocab) + s^2 / 2, s = 0.02
              sqrt(d_model) (random logits' logsumexp), gradients finite;
+   n. entry points and step rooflines — (a) the port's CI gates
+             (``tools/torch_check_consistency.py --bitwise 4``,
+             ``torch_check_replay.py``, ``torch_check_recovery.py 4``)
+             return 0 on the card, the fused raw gate launching the unit
+             fold in its online replay and its offline side, and the three
+             examples (``examples/torch_*.py``) run to their end: wall
+             time and kernel launches by name (the wrappers' counts);
+             the quickstart once more under the profiler, its launches
+             equal to the wrappers' counts but for the GPU records
+             kineto reports having dropped out of its capture window;
+             (b) one call of four full-width steps
+             counted by ``roofline.analyze_step`` on the models that 4d, 4j
+             and 4m build (hymba-1.5b bf16 prefill 8 x 1,024 and a decode
+             token, its train step 8 x 2,048 in 4 microbatches, the
+             llama3-8b decode_32k token unsharded), each against its
+             phase's time: FLOPs and bytes, TFLOP/s and TB/s, the share
+             of the binding H100 peak, ``model_flops``' useful ratio;
+             the same step counted on ``meta`` (the train step: one
+             microbatch times 4, plus the update) gives the same FLOPs
+             and kernel records, and each kernel's cost records equal
+             its profiler launches, as in (a);
+             (c) ``launch.dryrun.dryrun_cell("llama3-8b", "decode_32k")``
+             on the host;
 5. times   — request latency percentiles, offline wall and device time,
              and each kernel's time beside its bound, its plain version's
              time and, where one exists, one PyTorch call's (CUDA events).
@@ -217,13 +240,23 @@ import argparse
 import concurrent.futures
 import itertools
 import json
+import os
 import pathlib
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
-import torch
+
+# phase 4n: the profiler's CUPTI side (kineto) drops the GPU records
+# whose timestamps fall outside its capture window and counts them only
+# in an INFO line of its log ("Record counts: Out-of-range = N"); its log
+# level is read once, when it starts
+os.environ.setdefault("KINETO_LOG_LEVEL", "0")
+
+import torch  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -372,6 +405,18 @@ MESH_STEPS = 4             # float32 check: decode steps per route
 MESH_TOKENS = 16           # bf16: timed tokens per route, in two turns
 MESH_TOL = 2e-4            # the reference's bar (tests/test_sharded_decode)
 
+# phase 4n: the CUDA function (or Triton kernel) that every launch of a
+# port kernel runs once, so that its profiler events count the launches
+LAUNCH_EVENTS = {"unit_fold": ("uf_few_kernel", "uf_many_kernel"),
+                 "feature_hash": ("_hash_kernel",),
+                 "batch_windowfold": ("bwf_stats_kernel",),
+                 "segagg": ("segagg_hist_kernel",),
+                 "linear_scan": ("linear_scan_kernel",),
+                 "linear_scan_bwd": ("linear_scan_bwd_kernel",),
+                 "decode_partials": ("decode_split_kernel",)}
+# the examples' checkpoints (a listed directory of the checkout)
+EXAMPLE_CKPT = ROOT / "build" / "chip_smoke" / "torch_offline_demo"
+
 # phase 4i: preview at the default budget (1,000 rows per table) and at
 # PREVIEW_ROWS, cold wall p50 over PREVIEW_REPS calls; the training-data
 # pipeline's batches; rows through the compact codec
@@ -443,9 +488,12 @@ def same_bits(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
         raise AssertionError(f"{name}: two runs differ")
 
 
-def bound(nbytes: int, ops: int):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+def bound(cost):
+    """The least time of a kernel call (ms, and what sets it): its
+    ``ops.cost`` bytes over the memory rate against its operations over
+    the float32 rate."""
+    t_bytes = cost.nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = cost.ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -533,22 +581,6 @@ def fold_block(members, u: int, r: int, nq: int, seed: int, dev):
     return plan, idents, data, env["ts"].contiguous(), q.contiguous()
 
 
-def fold_bytes_ops(plan, u: int, rows: int, nq: int):
-    """Least bytes (``rows`` rows per unit read once, folds written once)
-    and combine operations (structure build + queries) of one fold."""
-    levels = max(1, (rows - 1).bit_length())
-    cost = {"add": 1, "min": 1, "max": 1, "drawdown": 6, "ew": 8}
-    nbytes = u * rows * 4 + u * nq * 4
-    ops = 0
-    for g in plan.groups:
-        mg, f = len(g.members_ix), g.width
-        nbytes += u * rows * f * 4 + u * mg * nq * f * 4 + f * 4
-        build = (levels * rows if g.kind == "sparse" else rows - 1)
-        query = 2 if g.kind == "sparse" else 2 * (levels + 1)
-        ops += u * f * cost[g.family] * (build + mg * nq * query)
-    return nbytes, ops
-
-
 def check_unit_fold(name, block, reps):
     """The kernel on the unpadded block against the plain version on the
     block padded to rp (``ops.pad_rows``, timed with it): bitwise except
@@ -585,8 +617,8 @@ def check_unit_fold(name, block, reps):
     rp = max(2, 1 << (r - 1).bit_length())
     # the bound counts the R real rows the fold needs; the identity rows
     # that pad each unit to rp are the plain layout's cost, shown beside it
-    b_ms, b_by = bound(*fold_bytes_ops(plan, u, r, q.shape[1]))
-    padded_ms, _ = bound(*fold_bytes_ops(plan, u, rp, q.shape[1]))
+    b_ms, b_by = bound(ops.cost(plan, u, r, q.shape[1]))
+    padded_ms, _ = bound(ops.cost(plan, u, rp, q.shape[1]))
     widths = [f"{g.family}:{g.kind}:{g.width}" for g in plan.groups]
     log(f"unit_fold[{name}] U={u} R={r} rp={rp} Q={q.shape[1]} "
         f"groups={widths} max_abs_err={err} ms={ms:.4f} "
@@ -599,6 +631,7 @@ def check_unit_fold(name, block, reps):
 
 def check_feature_hash(dev, reps):
     from repro_torch.kernels.feature_hash.kernel import feature_hash_triton
+    from repro_torch.kernels.feature_hash.ops import cost
     from repro_torch.kernels.feature_hash.ref import feature_hash_ref
 
     rng = np.random.default_rng(7)
@@ -612,7 +645,7 @@ def check_feature_hash(dev, reps):
     ms = cuda_ms(lambda: feature_hash_triton(codes, dim), reps)
     plain_ms = cuda_ms(lambda: feature_hash_ref(codes, dim), 10)
     n = codes.numel()
-    b_ms, b_by = bound(8 * n, 12 * n)
+    b_ms, b_by = bound(cost(n))
     log(f"feature_hash N={n} max_abs_err={err} ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -655,6 +688,7 @@ def check_batch_windowfold(state, reqs, dev, reps):
     NaN, and every other request's is Inf (it matches too) or NaN (the
     dense product's 0 * Inf)."""
     from repro_torch.kernels.batch_windowfold import store_windowfold
+    from repro_torch.kernels.batch_windowfold.ops import cost
 
     vals = store_vals(state)
     count = int(state["count"])
@@ -705,11 +739,10 @@ def check_batch_windowfold(state, reqs, dev, reps):
     plain_ms = cuda_ms(lambda: store_windowfold(state, vals, *q,
                                                 use_kernel=False), 3)
     f = vals.shape[1]
-    # least work: each live row's key, ts and F lanes read once, the
-    # (B, F) sums written once; the dense count (three compares and a
-    # multiply-add per (request, live row, lane)) is shown beside it
-    nbytes = count * (8 + 4 * f) + b * 12 + b * f * 4
-    b_ms, b_by = bound(nbytes, 0)
+    # least work over the live rows (``ops.cost``); the dense count
+    # (three compares and a multiply-add per (request, live row, lane))
+    # is shown beside it
+    b_ms, b_by = bound(cost(count, b, f))
     dense_ms = b * count * (3 + f) / F32_OPS_PER_S * 1e3
     log(f"batch_windowfold B={b} C={vals.shape[0]} F={f} max_abs_err={err} "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
@@ -743,6 +776,7 @@ def check_bucket_build(actions, dev, reps):
     and ``bucket_build`` whole (its ``cat``/``div`` included)."""
     from repro_torch.kernels.segagg import bucket_build
     from repro_torch.kernels.segagg.kernel import segagg_cuda
+    from repro_torch.kernels.segagg.ops import cost
     from repro_torch.kernels.segagg.ref import segagg_ref
 
     res, err = {}, 0.0
@@ -788,8 +822,8 @@ def check_bucket_build(actions, dev, reps):
                               ms)
         n = vals.shape[0]
         # least work: the (N, 3) lanes and the ids read once, the (S, 3)
-        # sums written once; one add per row and lane
-        b_ms, b_by = bound(n * (4 * 3 + 4) + n_buckets * 3 * 4, n * 3)
+        # sums written once; one add per row and lane (``ops.cost``)
+        b_ms, b_by = bound(cost(n, 3, n_buckets))
         log(f"segagg N={n} S={n_buckets} F=3: segagg_cuda ms={ms:.4f} "
             f"(again {ms_again:.4f}), index_add_ library_ms={lib_ms:.4f}, "
             f"plain segagg_ref plain_ms={plain_ms:.4f}, all on the same "
@@ -813,6 +847,7 @@ def check_linear_scan(dev, reps):
     (8, 1024, 51,200) float32 with a in (0, 1): kernel against plain
     version bitwise, two runs bitwise."""
     from repro_torch.kernels.chunked_scan.kernel import linear_scan_cuda
+    from repro_torch.kernels.chunked_scan.ops import cost
     from repro_torch.kernels.chunked_scan.ref import linear_scan_ref
 
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -832,8 +867,8 @@ def check_linear_scan(dev, reps):
     plain_ms = cuda_ms(lambda: linear_scan_ref(a, x), 2)
     n = a.numel()
     # least work: a and x read once, y written once; a multiply and an
-    # add per element
-    b_ms, b_by = bound(3 * n * 4, 2 * n)
+    # add per element (``ops.cost``)
+    b_ms, b_by = bound(cost(n))
     log(f"linear_scan {tuple(shape)} f32: kernel == plain (bitwise), two "
         f"runs equal; ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={b_ms:.5f} ({b_by})")
@@ -850,6 +885,7 @@ def check_linear_scan_bwd(dev, reps):
     underflow), so there is no library time."""
     from repro_torch.kernels.chunked_scan.kernel import (
         linear_scan_bwd_cuda, linear_scan_cuda)
+    from repro_torch.kernels.chunked_scan.ops import cost
     from repro_torch.kernels.chunked_scan.ref import linear_scan_bwd_ref
 
     gen = torch.Generator(device=dev).manual_seed(17)
@@ -873,7 +909,8 @@ def check_linear_scan_bwd(dev, reps):
     n = a.numel()
     # least work: a, y and g read once, da and db written once; a
     # multiply and an add for lam and a multiply for da per element
-    b_ms, b_by = bound(5 * n * 4, 3 * n)
+    # (``ops.cost``)
+    b_ms, b_by = bound(cost(n, backward=True))
     log(f"linear_scan_bwd {tuple(shape)} f32: kernel == plain (bitwise), "
         f"two runs equal; ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={b_ms:.5f} ({b_by}); library: none (no PyTorch call "
@@ -932,6 +969,7 @@ def check_decode_partials(dev, reps):
     DECODE_COLD caches, 21-67 MB each, past the 50 MB L2 together, as a
     model's layers find theirs)."""
     from repro_torch.kernels.flash_decode.kernel import decode_partials_cuda
+    from repro_torch.kernels.flash_decode.ops import cost
     from repro_torch.kernels.flash_decode.ref import (decode_partials_ref,
                                                       finalize_partials)
 
@@ -976,8 +1014,8 @@ def check_decode_partials(dev, reps):
         hkv = k.shape[2]
         # least work: each live K and V row read once (bf16), q read and
         # the partials written once; 4 * d flops per live key and head
-        nbytes = live * hkv * d * 2 * 2 + b * hq * d * 4 + b * hq * (d + 2) * 4
-        b_ms, b_by = bound(nbytes, live * (hq // hkv) * hkv * 4 * d)
+        # (``ops.cost``)
+        b_ms, b_by = bound(cost(b, hq, hkv, d, live, 2))
         log(f"decode_partials[{name}] B={b} Hq={hq} Hkv={hkv} D={d} bf16 "
             f"cache S={k.shape[1]}, {live} live keys: kernel == plain "
             f"(rtol 1e-4), two runs equal, max_abs_err={err}; finalized vs "
@@ -1002,6 +1040,7 @@ def check_decode_32k(dev, reps):
     call the mesh decode makes); times and bounds, one SDPA call beside
     the whole range, and the one-key range a dead shard is given."""
     from repro_torch.kernels.flash_decode.kernel import decode_partials_cuda
+    from repro_torch.kernels.flash_decode.ops import cost
     from repro_torch.kernels.flash_decode.ref import decode_partials_ref
 
     gen = torch.Generator(device=dev).manual_seed(29)
@@ -1031,8 +1070,8 @@ def check_decode_32k(dev, reps):
         live = int((hi - lo).sum())
         # least work: each live K and V row read once (bf16), q read and
         # the partials written once; 4 * d flops per live key and head
-        nbytes = live * hkv * d * 2 * 2 + b * hq * d * 4 + b * hq * (d + 2) * 4
-        b_ms, b_by = bound(nbytes, live * hq * 4 * d)
+        # (``ops.cost``)
+        b_ms, b_by = bound(cost(b, hq, hkv, d, live, 2))
         r = {"live_keys": live, "max_abs_err": err, "bound_ms": b_ms,
              "bound_by": b_by,
              "ms": cuda_ms(lambda: decode_partials_cuda(q, k, v, lo, hi),
@@ -1187,9 +1226,43 @@ def model_serving(dev, card):
         f"{prof_dec['device_ms_per_call']:.3f} ms device time ({attn})  "
         f"[{card}]")
     log_profile("prefill (bf16)", prof_pre, card)
+    out["roofline"] = serving_rooflines(cfg, eng, prompt, tok_bf16,
+                                        prefill_ms,
+                                        out["bf16_decode_ms_p50"], card)
     del eng, params
     torch.cuda.empty_cache()
     return out, {"model_f32": counts_f32, "model_bf16": counts_bf16}
+
+
+def serving_rooflines(cfg, eng, prompt, tokens, prefill_ms, decode_ms,
+                      card):
+    """Phase 4n (b) on 4d's bf16 engine: one prefill of the 4d batch and
+    one decode token (after the profiled prefill: every row at
+    MODEL_PROMPT), against 4d's prefill time and decode p50."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.models import decode_step, forward_prefill
+
+    dev = eng.device
+    batch = {"tokens": torch.as_tensor(prompt).to(dev, torch.int32)}
+    tok = torch.as_tensor(tokens[:, :1]).to(dev, torch.int32)
+    mparams = meta_tree(eng.params)
+    pre = step_roofline(
+        f"{MODEL_ARCH} prefill (bf16, {MODEL_BATCH} x {MODEL_PROMPT})", cfg,
+        ShapeSpec("prefill", MODEL_PROMPT, MODEL_BATCH, "prefill"),
+        lambda: forward_prefill(cfg, eng.params, batch,
+                                cache_capacity=eng.max_len),
+        lambda: forward_prefill(cfg, mparams, meta_tree(batch),
+                                cache_capacity=eng.max_len),
+        prefill_ms, card)
+    state = eng.state
+    dec = step_roofline(
+        f"{MODEL_ARCH} decode token (bf16, B={MODEL_BATCH}, cache "
+        f"{eng.max_len})", cfg,
+        ShapeSpec("decode", MODEL_PROMPT + 1, MODEL_BATCH, "decode"),
+        lambda: decode_step(cfg, eng.params, state, tok),
+        lambda: decode_step(cfg, mparams, meta_tree(state), meta_tree(tok)),
+        decode_ms, card)
+    return {"prefill": pre, "decode": dec}
 
 
 # ---------------------------------------------------------------- phase 4j
@@ -1342,11 +1415,26 @@ def model_training(dev, card):
            "not measured (no device events)") + f"  [{card}]")
     for name, ms in prof["top_kernels_ms"]:
         log(f"  device {ms:.2f} ms  {name}")
+    # phase 4n (b): one more step counted, against the step p50
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.dryrun import count_train_step
+
+    roof = step_roofline(
+        f"{MODEL_ARCH} train step (bf16, {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"{TRAIN_MICRO} microbatches)", cfg,
+        ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        lambda: step_fn(state, batches[0]), None, p50, card,
+        # one microbatch on meta, times TRAIN_MICRO, plus the update (the
+        # dry run's count: the same FLOPs and kernel records as the step)
+        meta_cost=lambda: count_train_step(
+            cfg, meta_tree(state), meta_tree(batches[0]), TRAIN_MICRO,
+            AdamWConfig(**TRAIN_OPT)))
     out = {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
            "step_ms_p50": p50, "tokens_per_s": tok_s, "peak_mem_gb": peak_gb,
            "launches_per_step": per_step, "kernel_vs_plain": bar,
            "kernel_vs_plain_spread": spread, "compare_kernel_s": t_kern,
-           "compare_plain_s": t_plain, "profile_step": prof}
+           "compare_plain_s": t_plain, "profile_step": prof,
+           "roofline": roof}
     del state, batches, step_fn
     torch.cuda.empty_cache()
     return out, {"training": counts}
@@ -3530,11 +3618,290 @@ def mesh_decode(dev, card):
     log(f"4m {MESH_ARCH} bf16 peak memory {peak:.2f} GB (cache "
         f"{MESH_BATCH} x {MESH_SEQ}); phase 4m (b) "
         f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+    # phase 4n (b): one unsharded token counted, against its p50
+    from repro_torch.configs import ShapeSpec
+
+    tok = toks[0]
+    res["roofline"] = step_roofline(
+        f"{MESH_ARCH} decode_32k token (bf16, B={MESH_BATCH}, cache "
+        f"{MESH_SEQ} at {int(state['len'][0])}, unsharded)", cfg,
+        ShapeSpec("decode", int(state["len"][0]) + 1, MESH_BATCH, "decode"),
+        lambda: decode_step(cfg, params, state, tok),
+        lambda: decode_step(cfg, meta_tree(params), meta_tree(state),
+                            meta_tree(tok)),
+        res["unsharded_ms_p50"], card)
     del params, state
     _free()
     return res, {"mesh_decode_f32": counts, "unsharded_decode_f32":
                  counts_one, "mesh_decode_bf16": launches["mesh"],
                  "unsharded_decode_bf16": launches["unsharded"]}
+
+
+# ---------------------------------------------------------------- phase 4n
+
+
+def launch_events(prof):
+    """({port kernel: launches}, all kernels) from a profiler's raw CUDA
+    kernel records (``LAUNCH_EVENTS``)."""
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    counts = {k: sum(any(p in n for p in pats) for n in names)
+              for k, pats in LAUNCH_EVENTS.items()}
+    return {k: v for k, v in counts.items() if v}, len(names)
+
+
+KINETO_LINE = re.compile(r"^[A-Z]+:\S+ \S+ \d+:\d+ \S+\.cpp:\d+\]")
+
+
+def profiled(fn):
+    """(fn's result, wall s, {port kernel: launches}, kernels, dropped) of
+    one call under the profiler (CUDA activity only).  ``dropped`` is
+    kineto's own count of the GPU records it left out of the trace as
+    out of its capture window, read from its log (file descriptor 2 is
+    held in a temporary file meanwhile; every other line is written back
+    to standard error): the trace holds every launch but those."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with tempfile.TemporaryFile() as held:
+        os.dup2(held.fileno(), 2)
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+            held.seek(0)
+            text = held.read().decode(errors="replace")
+    dropped = 0
+    for line in text.splitlines():
+        if KINETO_LINE.match(line):
+            m = re.search(r"Out-of-range = (\d+)", line)
+            dropped += int(m.group(1)) if m else 0
+        else:
+            print(line, file=sys.stderr)
+    return (out, wall) + launch_events(prof) + (dropped,)
+
+
+def check_launches(label, records, launches, dropped):
+    """The profiler's launches of each port kernel equal its records (the
+    wrappers' counts, or the cost records), but for records kineto says
+    it dropped: never more, and the launches it missed at most
+    ``dropped``.  Returns the missed launches by kernel."""
+    missed = {k: n - launches.get(k, 0) for k, n in records.items()
+              if n != launches.get(k, 0)}
+    extra = {k: n for k, n in launches.items() if k not in records}
+    if extra or any(v < 0 for v in missed.values()) or \
+            sum(missed.values()) > dropped:
+        raise AssertionError(f"4n {label}: records {records}, profiler "
+                             f"launches {launches}, kineto dropped "
+                             f"{dropped} records out of its window")
+    return missed
+
+
+def meta_tree(tree):
+    """The same tree with every tensor a ``meta`` tensor of its shape and
+    dtype (named tuples, dicts, lists kept)."""
+    from repro_torch.distributed.fault import tree_map
+
+    return tree_map(lambda t: torch.empty_like(t, device="meta")
+                    if isinstance(t, torch.Tensor) else t, tree)
+
+
+def step_roofline(label, cfg, shape, step, meta_step, ms, card,
+                  meta_cost=None):
+    """Phase 4n (b): count one call of ``step`` on the card under
+    ``roofline.StepCounter`` (and the profiler) and one of ``meta_step``
+    (the same step on ``meta`` tensors), or take ``meta_cost()`` (the
+    step's count on ``meta`` by other means); the FLOPs and the kernel
+    records must be equal, and each kernel's cost records equal to its
+    launches in the profile.
+    ``ms`` is the step's time measured without the counter by its
+    phase.  Returns the row: counted FLOPs and bytes, achieved rates,
+    the share of the binding peak over ``ms`` and which sets it, and
+    ``model_flops``' useful ratio."""
+    from repro_torch.roofline import StepCounter, analyze_step
+    from repro_torch.roofline.report import (HBM_BW, PEAK_FLOPS,
+                                             model_flops_of)
+
+    t0 = time.perf_counter()
+    with StepCounter() as counter:
+        _, _, launches, n_kernels, dropped = profiled(step)
+    cost = counter.result()
+    records = {k: int(v["calls"]) for k, v in cost.kernels.items()}
+    missed = check_launches(label, records, launches, dropped)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    meta = analyze_step(meta_step) if meta_cost is None else meta_cost()
+    t_meta = time.perf_counter() - t0
+    if meta.flops != cost.flops:
+        raise AssertionError(f"4n {label}: {cost.flops} FLOPs counted on "
+                             f"the card, {meta.flops} on meta")
+    if meta.kernels != cost.kernels:
+        raise AssertionError(f"4n {label}: cost records {records}, meta "
+                             f"{meta.kernels}")
+    sec = ms / 1e3
+    t_flops, t_bytes = cost.flops / PEAK_FLOPS, cost.hbm_bytes / HBM_BW
+    useful = model_flops_of(cfg, shape) / cost.flops
+    row = {"label": label, "flops": cost.flops, "bytes": cost.hbm_bytes,
+           "meta_flops": meta.flops, "meta_bytes": meta.hbm_bytes,
+           "ms": ms, "tflop_s": cost.flops / sec / 1e12,
+           "tb_s": cost.hbm_bytes / sec / 1e12,
+           "share": max(t_flops, t_bytes) / sec,
+           "bound_by": "FLOPs" if t_flops >= t_bytes else "bytes",
+           "useful_ratio": useful, "records": records,
+           "profiler_launches": launches, "kernels": n_kernels,
+           "kineto_dropped": dropped, "profiler_missed": missed,
+           "kernel_flops": {k: v["flops"] for k, v in cost.kernels.items()},
+           "kernel_bytes": {k: v["bytes"] for k, v in cost.kernels.items()},
+           "count_card_s": t_card, "count_meta_s": t_meta}
+    log(f"4n roofline {label}: {cost.flops:.4e} FLOPs, {cost.hbm_bytes:.4e} "
+        f"bytes counted (meta: {meta.flops:.4e} FLOPs, {meta.hbm_bytes:.4e} "
+        f"bytes); {ms:.3f} ms -> {row['tflop_s']:.3f} TFLOP/s, "
+        f"{row['tb_s']:.4f} TB/s; {row['share']:.4f} of the {row['bound_by']} "
+        f"peak (H100 SXM 989 TFLOP/s bf16, 3.35 TB/s); model_flops useful "
+        f"ratio {useful:.4f}; kernel records {records}, profiler launches "
+        f"{launches} of {n_kernels} kernels (kineto dropped {dropped} "
+        f"records out of its window); counted in {t_card:.1f} s on "
+        f"the card, {t_meta:.1f} s on meta  [{card}]")
+    return row
+
+
+def entry_points(card):
+    """Phase 4n (a): the port's CI gates and examples on the card, as a
+    user runs them (``tools/torch_*.py``, ``examples/torch_*.py``): each
+    gate's ``main()`` returns 0, each example runs to its end; wall time
+    and kernel launches by name (the wrappers' counts, reset before each
+    run).  The fused raw gate (the last ``verify_consistency`` of the
+    consistency gate) must launch the unit fold on both executors: in
+    its online replay and in its offline side.  Then the quickstart (the
+    README's first command) once more under the profiler: its launches
+    of each port kernel equal the wrappers' counts, but for the records
+    kineto reports having dropped (``check_launches``)."""
+    for path in (ROOT, ROOT / "examples"):
+        if str(path) not in sys.path:
+            sys.path.insert(0, str(path))
+    import torch_offline_training
+    import torch_online_serving
+    import torch_quickstart
+    from tools import (torch_check_consistency, torch_check_recovery,
+                       torch_check_replay)
+    from repro_torch.core import consistency
+    from repro_torch.kernels import dispatch
+
+    def unit_folds():
+        return dispatch.launch_counts().get("unit_fold", 0)
+
+    gate_calls, online = [], []
+    real_verify = torch_check_consistency.verify_consistency
+    real_replay = consistency.replay_online
+
+    def verify(*args, **kwargs):
+        n0 = unit_folds()
+        out = real_verify(*args, **kwargs)
+        gate_calls.append(unit_folds() - n0)
+        return out
+
+    def replay(*args, **kwargs):
+        n0 = unit_folds()
+        out = real_replay(*args, **kwargs)
+        online.append(unit_folds() - n0)
+        return out
+
+    def quickstart():
+        return torch_quickstart.main(["--device", "cuda"])
+
+    runs = (
+        ("torch_check_consistency --bitwise 4", lambda:
+         torch_check_consistency.main(4, bitwise=True, device="cuda"), 0),
+        ("torch_check_replay", lambda: torch_check_replay.main(
+            device="cuda"), 0),
+        ("torch_check_recovery 4", lambda: torch_check_recovery.main(
+            4, device="cuda"), 0),
+        ("torch_quickstart", quickstart, None),
+        ("torch_online_serving", lambda: torch_online_serving.main(
+            ["--device", "cuda"]), None),
+        ("torch_offline_training", lambda: torch_offline_training.main(
+            ["--device", "cuda", "--ckpt-dir", str(EXAMPLE_CKPT)]), None))
+    out, paths = {}, {}
+    for i, (name, fn, want) in enumerate(runs):
+        if i == 0:      # the consistency gate, its calls recorded
+            torch_check_consistency.verify_consistency = verify
+            consistency.replay_online = replay
+        try:
+            dispatch.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dispatch.launch_counts()
+        finally:
+            torch_check_consistency.verify_consistency = real_verify
+            consistency.replay_online = real_replay
+        if want is not None and result != want:
+            raise AssertionError(f"4n {name} returned {result}")
+        out[name] = {"wall_s": wall, "launches": counts}
+        paths[f"4n {name}"] = counts
+        log(f"4n {name}: {'rc 0' if want == 0 else 'ran to its end'} in "
+            f"{wall:.2f} s; kernel launches {counts}  [{card}]")
+    if len(gate_calls) != 5 or len(online) != 5 or \
+            not (0 < online[-1] < gate_calls[-1]):
+        raise AssertionError(f"4n fused raw gate: unit-fold launches per "
+                             f"gate call {gate_calls}, online replays "
+                             f"{online}")
+    log(f"4n fused raw gate: {online[-1]} unit-fold launches in its online "
+        f"replay, {gate_calls[-1] - online[-1]} in its offline side")
+    if out["torch_online_serving"]["launches"].get("decode_partials", 0) < 1 \
+            or out["torch_quickstart"]["launches"].get("unit_fold", 0) < 1:
+        raise AssertionError("4n examples: no decode_partials or unit_fold "
+                             "launch")
+    out["fused_gate_unit_folds"] = {"online": online[-1],
+                                    "offline": gate_calls[-1] - online[-1]}
+    dispatch.reset_launch_counts()
+    _, wall, launches, n_kernels, dropped = profiled(quickstart)
+    counts = dispatch.launch_counts()
+    missed = check_launches("torch_quickstart (profiled)", counts,
+                            launches, dropped)
+    out["torch_quickstart_profiled"] = {
+        "wall_s": wall, "launches": launches, "wrapper_launches": counts,
+        "kernels": n_kernels, "kineto_dropped": dropped,
+        "profiler_missed": missed}
+    log(f"4n torch_quickstart under the profiler: {wall:.2f} s; kernel "
+        f"launches (profiler) {launches} of {n_kernels} kernels, the "
+        f"wrappers' {counts}; kineto dropped {dropped} records out of its "
+        f"window, {sum(missed.values())} of them port launches  [{card}]")
+    return out, paths
+
+
+def dryrun_check(card):
+    """Phase 4n (c): one cell of the dry run, on the host beside the card
+    (``meta`` tensors, a 16 x 16 mesh of meta entries)."""
+    from repro_torch.launch.dryrun import dryrun_cell
+    from repro_torch.roofline.report import cell_report
+
+    t0 = time.perf_counter()
+    rec = dryrun_cell("llama3-8b", "decode_32k", False)
+    wall = time.perf_counter() - t0
+    if rec["status"] != "OK":
+        raise AssertionError(f"4n dryrun: {rec}")
+    rep = cell_report(rec)
+    log(f"4n dryrun llama3-8b decode_32k 16x16 (meta): "
+        f"{rec['flops_loop_aware']:.4e} FLOPs, "
+        f"{rec['hbm_bytes_loop_aware']:.4e} bytes, "
+        f"{rec['memory']['argument_bytes'] / 1e9:.3f} GB of arguments per "
+        f"device; terms (H100 peaks) compute {rep['t_compute_s']:.3e} s, "
+        f"memory {rep['t_memory_s']:.3e} s, {rep['dominant']}-bound, "
+        f"roofline fraction {rep['roofline_fraction']:.4f}; {wall:.1f} s "
+        f"on the host  [{card}]")
+    return {"record": {k: v for k, v in rec.items() if k != "notes"},
+            "report": rep, "wall_s": wall}
 
 
 def widest_units(cs, tables):
@@ -3851,6 +4218,29 @@ def main(argv) -> int:
         f"{modal[AUDIO_ARCH]['phase_s']:.1f}, rwkv "
         f"{modal[RWKV_ARCH]['phase_s']:.1f}, train steps the rest)")
 
+    phase("4n entry points (tools/torch_*, examples/torch_*), the "
+          "roofline of whole steps, the dry run")
+    t0 = time.perf_counter()
+    entry = {}
+    entry["entry_points"], counts = entry_points(card)
+    paths.update(counts)
+    rows = {"prefill": model["roofline"]["prefill"],
+            "decode": model["roofline"]["decode"],
+            "train": training["roofline"],
+            "decode_32k": mesh_res["decode"]["roofline"]}
+    for name, r in rows.items():
+        log(f"4n step {name}: {r['flops']:.4e} FLOPs, {r['bytes']:.4e} bytes,"
+            f" {r['ms']:.3f} ms, {r['tflop_s']:.3f} TFLOP/s, {r['tb_s']:.4f} "
+            f"TB/s, {r['share']:.4f} of the {r['bound_by']} peak, useful "
+            f"ratio {r['useful_ratio']:.4f}  [{card}]")
+    entry["dryrun"] = dryrun_check(card)
+    counted_s = sum(r["count_card_s"] + r["count_meta_s"]
+                    for r in rows.values())
+    entry["rooflines"] = rows
+    entry["phase_s"] = time.perf_counter() - t0 + counted_s
+    log(f"phase 4n took {entry['phase_s']:.1f} s ({counted_s:.1f} s of it "
+        f"counting steps inside 4d, 4j and 4m)")
+
     phase("5 times")
     latency = latencies(eng.request_batch, reqs, N_LATENCY)
     log_latency("request_batch", latency, N_LATENCY, card)
@@ -3979,6 +4369,7 @@ def main(argv) -> int:
             "certifier_preview_pipeline": deploy_res,
             "decode_partials_shapes": res_fd, "segagg_shapes": seg_shapes,
             "decode_partials_32k": res_fd32, "mesh": mesh_res,
+            "entry_points_rooflines": entry,
             "load_s": t_load, "ingest_s": t_ingest}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,8 @@ from .types import Table
 __all__ = ["CompileContext", "CompiledScript", "compile_script",
            "cache_stats", "clear_cache"]
 
+INT_MIN = _lw.INT_MIN
+
 
 class CompileContext:
     """Static compile-time info: category cardinalities, buffer sizes."""

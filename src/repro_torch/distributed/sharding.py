@@ -23,9 +23,11 @@ a per-layer leaf's spec is the reference's spec of the stacked leaf
 without its leading L entry: the ``stacked`` skip and the overrides'
 leading ``None`` both stand for that axis.  Cache leaves follow the same
 rule: per-layer (B, S, Hkv, D) where the reference has (L, B, S, Hkv, D).
-``named_shardings`` pairs a spec tree with its mesh; applying such
-records to tensors (placing per-tensor shards on distinct cards) is not
-done yet.
+``named_shardings`` pairs a spec tree with its mesh; ``shard_shape``
+and ``per_device_bytes`` read such specs at the level of shapes (each
+device's piece of a leaf, and what a device holds of a tree:
+``launch.dryrun``'s argument bytes).  Placing the per-tensor shards of a
+model on distinct cards is not done yet.
 
 Feature-store sharding (paper §5 / §7.2 tablet partitioning): the online
 store is *key*-partitioned, so window folds never cross shards.
@@ -53,7 +55,8 @@ __all__ = ["Mesh", "PartitionSpec", "NamedSharding", "auto_pspec",
            "megatron_overrides", "STRATEGIES", "param_pspecs",
            "batch_pspec", "cache_pspecs", "named_shardings",
            "key_shard_mesh", "stacked_store_sharding", "place_stacked",
-           "gather_stacked", "canonical_device", "cuda_devices"]
+           "gather_stacked", "canonical_device", "cuda_devices",
+           "shard_shape", "per_device_bytes"]
 
 
 class PartitionSpec(tuple):
@@ -395,4 +398,41 @@ def named_shardings(spec_tree, mesh):
         return {k: named_shardings(v, mesh) for k, v in spec_tree.items()}
     if isinstance(spec_tree, list):
         return [named_shardings(v, mesh) for v in spec_tree]
+    raise TypeError(f"not a spec tree node: {type(spec_tree).__name__}")
+
+
+def shard_shape(shape: Sequence[int], spec: PartitionSpec,
+                mesh: Mesh) -> Tuple[int, ...]:
+    """One device's piece of a leaf of ``shape`` placed by ``spec``: each
+    dimension divided by the product of the sizes of the mesh axes its
+    spec entry names (dimensions past the spec are replicated), as
+    ``jax.sharding.NamedSharding.shard_shape``.  Raises where a
+    dimension does not divide."""
+    mesh_shape = _mesh_shape(mesh)
+    out = []
+    for i, dim in enumerate(tuple(shape)):
+        ax = spec[i] if i < len(spec) else None
+        axes = () if ax is None else ax if isinstance(ax, tuple) else (ax,)
+        n = int(np.prod([mesh_shape[a] for a in axes]))
+        if dim % n:
+            raise ValueError(f"dimension {i} of {tuple(shape)} does not "
+                             f"divide into {n} shards ({spec})")
+        out.append(dim // n)
+    return tuple(out)
+
+
+def per_device_bytes(tree, spec_tree, mesh: Mesh) -> int:
+    """Bytes one device holds of ``tree`` placed by ``spec_tree`` (a spec
+    tree of the same structure: dicts, lists, tuples and named tuples
+    of ``PartitionSpec`` leaves): the sum over leaves of their
+    ``shard_shape`` times their element size."""
+    if isinstance(spec_tree, PartitionSpec):
+        n = int(np.prod(shard_shape(tuple(tree.shape), spec_tree, mesh)))
+        return n * tree.element_size()
+    if isinstance(spec_tree, dict):
+        return sum(per_device_bytes(tree[k], v, mesh)
+                   for k, v in spec_tree.items())
+    if isinstance(spec_tree, (list, tuple)):
+        return sum(per_device_bytes(t, v, mesh)
+                   for t, v in zip(tree, spec_tree, strict=True))
     raise TypeError(f"not a spec tree node: {type(spec_tree).__name__}")

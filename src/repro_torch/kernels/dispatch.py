@@ -13,18 +13,44 @@ nowhere else, so a run can show that its main path went through the
 kernels.  ``resolve_device`` is the entry points' side of the policy:
 they run on the card unless the caller asks for the CPU, and a CUDA
 device without a card raises (no silent move to the CPU).
+
+Every kernel's ``ops.py`` also has a ``cost(...)`` function: the bytes
+its call must move (each input read once, each output written once),
+the operations its bound counts, and the dot-equivalent FLOPs of its
+contractions (``KernelCost``).  ``chip_smoke.py`` takes each kernel's
+bound from it, and the public op reports it through ``kernel_cost`` to
+the step counter of ``roofline.trace_analyzer`` when one is active
+(``push_cost_sink``), on every route: the kernel on the card, the plain
+version on the CPU, and the shape-only branch a wrapper takes for
+tensors on the ``meta`` device.  The ops the wrapper runs meanwhile are
+not counted again.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 
 __all__ = ["KernelUnsupportedError", "resolve", "resolve_device",
-           "count_launch", "launch_counts", "reset_launch_counts"]
+           "count_launch", "launch_counts", "reset_launch_counts",
+           "KernelCost", "kernel_cost", "push_cost_sink", "pop_cost_sink",
+           "is_meta"]
 
 _LAUNCHES: Dict[str, int] = {}
+_COST_SINKS: List[Any] = []
+
+
+class KernelCost(NamedTuple):
+    """One kernel call's least work: ``nbytes`` (each input read once,
+    each output written once), ``ops`` (the operations its bound counts,
+    at the f32 rate) and ``flops`` (the dot-equivalent FLOPs of its
+    contractions, 2 per multiply-add; 0 for a kernel without one)."""
+
+    nbytes: int
+    ops: int
+    flops: int
 
 
 class KernelUnsupportedError(RuntimeError):
@@ -67,3 +93,37 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     _LAUNCHES.clear()
+
+
+def is_meta(tensor: torch.Tensor) -> bool:
+    """True for a tensor on the ``meta`` device: a wrapper then returns
+    outputs of the right shape and dtype and launches nothing."""
+    return tensor.device.type == "meta"
+
+
+def push_cost_sink(sink) -> None:
+    """Make ``sink`` (an object with ``kernel(name, cost)`` and a
+    ``quiet()`` context manager) the receiver of ``kernel_cost``."""
+    _COST_SINKS.append(sink)
+
+
+def pop_cost_sink(sink) -> None:
+    if not _COST_SINKS or _COST_SINKS[-1] is not sink:
+        raise RuntimeError("cost sinks popped out of order")
+    _COST_SINKS.pop()
+
+
+@contextlib.contextmanager
+def kernel_cost(name: str, cost: Optional[KernelCost]):
+    """Report one call of kernel ``name`` to the active step counter, and
+    keep the ops run inside the block (the launch's allocations, or the
+    plain version) out of its count.  Without a counter, or with ``cost``
+    None (a call on empty inputs, which launches nothing), it does
+    nothing."""
+    if not _COST_SINKS or cost is None:
+        yield
+        return
+    sink = _COST_SINKS[-1]
+    sink.kernel(name, cost)
+    with sink.quiet():
+        yield

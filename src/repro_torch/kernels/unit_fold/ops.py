@@ -32,7 +32,10 @@ from . import ref as _ref
 from .kernel import unit_fold_cuda
 
 __all__ = ["unit_fold", "plan_for", "fold_env", "pad_rows",
-           "prelift_blocks", "unit_fold_blocks"]
+           "prelift_blocks", "unit_fold_blocks", "cost"]
+
+# combine operations per lane of each family (the bound's operation count)
+_FAMILY_OPS = {"add": 1, "min": 1, "max": 1, "drawdown": 6, "ew": 8}
 
 
 def _next_pow2(n: int) -> int:
@@ -70,6 +73,26 @@ def plan_for(specs: Sequence[Any], leaves: Dict[str, Any], order_by: str,
         return plan, ident
 
     return cached(key, build)
+
+
+def cost(plan: _ref.UnitFoldPlan, u: int, rows: int,
+         nq: int) -> dispatch.KernelCost:
+    """Least work of one fold of ``u`` units of ``rows`` rows at ``nq``
+    queries a unit: the order column, the queries and each group's lanes
+    read once, the folds and identities written or read once; combine
+    operations of the structure build (a scan's rows - 1, a sparse
+    table's levels x rows) and of the queries (2 lookups, or 2 walks of
+    levels + 1 steps).  No contraction."""
+    levels = max(1, (rows - 1).bit_length())
+    nbytes = u * rows * 4 + u * nq * 4
+    ops = 0
+    for g in plan.groups:
+        mg, f = len(g.members_ix), g.width
+        nbytes += u * rows * f * 4 + u * mg * nq * f * 4 + f * 4
+        build = levels * rows if g.kind == "sparse" else rows - 1
+        query = 2 if g.kind == "sparse" else 2 * (levels + 1)
+        ops += u * f * _FAMILY_OPS[g.family] * (build + mg * nq * query)
+    return dispatch.KernelCost(nbytes, ops, 0)
 
 
 def _unstack_batched(plan: _ref.UnitFoldPlan,
@@ -132,18 +155,25 @@ def _fold_lanes(plan: _ref.UnitFoldPlan,
                 ) -> List[Dict[str, torch.Tensor]]:
     """Fold lifted (U, R, F) lane blocks through the kernel (CUDA
     tensors: the unpadded rows) or the plain version (CPU tensors: rows
-    padded to rp by ``pad_rows``), and split the groups back into
-    per-member dicts."""
-    r = ts.shape[1]
-    queries = queries.to(torch.int32).contiguous()
-    if dispatch.resolve(use_kernel, ts):
-        folded = unit_fold_cuda(
-            plan, [d.contiguous() for d in data_list], ident_list,
-            ts.to(torch.int32).contiguous(), queries)
-    else:
-        data_list, ts = pad_rows(ident_list, data_list, ts)
-        folded = _ref.unit_fold_plain(plan, data_list, ident_list, ts,
-                                      queries, r)
+    padded to rp by ``pad_rows``), or make outputs of the right shape
+    (``meta``), and split the groups back into per-member dicts."""
+    u, r = ts.shape
+    nq = queries.shape[1]
+    with dispatch.kernel_cost("unit_fold", cost(plan, u, r, nq)
+                              if u and nq else None):
+        queries = queries.to(torch.int32).contiguous()
+        if dispatch.is_meta(ts):
+            folded = [ts.new_empty((u, len(g.members_ix), nq, g.width),
+                                   dtype=torch.float32)
+                      for g in plan.groups]
+        elif dispatch.resolve(use_kernel, ts):
+            folded = unit_fold_cuda(
+                plan, [d.contiguous() for d in data_list], ident_list,
+                ts.to(torch.int32).contiguous(), queries)
+        else:
+            data_list, ts = pad_rows(ident_list, data_list, ts)
+            folded = _ref.unit_fold_plain(plan, data_list, ident_list, ts,
+                                          queries, r)
     return _unstack_batched(plan, folded)
 
 

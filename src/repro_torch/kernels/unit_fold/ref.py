@@ -33,8 +33,10 @@ from ...core.functions import (AddLeaf, DrawdownLeaf, EWLeaf, HLLLeaf, Leaf,
 from ...core.window import first_geq, prefix_walk
 
 __all__ = ["LeafGroup", "UnitFoldPlan", "build_plan", "lift_group",
-           "group_identity", "unit_fold_plain", "member_rows", "FAMILIES",
-           "KINDS", "INT_MAX"]
+           "group_identity", "unit_fold_plain", "member_rows",
+           "unit_bounds_all", "unit_bounds_each", "unit_fold_ref",
+           "unit_fold_ref_data", "unstack_group", "FAMILIES", "KINDS",
+           "INT_MAX"]
 
 INT_MAX = 2**31 - 1
 # combine families and structure kinds, numbered as the CUDA kernel's
@@ -369,3 +371,77 @@ def unit_fold_plain(plan: UnitFoldPlan, data_list: Sequence[torch.Tensor],
         outs.append(_FOLDS[grp.kind](grp, data, ident.to(data.device),
                                      starts[:, ix], ends[:, ix], rp))
     return outs
+
+
+# ---------------------------------------------------------------------------
+# One unit at a time: the reference's per-unit names over the batched
+# plain version (a block of U = 1)
+# ---------------------------------------------------------------------------
+
+
+def unit_bounds_each(specs: Sequence[Any], ts_unit: torch.Tensor,
+                     queries: torch.Tensor, r: int
+                     ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Per-member (Q,) int32 [start, end) frame bounds of one unit's
+    (R,) order column at (Q,) ``queries``, ``r`` the real row count
+    (ROWS frames clip to it)."""
+    starts, ends = _bounds(member_rows(specs, r),
+                           ts_unit.to(torch.int32)[None],
+                           queries.to(torch.int32)[None])
+    return list(starts[0].unbind(0)), list(ends[0].unbind(0))
+
+
+def unit_bounds_all(specs: Sequence[Any], ts_unit: torch.Tensor,
+                    queries: torch.Tensor, r: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(M, Q) [start, end) frame bounds for every member at once."""
+    starts, ends = unit_bounds_each(specs, ts_unit, queries, r)
+    return torch.stack(starts), torch.stack(ends)
+
+
+def unstack_group(group: LeafGroup, folded: torch.Tensor,
+                  out: List[Dict[str, torch.Tensor]]) -> None:
+    """Scatter one group's (Mg, Q, F) query results into the leaf dicts
+    of the members that queried it (``members_ix`` row order), each
+    leaf's lanes reshaped to (Q, *S)."""
+    members_ix = group.members_ix or tuple(range(len(out)))
+    q = folded.shape[1]
+    for row, mi in enumerate(members_ix):
+        off = 0
+        for key, leaf, size in zip(group.keys, group.leaves, group.sizes):
+            out[mi][key] = folded[row, :, off:off + size].reshape(
+                (q,) + tuple(leaf.shape))
+            off += size
+
+
+def unit_fold_ref_data(plan: UnitFoldPlan,
+                       data_list: Sequence[torch.Tensor],
+                       ts_unit: torch.Tensor, queries: torch.Tensor
+                       ) -> List[Dict[str, torch.Tensor]]:
+    """Fold one unit's lifted lane blocks (``data_list[g]``: (R, F) or
+    (R, *S)) at (Q,) ``queries``: one ``{leaf key: (Q, *S)}`` dict per
+    member, through ``unit_fold_plain`` on the block padded to a power of
+    two (``ops.pad_rows``)."""
+    from .ops import pad_rows
+
+    r = ts_unit.shape[0]
+    idents = [group_identity(g).to(ts_unit.device) for g in plan.groups]
+    data, ts = pad_rows(idents, [d.reshape(1, r, -1).to(torch.float32)
+                                 for d in data_list],
+                        ts_unit.to(torch.int32)[None])
+    folded = unit_fold_plain(plan, data, idents, ts,
+                             queries.to(torch.int32)[None], r)
+    out: List[Dict[str, torch.Tensor]] = [{} for _ in plan.specs]
+    for group, block in zip(plan.groups, folded):
+        unstack_group(group, block[0], out)
+    return out
+
+
+def unit_fold_ref(plan: UnitFoldPlan, env: Dict[str, Any],
+                  queries: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
+    """Fold one unit env (columns of shape (R,)) for every member window
+    at (Q,) ``queries``; see ``unit_fold_ref_data``."""
+    ts = env[plan.order_by]
+    return unit_fold_ref_data(
+        plan, [lift_group(g, env, tuple(ts.shape)) for g in plan.groups],
+        ts, queries)

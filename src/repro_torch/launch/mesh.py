@@ -15,16 +15,21 @@ from ..distributed.sharding import Mesh, cuda_devices
 __all__ = ["make_production_mesh", "make_host_mesh"]
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> Mesh:
     """Single pod: (data=16, model=16) = 256 cards.  Multi-pod: a leading
     ``pod`` axis of 2 (512 cards); DP spans pod x data, TP stays inside a
     pod, so the only cross-pod collective is the gradient all-reduce.
     Raises, as ``jax.make_mesh`` does, when fewer CUDA devices are
-    visible."""
+    visible.  With ``device`` (``"meta"`` for a dry run) every entry names
+    that one device instead: the mesh's shape and axes without the
+    cards."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    devs = cuda_devices()
     need = int(np.prod(shape))
+    if device is not None:
+        return Mesh(np.full(shape, torch.device(device), dtype=object), axes)
+    devs = cuda_devices()
     if len(devs) < need:
         raise ValueError(f"Number of devices {len(devs)} must be >= the "
                          f"product of mesh_shape {shape}")

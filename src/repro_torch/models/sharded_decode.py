@@ -86,7 +86,7 @@ def sharded_decode_attention(q, cache_k, cache_v, k_new, v_new, pos,
     lo = torch.where(live, lo, first)
     hi = torch.where(live, hi, first + 1)
     parts = [decode_partials(q0, cache_k, cache_v, lo[s], hi[s],
-                             use_kernel=use_kernel)
+                             use_kernel=use_kernel, span=s_loc)
              for s in range(n_shards)]
     # dead rows add exactly the merge identity (m = -1e30, l = 0, o = 0)
     m = torch.where(live[..., None], torch.stack([p[0] for p in parts]),

@@ -54,3 +54,17 @@ def test_forcing_kernel_on_cpu_raises():
     with pytest.raises(dispatch.KernelUnsupportedError):
         torch_fh.feature_hash(torch.zeros(4, dtype=torch.int32), 16,
                               use_kernel=True)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mix32_matches_reference(seed):
+    """``ref.mix32`` (the fmix32 finalizer alone) gives the reference's
+    uint32 lanes, held in int64."""
+    from repro.kernels.feature_hash.ref import mix32 as jax_mix32
+    from repro_torch.kernels.feature_hash.ref import mix32
+
+    codes = _codes((4099,), seed)
+    want = np.asarray(jax_mix32(jnp.asarray(codes))).astype(np.int64)
+    got = mix32(torch.from_numpy(codes))
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)

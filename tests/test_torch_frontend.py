@@ -80,3 +80,10 @@ def test_parse_errors_at_same_position(sql):
     assert et.value.pos is not None
     assert et.value.pos == ej.value.pos
     assert str(et.value) == str(ej.value)
+
+
+def test_compiler_int_min_matches_reference():
+    from repro.core import compiler as JC
+    from repro_torch.core import compiler as TC
+
+    assert TC.INT_MIN == JC.INT_MIN == -(2**31) + 2

@@ -1157,3 +1157,56 @@ def test_sequence_sharded_decode_kernel_matches_plain_on_card(arch):
     assert n_one == cfg.n_layers * len(steps)
     np.testing.assert_allclose(got, plain, rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(got, unsharded, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+def test_counted_step_records_one_cost_per_launch(kind):
+    """``roofline.analyze_step`` over a step on the card: each kernel's
+    cost records equal its launches in that step, and the FLOPs equal
+    the same step counted on ``meta``."""
+    import dataclasses
+
+    from repro_torch.configs import reduced
+    from repro_torch.distributed.fault import tree_map
+    from repro_torch.models import (decode_step, forward_prefill,
+                                    init_decode_state, init_params)
+    from repro_torch.roofline import analyze_step
+    from repro_torch.train import AdamWConfig, adamw_init, build_train_step
+
+    dev = require_cuda()
+    cfg = dataclasses.replace(reduced("hymba-1.5b"), n_layers=4)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), dtype=torch.int32,
+                           device=dev)
+
+    def meta(tree):
+        return tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
+
+    if kind == "prefill":
+        def step(p, t):
+            return forward_prefill(cfg, p, {"tokens": t}, cache_capacity=64)
+        args = (params, tokens)
+    elif kind == "decode":
+        state = init_decode_state(cfg, 2, 64, dtype=torch.float32,
+                                  device=dev)
+        state["len"].fill_(40)
+
+        def step(p, st, t):
+            return decode_step(cfg, p, st, t)
+        args = (params, state, tokens[:, :1])
+    else:
+        train = build_train_step(cfg, AdamWConfig(), n_micro=2,
+                                 compute_dtype=torch.float32)
+
+        def step(st, t):
+            return train(st, {"tokens": t})
+        args = (adamw_init(params), tokens)
+    dispatch.reset_launch_counts()
+    cost = analyze_step(step, *args)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    assert {k: v["calls"] for k, v in cost.kernels.items()} == launches
+    assert launches
+    assert analyze_step(step, *meta(args)).flops == cost.flops

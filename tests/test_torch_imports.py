@@ -1,7 +1,10 @@
-"""Import boundary of the port: nothing under ``src/repro_torch/``
-imports JAX or the JAX package ``repro`` (not even its numpy-only
-modules: ``repro/core/__init__.py`` pulls in the compiler, which imports
-jax)."""
+"""Import boundary of the port: nothing under ``src/repro_torch/``, in
+the port's entry points outside ``src/`` (``tools/torch_*.py``,
+``examples/torch_*.py``) or in ``chip_smoke.py`` imports JAX or the JAX
+package ``repro`` (not even its numpy-only modules:
+``repro/core/__init__.py`` pulls in the compiler, which imports jax),
+and the entry points do not import the reference gates' helpers
+``tools/_common.py`` either."""
 
 import ast
 import importlib
@@ -9,20 +12,31 @@ import pathlib
 
 import pytest
 
-PORT = pathlib.Path(__file__).resolve().parent.parent / "src" / "repro_torch"
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
+# the reference gates' shared module, under both names it is imported by
+FORBIDDEN_MODULES = ("tools._common", "_common")
 FILES = sorted(PORT.rglob("*.py"))
+ENTRY_POINTS = sorted(list((ROOT / "tools").glob("torch_*.py"))
+                      + list((ROOT / "examples").glob("torch_*.py"))
+                      + [ROOT / "chip_smoke.py"])
 
 
-def _imported_roots(path: pathlib.Path):
+def _imported_modules(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
-                yield node.lineno, alias.name.split(".")[0]
+                yield node.lineno, alias.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0 \
                 and node.module:
-            yield node.lineno, node.module.split(".")[0]
+            yield node.lineno, node.module
+
+
+def _imported_roots(path: pathlib.Path):
+    for line, name in _imported_modules(path):
+        yield line, name.split(".")[0]
 
 
 # modules of the offline, model-serving, staged-fold, pre-aggregation,
@@ -57,7 +71,9 @@ SLICE_MODULES = (
     "configs.qwen3_8b", "configs.granite_3_8b", "configs.minicpm3_4b",
     "configs.qwen2_moe_a2_7b", "configs.dbrx_132b",
     "distributed.runtime", "distributed.sharding", "launch.mesh",
-    "models.sharded_decode")
+    "models.sharded_decode",
+    "roofline", "roofline.report", "roofline.trace_analyzer",
+    "launch.dryrun")
 
 
 def test_port_has_files():
@@ -103,8 +119,32 @@ def test_chip_smoke_imports_no_jax_or_reference():
     assert not bad, f"chip_smoke.py imports {bad}"
 
 
+def test_entry_points_exist():
+    names = {p.name for p in ENTRY_POINTS}
+    assert names == {"torch_common.py", "torch_check_consistency.py",
+                     "torch_check_replay.py", "torch_check_recovery.py",
+                     "torch_analyze_plan.py", "torch_quickstart.py",
+                     "torch_online_serving.py", "torch_offline_training.py",
+                     "chip_smoke.py"}
+
+
+@pytest.mark.parametrize("path", ENTRY_POINTS,
+                         ids=[p.name for p in ENTRY_POINTS])
+def test_entry_point_imports_no_jax_reference_or_common(path):
+    """The port's gates, examples and ``chip_smoke.py`` import neither
+    JAX, the JAX package nor ``tools/_common.py``."""
+    bad = [(line, name) for line, name in _imported_modules(path)
+           if name.split(".")[0] in FORBIDDEN
+           or any(name == m or name.startswith(m + ".")
+                  for m in FORBIDDEN_MODULES)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
 def test_checker_catches_a_forbidden_import(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import os\nfrom repro.core import types\n"
                  "def g():\n    import jax.numpy as jnp\n")
     assert [r for _, r in _imported_roots(f)] == ["os", "repro", "jax"]
+    f.write_text("from tools._common import RAW_SQL\nimport _common\n")
+    assert [m for _, m in _imported_modules(f)] == ["tools._common",
+                                                     "_common"]

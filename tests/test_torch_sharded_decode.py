@@ -183,9 +183,10 @@ def test_dead_shards_add_the_identity_and_read_one_key(window, monkeypatch):
     seen = []
     real = SD.decode_partials
 
-    def recording(q_, k_, v_, lo, hi, use_kernel=None):
+    def recording(q_, k_, v_, lo, hi, use_kernel=None, span=None):
         seen.append((lo.clone(), hi.clone()))
-        return real(q_, k_, v_, lo, hi, use_kernel=use_kernel)
+        assert span == k_.shape[1] // n          # the chunk's cost hint
+        return real(q_, k_, v_, lo, hi, use_kernel=use_kernel, span=span)
 
     monkeypatch.setattr(SD, "decode_partials", recording)
     out, ck2, cv2 = SD.sharded_decode_attention(

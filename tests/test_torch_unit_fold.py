@@ -362,3 +362,77 @@ def test_min_max_reduction_equals_the_sparse_table(family):
             assert torch.equal(got.isnan(), want[ui, 0, qi].isnan())
             nan = got.isnan()
             assert torch.equal(got[~nan], want[ui, 0, qi][~nan])
+
+
+@pytest.mark.parametrize("which", ["family", "edge"])
+def test_prelift_once_equals_per_unit_lift(which):
+    """The reference lifts narrow groups per unit and wide ones once over
+    the flat rows (its ``PRELIFT_MIN_WIDTH``, an XLA layout choice); the
+    port lifts every group once (``prelift_blocks``) and gathers the
+    lanes.  Lifts are row-local, so both give the same bits."""
+    _, specs, leaves, mk = _group(torch_compile, SQLS[which],
+                                  fused_unit_fold=True)
+    env = _block(3, 11, seed=4, n_valid=[11, 6, 1])
+    env_t = {k: torch.from_numpy(v.copy()) for k, v in env.items()}
+    flat = {k: v.reshape(-1) for k, v in env_t.items()}
+    idx = torch.arange(3 * 11).reshape(3, 11)
+    got = torch_uf.unit_fold_blocks(specs, leaves, flat, idx, order_by="ts",
+                                    member_keys=mk)
+    want = torch_uf.unit_fold(specs, leaves, env_t, order_by="ts",
+                              member_keys=mk)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in w:
+            assert torch.equal(g[k].isnan(), w[k].isnan()), k
+            assert torch.equal(g[k].nan_to_num(), w[k].nan_to_num()), k
+
+
+@pytest.mark.parametrize("which", ["family", "edge", "solo"])
+def test_per_unit_names_match_reference(which):
+    """The reference's per-unit names — ``unit_bounds_each`` /
+    ``unit_bounds_all`` (bounds bitwise), ``unit_fold_ref`` and
+    ``unit_fold_ref_data`` (every leaf of every member, through
+    ``unstack_group``) — on one unit at a time of a padded block, every
+    row queried and one row queried."""
+    from repro.kernels.unit_fold import ref as JR
+
+    sql = SQLS[which]
+    r = 21 if which == "family" else 13
+    env = _block(3, r, seed=2, n_valid=[r, r - 4, 5])
+    _, specs_j, leaves_j, mk_j = _group(jax_compile, sql)
+    members, specs_t, leaves_t, mk_t = _group(torch_compile, sql,
+                                              fused_unit_fold=True)
+    plan_j = JR.build_plan(specs_j, leaves_j, "ts", member_keys=mk_j)
+    plan_t = torch_ref.build_plan(specs_t, leaves_t, "ts", member_keys=mk_t)
+    n = 0
+    for u in range(3):
+        env_j = {k: jnp.asarray(v[u]) for k, v in env.items()}
+        env_t = {k: torch.from_numpy(v[u].copy()) for k, v in env.items()}
+        for q in (np.arange(r, dtype=np.int32), np.asarray([3], np.int32)):
+            qj, qt = jnp.asarray(q), torch.from_numpy(q)
+            (sj, ej), (st, et) = (
+                JR.unit_bounds_all(specs_j, env_j["ts"], qj, r),
+                torch_ref.unit_bounds_all(specs_t, env_t["ts"], qt, r))
+            np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+            np.testing.assert_array_equal(et.numpy(), np.asarray(ej))
+            each = torch_ref.unit_bounds_each(specs_t, env_t["ts"], qt, r)
+            assert [t.shape for t in each[0]] == [q.shape] * len(specs_t)
+            want = JR.unit_fold_ref(plan_j, env_j, qj)
+            got = torch_ref.unit_fold_ref(plan_t, env_t, qt)
+            data = [torch_ref.lift_group(g, env_t, (r,))
+                    for g in plan_t.groups]
+            got_data = torch_ref.unit_fold_ref_data(plan_t, data,
+                                                    env_t["ts"], qt)
+            for mi in range(len(members)):
+                for k, a in want[mi].items():
+                    a = np.asarray(a)
+                    for b in (got[mi][k].numpy(), got_data[mi][k].numpy()):
+                        assert a.shape == b.shape, k
+                        if k.startswith("ew:"):
+                            np.testing.assert_allclose(
+                                b, a, rtol=EW_RTOL, atol=EW_ATOL, err_msg=k)
+                        else:
+                            np.testing.assert_array_equal(b, a, err_msg=k)
+                        n += 1
+    assert n > 0
