@@ -42,8 +42,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              ``scaled_dot_product_attention`` call; and at phase 4m's
              llama3-8b decode_32k shape (B 8, Hq 32, Hkv 8, D 128, a bf16
              cache of 32,768 with 32,000 live keys) over the whole range
-             (beside SDPA), over one sequence shard's range with the
-             whole cache passed, and over a dead shard's one key;
+             (beside SDPA), over one sequence shard's piece (a contiguous
+             chunk of 8,192 positions, all live), and over a dead
+             shard's one key of its piece;
 4. main paths, each with the launch counts set to 0 just before it and
              read just after, at deployment size (1.5 M rows; run in
              the order a, b, e, f, g, h, m, i, c, d, j, k, l, n):
@@ -122,13 +123,23 @@ Phases (each prints its own lines; any failure exits non-zero):
              with two or more cards the 8-shard deployment over them);
              (b) llama3-8b (8.03 G seeded random params) at full width
              and depth against decode_32k's 32,768-position cache filled
-             from the seed to 32,000 (no prefill), a (1, 4) ("data",
-             "model") mesh of the card: float32 at B = 2, four steps
-             through the kernel on the mesh (4 x 32 launches a token)
-             within rtol/atol 2e-4 of the unsharded decode and of the
-             plain versions; bf16 at B = 8 (decode_32k's 128, cut to fit
-             the card), per-token p50 / p99 of mesh and unsharded in
-             turns, launches, busy share, peak memory;
+             from the seed to 32,000 (no prefill), the cache in pieces
+             (``distributed.sharding.device_put`` of a ``meta`` state:
+             one contiguous tensor per ("data", "model") mesh entry,
+             allocated entry by entry; the bytes each entry holds equal
+             to ``per_device_bytes``) on entries that name the card:
+             float32 at B = 2 on (1, 4) and (2, 2) meshes, four steps
+             through the kernel (entries x 32 launches a token) within
+             rtol/atol 2e-4 of the unsharded decode and of the pieces
+             through the plain versions; bf16 at B = 8 (decode_32k's
+             128, cut to fit the card) on (1, 4), per-token p50 / p99 of
+             pieces and unsharded in turns, each turn on a state of its
+             own, launches, busy share, peak memory; (d) with two or
+             more cards visible, the same over (1, n) distinct cards,
+             n = 4 (2 where 2 or 3 are visible): the f32 check, the
+             bytes per card, bf16
+             at B = 8 n (with four cards a 137.6-GB cache); with one
+             card, one line saying (d) did not run;
    i. certifier, preview, pipeline, row format — ``certify`` of the
              smoke script over 4b's gate prefix (its bitwise columns all
              matched by 4b's card gate) and over the 1.5 M rows (C-BUF
@@ -164,6 +175,11 @@ Phases (each prints its own lines; any failure exits non-zero):
              first loss within 1 nat of ln(vocab), the last below it,
              256 ``linear_scan`` and 128 ``linear_scan_bwd`` launches
              per step; step ms p50, tokens/s, peak memory, busy share;
+             then the data-parallel step (``dp_axes=("data",)``) at 4
+             layers on a (2, 1) mesh of the card: f32 against the
+             one-device step (loss rtol 1e-5, params at
+             ``tests/test_torch_train.py``'s bars, twice the scan
+             launches), bf16 step p50 beside the one-device step's;
    k. MoE and MLA families — (a) qwen2-moe-a2.7b at full width and depth
              (64 allocated experts, 15.15 G seeded random params), phase
              4d's prompts and cache: in float32 ``generate_greedy`` of
@@ -322,6 +338,12 @@ TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
 # the first loss within 1 nat of ln(vocab): untied random logits of
 # std 0.02 * sqrt(d_model) = 0.8 add ~0.32 nats to the uniform loss
 TRAIN_LOSS_TOL = 1.0
+# phase 4j's data-parallel step: hymba-1.5b at full width and DP_LAYERS
+# layers, the same batch, on a (DP_BLOCKS, 1) ("data", "model") mesh of
+# the card; f32 against the one-device step (loss at DP_LOSS_RTOL, the
+# params at tests/test_torch_train.py's bars), then bf16 timed in turns
+DP_LAYERS, DP_BLOCKS, DP_STEPS = 4, 2, 3
+DP_LOSS_RTOL = 1e-5
 DECODE_LIVE = (1025, 1056)         # decode live lengths at positions 1,024+
 DECODE_COLD = 8                    # caches rotated for the cold-L2 times
 STAGED_REPS = 100                  # timed batches per B, phases 4e and 4f
@@ -1036,9 +1058,10 @@ def check_decode_32k(dev, reps):
     Hkv 8, D 128; B = MESH_BATCH over a bf16 cache of MESH_SEQ with
     MESH_LIVE live keys): kernel against plain version (rtol 1e-4 / atol
     1e-5) and two runs bitwise, over the whole live range and over one
-    sequence shard's range [S/4, S/2) with the whole cache passed (the
-    call the mesh decode makes); times and bounds, one SDPA call beside
-    the whole range, and the one-key range a dead shard is given."""
+    sequence shard's piece (the contiguous chunk [S/4, S/2), its whole
+    range: the call the mesh decode makes on an entry); times and
+    bounds, one SDPA call beside the whole range, and the one-key range
+    a dead shard's piece is given."""
     from repro_torch.kernels.flash_decode.kernel import decode_partials_cuda
     from repro_torch.kernels.flash_decode.ops import cost
     from repro_torch.kernels.flash_decode.ref import decode_partials_ref
@@ -1055,9 +1078,13 @@ def check_decode_32k(dev, reps):
                 torch.full((b,), hi, dtype=torch.int32, device=dev))
 
     out = {}
+    # one sequence shard's piece: a contiguous (B, S/4, Hkv, D) chunk
+    kc, vc = (t[:, s_loc:2 * s_loc].contiguous() for t in (k, v))
     for name, (lo, hi) in (("whole", rng(0, MESH_LIVE)),
-                           ("shard", rng(s_loc, 2 * s_loc)),
-                           ("dead", rng(3 * s_loc, 3 * s_loc + 1))):
+                           ("shard", rng(0, s_loc)),
+                           ("dead", rng(0, 1))):
+        if name != "whole":
+            k, v = kc, vc
         got = decode_partials_cuda(q, k, v, lo, hi)
         again = decode_partials_cuda(q, k, v, lo, hi)
         want = decode_partials_ref(q, k, v, lo, hi)
@@ -1083,13 +1110,13 @@ def check_decode_32k(dev, reps):
                 lambda: decode_library(q, k, v, lo, hi), reps)
         out[name] = r
         log(f"decode_partials[32k/{name}] B={b} Hq={hq} Hkv={hkv} D={d} bf16 "
-            f"cache S={MESH_SEQ}, [{int(lo[0])}, {int(hi[0])}) live ({live} "
+            f"cache S={k.shape[1]}, [{int(lo[0])}, {int(hi[0])}) live ({live} "
             f"keys): kernel == plain (rtol 1e-4), two runs equal, "
             f"max_abs_err={err}; ms={r['ms']:.4f}"
             + (f" plain_ms={r['plain_ms']:.4f} library_ms="
                f"{r['library_ms']:.4f}" if name == "whole" else "")
             + f" bound_ms={b_ms:.5f} ({b_by})")
-    del q, k, v
+    del q, k, v, kc, vc
     torch.cuda.empty_cache()
     return out
 
@@ -1435,9 +1462,118 @@ def model_training(dev, card):
            "kernel_vs_plain_spread": spread, "compare_kernel_s": t_kern,
            "compare_plain_s": t_plain, "profile_step": prof,
            "roofline": roof}
-    del state, batches, step_fn
+    del state, step_fn
     torch.cuda.empty_cache()
-    return out, {"training": counts}
+    out["data_parallel"], dp_counts = dp_training(dev, card, batches)
+    del batches
+    torch.cuda.empty_cache()
+    return out, {"training": counts, **dp_counts}
+
+
+def dp_training(dev, card, batches):
+    """Phase 4j's data-parallel step: hymba-1.5b at full width and
+    DP_LAYERS layers, batch TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO
+    microbatches, on a (DP_BLOCKS, 1) mesh of the card (every
+    microbatch's rows in DP_BLOCKS blocks, each block's forward and
+    backward apart, averaged on the card): in f32 one step from a state
+    against the one-device step from a copy of it (loss within
+    DP_LOSS_RTOL, every param leaf at ``tests/test_torch_train.py``'s
+    bars, the scan launches doubled); then bf16 steps timed in turns
+    (one device, DP, DP, one device), DP_STEPS a turn."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.distributed.fault import tree_map
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, adamw_init, build_train_step
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get(MODEL_ARCH), n_layers=DP_LAYERS)
+    mesh = Mesh(np.array([[dev]] * DP_BLOCKS, dtype=object),
+                ("data", "model"))
+    dp = dict(dp_axes=("data",), mesh=mesh)
+    lr = TRAIN_OPT["lr"]
+
+    def step_fn(dtype, **kw):
+        return build_train_step(cfg, AdamWConfig(**TRAIN_OPT),
+                                n_micro=TRAIN_MICRO, compute_dtype=dtype,
+                                **kw)
+
+    state = adamw_init(init_params(cfg, torch.Generator(
+        device=dev).manual_seed(0), dtype=torch.float32, device=dev))
+    twin = tree_map(lambda t: t.clone(), state)
+    (dp_state, dp_m), dp_counts = run_path(
+        "training, data parallel (f32)",
+        lambda: step_fn(torch.float32, **dp)(state, batches[0]),
+        ("linear_scan", "linear_scan_bwd"))
+    (one_state, one_m), one_counts = run_path(
+        "training, one device (f32)",
+        lambda: step_fn(torch.float32)(twin, batches[0]),
+        ("linear_scan", "linear_scan_bwd"))
+    if {k: dp_counts[k] for k in ("linear_scan", "linear_scan_bwd")} != \
+            {k: DP_BLOCKS * one_counts[k]
+             for k in ("linear_scan", "linear_scan_bwd")}:
+        raise AssertionError(f"4j DP launches {dp_counts}, one device "
+                             f"{one_counts}")
+    loss_dp, loss_one = float(dp_m["loss"]), float(one_m["loss"])
+    if abs(loss_dp - loss_one) > DP_LOSS_RTOL * abs(loss_one):
+        raise AssertionError(f"4j DP loss {loss_dp}, one device {loss_one}")
+    worst, n_miss, n_all = 0.0, 0, 0
+    for i, (g, w) in enumerate(zip(_leaves(dp_state.params),
+                                   _leaves(one_state.params))):
+        # rtol 1e-4 / atol 1e-6, but an element whose ~0 gradient's
+        # rounding turned Adam's step (2 lr at most), 0.1% of a leaf
+        miss = ~torch.isclose(g, w, rtol=1e-4, atol=1e-6)
+        diff = float((g - w).abs().max())
+        worst = max(worst, diff)
+        n_miss += int(miss.sum())
+        n_all += miss.numel()
+        if miss.any() and (float((g - w).abs()[miss].max()) > 2 * lr
+                           or float(miss.float().mean()) > 1e-3):
+            raise AssertionError(f"4j DP param leaf {i}: {int(miss.sum())} "
+                                 f"of {miss.numel()} off, max {diff}")
+    del state, twin, dp_state, one_state
+    torch.cuda.empty_cache()
+    log(f"4j data parallel: {MODEL_ARCH} at full width, {DP_LAYERS} layers, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICRO} microbatches on a "
+        f"({DP_BLOCKS}, 1) mesh of the card, f32: loss {loss_dp:.7f} against "
+        f"the one-device step's {loss_one:.7f} (rtol {DP_LOSS_RTOL}); params "
+        f"max abs diff {worst:.3e}, {n_miss} of {n_all} elements off rtol "
+        f"1e-4 / atol 1e-6 (each within 2 lr); scan launches {dp_counts} "
+        f"against {one_counts}  [{card}]")
+    # bf16, timed in turns
+    state = adamw_init(init_params(cfg, torch.Generator(
+        device=dev).manual_seed(0), dtype=torch.float32, device=dev))
+    fns = {"one device": step_fn(torch.bfloat16),
+           "data parallel": step_fn(torch.bfloat16, **dp)}
+    ms = {k: [] for k in fns}
+    for route in ("one device", "data parallel", "data parallel",
+                  "one device"):
+        for i in range(DP_STEPS + 1):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = fns[route](state, batches[i % len(batches)])
+            loss = float(m["loss"])                      # waits
+            if i:                                        # first: warm-up
+                ms[route].append((time.perf_counter() - t1) * 1e3)
+            if not np.isfinite(loss):
+                raise AssertionError(f"4j DP bf16 loss {loss}")
+    del state
+    torch.cuda.empty_cache()
+    res = {"loss_dp": loss_dp, "loss_one": loss_one, "param_max_diff": worst,
+           "param_misses": n_miss, "params": n_all,
+           "launches_dp": dp_counts, "launches_one": one_counts,
+           "bf16_ms": ms, "phase_s": time.perf_counter() - t0}
+    for route, v in ms.items():
+        res[f"bf16_p50_{route.replace(' ', '_')}"] = float(
+            np.percentile(v, 50))
+    log(f"4j data parallel bf16 step p50 {res['bf16_p50_data_parallel']:.1f}"
+        f" ms ({DP_BLOCKS} blocks a microbatch) against one device "
+        f"{res['bf16_p50_one_device']:.1f} ms, {2 * DP_STEPS} steps each in "
+        f"turns; {res['phase_s']:.1f} s  [{card}]")
+    return res, {"training_dp_f32": dp_counts,
+                 "training_one_f32": one_counts}
 
 
 # ---------------------------------------------------------------- phase 4k
@@ -3484,157 +3620,361 @@ def mesh_features(tables, sh, served, paths, shard_res, off, dev, card):
             "visible_cards": len(cards), "multi_card_err": multi}, out_paths
 
 
+def mesh_states(cfg, b, dtype, mesh, dev):
+    """The ``meta`` decode state of ``b`` rows at MESH_SEQ positions, its
+    specs (``cache_pspecs``, whose K/V spec at this length is the
+    decode's own: entry (d, s) holds data block d, chunk s) and its
+    filler: ``fill(state)`` draws every K/V block of ``mesh``'s grid from
+    the seed in entry order, into a piece on the generator's card or
+    through one piece-shaped buffer there (a whole cache's block, a
+    piece on another card: the same values either way), and sets every
+    length to MESH_LIVE."""
+    from repro_torch.distributed.sharding import (Placed, cache_pspecs,
+                                                  shard_slices)
+    from repro_torch.models.model import init_decode_state
+    from repro_torch.models.sharded_decode import decode_cache_spec
+
+    meta = init_decode_state(cfg, b, MESH_SEQ, dtype=dtype, device="meta")
+    specs = cache_pspecs(cfg, meta, mesh)
+    kv = decode_cache_spec(b, mesh)
+    if any(lc["attn"][k] != kv for lc in specs["layers"] for k in "kv"):
+        raise AssertionError(f"4m: cache_pspecs {specs['layers'][0]} is "
+                             f"not the decode's {kv}")
+    shape = (b, MESH_SEQ, cfg.n_kv_heads, cfg.head_dim)
+    blocks = [shard_slices(shape, kv, mesh, i)
+              for i in np.ndindex(mesh.devices.shape)]
+
+    def fill(state):
+        gen = torch.Generator(device=dev).manual_seed(23)
+        buf = None
+        for lc in state["layers"]:
+            for t in (lc["attn"]["k"], lc["attn"]["v"]):
+                parts = (list(t.pieces.flat) if isinstance(t, Placed)
+                         else [t[sl] for sl in blocks])
+                for part in parts:
+                    if part.is_contiguous() and part.device == gen.device:
+                        part.normal_(generator=gen)
+                        continue
+                    # a whole cache's block, or a piece on another card
+                    if buf is None:
+                        buf = torch.empty(part.shape, dtype=part.dtype,
+                                          device=gen.device)
+                    part.copy_(buf.normal_(generator=gen))
+        state["len"] = torch.full((b,), MESH_LIVE, dtype=torch.int32,
+                                  device=dev)
+        return state
+
+    return specs, meta, fill
+
+
 def mesh_decode(dev, card):
-    """Phase 4m (b): llama3-8b at full width and depth, every sequence's
-    cache filled from the seed to MESH_LIVE of MESH_SEQ positions, one
-    decode token at a time through the (1, MESH_SEQ_SHARDS) mesh of the
-    card and unsharded: in float32 at MESH_F32_BATCH, MESH_STEPS steps of
-    seeded tokens, the mesh through the kernel against the unsharded
-    decode and against the mesh through the plain versions (logits
-    within MESH_TOL); then in bf16 at MESH_BATCH, per-token p50 / p99 of
-    both in turns, launches a token, busy share, peak memory."""
+    """Phase 4m (b) and (d): llama3-8b at full width and depth, every
+    sequence's cache filled from the seed to MESH_LIVE of MESH_SEQ
+    positions, one decode token at a time on a cache in pieces (one
+    contiguous tensor per mesh entry, allocated from ``meta``) and on a
+    whole cache.  (b) entries that all name the card: in float32 at
+    MESH_F32_BATCH on (1, 4) and (2, 2) meshes, MESH_STEPS steps of
+    seeded tokens through the kernel, against the unsharded decode and
+    the pieces through the plain versions (logits within MESH_TOL),
+    entries x layers x steps launches, the bytes each entry holds equal
+    to ``per_device_bytes``; then in bf16 at MESH_BATCH on (1, 4),
+    per-token p50 / p99 of pieces and unsharded in turns (each turn its
+    own state), launches a token, busy share, peak memory.  (d) with two
+    or more cards, the same over (1, n) distinct cards, n = 4 where four
+    are visible, else 2: the f32 check and the bytes per card, then bf16
+    at MESH_BATCH x n rows (with 4 cards a cache no one card holds)."""
     from repro_torch.configs import get
     from repro_torch.distributed import runtime
-    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.distributed.sharding import (Mesh, device_put,
+                                                  entry_bytes,
+                                                  named_shardings,
+                                                  per_device_bytes)
     from repro_torch.models.model import decode_step, init_decode_state
 
     cfg = get(MESH_ARCH)
-    mesh = Mesh(np.array([[dev] * MESH_SEQ_SHARDS], dtype=object),
-                ("data", "model"))
 
-    def refill(state):
-        gen = torch.Generator(device=dev).manual_seed(23)
-        for lc in state["layers"]:
-            for t in (lc["attn"]["k"], lc["attn"]["v"]):
-                t.normal_(generator=gen)
-        state["len"] = torch.full_like(state["len"], MESH_LIVE)
-        return state
+    def grid(shape, devices=None):
+        devs = np.empty(shape, dtype=object)
+        for i in np.ndindex(shape):
+            devs[i] = dev if devices is None else devices[i[-1]]
+        return Mesh(devs, ("data", "model"))
+
+    def new_state(b, dtype, mesh, pieces):
+        """(state, filled from the seed in ``mesh``'s block order; pieces
+        on ``mesh`` or whole on the card), and the bytes per entry placed
+        against ``per_device_bytes`` (None when whole)."""
+        specs, meta, fill = mesh_states(cfg, b, dtype, mesh, dev)
+        if not pieces:
+            return fill(init_decode_state(cfg, b, MESH_SEQ, dtype=dtype,
+                                          device=dev)), None
+        state = device_put(meta, named_shardings(specs, mesh))
+        placed = entry_bytes(state)
+        want = per_device_bytes(meta, specs, mesh)
+        if not (placed == want).all():
+            raise AssertionError(f"4m: bytes per entry {placed.tolist()}, "
+                                 f"per_device_bytes {want}")
+        return fill(state), want
 
     def tokens(b, n, seed):
         gen = torch.Generator().manual_seed(seed)
         return torch.randint(0, cfg.vocab_size, (n, b, 1), generator=gen,
                              dtype=torch.int32)
 
-    def run(params, state, toks, on_mesh, use_kernel=None):
-        refill(state)
+    def run(params, state, toks, mesh, use_kernel=None):
         out = []
-        with runtime.use_mesh(mesh if on_mesh else None):
+        with runtime.use_mesh(mesh):
             for t in toks:
                 logits, state = decode_step(cfg, params, state, t.to(dev),
                                             use_kernel=use_kernel)
                 out.append(logits.float().cpu())
         return torch.stack(out)
 
+    def f32_check(params, mesh, label):
+        """The pieces through the kernel against the unsharded decode and
+        the pieces through the plain versions, one state at a time."""
+        n_entries = mesh.devices.size
+        toks = tokens(MESH_F32_BATCH, MESH_STEPS, 5)
+        state, per_entry = new_state(MESH_F32_BATCH, torch.float32, mesh,
+                                     True)
+        got, counts = run_path(f"pieces decode {label} (f32)",
+                               lambda: run(params, state, toks, mesh),
+                               ("decode_partials",))
+        want_launch = n_entries * cfg.n_layers * MESH_STEPS
+        if counts.get("decode_partials") != want_launch:
+            raise AssertionError(f"4m {label}: {counts} launches, expected "
+                                 f"{want_launch} decode_partials")
+        check_logits([x.numpy() for x in got], cfg, MESH_F32_BATCH)
+        plain, counts_plain = run_path(
+            f"pieces decode {label}, plain versions (f32)",
+            lambda: run(params, new_state(MESH_F32_BATCH, torch.float32,
+                                          mesh, True)[0], toks, mesh,
+                        use_kernel=False), ())
+        if counts_plain.get("decode_partials", 0):
+            raise AssertionError(f"4m {label}: plain route launched "
+                                 f"decode_partials")
+        del state
+        _free()
+        one_state = new_state(MESH_F32_BATCH, torch.float32, mesh, False)[0]
+        one, counts_one = run_path(f"unsharded decode {label} (f32)",
+                                   lambda: run(params, one_state, toks,
+                                               None),
+                                   ("decode_partials",))
+        del one_state
+        _free()
+        err_one = compare(f"4m pieces {label} vs unsharded", got, one,
+                          rtol=MESH_TOL, atol=MESH_TOL)
+        err_plain = compare(f"4m pieces {label} vs plain", got, plain,
+                            rtol=MESH_TOL, atol=MESH_TOL)
+        log(f"4m {MESH_ARCH} f32 B={MESH_F32_BATCH}, cache {MESH_SEQ} "
+            f"filled to {MESH_LIVE}, in pieces on {label}: {MESH_STEPS} "
+            f"steps ({counts['decode_partials']} decode_partials launches "
+            f"= {n_entries} entries x {cfg.n_layers} layers x "
+            f"{MESH_STEPS}, {counts_one['decode_partials']} unsharded) "
+            f"within {MESH_TOL} of the unsharded decode (max abs diff "
+            f"{err_one}) and of the plain versions ({err_plain}); bytes "
+            f"per entry = per_device_bytes = {per_entry}  [{card}]")
+        return {"err_unsharded": err_one, "err_plain": err_plain,
+                "entry_bytes": per_entry, "launches": counts,
+                "launches_unsharded": counts_one}
+
     t_phase = time.perf_counter()
-    # float32: the mesh through the kernel against the unsharded decode
-    # and against the mesh through the plain versions
     params = _draw(cfg, dev, torch.float32)
     n_params = sum(p.numel() for p in _leaves(params))
-    state = init_decode_state(cfg, MESH_F32_BATCH, MESH_SEQ,
-                              dtype=torch.float32, device=dev)
-    toks = tokens(MESH_F32_BATCH, MESH_STEPS, 5)
-    got, counts = run_path("mesh decode (f32)",
-                           lambda: run(params, state, toks, True),
-                           ("decode_partials",))
-    want_launch = MESH_SEQ_SHARDS * cfg.n_layers * MESH_STEPS
-    if counts.get("decode_partials") != want_launch:
-        raise AssertionError(f"4m decode: {counts} launches, expected "
-                             f"{want_launch} decode_partials")
-    check_logits([x.numpy() for x in got], cfg, MESH_F32_BATCH)
-    one, counts_one = run_path("unsharded decode (f32)",
-                               lambda: run(params, state, toks, False),
-                               ("decode_partials",))
-    plain, counts_plain = run_path(
-        "mesh decode, plain versions (f32)",
-        lambda: run(params, state, toks, True, use_kernel=False), ())
-    if counts_plain.get("decode_partials", 0):
-        raise AssertionError("4m plain route launched decode_partials")
-    err_one = compare("4m mesh decode vs unsharded", got, one,
-                      rtol=MESH_TOL, atol=MESH_TOL)
-    err_plain = compare("4m mesh decode vs plain", got, plain,
-                        rtol=MESH_TOL, atol=MESH_TOL)
-    peak32 = torch.cuda.max_memory_allocated() / 1e9
-    log(f"4m {MESH_ARCH} ({n_params / 1e9:.3f} G params) f32, B="
-        f"{MESH_F32_BATCH}, cache {MESH_SEQ} filled to {MESH_LIVE}: "
-        f"{MESH_STEPS} steps on the (1, {MESH_SEQ_SHARDS}) mesh "
-        f"({counts['decode_partials']} decode_partials launches, "
-        f"{counts_one['decode_partials']} unsharded) within {MESH_TOL} of "
-        f"the unsharded decode (max abs diff {err_one}) and of the plain "
-        f"versions ({err_plain}); peak {peak32:.2f} GB  [{card}]")
-    del params, state, got, one, plain
+    torch.cuda.reset_peak_memory_stats()
+    res = {"params_g": n_params / 1e9, "f32": {}}
+    counts_all = {}
+    for shape in ((1, MESH_SEQ_SHARDS), (2, 2)):
+        label = f"({shape[0]}, {shape[1]}) of the card"
+        r = f32_check(params, grid(shape), label)
+        res["f32"][f"{shape[0]}x{shape[1]}"] = r
+        counts_all[f"pieces_decode_f32_{shape[0]}x{shape[1]}"] = \
+            r["launches"]
+        counts_all[f"unsharded_decode_f32_{shape[0]}x{shape[1]}"] = \
+            r["launches_unsharded"]
+    res["f32_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
     _free()
 
-    # bf16: timed in turns (unsharded, mesh, mesh, unsharded)
+    # bf16: timed in turns (unsharded, pieces, pieces, unsharded), each
+    # turn on a state of its own (the whole cache and its pieces together
+    # would not fit beside the weights)
     torch.cuda.reset_peak_memory_stats()
     params = _draw(cfg, dev, torch.bfloat16)
-    state = refill(init_decode_state(cfg, MESH_BATCH, MESH_SEQ,
-                                     dtype=torch.bfloat16, device=dev))
+    mesh = grid((1, MESH_SEQ_SHARDS))
     toks = tokens(MESH_BATCH, 2 * MESH_TOKENS + 16, 7).to(dev)
     it = iter(toks)
+    times = {"unsharded": [], "pieces": []}
+    launches, busy = {}, {}
+    for turn, route in enumerate(("unsharded", "pieces", "pieces",
+                                  "unsharded")):
+        on = mesh if route == "pieces" else None
+        state = new_state(MESH_BATCH, torch.bfloat16, mesh,
+                          route == "pieces")[0]
 
-    def step(on_mesh):
-        nonlocal state
-        with runtime.use_mesh(mesh if on_mesh else None):
-            logits, state = decode_step(cfg, params, state, next(it))
-        return logits
+        def step():
+            nonlocal state
+            with runtime.use_mesh(on):
+                logits, state = decode_step(cfg, params, state, next(it))
+            return logits
 
-    times = {"unsharded": [], "mesh": []}
-    for route in ("unsharded", "mesh", "mesh", "unsharded"):
-        step(route == "mesh")                          # warm-up
+        step()                                          # warm-up
         for _ in range(MESH_TOKENS // 2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits = step(route == "mesh")
+            logits = step()
             torch.cuda.synchronize()
             times[route].append((time.perf_counter() - t0) * 1e3)
-    check_logits([logits.float().cpu().numpy()], cfg, MESH_BATCH)
-    launches, busy = {}, {}
-    for route in ("unsharded", "mesh"):
-        _, launches[route] = run_path(f"{route} decode token (bf16)",
-                                      lambda r=route: step(r == "mesh"),
-                                      ("decode_partials",))
-        busy[route] = busy_share(lambda r=route: step(r == "mesh"))
-    if launches["mesh"]["decode_partials"] != \
+        check_logits([logits.float().cpu().numpy()], cfg, MESH_BATCH)
+        if turn >= 2:                  # each route's second turn
+            _, launches[route] = run_path(f"{route} decode token (bf16)",
+                                          step, ("decode_partials",))
+            busy[route] = busy_share(step)
+        if turn == 3:
+            # phase 4n (b): one unsharded token counted, against its p50
+            from repro_torch.configs import ShapeSpec
+
+            tok = toks[0]
+            at = int(state["len"][0])
+            p50 = float(np.percentile(times["unsharded"], 50))
+            res["roofline"] = step_roofline(
+                f"{MESH_ARCH} decode_32k token (bf16, B={MESH_BATCH}, cache "
+                f"{MESH_SEQ} at {at}, unsharded)", cfg,
+                ShapeSpec("decode", at + 1, MESH_BATCH, "decode"),
+                lambda: decode_step(cfg, params, state, tok),
+                lambda: decode_step(cfg, meta_tree(params), meta_tree(state),
+                                    meta_tree(tok)), p50, card)
+            res["len_at_end"] = at
+        del state
+        _free()
+    if launches["pieces"]["decode_partials"] != \
             MESH_SEQ_SHARDS * launches["unsharded"]["decode_partials"]:
         raise AssertionError(f"4m bf16 launches {launches}")
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    res = {"params_g": n_params / 1e9, "f32_err_unsharded": err_one,
-           "f32_err_plain": err_plain, "f32_peak_gb": peak32,
-           "bf16_peak_gb": peak, "launches": launches,
-           "busy": {r: {k: v for k, v in b.items() if k != "top_kernels_ms"}
-                    for r, b in busy.items()},
-           "len_at_end": int(state["len"][0])}
+    res["bf16_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["launches"] = launches
+    res["busy"] = {r: {k: v for k, v in b.items() if k != "top_kernels_ms"}
+                   for r, b in busy.items()}
     for route, v in times.items():
         res[f"{route}_ms_p50"] = float(np.percentile(v, 50))
         res[f"{route}_ms_p99"] = float(np.percentile(v, 99))
         res[f"{route}_ms"] = v
-        log(f"4m {MESH_ARCH} bf16 B={MESH_BATCH} decode ({route}) per token "
-            f"p50 {res[f'{route}_ms_p50']:.2f} ms, p99 "
-            f"{res[f'{route}_ms_p99']:.2f} ms over {len(v)} tokens in two "
-            f"turns; {launches[route]['decode_partials']} decode_partials a "
-            f"token; {busy[route]['kernels']} kernels, device "
+        log(f"4m {MESH_ARCH} bf16 B={MESH_BATCH} decode ({route}"
+            + (f", (1, {MESH_SEQ_SHARDS}) of the card" if route == "pieces"
+               else "") + f") per token p50 {res[f'{route}_ms_p50']:.2f} ms, "
+            f"p99 {res[f'{route}_ms_p99']:.2f} ms over {len(v)} tokens in two "
+            f"turns (PERF.md §5's earlier record on this shape: the "
+            f"clipped whole-cache mesh 80.32, unsharded 49.80); "
+            f"{launches[route]['decode_partials']} decode_partials "
+            f"a token; {busy[route]['kernels']} kernels, device "
             f"{busy[route]['device_ms']:.2f} ms, busy share "
             f"{busy[route]['device_busy_share']:.3f}  [{card}]")
-    log(f"4m {MESH_ARCH} bf16 peak memory {peak:.2f} GB (cache "
-        f"{MESH_BATCH} x {MESH_SEQ}); phase 4m (b) "
+    log(f"4m {MESH_ARCH} bf16 peak memory {res['bf16_peak_gb']:.2f} GB (a "
+        f"cache of {MESH_BATCH} x {MESH_SEQ} at a time); phase 4m (b) "
         f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
-    # phase 4n (b): one unsharded token counted, against its p50
-    from repro_torch.configs import ShapeSpec
-
-    tok = toks[0]
-    res["roofline"] = step_roofline(
-        f"{MESH_ARCH} decode_32k token (bf16, B={MESH_BATCH}, cache "
-        f"{MESH_SEQ} at {int(state['len'][0])}, unsharded)", cfg,
-        ShapeSpec("decode", int(state["len"][0]) + 1, MESH_BATCH, "decode"),
-        lambda: decode_step(cfg, params, state, tok),
-        lambda: decode_step(cfg, meta_tree(params), meta_tree(state),
-                            meta_tree(tok)),
-        res["unsharded_ms_p50"], card)
-    del params, state
+    counts_all["pieces_decode_bf16"] = launches["pieces"]
+    counts_all["unsharded_decode_bf16"] = launches["unsharded"]
+    del params
     _free()
-    return res, {"mesh_decode_f32": counts, "unsharded_decode_f32":
-                 counts_one, "mesh_decode_bf16": launches["mesh"],
-                 "unsharded_decode_bf16": launches["unsharded"]}
+    res["distinct"], counts = mesh_decode_distinct(cfg, grid, new_state,
+                                                   tokens, run, card)
+    counts_all.update(counts)
+    return res, counts_all
+
+
+def mesh_decode_distinct(cfg, grid, new_state, tokens, run, card):
+    """Phase 4m (d): the pieces over (1, n) distinct cards, n = 4 where
+    four are visible, else 2 (a count the sequence divides by); one line
+    saying so where only one is visible."""
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed.sharding import cuda_devices
+    from repro_torch.models.model import decode_step
+
+    cards = cuda_devices()
+    if len(cards) < 2:
+        log(f"4m (d) did not run: {len(cards)} CUDA device visible; the "
+            f"pieces over distinct cards need two or more (phase 4m (b) "
+            f"ran them on entries that repeat this card)  [{card}]")
+        return {"ran": False, "cards": len(cards)}, {}
+    t0 = time.perf_counter()
+    n = 4 if len(cards) >= 4 else 2          # 32,768 positions divide by n
+    cards = cards[:n]
+    dev = cards[0]
+    mesh = grid((1, n), cards)
+    names = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[:n]
+    out = {"ran": True, "cards": names}
+
+    def held():
+        return [torch.cuda.memory_allocated(c) for c in cards]
+
+    params = _draw(cfg, dev, torch.float32)
+    toks = tokens(MESH_F32_BATCH, MESH_STEPS, 5)
+    before = held()
+    state, per_entry = new_state(MESH_F32_BATCH, torch.float32, mesh, True)
+    grew = [a - b for a, b in zip(held(), before)]
+    got, counts = run_path(f"pieces decode over {n} cards (f32)",
+                           lambda: run(params, state, toks, mesh),
+                           ("decode_partials",))
+    if counts.get("decode_partials") != n * cfg.n_layers * MESH_STEPS:
+        raise AssertionError(f"4m (d): {counts} launches")
+    del state
+    _free()
+    one_state = new_state(MESH_F32_BATCH, torch.float32, mesh, False)[0]
+    one = run(params, one_state, toks, None)
+    del one_state, params
+    _free()
+    err = compare(f"4m (d) pieces over {n} cards vs unsharded", got, one,
+                  rtol=MESH_TOL, atol=MESH_TOL)
+    log(f"4m (d) {MESH_ARCH} f32 B={MESH_F32_BATCH} in pieces over {n} "
+        f"cards {names}: within {MESH_TOL} of the unsharded decode on "
+        f"{dev} (max abs diff {err}); {counts['decode_partials']} "
+        f"decode_partials launches; bytes per card = per_device_bytes = "
+        f"{per_entry}, allocated {grew}")
+    out.update(f32_err=err, entry_bytes=per_entry, allocated=grew,
+               launches_f32=counts)
+    params = _draw(cfg, dev, torch.bfloat16)
+    b = MESH_BATCH * n
+    state, per_entry = new_state(b, torch.bfloat16, mesh, True)
+    it = iter(tokens(b, MESH_TOKENS + 2, 7).to(dev))
+
+    def step():
+        nonlocal state
+        with runtime.use_mesh(mesh):
+            logits, state = decode_step(cfg, params, state, next(it))
+        return logits
+
+    step()
+    ms = []
+    for _ in range(MESH_TOKENS):
+        for c in cards:
+            torch.cuda.synchronize(c)
+        t1 = time.perf_counter()
+        logits = step()
+        for c in cards:
+            torch.cuda.synchronize(c)
+        ms.append((time.perf_counter() - t1) * 1e3)
+    check_logits([logits.float().cpu().numpy()], cfg, b)
+    _, launches = run_path(f"pieces decode token over {n} cards (bf16)",
+                           step, ("decode_partials",))
+    peaks = [torch.cuda.max_memory_allocated(c) / 1e9 for c in cards]
+    out.update(batch=b, cache_gb=2 * cfg.n_layers * b * MESH_SEQ
+               * cfg.n_kv_heads * cfg.head_dim * 2 / 1e9,
+               bf16_ms=ms, bf16_ms_p50=float(np.percentile(ms, 50)),
+               bf16_ms_p99=float(np.percentile(ms, 99)),
+               bf16_entry_bytes=per_entry, launches_bf16=launches,
+               peak_gb=peaks, phase_s=time.perf_counter() - t0)
+    log(f"4m (d) {MESH_ARCH} bf16 B={b} in pieces over {n} cards (cache "
+        f"{out['cache_gb']:.1f} GB, {per_entry / 1e9:.2f} GB a card): "
+        f"per token p50 {out['bf16_ms_p50']:.2f} ms, p99 "
+        f"{out['bf16_ms_p99']:.2f} ms over {MESH_TOKENS} tokens; "
+        f"{launches['decode_partials']} decode_partials a token; peak "
+        f"{[round(p, 2) for p in peaks]} GB; {out['phase_s']:.1f} s  "
+        f"{names}")
+    del state, params
+    _free()
+    return out, {"pieces_decode_f32_distinct": counts,
+                 "pieces_decode_bf16_distinct": launches}
 
 
 # ---------------------------------------------------------------- phase 4n

@@ -26,8 +26,12 @@ rule: per-layer (B, S, Hkv, D) where the reference has (L, B, S, Hkv, D).
 ``named_shardings`` pairs a spec tree with its mesh; ``shard_shape``
 and ``per_device_bytes`` read such specs at the level of shapes (each
 device's piece of a leaf, and what a device holds of a tree:
-``launch.dryrun``'s argument bytes).  Placing the per-tensor shards of a
-model on distinct cards is not done yet.
+``launch.dryrun``'s argument bytes).  ``device_put`` is their consumer,
+the reference's ``jax.device_put`` onto ``NamedSharding``s: every leaf
+becomes a ``Placed``, its pieces one contiguous tensor per mesh entry on
+that entry's device (a leaf on ``meta`` is allocated piece by piece, as
+zeros, so a tree larger than one card is never whole: the reference's
+``jit(init, out_shardings=...)``); ``gather`` joins the pieces back.
 
 Feature-store sharding (paper §5 / §7.2 tablet partitioning): the online
 store is *key*-partitioned, so window folds never cross shards.
@@ -51,12 +55,15 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .fault import tree_flatten, tree_unflatten
+
 __all__ = ["Mesh", "PartitionSpec", "NamedSharding", "auto_pspec",
            "megatron_overrides", "STRATEGIES", "param_pspecs",
            "batch_pspec", "cache_pspecs", "named_shardings",
            "key_shard_mesh", "stacked_store_sharding", "place_stacked",
            "gather_stacked", "canonical_device", "cuda_devices",
-           "shard_shape", "per_device_bytes"]
+           "shard_shape", "per_device_bytes", "shard_slices", "Placed",
+           "device_put", "gather", "entry_bytes"]
 
 
 class PartitionSpec(tuple):
@@ -391,13 +398,18 @@ def cache_pspecs(cfg, cache_tree, mesh):
 
 
 def named_shardings(spec_tree, mesh):
-    """``NamedSharding(mesh, spec)`` for every spec of a spec tree."""
+    """``NamedSharding(mesh, spec)`` for every spec of a spec tree (dicts,
+    lists, tuples and named tuples of ``PartitionSpec`` leaves)."""
     if isinstance(spec_tree, PartitionSpec):
         return NamedSharding(mesh, spec_tree)
     if isinstance(spec_tree, dict):
         return {k: named_shardings(v, mesh) for k, v in spec_tree.items()}
     if isinstance(spec_tree, list):
         return [named_shardings(v, mesh) for v in spec_tree]
+    if isinstance(spec_tree, tuple):           # a named tuple stays one
+        items = [named_shardings(v, mesh) for v in spec_tree]
+        return (type(spec_tree)(*items) if hasattr(spec_tree, "_fields")
+                else tuple(items))
     raise TypeError(f"not a spec tree node: {type(spec_tree).__name__}")
 
 
@@ -436,3 +448,152 @@ def per_device_bytes(tree, spec_tree, mesh: Mesh) -> int:
         return sum(per_device_bytes(t, v, mesh)
                    for t, v in zip(tree, spec_tree, strict=True))
     raise TypeError(f"not a spec tree node: {type(spec_tree).__name__}")
+
+
+def shard_slices(shape: Sequence[int], spec: PartitionSpec, mesh: Mesh,
+                 index: Tuple[int, ...]) -> Tuple[slice, ...]:
+    """The part of a leaf of ``shape`` placed by ``spec`` that the mesh
+    entry ``index`` (an index into ``mesh.devices``) holds: along each
+    dimension, block ``k`` of ``shard_shape``'s size, ``k`` the entry's
+    position over the mesh axes the dimension's spec entry names (the
+    first named axis major), as ``NamedSharding.devices_indices_map``.
+    A dimension no axis names is whole: its entries are replicas."""
+    size = shard_shape(shape, spec, mesh)
+    mesh_shape = _mesh_shape(mesh)
+    out = []
+    for i, n in enumerate(size):
+        ax = spec[i] if i < len(spec) else None
+        axes = () if ax is None else ax if isinstance(ax, tuple) else (ax,)
+        k = 0
+        for a in axes:
+            k = k * mesh_shape[a] + index[mesh.axis_names.index(a)]
+        out.append(slice(k * n, (k + 1) * n))
+    return tuple(out)
+
+
+class Placed:
+    """One leaf placed by a ``NamedSharding`` (``device_put``): its global
+    ``shape`` and ``dtype``, and ``pieces``, an object array indexed like
+    ``sharding.mesh.devices`` whose entry ``i`` is the contiguous tensor
+    of ``shard_slices(shape, spec, mesh, i)`` on the mesh's device ``i``.
+    Entries that a replicated axis tells apart hold a piece each (equal
+    values), so every entry holds ``shard_shape`` of the leaf, as
+    ``per_device_bytes`` counts.  A placed leaf is read through its
+    pieces (``models.sharded_decode``) or whole (``gather``)."""
+
+    def __init__(self, sharding: NamedSharding, shape, dtype,
+                 pieces: np.ndarray):
+        self.sharding = sharding
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.pieces = pieces
+
+    @property
+    def mesh(self) -> Mesh:
+        return self.sharding.mesh
+
+    @property
+    def spec(self) -> PartitionSpec:
+        return self.sharding.spec
+
+    def element_size(self) -> int:
+        return self.pieces.flat[0].element_size()
+
+    def __repr__(self):
+        return (f"Placed({tuple(self.shape)}, {self.dtype}, {self.spec}, "
+                f"pieces {self.pieces.shape})")
+
+
+def _same_layout(x: Placed, sharding: NamedSharding) -> bool:
+    """Whether ``x``'s pieces are the ones ``sharding`` places: the same
+    mesh entries, each holding the same block (specs that differ only
+    in axes of size 1 place alike)."""
+    a, b = x.mesh, sharding.mesh
+    if a is not b and (a.axis_names != b.axis_names
+                       or a.devices.shape != b.devices.shape
+                       or any(canonical_device(d) != canonical_device(e)
+                              for d, e in zip(a.devices.flat,
+                                              b.devices.flat))):
+        return False
+    return x.spec == sharding.spec or all(
+        shard_slices(x.shape, x.spec, a, i)
+        == shard_slices(x.shape, sharding.spec, b, i)
+        for i in np.ndindex(a.devices.shape))
+
+
+def _place(x, sharding: NamedSharding) -> Placed:
+    if isinstance(x, Placed):
+        if _same_layout(x, sharding):
+            return x
+        x = _whole(x, x.pieces.flat[0].device)
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"device_put places tensors, got "
+                        f"{type(x).__name__}")
+    mesh, spec = sharding.mesh, sharding.spec
+    size = shard_shape(tuple(x.shape), spec, mesh)
+    pieces = np.empty(mesh.devices.shape, dtype=object)
+    for i in np.ndindex(mesh.devices.shape):
+        dev = mesh.devices[i]
+        if x.device.type == "meta":
+            pieces[i] = torch.zeros(size, dtype=x.dtype, device=dev)
+        else:
+            pieces[i] = torch.empty(size, dtype=x.dtype, device=dev)
+            pieces[i].copy_(x[shard_slices(x.shape, spec, mesh, i)])
+    return Placed(sharding, x.shape, x.dtype, pieces)
+
+
+def _whole(x: Placed, device) -> torch.Tensor:
+    out = torch.empty(x.shape, dtype=x.dtype, device=device)
+    done = set()
+    for i in np.ndindex(x.pieces.shape):
+        sl = shard_slices(x.shape, x.spec, x.mesh, i)
+        key = tuple(s.start for s in sl)
+        if key not in done:                  # a replica's block once
+            done.add(key)
+            out[sl].copy_(x.pieces[i])
+    return out
+
+
+def device_put(tree, shardings):
+    """Every tensor of ``tree`` placed by the ``NamedSharding`` at the same
+    place of ``shardings`` (a tree of the same structure: dicts, lists,
+    tuples and named tuples, e.g. ``named_shardings(cache_pspecs(...),
+    mesh)``): a ``Placed`` whose pieces are new tensors on their entries'
+    devices, no view of the input.  A leaf on ``meta`` gives zero pieces,
+    allocated one entry at a time; a ``Placed`` leaf with this sharding
+    is returned as it is, one with another is placed anew from its
+    pieces.  Raises where a dimension does not divide (``shard_shape``)."""
+    leaves, struct = tree_flatten(tree)
+    shs, sh_struct = tree_flatten(shardings)
+    if struct != sh_struct:
+        raise ValueError(f"tree {struct} and shardings {sh_struct} differ")
+    return tree_unflatten(tree, [_place(x, s) for x, s in zip(leaves, shs)])
+
+
+def gather(tree, device):
+    """``device_put``'s inverse: every ``Placed`` leaf of ``tree`` as one
+    whole tensor on ``device`` (each block copied once, from the first
+    entry that holds it); other tensors moved to ``device``."""
+    def whole(x):
+        if isinstance(x, Placed):
+            return _whole(x, device)
+        return x.to(device) if isinstance(x, torch.Tensor) else x
+    if isinstance(tree, (Placed, torch.Tensor)):
+        return whole(tree)
+    leaves, _ = tree_flatten(tree)
+    return tree_unflatten(tree, [whole(x) for x in leaves])
+
+
+def entry_bytes(tree) -> np.ndarray:
+    """Bytes each mesh entry holds of the ``Placed`` leaves of ``tree``
+    (their pieces' storage), an int array shaped like the mesh: what
+    ``per_device_bytes`` predicts from the specs."""
+    out = None
+    for x in tree_flatten(tree)[0]:
+        if isinstance(x, Placed):
+            n = np.vectorize(lambda t: t.numel() * t.element_size(),
+                             otypes=[np.int64])(x.pieces)
+            out = n if out is None else out + n
+    if out is None:
+        raise ValueError("no placed leaf in the tree")
+    return out

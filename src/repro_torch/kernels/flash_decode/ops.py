@@ -37,23 +37,18 @@ def cost(b: int, hq: int, hkv: int, d: int, live_keys: int,
 def decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     lo: Optional[torch.Tensor] = None,
                     hi: Optional[torch.Tensor] = None,
-                    use_kernel: Optional[bool] = None,
-                    span: Optional[int] = None):
+                    use_kernel: Optional[bool] = None):
     """Partial-softmax states (m, l, o) of one query token over the live
     keys [lo, hi) of a KV cache (or shard).
 
     q: (B, Hq, D); k/v: (B, S, Hkv, D) with Hq a multiple of Hkv (query
     head h reads KV head h // (Hq / Hkv)); lo/hi: (B,), default 0 and S.
-    ``span`` (default S) is the most keys a row's range can hold: the
-    cost the call reports counts B·span keys (a sequence shard's chunk,
-    when the whole cache is passed with the range clipped into it).
     Returns m, l: (B, Hq); o: (B, Hq, D), float32.
     """
     b, s, hkv, d = k.shape
     hq = q.shape[1]
     with dispatch.kernel_cost("decode_partials", cost(
-            b, hq, hkv, d, b * (s if span is None else span),
-            k.element_size())):
+            b, hq, hkv, d, b * s, k.element_size())):
         if dispatch.is_meta(k):
             return (q.new_empty((b, hq), dtype=torch.float32),
                     q.new_empty((b, hq), dtype=torch.float32),

@@ -60,7 +60,8 @@ from ..configs import ARCHS, SHAPES, get
 from ..distributed import runtime
 from ..distributed.fault import tree_map
 from ..distributed.sharding import (PartitionSpec as P, batch_pspec,
-                                    cache_pspecs, param_pspecs,
+                                    cache_pspecs, device_put,
+                                    named_shardings, param_pspecs,
                                     per_device_bytes)
 from ..models import (decode_step, forward_prefill, init_decode_state,
                       init_params, model_input_spec)
@@ -193,10 +194,15 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool,
                                       shape.seq_len, device=META)
             tok = torch.empty((shape.global_batch, 1), dtype=torch.int32,
                               device=META)
+            c_specs = cache_pspecs(cfg, cache, mesh)
             arg_bytes = per_device_bytes(
                 (params, cache, tok),
-                (p_specs, cache_pspecs(cfg, cache, mesh),
-                 batch_pspec(tok, mesh)), mesh)
+                (p_specs, c_specs, batch_pspec(tok, mesh)), mesh)
+            if sharded_decode:
+                # the cache in pieces before the step, as the reference's
+                # in_shardings place it (no placement inside the count)
+                cache = device_put(cache, named_shardings(c_specs, mesh))
+
             def count():
                 return _count(lambda: decode_step(cfg, params, cache,
                                                   tok))[0]

@@ -7,8 +7,11 @@ compute as the reference's driver, checkpoint/restart through
 ``CheckpointManager`` and straggler bookkeeping.  As in the reference's
 launcher, the token stream starts at batch 0 in every run: a run resumed
 from step ``k`` trains steps ``k+1 ..`` on batches 0, 1, ...  The
-reference builds a mesh over the visible devices; the port trains on one
-card.
+reference builds a mesh over the visible devices; here
+``--data-parallel N`` trains on an (N, 1) ("data", "model") mesh: each
+microbatch's rows in N blocks, one on each of the first N visible cards
+(or, with fewer cards visible, on ``--device`` repeated N times, which
+it says), the update on ``--device`` (``train.steps``).
 """
 
 # lint: module-ok J002 — host-eager driver: the training loop deliberately
@@ -18,12 +21,14 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from ..configs import get, reduced
 from ..data.pipeline import TokenPipeline
 from ..distributed.compression import int8_compress
 from ..distributed.fault import CheckpointManager, StragglerMitigator
+from ..distributed.sharding import Mesh, cuda_devices
 from ..kernels.dispatch import resolve_device
 from ..models import init_params
 from ..train.optimizer import AdamWConfig, adamw_init
@@ -46,12 +51,28 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--data-parallel", type=int, default=1)
     args = ap.parse_args(argv)
 
     cfg = reduced(args.arch) if args.reduced else get(args.arch)
     dev = resolve_device(args.device)
     print(f"[train] arch={cfg.name} params={cfg.n_params():,} "
           f"device={dev}")
+    dp = {}
+    if args.data_parallel > 1:
+        n = args.data_parallel
+        cards = cuda_devices() if dev.type == "cuda" else []
+        if len(cards) >= n:
+            devs = cards[:n]
+        else:
+            devs = [dev] * n
+            print(f"[train] {len(cards)} cards visible for "
+                  f"--data-parallel {n}: the {n} data blocks all run on "
+                  f"{dev}")
+        mesh = Mesh(np.array([[d] for d in devs], dtype=object),
+                    ("data", "model"))
+        dp = dict(dp_axes=("data",), mesh=mesh)
+        print(f"[train] data parallel over {[str(d) for d in devs]}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     state = adamw_init(init_params(cfg, gen, dtype=torch.float32,
@@ -67,7 +88,7 @@ def main(argv=None):
                          total_steps=args.steps, weight_decay=0.0),
         n_micro=args.n_micro,
         compress=int8_compress if args.compress else None,
-        compute_dtype=torch.float32)
+        compute_dtype=torch.float32, **dp)
     pipe = TokenPipeline(cfg.vocab_size, args.batch, args.seq)
     strag = StragglerMitigator(n_hosts=1)
 

@@ -9,9 +9,10 @@ The same functions as ``repro/models/layers.py``, on tensors:
   * prefill attention is *chunked* (flash-style online softmax over KV
     tiles, plain torch, as the reference's is plain jnp); decode
     attention goes through ``kernels.flash_decode.decode_partials`` over
-    the live cache range (once per sequence shard under an active mesh,
-    ``models.sharded_decode``), the SSM prefill (and training forward, with
-    its backward) through ``kernels.chunked_scan.linear_scan``;
+    the live cache range (once per mesh entry, on its piece of the
+    cache, under an active mesh: ``models.sharded_decode``), the SSM
+    prefill (and training forward, with its backward) through
+    ``kernels.chunked_scan.linear_scan``;
   * MLA (minicpm3) prefill expands K/V per head into the same chunked
     attention; its decode is absorbed attention over the latent cache,
     plain torch ops as in the reference (no Pallas call there);
@@ -35,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed import runtime
-from ..distributed.sharding import canonical_device
+from ..distributed.sharding import Placed, gather
 from ..kernels.chunked_scan import linear_scan
 from ..kernels.flash_decode import decode_partials, finalize_partials
 from .sharded_decode import sharded_decode_attention
@@ -192,25 +193,15 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _decode_mesh(cache_k):
     """Active mesh for the sequence-sharded decode path — only when the
-    cache's sequence axis divides the decode axis size.  Every device of
-    the mesh must be the cache's: the port places no decode-state chunk on
-    another card yet, so a mesh over distinct devices raises."""
+    cache's sequence axis divides the decode axis size.  The mesh's
+    entries may be distinct devices: the cache is then held in pieces,
+    one on each entry's device (``sharded_decode``)."""
     mesh = runtime.get_mesh()
     axis = runtime.decode_axis()
     if mesh is None or axis is None or axis not in mesh.shape:
         return None
     if cache_k.shape[1] % mesh.shape[axis]:
         return None
-    here = canonical_device(cache_k.device)
-    other = sorted({str(canonical_device(d)) for d in mesh.devices.flat}
-                   - {str(here)})
-    if other:
-        raise ValueError(
-            f"the decode mesh spans {other} beside the cache's {here}: "
-            f"placing decode-state chunks on distinct cards waits for "
-            f"the consumer of distributed.sharding.named_shardings "
-            f"(ROADMAP queue 1 item 6, the model axis over distinct "
-            f"cards)")
     return mesh
 
 
@@ -241,8 +232,10 @@ def gqa_forward(p: Params, x: torch.Tensor, cfg, *, positions,
     ``flash_decode.decode_partials`` over the live range
     [max(len + 1 - window, 0), len + 1); under an active mesh
     (``distributed.runtime``) whose decode axis divides the cache length,
-    once per sequence shard, merged by
-    ``sharded_decode.sharded_decode_attention``.
+    once per mesh entry on the entry's piece of the cache, merged by
+    ``sharded_decode.sharded_decode_attention`` (the cache comes back in
+    pieces, ``distributed.sharding.Placed``).  A cache in pieces with no
+    such mesh is gathered whole onto q's device first.
     """
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -272,6 +265,8 @@ def gqa_forward(p: Params, x: torch.Tensor, cfg, *, positions,
                 q, ck, cv, k, v, pos, mesh, axis=runtime.decode_axis(),
                 window=window, use_kernel=use_kernel)
         else:
+            if isinstance(ck, Placed):
+                ck, cv = gather((ck, cv), q.device)
             rows = torch.arange(b, device=ck.device)
             ck[rows, pos.long()] = k[:, 0].to(ck.dtype)
             cv[rows, pos.long()] = v[:, 0].to(cv.dtype)

@@ -26,7 +26,11 @@ n_frames, d) for audio).  The decode state is ``{"len": (B,) int32,
 "layers": [...]}`` (+ ``"enc_out"`` for audio) with per-layer ``{"attn":
 {"k", "v"} (GQA) or {"latent"} (MLA), "ssm"}``, or for RWKV ``{"shift1",
 "S", "shift2"}``; an MoE layer holds ``"moe"`` where a dense one holds
-``"mlp"``.  Training runs the layer loop with per-layer
+``"mlp"``.  A decode state placed by ``distributed.sharding.device_put``
+(e.g. by ``cache_pspecs``, from a ``device="meta"`` state: allocated
+piece by piece) holds ``Placed`` leaves; ``decode_step`` reads GQA K/V
+in pieces under a decode mesh and every other leaf whole.  Training runs
+the layer loop with per-layer
 rematerialisation (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint``).
 """
@@ -41,6 +45,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, ShapeSpec
+from ..distributed.sharding import Placed, gather
 from ..kernels.dispatch import resolve_device
 from . import layers as L
 
@@ -456,7 +461,10 @@ def init_decode_state(cfg: ArchConfig, batch_size: int, max_len: int,
     for the hybrid family, zero SSM states (B, d_inner, state) float32;
     for RWKV zero shifts (B, d) and S (B, H, dh, dh) float32; for audio a
     zero ``enc_out`` (B, n_frames, d); on ``device`` (the card unless the
-    caller passes ``device="cpu"``)."""
+    caller passes ``device="cpu"``).  On ``meta`` it is the shape tree
+    that ``distributed.sharding.device_put`` allocates in pieces (zeros
+    on each mesh entry's device), so that a state larger than one card
+    is never whole."""
     device = resolve_device(device)
     b, d = batch_size, cfg.d_model
 
@@ -490,6 +498,22 @@ def init_decode_state(cfg: ArchConfig, batch_size: int, max_len: int,
     return state
 
 
+def _whole_but_kv(state: Dict[str, Any], home) -> Dict[str, Any]:
+    """``state`` with every ``Placed`` leaf but a GQA layer's ``attn``
+    K/V gathered onto ``home`` (``gqa_forward`` decides for those)."""
+    def whole(t):
+        return gather(t, home) if isinstance(t, Placed) else t
+
+    def layer(lc):
+        return {k: ({n: t if n in ("k", "v") else whole(t)
+                     for n, t in v.items()} if k == "attn" else whole(v))
+                for k, v in lc.items()}
+
+    out = {k: whole(v) for k, v in state.items() if k != "layers"}
+    out["layers"] = [layer(lc) for lc in state["layers"]]
+    return out
+
+
 def decode_step(cfg: ArchConfig, params: Params, state: Dict[str, Any],
                 token: torch.Tensor, use_kernel: Optional[bool] = None):
     """One token for every sequence in the batch.  token: (B, 1) int.
@@ -498,7 +522,17 @@ def decode_step(cfg: ArchConfig, params: Params, state: Dict[str, Any],
     latent) caches of ``state`` are written in place (the new state
     holds the same tensors); SSM and RWKV states and ``len`` are
     replaced; audio reads ``state["enc_out"]``.
+
+    A state placed by ``distributed.sharding.device_put``: GQA K/V held
+    in pieces (``Placed``) are read and written in pieces under an active
+    decode mesh (``models.sharded_decode``) and come back so; every other
+    leaf (``len``, SSM / conv / RWKV states, MLA latents, ``enc_out``,
+    and K/V with no such mesh) is gathered whole onto the params' device
+    at its first use and returned whole.  (The reference's automatic
+    partitioning would keep a leaf that ``cache_pspecs`` splits, such as
+    an SSM state with ``model`` on a dimension of 128 or more, split.)
     """
+    state = _whole_but_kv(state, params["embed"].device)
     x = params["embed"][token.long()]                       # (B, 1, d)
     pos = state["len"]
     positions = pos[:, None]

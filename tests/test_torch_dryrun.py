@@ -154,13 +154,28 @@ def test_train_flops_are_one_microbatch_times_n_micro(reduced_cells,
 
 
 def test_sharded_decode_counts_each_chunk_once(reduced_cells):
+    """On the (16, 16) mesh the cache's 32 rows split into 16 data blocks
+    and its 4,096 positions into 16 chunks: one ``decode_partials`` per
+    entry (256 a layer) over its chunk, whose keys sum to the unsharded
+    call's, and whose bytes are the 16 whole-batch chunk calls that the
+    clipped-whole-cache route counted (each row's q read and partials
+    written once per chunk)."""
+    from repro_torch.kernels.flash_decode.ops import cost
+
     plain = dryrun.dryrun_cell("llama3-8b", "decode_32k", False)
     shard = dryrun.dryrun_cell("llama3-8b", "decode_32k", False,
                                sharded_decode=True)
     kp, ks = plain["kernels"]["decode_partials"], \
         shard["kernels"]["decode_partials"]
-    assert ks["calls"] == 16 * kp["calls"]
+    assert ks["calls"] == 256 * kp["calls"]
     assert ks["flops"] == kp["flops"]
+    cfg, shape = reduced("llama3-8b"), SHAPES["decode_32k"]
+    b, s = shape.global_batch, shape.seq_len
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    per_chunk = cost(b, *heads, b * s // 16, 2).nbytes
+    assert cost(b // 16, *heads, b // 16 * s // 16, 2).nbytes * 16 == \
+        per_chunk
+    assert ks["bytes"] == 16 * per_chunk * cfg.n_layers
     assert shard["memory"] == plain["memory"]
 
 

@@ -1160,6 +1160,75 @@ def test_sequence_sharded_decode_kernel_matches_plain_on_card(arch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3-8b", "hymba-1.5b"])
+def test_pieces_decode_on_distinct_cards(arch):
+    """Reduced models in float32, the decode state in pieces over a
+    (1, n) mesh of n distinct cards, 4 where four are visible, else 2
+    (counts the cache's 64 positions divide by; ``device_put``: each
+    piece on its entry's card): one ``decode_partials`` launch per entry,
+    layer and step, each on its own card; logits within 2e-4 of the
+    unsharded decode on the first card; layer 0's gathered K/V (which
+    depend on the tokens only) bitwise the unsharded decode's.  Skipped
+    where fewer than two cards are visible (``chip_smoke.py`` phase 4m
+    (d) says the same)."""
+    import dataclasses
+
+    from repro_torch.configs import reduced
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed.sharding import (Mesh, Placed,
+                                                  cache_pspecs, device_put,
+                                                  gather, named_shardings)
+    from repro_torch.models import model as TM
+    from repro_torch.models.sharded_decode import decode_cache_spec
+
+    require_cuda()
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip(f"needs two visible CUDA devices, {count} visible")
+    n = 4 if count >= 4 else 2
+    cards = [torch.device("cuda", i) for i in range(n)]
+    home = cards[0]
+    cfg = dataclasses.replace(reduced(arch), n_layers=4)
+    params = TM.init_params(cfg, torch.Generator(device=home).manual_seed(0),
+                            dtype=torch.float32, device=home)
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12))
+                              .astype(np.int32)).to(home)
+    steps = rng.integers(0, cfg.vocab_size, (6, 2, 1)).astype(np.int32)
+    mesh = Mesh(np.array([cards], dtype=object), ("data", "model"))
+
+    def run(on_mesh):
+        _, state = TM.forward_prefill(cfg, params, {"tokens": prompt},
+                                      cache_capacity=64)
+        if on_mesh:
+            specs = cache_pspecs(cfg, state, mesh)
+            for lc in specs["layers"]:
+                lc["attn"] = {k: decode_cache_spec(2, mesh)
+                              for k in ("k", "v")}
+            state = device_put(state, named_shardings(specs, mesh))
+        out = []
+        dispatch.reset_launch_counts()
+        with runtime.use_mesh(mesh if on_mesh else None):
+            for t in steps:
+                logits, state = TM.decode_step(
+                    cfg, params, state, torch.from_numpy(t).to(home))
+                out.append(logits.cpu().numpy())
+        return np.stack(out), state, dispatch.launch_counts().get(
+            "decode_partials", 0)
+
+    got, state, launches = run(True)
+    assert launches == n * cfg.n_layers * len(steps)
+    k0 = state["layers"][0]["attn"]["k"]
+    assert isinstance(k0, Placed)
+    assert [p.device for p in k0.pieces.flat] == cards
+    one, one_state, _ = run(False)
+    np.testing.assert_allclose(got, one, rtol=2e-4, atol=2e-4)
+    for name in ("k", "v"):
+        assert torch.equal(gather(state["layers"][0]["attn"][name], home),
+                           one_state["layers"][0]["attn"][name])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
 def test_counted_step_records_one_cost_per_launch(kind):
     """``roofline.analyze_step`` over a step on the card: each kernel's

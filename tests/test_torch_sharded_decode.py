@@ -8,14 +8,20 @@ the CPU; the JAX package's weights go through ``params_from_jax``.
 * the port's (1, 2) and (1, 4) meshes over the CPU against the
   reference's unsharded decode, after a 12-token prompt in a cache of
   32: hymba's sliding layer has shards its live range misses;
+* the cache in pieces (``distributed.sharding.Placed``, one contiguous
+  tensor per mesh entry, (1, 2), (1, 4) and (2, 2) meshes), handed in
+  placed or whole (placed at the first step): logits against the
+  reference's unsharded decode, the gathered cache bitwise the writes
+  the decode made (and layer 0's, whose K/V depend on the tokens only,
+  bitwise the unsharded decode's), every other leaf returned whole;
 * a cache length the axis does not divide takes the unsharded path;
 * ``sharded_decode_attention`` alone: a shard with no live key adds the
-  merge identity and reads one key row, never the whole cache (the
-  kernel's rule for an empty row would read every value row);
-* a mesh over distinct devices is refused.
+  merge identity and reads one key row of its chunk (the kernel's rule
+  for an empty row would read every value row), the new token is
+  written by its owner only.
 
 Bar: rtol/atol 2e-4 on logits (the reference's own,
-``tests/test_sharded_decode.py``).
+``tests/test_sharded_decode.py``); caches bitwise.
 """
 
 import dataclasses
@@ -31,7 +37,9 @@ from repro.distributed import runtime as jax_runtime
 from repro.models import model as JM
 from repro_torch.configs import reduced
 from repro_torch.distributed import runtime
-from repro_torch.distributed.sharding import Mesh
+from repro_torch.distributed.sharding import (Mesh, NamedSharding, Placed,
+                                              cache_pspecs, device_put,
+                                              gather, named_shardings)
 from repro_torch.kernels.flash_decode import ref as fd_ref
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as TM
@@ -43,8 +51,9 @@ CPU = torch.device("cpu")
 CASES = [("llama3-8b", 2), ("hymba-1.5b", 4)]
 
 
-def _mesh(n):
-    return Mesh(np.array([[CPU] * n], dtype=object), ("data", "model"))
+def _mesh(n, data=1):
+    return Mesh(np.array([[CPU] * n] * data, dtype=object),
+                ("data", "model"))
 
 
 @pytest.fixture(scope="module", params=CASES,
@@ -60,6 +69,14 @@ def pair(request):
     prompt = rng.integers(0, jcfg.vocab_size, (B, PROMPT)).astype(np.int32)
     steps = rng.integers(0, jcfg.vocab_size, (STEPS, B, 1)).astype(np.int32)
     return jcfg, tcfg, jparams, tparams, prompt, steps
+
+
+@pytest.fixture(scope="module")
+def ref_unsharded(pair):
+    """The reference's unsharded decode of the pair's steps after its
+    prompt (one jit for every case of the pair)."""
+    jcfg, _, jparams, _, prompt, steps = pair
+    return _ref_decode(jcfg, jparams, steps, prompt)
 
 
 def _port_decode(tcfg, tparams, tokens, mesh, prompt=None, cap=CAP):
@@ -120,9 +137,10 @@ def test_singleton_mesh_matches_reference_singleton_mesh(pair, monkeypatch):
 
 
 @pytest.mark.parametrize("n", [2, 4])
-def test_sequence_shards_match_reference_unsharded(pair, n, monkeypatch):
+def test_sequence_shards_match_reference_unsharded(pair, ref_unsharded, n,
+                                                  monkeypatch):
     jcfg, tcfg, jparams, tparams, prompt, steps = pair
-    want = _ref_decode(jcfg, jparams, steps, prompt)
+    want = ref_unsharded
     calls = _count_shard_calls(monkeypatch)
     got = _port_decode(tcfg, tparams, steps, _mesh(n), prompt)
     assert len(calls) == STEPS * tcfg.n_layers and set(calls) == {n}
@@ -143,7 +161,8 @@ def test_sliding_layer_misses_whole_shards(pair):
     for pos in range(PROMPT, PROMPT + STEPS):
         p = torch.full((B,), pos, dtype=torch.int32)
         for w in [0] + windows:
-            live = SD.shard_ranges(p, 4, CAP // 4, w)[2].any(dim=1).tolist()
+            live = [bool(SD.chunk_range(p, sh * CAP // 4, CAP // 4, w)[2]
+                         .any()) for sh in range(4)]
             assert not all(live) and any(live)
             if not live[0]:
                 behind.add(w)
@@ -165,8 +184,10 @@ def test_indivisible_cache_takes_the_unsharded_path(pair, monkeypatch):
 def test_dead_shards_add_the_identity_and_read_one_key(window, monkeypatch):
     """Rows whose live range misses a shard: the merged output equals one
     softmax over the live keys, and each dead (row, shard) hands the
-    partials call a one-key range inside the shard's chunk (the plain
-    version, like the kernel, reads every value row of an empty range)."""
+    partials call, on its piece of the cache, the chunk's first key (the
+    plain version, like the kernel, reads every value row of an empty
+    range).  The new token lands in its owner's piece, in place; every
+    other slot keeps its bits (NaN poison included)."""
     rng = np.random.default_rng(window)
     b, s, hkv, g, d, n = 3, 64, 2, 3, 16, 4
     q = torch.from_numpy(rng.normal(size=(b, 1, hkv * g, d))
@@ -180,21 +201,26 @@ def test_dead_shards_add_the_identity_and_read_one_key(window, monkeypatch):
     # a read of them would show
     bad_k, bad_v = ck.clone(), cv.clone()
     bad_k[:, 41:], bad_v[:, 41:] = float("nan"), float("nan")
+    mesh = _mesh(n)
+    sh = NamedSharding(mesh, SD.decode_cache_spec(b, mesh))
+    pk, pv = device_put((bad_k, bad_v), (sh, sh))
     seen = []
     real = SD.decode_partials
 
-    def recording(q_, k_, v_, lo, hi, use_kernel=None, span=None):
-        seen.append((lo.clone(), hi.clone()))
-        assert span == k_.shape[1] // n          # the chunk's cost hint
-        return real(q_, k_, v_, lo, hi, use_kernel=use_kernel, span=span)
+    def recording(q_, k_, v_, lo, hi, use_kernel=None):
+        seen.append((k_, lo.clone(), hi.clone()))
+        return real(q_, k_, v_, lo, hi, use_kernel=use_kernel)
 
     monkeypatch.setattr(SD, "decode_partials", recording)
     out, ck2, cv2 = SD.sharded_decode_attention(
-        q, bad_k, bad_v, kn, vn, pos, _mesh(n), window=window)
-    assert ck2 is bad_k and cv2 is bad_v          # written in place
+        q, pk, pv, kn, vn, pos, mesh, window=window)
+    assert ck2 is pk and cv2 is pv                # written in place
     rows = torch.arange(b)
-    assert torch.equal(ck2[rows, pos.long()], kn[:, 0])
-    assert torch.equal(cv2[rows, pos.long()], vn[:, 0])
+    for placed, whole, new in ((ck2, bad_k, kn), (cv2, bad_v, vn)):
+        want = whole.clone()
+        want[rows, pos.long()] = new[:, 0]
+        torch.testing.assert_close(gather(placed, CPU), want, rtol=0,
+                                   atol=0, equal_nan=True)
     ck[rows, pos.long()], cv[rows, pos.long()] = kn[:, 0], vn[:, 0]
     keys = torch.arange(s)
     hi = (pos + 1)[:, None]
@@ -206,23 +232,89 @@ def test_dead_shards_add_the_identity_and_read_one_key(window, monkeypatch):
     assert len(seen) == n
     s_loc = s // n
     n_dead = 0
-    for sh, (lo_s, hi_s) in enumerate(seen):
-        live = [max(int(lo[i]), sh * s_loc) < min(int(hi[i]),
-                                                  (sh + 1) * s_loc)
-                for i in range(b)]
+    for sh_i, (k_, lo_s, hi_s) in enumerate(seen):
+        assert k_ is ck2.pieces[0, sh_i] and k_.shape[1] == s_loc
         for i in range(b):
-            assert sh * s_loc <= int(lo_s[i]) < int(hi_s[i]) \
-                <= (sh + 1) * s_loc
-            if not live[i]:
+            live = max(int(lo[i]), sh_i * s_loc) < min(int(hi[i]),
+                                                       (sh_i + 1) * s_loc)
+            assert 0 <= int(lo_s[i]) < int(hi_s[i]) <= s_loc
+            if live:
+                assert int(lo_s[i]) == max(int(lo[i]) - sh_i * s_loc, 0)
+                assert int(hi_s[i]) == min(int(hi[i]) - sh_i * s_loc, s_loc)
+            else:
                 n_dead += 1
-                assert (int(lo_s[i]), int(hi_s[i])) == (sh * s_loc,
-                                                        sh * s_loc + 1)
+                assert (int(lo_s[i]), int(hi_s[i])) == (0, 1)
     assert n_dead > 0
 
 
-def test_mesh_over_distinct_devices_is_refused(pair):
-    _, tcfg, _, tparams, prompt, steps = pair
-    mesh = Mesh(np.array([[CPU, torch.device("meta")]], dtype=object),
-                ("data", "model"))
-    with pytest.raises(ValueError, match="distinct cards"):
-        _port_decode(tcfg, tparams, steps[:1], mesh, prompt)
+def _decode_specs(tcfg, state, mesh):
+    """``cache_pspecs`` of the state with the GQA K/V at the decode's own
+    spec (at 32 positions ``cache_pspecs`` leaves the sequence whole)."""
+    specs = cache_pspecs(tcfg, state, mesh)
+    kv = SD.decode_cache_spec(B, mesh)
+    for lc in specs["layers"]:
+        lc["attn"] = {"k": kv, "v": kv}
+    return specs
+
+
+@pytest.mark.parametrize("handed", ["pieces", "whole"])
+@pytest.mark.parametrize("data,n", [(1, 2), (1, 4), (2, 2)],
+                         ids=["1x2", "1x4", "2x2"])
+def test_cache_in_pieces_matches_reference_unsharded(pair, ref_unsharded,
+                                                     data, n, handed,
+                                                     monkeypatch):
+    jcfg, tcfg, jparams, tparams, prompt, steps = pair
+    mesh = _mesh(n, data)
+    _, state = TM.forward_prefill(
+        tcfg, tparams, {"tokens": torch.from_numpy(prompt)},
+        cache_capacity=CAP)
+    before = [{k: lc["attn"][k].clone() for k in ("k", "v")}
+              for lc in state["layers"]]
+    if handed == "pieces":
+        state = device_put(state, named_shardings(
+            _decode_specs(tcfg, state, mesh), mesh))
+        handed_k = state["layers"][0]["attn"]["k"]
+        assert isinstance(handed_k, Placed) and isinstance(state["len"],
+                                                           Placed)
+    writes = []
+    real = SD.sharded_decode_attention
+
+    def recording(q, ck, cv, kn, vn, pos, *args, **kw):
+        writes.append((kn[:, 0].clone(), vn[:, 0].clone(), pos.clone()))
+        return real(q, ck, cv, kn, vn, pos, *args, **kw)
+
+    monkeypatch.setattr("repro_torch.models.layers.sharded_decode_attention",
+                        recording)
+    got = []
+    with runtime.use_mesh(mesh):
+        for t in steps:
+            logits, state = TM.decode_step(tcfg, tparams, state,
+                                           torch.from_numpy(t))
+            got.append(logits.numpy())
+    got = np.stack(got)
+    np.testing.assert_allclose(got, ref_unsharded, **TOL)
+    assert len(writes) == STEPS * tcfg.n_layers
+    if handed == "pieces":                      # read and written in place
+        assert state["layers"][0]["attn"]["k"] is handed_k
+    assert not isinstance(state["len"], Placed)
+    assert all(not isinstance(v, Placed) for lc in state["layers"]
+               for k, v in lc.items() if k != "attn")
+    rows = torch.arange(B)
+    for layer, (lc, want) in enumerate(zip(state["layers"], before)):
+        for j, name in enumerate(("k", "v")):
+            placed = lc["attn"][name]
+            assert isinstance(placed, Placed) and placed.pieces.shape == \
+                (data, n)
+            for kn_vn_pos in writes[layer::tcfg.n_layers]:
+                want[name][rows, kn_vn_pos[2].long()] = kn_vn_pos[j]
+            assert torch.equal(gather(placed, CPU), want[name]), (layer, name)
+    # layer 0's K/V depend on the tokens only: bitwise the unsharded
+    # decode's cache
+    _, one = TM.forward_prefill(tcfg, tparams,
+                                {"tokens": torch.from_numpy(prompt)},
+                                cache_capacity=CAP)
+    for t in steps:
+        _, one = TM.decode_step(tcfg, tparams, one, torch.from_numpy(t))
+    for name in ("k", "v"):
+        assert torch.equal(gather(state["layers"][0]["attn"][name], CPU),
+                           one["layers"][0]["attn"][name])
