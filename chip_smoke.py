@@ -35,7 +35,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              from lo > 0), at the D = 128 decode shapes of
              qwen2-moe-a2.7b (Hq = Hkv = 16), dbrx-132b (Hq 48, Hkv 8;
              its weights do not fit the card) and llava-next-34b (Hq 56,
-             Hkv 8) over float32 and bf16 caches, and at whisper-tiny's
+             Hkv 8) and the head groups of phase 4o's four entries
+             (llama3-8b Hq 8 / Hkv 2, dbrx-132b Hq 12 / Hkv 2) over
+             float32 and bf16 caches, and at whisper-tiny's
              (Hq = Hkv = 6, D = 64), rtol 1e-4 / atol 1e-5, timed warm
              (one cache) and
              cold in L2 (a rotation of eight caches), beside one
@@ -47,7 +49,7 @@ Phases (each prints its own lines; any failure exits non-zero):
              shard's one key of its piece;
 4. main paths, each with the launch counts set to 0 just before it and
              read just after, at deployment size (1.5 M rows; run in
-             the order a, b, e, f, g, h, m, i, c, d, j, k, l, n):
+             the order a, b, e, f, g, h, m, i, c, d, j, k, l, o, n):
    a. serving — ``FeatureEngine`` (capacity 1.6 M) bulk load + 4,096 live
              rows, ``request_batch`` at B = 1, 64, 256; the B = 64 batch
              must equal a CPU engine (plain versions) on a copy of the
@@ -217,6 +219,27 @@ Phases (each prints its own lines; any failure exits non-zero):
              each at full width and 4 layers, batch 2 x 1,024 positions:
              the first loss within 1 nat of ln(vocab) + s^2 / 2, s = 0.02
              sqrt(d_model) (random logits' logsumexp), gradients finite;
+   o. weights in pieces — a parameter tree placed by ``param_pspecs(...,
+             strategy="megatron")`` on a (1, 4) mesh (attention heads,
+             MLP widths, experts and the vocabulary split four ways),
+             served as it is by ``ServingEngine``: (a) on entries that
+             all name the card, in float32 at full width, llama3-8b cut
+             to 4 layers and dbrx-132b to 2 (two copies of its 31-GB
+             tree on the card), B = 2 prompts of 128 tokens and four
+             greedy tokens through the kernels (4 entries x layers x 4
+             ``decode_partials`` launches, each on its head group),
+             teacher-forced logits within 2e-4 of the unsharded model
+             and of the pieces through the plain versions, the bytes
+             each entry holds equal to ``per_device_bytes``; then
+             llama3-8b at full width and depth in bf16, prefill 8 x 1,024
+             and 32 tokens, pieces and unsharded in turns (per-token p50
+             / p99, launches, busy share, peak memory); (b) where four
+             cards are visible, the two f32 checks over four distinct
+             cards, then dbrx-132b at full width and depth in bf16 over
+             them (131.6 G params drawn piece by piece on each card,
+             ~65.8 GB a card): prefill 8 x 1,024, 32 greedy tokens,
+             finite logits, 160 ``decode_partials`` launches a token,
+             40 on each card; one line saying (b) did not run elsewhere;
    n. entry points and step rooflines — (a) the port's CI gates
              (``tools/torch_check_consistency.py --bitwise 4``,
              ``torch_check_replay.py``, ``torch_check_recovery.py 4``)
@@ -330,7 +353,9 @@ RWKV_PROFILE_TOKENS = 128
 # not fit the card, so only its attention shape is run), llava-next-34b
 # and whisper-tiny (phase 4l)
 DECODE_SHAPES = {"qwen2-moe-a2.7b": (16, 16, 128), "dbrx-132b": (48, 8, 128),
-                 "llava-next-34b": (56, 8, 128), "whisper-tiny": (6, 6, 64)}
+                 "llava-next-34b": (56, 8, 128), "whisper-tiny": (6, 6, 64),
+                 # one card's head group of phase 4o's (1, 4) pieces
+                 "llama3-8b/4": (8, 2, 128), "dbrx-132b/4": (12, 2, 128)}
 # phase 4j: training hymba-1.5b at full width and depth; the sequence is
 # longer than its 1,024-token window, so the sliding-window layers mask
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 2048, 4, 8
@@ -426,6 +451,18 @@ MESH_BATCH, MESH_F32_BATCH = 8, 2
 MESH_STEPS = 4             # float32 check: decode steps per route
 MESH_TOKENS = 16           # bf16: timed tokens per route, in two turns
 MESH_TOL = 2e-4            # the reference's bar (tests/test_sharded_decode)
+# phase 4o: weights in pieces, param_pspecs(strategy="megatron") on a
+# (1, 4) ("data", "model") mesh.  float32 checks at full width, depth
+# cut (dbrx-132b's 2 layers are 31 GB a copy; the check holds two), B =
+# 2 x 128 prompt tokens and 4 greedy tokens; bf16 timing of llama3-8b at
+# full width and depth, 8 x 1,024 and 32 tokens in turns; over four
+# cards, dbrx-132b at full width and depth in bf16, the same prompts
+PIECES_N = 4
+PIECES_TOL = 2e-4
+PIECES_F32 = {"llama3-8b": 4, "dbrx-132b": 2}      # arch: layers kept
+PIECES_F32_BATCH, PIECES_F32_PROMPT, PIECES_F32_TOKENS = 2, 128, 4
+PIECES_ARCH, PIECES_BIG = "llama3-8b", "dbrx-132b"
+PIECES_BATCH, PIECES_PROMPT, PIECES_TOKENS = 8, 1024, 32
 
 # phase 4n: the CUDA function (or Triton kernel) that every launch of a
 # port kernel runs once, so that its profiler events count the launches
@@ -3977,6 +4014,335 @@ def mesh_decode_distinct(cfg, grid, new_state, tokens, run, card):
                  "pieces_decode_bf16_distinct": launches}
 
 
+# ---------------------------------------------------------------- phase 4o
+
+
+def pieces_mesh(devices):
+    """A (1, n) ("data", "model") mesh over ``devices`` (entries may
+    repeat a device)."""
+    from repro_torch.distributed.sharding import Mesh
+
+    return Mesh(np.array([list(devices)], dtype=object), ("data", "model"))
+
+
+def place_megatron(cfg, params, mesh):
+    """``params`` placed by ``param_pspecs(strategy="megatron")`` on
+    ``mesh`` (a ``meta`` tree: zero pieces, allocated entry by entry),
+    and the bytes each entry holds, equal to ``per_device_bytes``."""
+    from repro_torch.distributed.sharding import (device_put, entry_bytes,
+                                                  named_shardings,
+                                                  param_pspecs,
+                                                  per_device_bytes)
+
+    specs = param_pspecs(cfg, params, mesh, strategy="megatron")
+    placed = device_put(params, named_shardings(specs, mesh))
+    held = entry_bytes(placed)
+    want = per_device_bytes(params, specs, mesh)
+    if not (held == want).all():
+        raise AssertionError(f"4o {cfg.name}: bytes per entry "
+                             f"{held.tolist()}, per_device_bytes {want}")
+    return placed, want
+
+
+def busy_by_card(fn):
+    """One call of ``fn`` under the profiler (CUDA activity): per card,
+    its records, ``decode_partials`` launches (the split kernel's
+    records, ``LAUNCH_EVENTS``), device ms and busy share of the call's
+    wall time."""
+    from repro_torch.distributed.sharding import cuda_devices
+    from torch.profiler import ProfilerActivity, profile
+
+    cards = cuda_devices()
+    for c in cards:
+        torch.cuda.synchronize(c)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        for c in cards:
+            torch.cuda.synchronize(c)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        r = per.setdefault(int(e.device_index()), {
+            "kernels": 0, "decode_partials": 0, "device_ms": 0.0})
+        r["kernels"] += 1
+        r["device_ms"] += (e.end_ns() - e.start_ns()) / 1e6
+        r["decode_partials"] += any(
+            p in e.name() for p in LAUNCH_EVENTS["decode_partials"])
+    for r in per.values():
+        r["busy_share"] = r["device_ms"] / wall_ms
+    return {"wall_ms": wall_ms, "cards": dict(sorted(per.items()))}
+
+
+def pieces_f32(arch, where, mesh, dev, card):
+    """Phase 4o's float32 check of ``arch`` at full width and
+    PIECES_F32[arch] layers: the params drawn whole on ``dev`` (seed 0),
+    placed on ``mesh``; ``generate_greedy`` of PIECES_F32_TOKENS through
+    the pieces and the kernels (entries x layers x tokens
+    ``decode_partials`` launches, the cache in KV-head pieces on the
+    mesh's devices), then teacher-forced through the pieces (kernels,
+    then plain versions) and the unsharded model: logits within
+    PIECES_TOL."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.distributed.sharding import Placed, canonical_device
+    from repro_torch.serve.engine import ServingEngine
+
+    cfg = dataclasses.replace(get(arch), n_layers=PIECES_F32[arch])
+    n = mesh.devices.size
+    label = f"4o {arch} ({cfg.n_layers} layers) in pieces over {where}"
+    params = _draw(cfg, dev, torch.float32)
+    placed, per_entry = place_megatron(cfg, params, mesh)
+    batch = {"tokens": model_prompt(cfg, PIECES_F32_BATCH,
+                                    PIECES_F32_PROMPT)}
+    max_len = PIECES_F32_PROMPT + PIECES_F32_TOKENS
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, placed, max_len=max_len, dtype=torch.float32)
+    tokens, counts = run_path(
+        f"{label} (f32)",
+        lambda: eng.generate_greedy(batch, PIECES_F32_TOKENS),
+        ("decode_partials",))
+    want_launch = n * cfg.n_layers * PIECES_F32_TOKENS
+    if counts.get("decode_partials") != want_launch:
+        raise AssertionError(f"{label}: {counts} launches, expected "
+                             f"{want_launch} decode_partials")
+    k0 = eng.state["layers"][0]["attn"]["k"]
+    if not isinstance(k0, Placed) or [t.device for t in k0.pieces.flat] \
+            != [canonical_device(d) for d in mesh.devices.flat]:
+        raise AssertionError(f"{label}: the cache is not in KV-head pieces "
+                             f"on the mesh's devices ({k0!r})")
+    got = teacher_forced(eng, batch, tokens)
+    del eng
+    _free()
+    plain = teacher_forced(ServingEngine(cfg, placed, max_len=max_len,
+                                         dtype=torch.float32,
+                                         use_kernel=False), batch, tokens)
+    del placed
+    _free()
+    one = teacher_forced(ServingEngine(cfg, params, max_len=max_len,
+                                       dtype=torch.float32, device=dev),
+                         batch, tokens)
+    del params
+    _free()
+    check_logits(got, cfg, PIECES_F32_BATCH)
+    errs = {}
+    for name, want in (("unsharded", one), ("plain", plain)):
+        errs[name] = max(compare(f"{label} vs {name} step {i}",
+                                 torch.from_numpy(x), torch.from_numpy(y),
+                                 rtol=PIECES_TOL, atol=PIECES_TOL)
+                         for i, (x, y) in enumerate(zip(got, want)))
+    if not np.array_equal(np.stack([x.argmax(-1) for x in got[:-1]], 1),
+                          tokens):
+        raise AssertionError(f"{label}: teacher-forced argmax differs from "
+                             f"generate_greedy's tokens")
+    secs = time.perf_counter() - t0
+    log(f"{label} f32 B={PIECES_F32_BATCH} x {PIECES_F32_PROMPT} + "
+        f"{PIECES_F32_TOKENS} greedy tokens: prefill and decode logits "
+        f"within {PIECES_TOL} of the unsharded model (max abs diff "
+        f"{errs['unsharded']}) and of the pieces through the plain versions "
+        f"({errs['plain']}); {counts['decode_partials']} decode_partials "
+        f"launches = {n} entries x {cfg.n_layers} layers x "
+        f"{PIECES_F32_TOKENS}; bytes per entry = per_device_bytes = "
+        f"{per_entry}; {secs:.1f} s  [{card}]")
+    return {"err_unsharded": errs["unsharded"], "err_plain": errs["plain"],
+            "entry_bytes": per_entry, "launches": counts, "s": secs}
+
+
+def pieces_bf16_turns(dev, card):
+    """Phase 4o (a)'s timing: llama3-8b at full width and depth in bf16,
+    whole on the card and in pieces on (1, 4) entries of it, prefill
+    PIECES_BATCH x PIECES_PROMPT and PIECES_TOKENS decode tokens a route
+    in two turns (unsharded, pieces, pieces, unsharded; seeded tokens):
+    prefill ms and per-token p50 / p99, one token's launches and busy
+    share each route's second turn, peak memory."""
+    from repro_torch.configs import get
+    from repro_torch.serve.engine import ServingEngine
+
+    cfg = get(PIECES_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params = _draw(cfg, dev, torch.bfloat16)
+    placed, per_entry = place_megatron(cfg, params,
+                                       pieces_mesh([dev] * PIECES_N))
+    max_len = PIECES_PROMPT + PIECES_TOKENS
+    engines = {"unsharded": ServingEngine(cfg, params, max_len=max_len,
+                                          dtype=torch.bfloat16, device=dev),
+               "pieces": ServingEngine(cfg, placed, max_len=max_len,
+                                       dtype=torch.bfloat16)}
+    batch = {"tokens": model_prompt(cfg, PIECES_BATCH, PIECES_PROMPT)}
+    gen = torch.Generator().manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (PIECES_TOKENS // 2 + 2,
+                                             PIECES_BATCH, 1),
+                         generator=gen, dtype=torch.int32).numpy()
+    for eng in engines.values():                              # warm-up
+        eng.generate_greedy({"tokens": batch["tokens"][:, :16]}, 2)
+    res = {r: {"prefill_ms": [], "ms": []} for r in engines}
+    launches, busy = {}, {}
+    for turn, route in enumerate(("unsharded", "pieces", "pieces",
+                                  "unsharded")):
+        eng = engines[route]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = eng.prefill(batch)
+        res[route]["prefill_ms"].append((time.perf_counter() - t0) * 1e3)
+        for i in range(PIECES_TOKENS // 2):
+            t0 = time.perf_counter()
+            last = eng.decode(toks[i])
+            res[route]["ms"].append((time.perf_counter() - t0) * 1e3)
+        check_logits([first, last], cfg, PIECES_BATCH)
+        if turn >= 2:                          # each route's second turn
+            _, launches[route] = run_path(
+                f"4o {PIECES_ARCH} {route} decode token (bf16)",
+                lambda: eng.decode(toks[-2]), ("decode_partials",))
+            busy[route] = busy_share(lambda: eng.decode(toks[-1]))
+        eng.state = None
+        _free()
+    if launches["pieces"]["decode_partials"] != \
+            PIECES_N * launches["unsharded"]["decode_partials"]:
+        raise AssertionError(f"4o bf16 launches {launches}")
+    out = {"entry_bytes": per_entry, "launches": launches,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "busy": {r: {k: v for k, v in b.items() if k != "top_kernels_ms"}
+                    for r, b in busy.items()}}
+    for route, r in res.items():
+        out[route] = dict(r, ms_p50=float(np.percentile(r["ms"], 50)),
+                          ms_p99=float(np.percentile(r["ms"], 99)))
+        log(f"4o {PIECES_ARCH} bf16 B={PIECES_BATCH} ({route}"
+            + (f", (1, {PIECES_N}) of the card" if route == "pieces"
+               else "") + f"): prefill {r['prefill_ms'][0]:.1f} / "
+            f"{r['prefill_ms'][1]:.1f} ms (x {PIECES_PROMPT} tokens), per "
+            f"token p50 {out[route]['ms_p50']:.2f} ms, p99 "
+            f"{out[route]['ms_p99']:.2f} ms over {len(r['ms'])} tokens in "
+            f"two turns; {launches[route]['decode_partials']} "
+            f"decode_partials a token; {busy[route]['kernels']} kernels, "
+            f"device {busy[route]['device_ms']:.2f} ms, busy share "
+            f"{busy[route]['device_busy_share']:.3f}  [{card}]")
+    log(f"4o {PIECES_ARCH} bf16 peak memory {out['peak_gb']:.2f} GB (the "
+        f"whole tree and its pieces; bytes per entry {per_entry})  "
+        f"[{card}]")
+    del engines, params, placed
+    _free()
+    return out
+
+
+def pieces_distinct(card):
+    """Phase 4o (b): over four distinct cards where four are visible (one
+    line saying it did not run otherwise): the f32 checks of (a), then
+    dbrx-132b at full width and depth in bf16, drawn piece by piece on
+    each card (``fill_placed``, seed 0): bytes per card against
+    ``per_device_bytes``, prefill PIECES_BATCH x PIECES_PROMPT, then
+    PIECES_TOKENS greedy tokens (finite logits), one token's launches
+    (PIECES_N x 40 ``decode_partials``) and, by card, its records,
+    launches and busy share; peak memory per card."""
+    from repro_torch.configs import get
+    from repro_torch.distributed.sharding import cuda_devices
+    from repro_torch.models import fill_placed, init_params
+    from repro_torch.serve.engine import ServingEngine
+
+    cards = cuda_devices()
+    if len(cards) < PIECES_N:
+        log(f"4o (b) did not run: {len(cards)} CUDA device visible; weights "
+            f"in pieces over distinct cards need {PIECES_N} (phase 4o (a) "
+            f"ran them on entries that repeat this card)  [{card}]")
+        return {"ran": False, "cards": len(cards)}, {}
+    t_b = time.perf_counter()
+    cards = cards[:PIECES_N]
+    dev = cards[0]
+    mesh = pieces_mesh(cards)
+    names = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[:PIECES_N]
+    out = {"ran": True, "cards": names, "f32": {}}
+    counts = {}
+    for arch in PIECES_F32:
+        r = pieces_f32(arch, f"{PIECES_N} cards", mesh, dev, card)
+        out["f32"][arch] = r
+        counts[f"pieces_f32_{arch}_distinct"] = r["launches"]
+
+    cfg = get(PIECES_BIG)
+    t0 = time.perf_counter()
+    meta = init_params(cfg, torch.Generator(), dtype=torch.bfloat16,
+                       device="meta")
+    placed, per_card = place_megatron(cfg, meta, mesh)
+    fill_placed(cfg, placed, seed=0)
+    for c in cards:
+        torch.cuda.synchronize(c)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(meta))
+    allocated = [torch.cuda.memory_allocated(c) for c in cards]
+    eng = ServingEngine(cfg, placed, max_len=PIECES_PROMPT + PIECES_TOKENS
+                        + 4, dtype=torch.bfloat16)
+    batch = {"tokens": model_prompt(cfg, PIECES_BATCH, PIECES_PROMPT)}
+    eng.generate_greedy({"tokens": batch["tokens"][:, :16]}, 2)  # warm-up
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    t0 = time.perf_counter()
+    first = eng.prefill(batch)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok = np.argmax(first, axis=-1)[:, None].astype(np.int32)
+    ms = []
+    for _ in range(PIECES_TOKENS):
+        t0 = time.perf_counter()
+        last = eng.decode(tok)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        tok = np.argmax(last, axis=-1)[:, None].astype(np.int32)
+    check_logits([first, last], cfg, PIECES_BATCH)
+    _, launches = run_path(f"4o (b) {PIECES_BIG} decode token over "
+                           f"{PIECES_N} cards (bf16)",
+                           lambda: eng.decode(tok), ("decode_partials",))
+    want = PIECES_N * cfg.n_layers
+    if launches.get("decode_partials") != want:
+        raise AssertionError(f"4o (b): {launches} launches, expected {want} "
+                             f"decode_partials a token")
+    by_card = busy_by_card(lambda: eng.decode(tok))
+    peaks = [torch.cuda.max_memory_allocated(c) / 1e9 for c in cards]
+    out.update(params_g=n_params / 1e9, entry_bytes=per_card,
+               allocated=allocated, init_s=init_s, prefill_ms=prefill_ms,
+               ms=ms, ms_p50=float(np.percentile(ms, 50)),
+               ms_p99=float(np.percentile(ms, 99)), launches=launches,
+               by_card=by_card, peak_gb=peaks)
+    log(f"4o (b) {PIECES_BIG} at full width and depth, bf16, in pieces over "
+        f"{PIECES_N} cards {names}: {out['params_g']:.2f} G params drawn "
+        f"piece by piece in {init_s:.1f} s, bytes per card = "
+        f"per_device_bytes = {per_card} ({per_card / 1e9:.2f} GB; "
+        f"allocated {allocated}); prefill {prefill_ms:.1f} ms (B="
+        f"{PIECES_BATCH} x {PIECES_PROMPT}); per token p50 "
+        f"{out['ms_p50']:.2f} ms, p99 {out['ms_p99']:.2f} ms over "
+        f"{PIECES_TOKENS} greedy tokens; {launches['decode_partials']} "
+        f"decode_partials a token; by card {by_card['cards']} over "
+        f"{by_card['wall_ms']:.2f} ms; peak {[round(p, 2) for p in peaks]} "
+        f"GB")
+    del eng, placed
+    _free()
+    out["phase_s"] = time.perf_counter() - t_b
+    counts["pieces_bf16_distinct"] = launches
+    return out, counts
+
+
+def param_pieces(dev, card):
+    """Phase 4o: (a) on (1, 4) entries of the card, the f32 checks and
+    the bf16 timing; (b) over four distinct cards where four are
+    visible."""
+    mesh = pieces_mesh([dev] * PIECES_N)
+    res = {"f32": {}}
+    counts = {}
+    t0 = time.perf_counter()
+    for arch in PIECES_F32:
+        r = pieces_f32(arch, f"(1, {PIECES_N}) of the card", mesh, dev, card)
+        res["f32"][arch] = r
+        counts[f"pieces_f32_{arch}"] = r["launches"]
+    res["bf16"] = pieces_bf16_turns(dev, card)
+    for route, c in res["bf16"]["launches"].items():
+        counts[f"pieces_bf16_{route}"] = c
+    res["a_s"] = time.perf_counter() - t0
+    res["distinct"], more = pieces_distinct(card)
+    counts.update(more)
+    return res, counts
+
+
 # ---------------------------------------------------------------- phase 4n
 
 
@@ -4558,6 +4924,15 @@ def main(argv) -> int:
         f"{modal[AUDIO_ARCH]['phase_s']:.1f}, rwkv "
         f"{modal[RWKV_ARCH]['phase_s']:.1f}, train steps the rest)")
 
+    phase(f"4o weights in pieces ({PIECES_ARCH}, {PIECES_BIG}; "
+          f"param_pspecs megatron over {PIECES_N} entries)")
+    t0 = time.perf_counter()
+    pieces, counts = param_pieces(dev, card)
+    paths.update(counts)
+    pieces["phase_s"] = time.perf_counter() - t0
+    log(f"phase 4o took {pieces['phase_s']:.1f} s ((a) {pieces['a_s']:.1f} "
+        f"s)")
+
     phase("4n entry points (tools/torch_*, examples/torch_*), the "
           "roofline of whole steps, the dry run")
     t0 = time.perf_counter()
@@ -4709,6 +5084,7 @@ def main(argv) -> int:
             "certifier_preview_pipeline": deploy_res,
             "decode_partials_shapes": res_fd, "segagg_shapes": seg_shapes,
             "decode_partials_32k": res_fd32, "mesh": mesh_res,
+            "param_pieces": pieces,
             "entry_points_rooflines": entry,
             "load_s": t_load, "ingest_s": t_ingest}, indent=1))
     print(json.dumps({"kernels": kernels}))

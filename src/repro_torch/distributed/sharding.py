@@ -32,6 +32,10 @@ becomes a ``Placed``, its pieces one contiguous tensor per mesh entry on
 that entry's device (a leaf on ``meta`` is allocated piece by piece, as
 zeros, so a tree larger than one card is never whole: the reference's
 ``jit(init, out_shardings=...)``); ``gather`` joins the pieces back.
+``axis_pieces`` reads a placed leaf's layout along one mesh axis (the
+dimension the axis splits, and the pieces along it in entry order) and
+``axis_mesh`` the entries along that axis: what
+``models.tensor_parallel`` computes on.
 
 Feature-store sharding (paper §5 / §7.2 tablet partitioning): the online
 store is *key*-partitioned, so window folds never cross shards.
@@ -63,7 +67,8 @@ __all__ = ["Mesh", "PartitionSpec", "NamedSharding", "auto_pspec",
            "key_shard_mesh", "stacked_store_sharding", "place_stacked",
            "gather_stacked", "canonical_device", "cuda_devices",
            "shard_shape", "per_device_bytes", "shard_slices", "Placed",
-           "device_put", "gather", "entry_bytes"]
+           "device_put", "gather", "entry_bytes", "axis_pieces",
+           "axis_mesh"]
 
 
 class PartitionSpec(tuple):
@@ -596,4 +601,56 @@ def entry_bytes(tree) -> np.ndarray:
             out = n if out is None else out + n
     if out is None:
         raise ValueError("no placed leaf in the tree")
+    return out
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    return () if entry is None else entry if isinstance(entry, tuple) \
+        else (entry,)
+
+
+def axis_mesh(mesh: Mesh, axis: str = "model") -> Mesh:
+    """The entries of ``mesh`` along ``axis``, at index 0 of every other
+    axis (the other axes kept, at size 1): where a product on pieces
+    split by ``axis`` alone runs, and where its outputs are placed.
+    ``mesh`` itself where every other axis has size 1."""
+    if axis not in mesh.shape:
+        raise ValueError(f"mesh has no axis {axis!r}")
+    if all(n == 1 for a, n in mesh.shape.items() if a != axis):
+        return mesh
+    ax = mesh.axis_names.index(axis)
+    index = tuple(slice(None) if i == ax else slice(0, 1)
+                  for i in range(mesh.devices.ndim))
+    return Mesh(mesh.devices[index], mesh.axis_names)
+
+
+def axis_pieces(x: Placed, axis: str = "model"
+                ) -> Optional[Tuple[Optional[int], List[torch.Tensor]]]:
+    """A placed leaf's layout along the mesh axis ``axis``: ``(dim,
+    pieces)``, ``dim`` the dimension that ``axis`` splits (None where the
+    spec names it nowhere, or where the mesh has no such axis: every
+    piece is then the whole leaf) and ``pieces`` the pieces of
+    ``axis_mesh``'s entries in entry order, block ``k`` of ``dim`` the
+    ``k``-th.  None where another mesh axis of size > 1 splits the leaf:
+    no entry along ``axis`` then holds a whole block of ``dim``."""
+    mesh_shape = _mesh_shape(x.mesh)
+    dim = None
+    for i, entry in enumerate(x.spec):
+        for a in _axes(entry):
+            if a == axis:
+                dim = i
+            elif mesh_shape.get(a, 1) > 1:
+                return None
+    if axis not in mesh_shape:
+        return None, [x.pieces.flat[0]]
+    return dim, _along(x, axis)
+
+
+def _along(x: Placed, axis: str) -> List[torch.Tensor]:
+    ax = x.mesh.axis_names.index(axis)
+    index = [0] * x.pieces.ndim
+    out = []
+    for k in range(x.pieces.shape[ax]):
+        index[ax] = k
+        out.append(x.pieces[tuple(index)])
     return out

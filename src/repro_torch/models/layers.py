@@ -20,6 +20,11 @@ The same functions as ``repro/models/layers.py``, on tensors:
     capacity-bounded dispatch; the grouped expert products are plain
     batched matmuls and the combine sums each token's contributions in
     a fixed order (no float atomics);
+  * weights in pieces (``Placed`` leaves of a tree placed by
+    ``param_pspecs``): ``gqa_forward`` runs card k's head group on card
+    k (its cache in KV-head pieces), ``swiglu`` column / row parallel,
+    ``moe_forward`` each card's experts on their card; any other layout
+    is gathered whole for the call (``models.tensor_parallel``);
   * ``layer_norm`` and the biased tanh-GELU MLP (the audio family);
   * RWKV6's time mix runs the WKV recurrence as a Python loop over time
     in float32 (the reference's sequential ``lax.scan``, no Pallas call
@@ -36,9 +41,10 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed import runtime
-from ..distributed.sharding import Placed, gather
+from ..distributed.sharding import NamedSharding, Placed, device_put, gather
 from ..kernels.chunked_scan import linear_scan
 from ..kernels.flash_decode import decode_partials, finalize_partials
+from . import tensor_parallel as tp
 from .sharded_decode import sharded_decode_attention
 
 __all__ = ["rms_norm", "swiglu", "rope_tables", "apply_rope",
@@ -74,11 +80,27 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
     return (y * scale.to(torch.float32)).to(x.dtype)
 
 
+def _silu_gate(x, g, u):
+    return F.silu(g.to(torch.float32)).to(x.dtype) * u
+
+
 def swiglu(x, w_gate, w_up, w_down):
+    """``silu(x W_gate) * (x W_up)`` through ``W_down``.  Weights in pieces
+    split by column (gate, up) and by row (down) over the same cards run
+    there, the partial products summed on x's card in entry order; any
+    other placement is gathered whole for the call."""
+    if any(isinstance(w, Placed) for w in (w_gate, w_up, w_down)):
+        ws = tp.split((w_gate, w_up, w_down), (1, 1, 0))
+        if ws is None:
+            return swiglu(x, *(tp.whole(w, x.device)
+                               for w in (w_gate, w_up, w_down)))
+        xs = tp.spread(x, [w.device for w in ws[0]])
+        return tp.row_sum([_silu_gate(xk, xk @ g, xk @ u) @ dn
+                           for xk, g, u, dn in zip(xs, *ws)],
+                          x.device, x.dtype)
     g = x @ w_gate
     u = x @ w_up
-    h = F.silu(g.to(torch.float32)).to(x.dtype) * u
-    return h @ w_down
+    return _silu_gate(x, g, u) @ w_down
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -236,18 +258,24 @@ def gqa_forward(p: Params, x: torch.Tensor, cfg, *, positions,
     ``sharded_decode.sharded_decode_attention`` (the cache comes back in
     pieces, ``distributed.sharding.Placed``).  A cache in pieces with no
     such mesh is gathered whole onto q's device first.
+
+    Weights in pieces (``Placed``): where ``wq|wk|wv`` are split by column
+    and ``wo`` by row over the same n cards and n divides the KV heads,
+    the head route (``_gqa_heads``) runs card k's head group on card k,
+    whatever mesh is active; any other placement is gathered whole for
+    the call.
     """
+    if any(isinstance(t, Placed) for t in p.values()):
+        mesh = tp.head_mesh(cfg, p)
+        if mesh is not None:
+            return _gqa_heads(p, x, cfg, mesh, positions=positions,
+                              cache=cache, window=window, chunk=chunk,
+                              use_kernel=use_kernel)
+        p = tp.whole_tree(p, x.device)
     b, s, _ = x.shape
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, hq, dh)
-    k = (x @ p["wk"]).reshape(b, s, hkv, dh)
-    v = (x @ p["wv"]).reshape(b, s, hkv, dh)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    cos, sin = rope_tables(positions, dh, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    hq, dh = cfg.n_heads, cfg.head_dim
+    q, k, v = _qkv(x, p["wq"], p["wk"], p["wv"], p.get("q_norm"),
+                   p.get("k_norm"), cfg, positions)
 
     if cache is None:
         out = chunked_attention(q, k, v, window=window, chunk=chunk)
@@ -267,18 +295,97 @@ def gqa_forward(p: Params, x: torch.Tensor, cfg, *, positions,
         else:
             if isinstance(ck, Placed):
                 ck, cv = gather((ck, cv), q.device)
-            rows = torch.arange(b, device=ck.device)
-            ck[rows, pos.long()] = k[:, 0].to(ck.dtype)
-            cv[rows, pos.long()] = v[:, 0].to(cv.dtype)
-            hi = (pos + 1).to(torch.int32)
-            lo = (torch.clamp(hi - window, min=0) if window
-                  else torch.zeros_like(hi))
-            part = decode_partials(q[:, 0], ck, cv, lo, hi,
-                                   use_kernel=use_kernel)
-            out = finalize_partials(*part).to(q.dtype)[:, None]
+            out = _cached_attention(q, k, v, ck, cv, pos, window,
+                                    use_kernel)
         new_cache = {"k": ck, "v": cv, "len": pos + 1}
     y = out.reshape(b, s, hq * dh) @ p["wo"]
     return y, new_cache
+
+
+def _qkv(x, wq, wk, wv, q_norm, k_norm, cfg, positions):
+    """The roped q (B, S, ·, Dh) and k, and v, of x's heads through
+    ``wq|wk|wv`` (the whole model's, or one head group's), behind the
+    q/k norms where the config has them."""
+    b, s, _ = x.shape
+    dh = cfg.head_dim
+    q = (x @ wq).reshape(b, s, -1, dh)
+    k = (x @ wk).reshape(b, s, -1, dh)
+    v = (x @ wv).reshape(b, s, -1, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, q_norm, cfg.norm_eps)
+        k = rms_norm(k, k_norm, cfg.norm_eps)
+    cos, sin = rope_tables(positions, dh, cfg.rope_theta)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _cached_attention(q, k, v, ck, cv, pos, window: int,
+                      use_kernel: Optional[bool]):
+    """One decode token against a cache on q's device: the new k/v
+    written at ``pos`` in place, one ``decode_partials`` over each row's
+    live range [max(pos + 1 - window, 0), pos + 1), finalized."""
+    rows = torch.arange(q.shape[0], device=ck.device)
+    ck[rows, pos.long()] = k[:, 0].to(ck.dtype)
+    cv[rows, pos.long()] = v[:, 0].to(cv.dtype)
+    hi = (pos + 1).to(torch.int32)
+    lo = (torch.clamp(hi - window, min=0) if window
+          else torch.zeros_like(hi))
+    part = decode_partials(q[:, 0], ck, cv, lo, hi, use_kernel=use_kernel)
+    return finalize_partials(*part).to(q.dtype)[:, None]
+
+
+def _gqa_heads(p: Params, x: torch.Tensor, cfg, mesh, *, positions,
+               cache: Optional[Dict], window: int, chunk: int,
+               use_kernel: Optional[bool]):
+    """``gqa_forward`` on weights in pieces, head group by head group.
+
+    Card k (the k-th entry of ``mesh`` along ``model``) holds q heads
+    [k Hq/n, (k+1) Hq/n) of ``wq`` and the KV heads [k Hkv/n, (k+1)
+    Hkv/n) of ``wk|wv`` they read (groups never straddle cards: n
+    divides Hkv), and the matching rows of ``wo``.  x is copied once to
+    each card; there the group's q/k/v, norms and rope, then its
+    attention: the chunked prefill, or the decode's in-place write at
+    ``len`` and one ``decode_partials`` over the group's piece of the
+    cache.  The ``wo`` partial products are summed on x's card in entry
+    order.  The cache is held in KV-head pieces (``tp.HEAD_SPEC`` on
+    ``mesh``): prefill returns the group's K/V as one; a decode cache in
+    another layout (whole, or the sequence pieces of ``cache_pspecs``)
+    is placed so at the first step and comes back in head pieces."""
+    b, s, _ = x.shape
+    dev0 = x.device
+    wq, wk, wv, wo = tp.split([p["wq"], p["wk"], p["wv"], p["wo"]],
+                              (1, 1, 1, 0))
+    hq, dh = cfg.n_heads // len(wq), cfg.head_dim
+    devs = [w.device for w in wq]
+    xs = tp.spread(x, devs)
+    if cache is not None:
+        if s != 1:
+            raise ValueError(f"cached decode takes one token, got {s}")
+        sharding = NamedSharding(mesh, tp.HEAD_SPEC)
+        ck, cv = device_put((cache["k"], cache["v"]), (sharding, sharding))
+        pos = cache["len"]
+        cks, cvs = tp.split([ck, cv], (2, 2))
+    norms = [p.get(k) for k in ("q_norm", "k_norm")]
+    parts, new_k, new_v = [], [], []
+    for i, dev in enumerate(devs):
+        q, k, v = _qkv(xs[i], wq[i], wk[i], wv[i],
+                       *(None if t is None else tp.on(t, dev)
+                         for t in norms), cfg, positions.to(dev))
+        if cache is None:
+            out = chunked_attention(q, k, v, window=window, chunk=chunk)
+            new_k.append(k)
+            new_v.append(v)
+        else:
+            out = _cached_attention(q, k, v, cks[i], cvs[i], pos.to(dev),
+                                    window, use_kernel)
+        parts.append(out.reshape(b, s, hq * dh) @ wo[i])
+    y = tp.row_sum(parts, dev0, x.dtype)
+    if cache is not None:
+        return y, {"k": ck, "v": cv, "len": pos + 1}
+    shape = (b, s, cfg.n_kv_heads, dh)
+    return y, {"k": tp.placed_along(mesh, tp.HEAD_SPEC, shape, x.dtype,
+                                    new_k),
+               "v": tp.placed_along(mesh, tp.HEAD_SPEC, shape, x.dtype,
+                                    new_v)}
 
 
 # ---------------------------------------------------------------------------
@@ -429,12 +536,22 @@ def moe_forward(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     sums each token's k weighted contributions in ``x.dtype`` from zero,
     in the order of their sorted positions (the order of the reference's
     ``.at[].add`` scatter): gathers and adds only, no float atomics.
+
+    Experts in pieces (``w_gate|w_up|w_down`` split by ``model`` along the
+    expert axis over the same n cards, n dividing ``n_experts_padded``):
+    the routing, dispatch and combine run on x's card exactly as above;
+    card k gets its experts' (E/n, cap, d) slice of the buffer, runs the
+    three products there and sends its (E/n, cap, d) outputs back, joined
+    in entry order.  Shared experts go through ``swiglu`` (column / row
+    parallel in pieces).  Any other placement is gathered whole.
     """
     e = cfg.moe
     b, s, d = x.shape
     n = b * s
     ep, k = e.n_experts_padded, e.top_k
     xf = x.reshape(n, d)
+    if any(isinstance(t, Placed) for t in p.values()):
+        p = dict(p, router=tp.on(p["router"], x.device))
     top_w, top_i = moe_route(p, xf, cfg)
 
     flat_expert = top_i.reshape(-1).to(torch.int32)            # (n k,)
@@ -455,10 +572,17 @@ def moe_forward(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     buf = torch.zeros((ep * cap + 1, d), dtype=x.dtype, device=x.device)
     buf = buf.index_put((slot,), xf[st])[:ep * cap]
     h = buf.reshape(ep, cap, d)
-    gate = torch.bmm(h, p["w_gate"])
-    up = torch.bmm(h, p["w_up"])
-    act = F.silu(gate.to(torch.float32)).to(x.dtype) * up
-    y = torch.bmm(act, p["w_down"]).reshape(ep * cap, d)
+    experts = (p["w_gate"], p["w_up"], p["w_down"])
+    ws = tp.split(experts, (0, 0, 0))
+    if ws is None:
+        y = _experts(h, *(tp.whole(w, x.device) for w in experts))
+    else:
+        per = ep // len(ws[0])
+        hs = [h[i * per:(i + 1) * per].to(g.device)
+              for i, g in enumerate(ws[0])]
+        y = torch.cat([_experts(hk, g, u, dn).to(x.device)
+                       for hk, g, u, dn in zip(hs, *ws)])
+    y = y.reshape(ep * cap, d)
 
     # a dropped pair reads the zero row past the buffer
     y = torch.cat([y, torch.zeros((1, d), dtype=y.dtype, device=y.device)])
@@ -475,6 +599,13 @@ def moe_forward(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
         out = out + swiglu(xf, p["shared_gate"], p["shared_up"],
                            p["shared_down"])
     return out.reshape(b, s, d)
+
+
+def _experts(h: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    """The grouped SwiGLU of (E, cap, d) dispatched tokens through E
+    experts' weights: three batched products."""
+    act = _silu_gate(h, torch.bmm(h, w_gate), torch.bmm(h, w_up))
+    return torch.bmm(act, w_down)
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,16 @@ in pieces under a decode mesh and every other leaf whole.  Training runs
 the layer loop with per-layer
 rematerialisation (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint``).
+
+Params placed by ``device_put(params, named_shardings(param_pspecs(...),
+mesh))`` serve as they are (``forward_prefill``, ``decode_step``): the
+activations live on the home card (mesh entry 0's device), the
+embedding and the logits take the vocab-parallel route, a GQA layer's
+heads, a SwiGLU MLP and MoE experts run on the cards that hold their
+pieces, and every other leaf is gathered whole for the layer that reads
+it (``models.tensor_parallel``).  The decode state's GQA K/V are then
+held in KV-head pieces (``init_decode_state(mesh=)``).
+``fill_placed`` draws such a tree piece by piece on each piece's card.
 """
 
 from __future__ import annotations
@@ -41,17 +51,20 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, ShapeSpec
-from ..distributed.sharding import Placed, gather
+from ..distributed.fault import tree_flatten
+from ..distributed.sharding import (NamedSharding, Placed, axis_mesh,
+                                    device_put, gather, shard_slices)
 from ..kernels.dispatch import resolve_device
 from . import layers as L
+from . import tensor_parallel as tp
 
 __all__ = ["ATTN_CHUNK", "init_params", "params_from_jax", "forward_train",
            "loss_fn", "forward_prefill", "init_decode_state", "decode_step",
-           "model_input_spec", "train_state_from_jax"]
+           "model_input_spec", "train_state_from_jax", "fill_placed",
+           "kv_head_mesh"]
 
 Params = Dict[str, Any]
 
@@ -158,13 +171,83 @@ def params_from_jax(cfg: ArchConfig, params_np: Params,
     return out
 
 
+def _piece_init(cfg: ArchConfig, path: Tuple[str, ...]):
+    """How ``init_params`` draws the leaf at ``path``: ("normal", scale)
+    or ("const", value); the leaves of GQA attention (``attn`` and the
+    audio ``xattn``), the dense and audio MLPs, MoE and the norms."""
+    d, name = cfg.d_model, path[-1]
+    block = path[-2] if len(path) > 1 else ""
+    if name in ("embed", "lm_head"):
+        return "normal", 0.02
+    if "norm" in name:
+        return "const", 1.0
+    if block in ("attn", "xattn") and cfg.attn_type != "mla":
+        return "normal", d ** -0.5
+    if block == "mlp":
+        if name in ("b_up", "b_down"):
+            return "const", 0.0
+        return "normal", (cfg.d_ff if name == "w_down" else d) ** -0.5
+    if block == "moe":
+        e = cfg.moe
+        fan = {"w_down": e.d_expert,
+               "shared_down": e.n_shared * e.d_expert}.get(name, d)
+        return "normal", fan ** -0.5
+    raise ValueError(f"fill_placed draws the GQA, MLP, MoE and norm "
+                     f"leaves; {'/'.join(path)} is not one")
+
+
+def fill_placed(cfg: ArchConfig, params: Params, seed: int) -> Params:
+    """Fill a params tree placed piece by piece (``device_put`` of
+    ``init_params(..., device="meta")``, which allocates zero pieces) with
+    ``init_params``' distributions, in place: each piece is drawn on its
+    own card from a generator seeded by (``seed``, the leaf's place in
+    ``tree_flatten`` order, the piece's block), so no leaf is ever whole
+    on one card and the entries that hold one block (replicas) hold the
+    same values.  The values are not an unsharded draw's.  Returns
+    ``params``."""
+    paths: List[Tuple[str, ...]] = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t, key=str):
+                walk(t[k], path + (str(k),))
+        elif isinstance(t, list):
+            for v in t:
+                walk(v, path)
+        else:
+            paths.append(path)
+
+    walk(params, ())
+    leaves = tree_flatten(params)[0]
+    for i, (path, x) in enumerate(zip(paths, leaves)):
+        if not isinstance(x, Placed):
+            raise TypeError(f"fill_placed fills Placed leaves; "
+                            f"{'/'.join(path)} is a {type(x).__name__}")
+        kind, value = _piece_init(cfg, path)
+        for j in np.ndindex(x.pieces.shape):
+            piece = x.pieces[j]
+            if kind == "const":
+                piece.fill_(value)
+                continue
+            block = [sl.start for sl in shard_slices(x.shape, x.spec,
+                                                     x.mesh, j)]
+            key = np.random.SeedSequence([seed, i] + block)
+            gen = torch.Generator(device=piece.device).manual_seed(
+                int(key.generate_state(1, np.uint64)[0] >> 1))
+            draw = torch.randn(piece.shape, generator=gen,
+                               dtype=torch.float32, device=piece.device)
+            piece.copy_(draw.mul_(value))
+            del draw
+    return params
+
+
 def train_state_from_jax(cfg: ArchConfig, state_np, device="cuda"):
     """The JAX package's ``TrainState`` (its fields as numpy: step,
     params, mu, nu, compress_err) as the port's ``train.TrainState`` on
     ``device`` (the card unless the caller passes ``device="cpu"``).
     Params and moments go through ``params_from_jax``; a residual of
     0-d zeros (no compression) becomes 0-d zeros per port leaf."""
-    from ..distributed.fault import tree_flatten, tree_map
+    from ..distributed.fault import tree_map
     from ..train.optimizer import TrainState
 
     fields = (state_np._asdict() if hasattr(state_np, "_asdict")
@@ -260,6 +343,39 @@ def _cross_gqa(cfg: ArchConfig, p: Params, h, enc_out):
     return out.reshape(b, s, hq * dh) @ p["wo"]
 
 
+def _pieces_or_whole(cfg: ArchConfig, p: Params, dev) -> Params:
+    """A layer's params with every ``Placed`` leaf gathered whole onto
+    ``dev`` (the gather route) but those of the blocks that read pieces
+    themselves: a GQA ``attn`` (not the audio family's, whose encoder
+    and cross-attention read whole weights), a SwiGLU ``mlp`` and
+    ``moe``; the MLA, SSM, RWKV6 and audio blocks read whole leaves."""
+    if not any(isinstance(t, Placed) for v in p.values()
+               for t in (v.values() if isinstance(v, dict) else (v,))):
+        return p
+    keep = _piece_blocks(cfg)
+    return {k: v if k in keep else tp.whole_tree(v, dev)
+            for k, v in p.items()}
+
+
+def _piece_blocks(cfg: ArchConfig) -> set:
+    if cfg.family in ("ssm", "audio"):
+        return set()
+    keep = {"moe" if cfg.moe is not None else "mlp"}
+    if cfg.attn_type != "mla":
+        keep.add("attn")
+    return keep
+
+
+def kv_head_mesh(cfg: ArchConfig, params: Params):
+    """The mesh whose entries hold the decode state's K/V in KV-head
+    pieces for ``params`` (``init_decode_state(mesh=)``): that of the
+    first layer's attention where its heads run in groups on its pieces,
+    else None."""
+    if "attn" not in _piece_blocks(cfg):
+        return None
+    return tp.head_mesh(cfg, params["layers"][0]["attn"])
+
+
 def _layer_fwd(cfg: ArchConfig, p: Params, x, *, positions, window: int,
                cache=None, enc_out=None, causal: bool = True,
                use_kernel=None):
@@ -267,7 +383,11 @@ def _layer_fwd(cfg: ArchConfig, p: Params, x, *, positions, window: int,
     sequence's {"attn": {"k", "v"} or {"latent"}, "ssm"} (RWKV: {"shift1",
     "S", "shift2"}); decode updates ``cache``.  ``causal=False`` is an
     audio encoder layer (no cache); ``enc_out`` adds an audio decoder
-    layer's cross-attention."""
+    layer's cross-attention.  Weights in pieces: the blocks that read
+    pieces (a GQA ``attn``, a SwiGLU ``mlp``, ``moe``) get them as they
+    are; every other placed leaf is gathered whole onto x's card for
+    this layer only (``_pieces_or_whole``)."""
+    p = _pieces_or_whole(cfg, p, x.device)
     if cfg.family == "ssm":
         return _rwkv_layer(cfg, p, x, cache)
     h = _norm(cfg, x, p["norm1"])
@@ -312,14 +432,21 @@ def _layer_fwd(cfg: ArchConfig, p: Params, x, *, positions, window: int,
 
 def _logits(cfg: ArchConfig, params: Params, x: torch.Tensor):
     """The final norm is an RMS norm for every family, audio included,
-    as in the reference."""
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    as in the reference.  A head in vocabulary pieces runs one product
+    per card, concatenated on x's card (``tp.logits``)."""
+    x = L.rms_norm(x, tp.on(params["final_norm"], x.device), cfg.norm_eps)
     head = params.get("lm_head")
-    return x @ head if head is not None else x @ params["embed"].T
+    if head is None:
+        return tp.logits(x, params["embed"], tied=True)
+    return tp.logits(x, head, tied=False)
 
 
 def _pad_seq(x: torch.Tensor, cap: int) -> torch.Tensor:
-    """Pad the sequence axis (axis 1) of a cache contribution to cap."""
+    """Pad the sequence axis (axis 1) of a cache contribution to cap (a
+    contribution in pieces piece by piece)."""
+    if isinstance(x, Placed):
+        return tp.map_pieces(lambda t: _pad_seq(t, cap), x,
+                             (x.shape[0], cap) + tuple(x.shape[2:]))
     s = x.shape[1]
     if s >= cap:
         return x[:, :cap].contiguous()
@@ -340,7 +467,7 @@ def _embed_inputs(cfg: ArchConfig, params: Params, batch):
     S) bool), the mask marking positions that carry next-token loss:
     False over the patches."""
     tokens = batch["tokens"]
-    x = F.embedding(tokens.long(), params["embed"])
+    x = tp.embedding(tokens.long(), params["embed"])
     mask = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
     if cfg.vlm is not None:
         patches = batch["patches"].to(x.dtype)
@@ -358,7 +485,7 @@ def _run_encoder(cfg: ArchConfig, params: Params, frames: torch.Tensor):
     for lp in params["enc_layers"]:
         x, _ = _layer_fwd(cfg, lp, x, positions=positions, window=0,
                           causal=False)
-    norm = params["enc_norm"]
+    norm = tp.on(params["enc_norm"], x.device)
     return L.layer_norm(x, norm, torch.zeros_like(norm), cfg.norm_eps)
 
 
@@ -455,7 +582,8 @@ def forward_prefill(cfg: ArchConfig, params: Params, batch,
 
 
 def init_decode_state(cfg: ArchConfig, batch_size: int, max_len: int,
-                      dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
+                      dtype=torch.bfloat16, device="cuda",
+                      mesh=None) -> Dict[str, Any]:
     """An empty decode state: zero KV caches (B, max_len, Hkv, Dh), or
     for MLA a zero latent cache (B, max_len, kv_rank + rope_dim), and,
     for the hybrid family, zero SSM states (B, d_inner, state) float32;
@@ -464,7 +592,16 @@ def init_decode_state(cfg: ArchConfig, batch_size: int, max_len: int,
     caller passes ``device="cpu"``).  On ``meta`` it is the shape tree
     that ``distributed.sharding.device_put`` allocates in pieces (zeros
     on each mesh entry's device), so that a state larger than one card
-    is never whole."""
+    is never whole.
+
+    ``mesh`` (that of params in pieces, ``tensor_parallel.head_mesh``)
+    gives the state of the head route: GQA K/V in KV-head pieces
+    (``tensor_parallel.HEAD_SPEC`` on the mesh's entries along
+    ``model``) allocated from ``meta`` entry by entry, where the entries
+    divide the KV heads, and every other leaf whole on mesh entry 0's
+    device (``device`` is not read)."""
+    if mesh is not None:
+        return _head_state(cfg, batch_size, max_len, dtype, mesh)
     device = resolve_device(device)
     b, d = batch_size, cfg.d_model
 
@@ -498,6 +635,27 @@ def init_decode_state(cfg: ArchConfig, batch_size: int, max_len: int,
     return state
 
 
+def _head_state(cfg: ArchConfig, b: int, max_len: int, dtype, mesh):
+    meta = init_decode_state(cfg, b, max_len, dtype=dtype, device="meta")
+    row = axis_mesh(mesh, tp.AXIS)
+    dev = row.devices.flat[0]
+    split = cfg.n_kv_heads % row.shape[tp.AXIS] == 0
+    sharding = NamedSharding(row, tp.HEAD_SPEC)
+
+    def alloc(t, kv=False):
+        if kv and split:
+            return device_put(t, sharding)
+        return torch.zeros(t.shape, dtype=t.dtype, device=dev)
+
+    def layer(lc):
+        return {k: {n: alloc(t, n in ("k", "v")) for n, t in v.items()}
+                if k == "attn" else alloc(v) for k, v in lc.items()}
+
+    out = {k: alloc(v) for k, v in meta.items() if k != "layers"}
+    out["layers"] = [layer(lc) for lc in meta["layers"]]
+    return out
+
+
 def _whole_but_kv(state: Dict[str, Any], home) -> Dict[str, Any]:
     """``state`` with every ``Placed`` leaf but a GQA layer's ``attn``
     K/V gathered onto ``home`` (``gqa_forward`` decides for those)."""
@@ -528,12 +686,16 @@ def decode_step(cfg: ArchConfig, params: Params, state: Dict[str, Any],
     decode mesh (``models.sharded_decode``) and come back so; every other
     leaf (``len``, SSM / conv / RWKV states, MLA latents, ``enc_out``,
     and K/V with no such mesh) is gathered whole onto the params' device
-    at its first use and returned whole.  (The reference's automatic
+    at its first use and returned whole.  Params in pieces: the work
+    runs on their home card (mesh entry 0's device) and the cards of
+    their pieces, a GQA layer on the head route reading and writing its
+    K/V in KV-head pieces whatever mesh is active (``_gqa_heads``).  (The reference's automatic
     partitioning would keep a leaf that ``cache_pspecs`` splits, such as
     an SSM state with ``model`` on a dimension of 128 or more, split.)
     """
-    state = _whole_but_kv(state, params["embed"].device)
-    x = params["embed"][token.long()]                       # (B, 1, d)
+    state = _whole_but_kv(state, tp.home(params["embed"]))
+    x = tp.embedding(token.long().to(tp.home(params["embed"])),
+                     params["embed"])                       # (B, 1, d)
     pos = state["len"]
     positions = pos[:, None]
     enc_out = state.get("enc_out")

@@ -64,9 +64,10 @@ Eviction is a replication barrier, and binlog truncation never passes
 the least acked follower offset or the snapshot's watermark.
 
 ``ServingEngine`` wraps a model's prefill/decode for batched requests —
-the "online ML" consumer of the features (dense and hybrid families): the
+the "online ML" consumer of the features (every model family): the
 SSM prefill runs the linear-scan kernel, every decode step the
-flash-decode kernel in every layer.
+flash-decode kernel in every GQA layer; it also serves params placed in
+pieces over a mesh's cards (tensor parallelism, ``models.tensor_parallel``).
 """
 
 from __future__ import annotations
@@ -82,9 +83,11 @@ import torch
 from ..core.compiler import CompiledScript, compile_script
 from ..core.types import Table
 from ..distributed.fault import CheckpointManager
-from ..distributed.sharding import place_stacked
+from ..distributed.sharding import Placed, place_stacked
 from ..kernels.dispatch import resolve_device
-from ..models.model import decode_step, forward_prefill, init_decode_state
+from ..models import tensor_parallel as tp
+from ..models.model import (decode_step, forward_prefill,
+                            init_decode_state, kv_head_mesh)
 from ..storage.memest import MemoryGuard
 from ..storage.replication import (FailoverController, PromotionRecord,
                                    ReplicationManager,
@@ -662,23 +665,33 @@ class ServingEngine:
     versions on the CPU; ``False``: the plain versions anywhere, the
     reference the kernels are held against).  Logits come back as float32
     numpy arrays (the exact values of bfloat16 logits).
+
+    A params tree placed in pieces (``device_put(params,
+    named_shardings(param_pspecs(...), mesh))``) is taken as it is: no
+    leaf is gathered, the engine's device is the tree's home (mesh entry
+    0's device; ``device`` is not read) and prefill, decode and
+    ``generate_greedy`` run through the pieces (``models.model``).
     """
 
     def __init__(self, cfg, params, max_len: int = 2048,
                  dtype=torch.bfloat16, device="cuda",
                  use_kernel: Optional[bool] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        home = tp.tree_home(params)
+        self.device = resolve_device(device) if home is None else home
         self.params = _to_device(params, self.device)
+        self.mesh = kv_head_mesh(cfg, self.params)
         self.max_len = max_len
         self.dtype = dtype
         self.use_kernel = use_kernel
         self.state = None
 
     def init_state(self, batch_size: int) -> Dict[str, Any]:
-        """An empty decode state at this engine's capacity and dtype."""
+        """An empty decode state at this engine's capacity and dtype (GQA
+        K/V in KV-head pieces where the params' heads run in groups)."""
         return init_decode_state(self.cfg, batch_size, self.max_len,
-                                 dtype=self.dtype, device=self.device)
+                                 dtype=self.dtype, device=self.device,
+                                 mesh=self.mesh)
 
     def prefill(self, batch) -> np.ndarray:
         """Prefill ``batch["tokens"]`` (B, S), behind ``patches`` (VLM) or
@@ -722,11 +735,13 @@ class ServingEngine:
 
 
 def _to_device(tree, device):
+    """Every tensor of ``tree`` on ``device``; ``Placed`` leaves as they
+    are."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to_device(v, device) for v in tree]
-    return tree.to(device)
+    return tree if isinstance(tree, Placed) else tree.to(device)
 
 
 def _host(logits: torch.Tensor) -> np.ndarray:

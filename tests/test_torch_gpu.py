@@ -1279,3 +1279,76 @@ def test_counted_step_records_one_cost_per_launch(kind):
     assert {k: v["calls"] for k, v in cost.kernels.items()} == launches
     assert launches
     assert analyze_step(step, *meta(args)).flops == cost.flops
+
+
+def _pieces_on(arch, cards):
+    """Reduced ``arch`` (8 heads, 4 KV heads, 3 layers) in float32, its
+    params placed by ``param_pspecs(strategy="megatron")`` on a (1, 4)
+    mesh over ``cards``: greedy tokens through the pieces and the
+    kernels (one ``decode_partials`` launch per entry, layer and step,
+    the cache in KV-head pieces on the cards), then the teacher-forced
+    logits against the unsharded model and the pieces through the plain
+    versions, within 2e-4 (``chip_smoke.py`` phase 4o at full width)."""
+    import dataclasses
+
+    from repro_torch.configs import reduced
+    from repro_torch.distributed.sharding import (Mesh, Placed, device_put,
+                                                  named_shardings,
+                                                  param_pspecs)
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import ServingEngine
+
+    home = cards[0]
+    cfg = dataclasses.replace(reduced(arch), n_heads=8, n_kv_heads=4,
+                              n_layers=3)
+    params = init_params(cfg, torch.Generator(device=home).manual_seed(0),
+                         dtype=torch.float32, device=home)
+    mesh = Mesh(np.array([cards], dtype=object), ("data", "model"))
+    placed = device_put(params, named_shardings(
+        param_pspecs(cfg, params, mesh, strategy="megatron"), mesh))
+    prompt = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    n_tok = 4
+
+    def forced(eng, tokens):
+        out = [eng.prefill({"tokens": prompt})]
+        for i in range(n_tok):
+            out.append(eng.decode(tokens[:, i:i + 1]))
+        return np.stack(out)
+
+    eng = ServingEngine(cfg, placed, max_len=32, dtype=torch.float32)
+    dispatch.reset_launch_counts()
+    tokens = eng.generate_greedy({"tokens": prompt}, n_tok)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts() == {
+        "decode_partials": 4 * cfg.n_layers * n_tok}
+    k0 = eng.state["layers"][0]["attn"]["k"]
+    assert isinstance(k0, Placed)
+    assert [t.device for t in k0.pieces.flat] == list(cards)
+    got = forced(eng, tokens)
+    plain = forced(ServingEngine(cfg, placed, max_len=32,
+                                 dtype=torch.float32, use_kernel=False),
+                   tokens)
+    one = forced(ServingEngine(cfg, params, max_len=32, dtype=torch.float32,
+                               device=home), tokens)
+    np.testing.assert_allclose(got, one, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got, plain, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3-8b", "dbrx-132b"])
+def test_weights_in_pieces_on_entries_of_the_card(arch):
+    dev = require_cuda()
+    _pieces_on(arch, [torch.device("cuda", dev.index or 0)] * 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3-8b", "dbrx-132b"])
+def test_weights_in_pieces_on_four_cards(arch):
+    """Skipped where fewer than four cards are visible (``chip_smoke.py``
+    phase 4o (b) says the same)."""
+    require_cuda()
+    count = torch.cuda.device_count()
+    if count < 4:
+        pytest.skip(f"needs four visible CUDA devices, {count} visible")
+    _pieces_on(arch, [torch.device("cuda", i) for i in range(4)])

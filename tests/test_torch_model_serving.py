@@ -213,3 +213,35 @@ def test_launch_serve_runs_on_cpu(capsys):
     assert serve.main(["--device", "cpu", "--arch", "hymba-1.5b",
                        "--requests", "16", "--batch-size", "8"]) == 16
     assert "[serve] 16 requests" in capsys.readouterr().out
+
+
+def test_launch_serve_times_each_request_alone(monkeypatch, capsys):
+    """``launch.serve`` asks for one request's features at a time, as the
+    reference's does: one latency sample per request, each from a
+    single-row ``request``, and ``request_batch`` never called."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import FeatureEngine
+
+    engines, rows = [], []
+    real_init, real_request = FeatureEngine.__init__, FeatureEngine.request
+
+    def init(self, *args, **kw):
+        real_init(self, *args, **kw)
+        engines.append(self)
+
+    def request(self, row):
+        rows.append(row)
+        return real_request(self, row)
+
+    def request_batch(self, *args, **kw):
+        raise AssertionError("launch.serve called request_batch")
+
+    monkeypatch.setattr(FeatureEngine, "__init__", init)
+    monkeypatch.setattr(FeatureEngine, "request", request)
+    monkeypatch.setattr(FeatureEngine, "request_batch", request_batch)
+    assert serve.main(["--device", "cpu", "--requests", "16",
+                       "--batch-size", "8"]) == 16
+    (eng,) = engines
+    assert len(rows) == 16 and all(isinstance(r, dict) for r in rows)
+    assert eng.n_requests == 16 and len(eng.latencies_ms) == 16
+    assert "[serve] 16 requests" in capsys.readouterr().out
