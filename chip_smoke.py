@@ -75,7 +75,7 @@ Phases (each prints its own lines; any failure exits non-zero):
              B = 1, 64, 256 equals a CPU engine on copies of the store
              and planes (bitwise, drawdown and EW at rtol 1e-5) and the
              first request equals ``offline()`` over its history; then
-             ``verify_consistency(use_preagg=True)`` over every 300th
+             ``verify_consistency(use_preagg=True)`` over every 1200th
              row, the columns the port's certificate classes bitwise
              (which must equal the reference certifier's) bitwise;
    g. serving loop — a retention engine (``retention="auto"``,
@@ -86,7 +86,7 @@ Phases (each prints its own lines; any failure exits non-zero):
              orders to its last 60 s, and after ``refresh()`` equals
              a CPU engine on copies of the store and, within the prefix
              bound on the sums, a card engine without retention; (b)
-             ``ServeLoop`` under ``SystemClock``: 2,000 open-loop Poisson
+             ``ServeLoop`` under ``SystemClock``: 1,000 open-loop Poisson
              arrivals through a deadline and a count-only loop, then 100
              waves of 64 requests + 64 streamed rows (TP50/99/999,
              resident rows and binlog bounded, one flush's launches and
@@ -173,8 +173,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              in 4 microbatches: one step's loss and every gradient leaf
              through the kernels equal to the plain versions (bitwise,
              or within two plain runs' spread if another op is not
-             deterministic); then 8 steps of ``build_train_step``: the
-             first loss within 1 nat of ln(vocab), the last below it,
+             deterministic); then the first 4 steps of an 8-step
+             schedule through ``build_train_step``: the first loss
+             within 1 nat of ln(vocab), the last below it,
              256 ``linear_scan`` and 128 ``linear_scan_bwd`` launches
              per step; step ms p50, tokens/s, peak memory, busy share;
              then the data-parallel step (``dp_axes=("data",)``) at 4
@@ -190,11 +191,12 @@ Phases (each prints its own lines; any failure exits non-zero):
              the kernels and the plain versions (logits within rtol/atol
              1e-3, argmax the generated tokens); the f32 weights freed
              and the bf16 ones drawn anew from the same seed (the bits of
-             the f32 draw cast), timed as in 4d with the peak memory; (b)
-             minicpm3-4b at full width and depth (no ported kernel on its
-             path, none launched): the absorbed decode's logits at each
-             of four steps equal to a prefill over the prompt plus those
-             tokens (float32, within 1e-3), then bf16 timed; (c) one
+             the f32 draw cast), timed as in 4d over 16 tokens with the
+             peak memory; (b) minicpm3-4b at full width and depth (no
+             ported kernel on its path, none launched): the absorbed
+             decode's logits at each of four steps equal to a prefill
+             over the prompt plus those tokens (float32, within 1e-3),
+             then bf16 timed; (c) one
              train step of each at full width and 4 layers (bf16
              compute, f32 master weights and AdamW, batch 2 x 1,024):
              first loss within 1 nat of ln(vocab), gradient norm finite,
@@ -207,14 +209,14 @@ Phases (each prints its own lines; any failure exits non-zero):
              kernels (8 x 4 ``decode_partials`` launches), teacher-forced
              through the kernels and the plain versions (within 1e-3);
              then at full depth in bf16 (the bits of the f32 draw cast),
-             timed as in 4d, 60 launches per token; (b) whisper-tiny at
-             full width and depth, 8 utterances of 1,500 frames, decoder
-             prompts of 224 tokens, ``max_len`` 448: the same two checks,
-             4 launches per token; (c) rwkv6-7b at full width and depth
-             (no ported kernel on its path, none launched), phase 4d's
-             prompts: each of four f32 decode steps' logits equal to a
-             prefill over the prompt plus those tokens (within 1e-3),
-             then bf16 timed, and a prefill of 128 tokens profiled (the
+             timed as in 4d over 16 tokens, 60 launches per token; (b)
+             whisper-tiny at full width and depth, 8 utterances of 1,500
+             frames, decoder prompts of 224 tokens, ``max_len`` 448:
+             the same two checks, 4 launches per token; (c) rwkv6-7b at full width and depth
+             (no ported kernel on its path, none launched), 8 prompts
+             of 256 tokens: each of four f32 decode steps' logits equal
+             to a prefill over the prompt plus those tokens (within
+             1e-3), then bf16 timed, and a prefill of 128 tokens profiled (the
              WKV loop's launches and busy share); (d) one train step of
              each at full width and 4 layers, batch 2 x 1,024 positions:
              the first loss within 1 nat of ln(vocab) + s^2 / 2, s = 0.02
@@ -240,6 +242,39 @@ Phases (each prints its own lines; any failure exits non-zero):
              ~65.8 GB a card): prefill 8 x 1,024, 32 greedy tokens,
              finite logits, 160 ``decode_partials`` launches a token,
              40 on each card; one line saying (b) did not run elsewhere;
+   p. training on weights in pieces — the reference's train cell
+             (``launch/dryrun.py``): ``TrainState(step=P(),
+             params=p_specs, mu=p_specs, nu=p_specs, compress_err=P())``,
+             ``p_specs = param_pspecs(..., strategy="megatron")``, placed
+             by ``device_put`` and stepped by ``build_train_step(...,
+             dp_axes=("data",), mesh=mesh)`` as it is: (a) on entries
+             that all name the card, in float32 at full width and 2
+             layers, B = 4 x 128 in 2 microbatches: llama3-8b and
+             hymba-1.5b on (1, 4) and (2, 2) (two data blocks, each on
+             its row's pieces), qwen2-moe-a2.7b on (1, 4); a step from
+             the initial state and a step from the whole route's state
+             after it, each against the whole tree's step on the card
+             (loss and grad norm at rtol 1e-4, params / mu / nu at
+             ``tests/test_torch_train.py``'s bars, phase 4j's optimizer;
+             the first step's gradients leaf by leaf within 1e-4 of the
+             leaf's max |g|), the first step run
+             twice from the same state (bitwise equal), bytes per entry
+             equal to ``per_device_bytes`` before and after, replicas
+             bitwise equal, hymba's SSM (gathered per layer) launching
+             ``linear_scan`` / ``linear_scan_bwd`` 2 / 1 times per
+             layer, microbatch and data block; then llama3-8b in bf16 at
+             4 layers, 8 x 1,024 in 4 microbatches, the whole tree's
+             step and the pieces' on (1, 4) timed with CUDA events one
+             after the other (their states do not fit together); (b)
+             where four cards are visible, llama3-8b at full width and
+             depth (8.03 G params drawn piece by piece on each card, f32
+             master state and AdamW moments in pieces, bf16 compute)
+             over (1, 4) distinct cards, train_4k's 4,096 tokens at
+             batch 8 in 4 microbatches, 3 steps: finite losses, the
+             first within 1 nat of ln(vocab), per card the bytes (=
+             ``per_device_bytes``), peak memory, launches and busy
+             share, the step p50; one line saying (b) did not run
+             elsewhere;
    n. entry points and step rooflines — (a) the port's CI gates
              (``tools/torch_check_consistency.py --bitwise 4``,
              ``torch_check_replay.py``, ``torch_check_recovery.py 4``)
@@ -298,6 +333,7 @@ os.environ.setdefault("KINETO_LOG_LEVEL", "0")
 import torch  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent
+_T0 = time.perf_counter()          # phase headers: seconds since start
 
 SMOKE_SQL = """
 SELECT
@@ -320,9 +356,9 @@ DEPLOYMENT = dict(n_actions=1_000_000, n_orders=500_000, n_users=100,
 CAPACITY = 1_600_000
 N_LIVE = 4096
 BATCHES = (1, 64, 256)
-N_LATENCY = 400                    # timed batches per B (p99 = 4th largest)
+N_LATENCY = 200                    # timed batches per B (p99 = 2nd largest)
 SKEW_ALPHA = 1.1                   # zipf skew of the offline variant
-CONSISTENCY_ROWS = 20_000          # replayed rows (one request per base row)
+CONSISTENCY_ROWS = 5_000           # replayed rows (one request per base row)
 WINDOW_MS = 60_000                 # additive folds' request frame
 BUCKETS = ((60_000, 600), (1_000, 36_000))   # bucket_build (ms, buckets)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
@@ -336,18 +372,21 @@ MODEL_TOL = 1e-3                   # f32 logits, kernels vs plain versions
 # take ~68 GB), seeded random weights, phase 4d's prompts and cache
 MOE_ARCH, MLA_ARCH = "qwen2-moe-a2.7b", "minicpm3-4b"
 FAMILY_TOKENS = 4                  # f32 checks: decode steps
+FAMILY_BF16_TOKENS = 16            # bf16 timings: decode steps (4k, 4l)
 FAMILY_TRAIN_LAYERS = 4
 FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ = 2, 1024
 # phase 4l: the VLM, audio and RWKV6 families at full width.  llava's
 # 68.8 GB of bf16 weights leave room for a batch of 2 (B = 8 would add
 # the f32 chunked attention's temporaries past 80 GB), and its f32 check
 # runs 8 of 60 layers (21.5 GB; 137 GB at full depth); whisper's decoder
-# context is 448 tokens; the rwkv6-7b prefill is profiled over its first
-# 128 tokens (its WKV loop costs the same at every step)
+# context is 448 tokens; rwkv6-7b's prompts are RWKV_PROMPT tokens (its
+# WKV loop runs token by token, four launches a layer and token) and its
+# prefill is profiled over the first 128 (the loop costs the same at
+# every step)
 VLM_ARCH, AUDIO_ARCH, RWKV_ARCH = "llava-next-34b", "whisper-tiny", "rwkv6-7b"
 VLM_BATCH, VLM_F32_LAYERS = 2, 8
 AUDIO_PROMPT, AUDIO_MAX_LEN = 224, 448
-RWKV_PROFILE_TOKENS = 128
+RWKV_PROMPT, RWKV_PROFILE_TOKENS = 256, 128
 # phase 3c: decode_partials also at the decode shapes (Hq, Hkv, D) of
 # qwen2-moe-a2.7b (phase 4k), dbrx-132b (263 GB of bf16 weights: it does
 # not fit the card, so only its attention shape is run), llava-next-34b
@@ -358,8 +397,9 @@ DECODE_SHAPES = {"qwen2-moe-a2.7b": (16, 16, 128), "dbrx-132b": (48, 8, 128),
                  "llama3-8b/4": (8, 2, 128), "dbrx-132b/4": (12, 2, 128)}
 # phase 4j: training hymba-1.5b at full width and depth; the sequence is
 # longer than its 1,024-token window, so the sliding-window layers mask
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 2048, 4, 8
-TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+# (the first TRAIN_STEPS steps of an 8-step schedule)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 2048, 4, 4
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=8)
 # the first loss within 1 nat of ln(vocab): untied random logits of
 # std 0.02 * sqrt(d_model) = 0.8 add ~0.32 nats to the uniform loss
 TRAIN_LOSS_TOL = 1.0
@@ -371,7 +411,7 @@ DP_LAYERS, DP_BLOCKS, DP_STEPS = 4, 2, 3
 DP_LOSS_RTOL = 1e-5
 DECODE_LIVE = (1025, 1056)         # decode live lengths at positions 1,024+
 DECODE_COLD = 8                    # caches rotated for the cold-L2 times
-STAGED_REPS = 100                  # timed batches per B, phases 4e and 4f
+STAGED_REPS = 50                   # timed batches per B, phases 4e and 4f
 SEED_TOL = dict(rtol=1e-4, atol=1e-3)   # reduction-order bar (reference)
 # the seed baseline sums a window as the difference of two float32
 # prefixes over the key's whole history, so its error scales with that
@@ -405,7 +445,7 @@ DEPLOYMENT_LONG = dict(n_actions=1_000_000, n_orders=500_000, n_users=32,
 LONG_PLANES = (32, 632, 41, 39, 128)
 LONG_LOOSE = ("dd_l", "ew_l")      # card vs CPU: rtol 1e-5 (EW, drawdown)
 LONG_EXACT_OFFLINE = ("c_l", "mn_l", "mx_l", "dc_l")
-GATE_STRIDE = 300                  # the pre-agg gate replays every 300th row
+GATE_STRIDE = 1200                 # the pre-agg gate replays every 1200th row
 # the columns the pre-agg gate holds bitwise come from the port's
 # certificate of LONG_SQL over the thinned tables (no C-BUF,
 # C-PREAGG-EDGE or C-KEYCARD there); this is the class the reference's
@@ -421,7 +461,7 @@ COMPACT_EVERY = 256
 RETAINED = {"actions": None, "orders": WINDOW_MS}   # wr is a ROWS frame
 SNAP_ROWS = 1024           # (a) streamed rows: at least one orders tick
 LOOP_BATCH, LOOP_WAIT_MS, LOOP_SLO_MS = 64, 5.0, 25.0
-LOOP_SPARSE = 2000         # (b) open-loop requests per batching policy
+LOOP_SPARSE = 1000         # (b) open-loop requests per batching policy
 LOOP_WAVES = 100           # (b) closed loop: waves of 64 requests + 64 rows
 TRACE_HISTORY_MS = 20 * 60_000   # (c) history the trace's engines load
 TRACE_CAPACITY = 65_536
@@ -463,6 +503,29 @@ PIECES_F32 = {"llama3-8b": 4, "dbrx-132b": 2}      # arch: layers kept
 PIECES_F32_BATCH, PIECES_F32_PROMPT, PIECES_F32_TOKENS = 2, 128, 4
 PIECES_ARCH, PIECES_BIG = "llama3-8b", "dbrx-132b"
 PIECES_BATCH, PIECES_PROMPT, PIECES_TOKENS = 8, 1024, 32
+# phase 4p: training on weights in pieces, megatron.  (a) float32 checks
+# at full width cut to TP_LAYERS layers on the meshes of TP_CHECKS (two
+# MoE data blocks raise), TP_BATCH x TP_SEQ in TP_MICRO microbatches (4
+# rows, so that (2, 2)'s two data blocks each take a row of both
+# microbatches); llama3-8b's bf16 step timed at TP_TIME_LAYERS layers,
+# TP_TIME_BATCH x TP_TIME_SEQ in TP_TIME_MICRO microbatches; (b) four
+# cards: llama3-8b at full size, train_4k's sequence, batch 256 cut to
+# TP4_BATCH
+TP_CHECKS = {"llama3-8b": ((1, 4), (2, 2)), "qwen2-moe-a2.7b": ((1, 4),),
+             "hymba-1.5b": ((1, 4), (2, 2))}
+TP_LAYERS, TP_BATCH, TP_SEQ, TP_MICRO = 2, 4, 128, 2
+TP_RTOL = 1e-4
+# the gradients of the first step, pieces against whole, leaf by leaf:
+# max |diff| within TP_GRAD_TOL of the leaf's max |g| (f32 rounding of
+# reordered sums).  The optimizer is phase 4j's, TRAIN_OPT: at full
+# width the clip scales the gradients by 0.06-0.12, Adam's first step
+# lr g / (|g| + eps) turns the rounding of an element whose clipped |g|
+# is near eps into a share of lr, and _close_params allows that on 0.1%
+# of a leaf (at lr 1e-2, 0.11% of llama3-8b's layer-0 wq)
+TP_GRAD_TOL = 1e-4
+TP_TIME_LAYERS, TP_TIME_STEPS = 4, 3
+TP_TIME_BATCH, TP_TIME_SEQ, TP_TIME_MICRO = 8, 1024, 4
+TP4_SEQ, TP4_BATCH, TP4_MICRO, TP4_STEPS = 4096, 8, 4, 3
 
 # phase 4n: the CUDA function (or Triton kernel) that every launch of a
 # port kernel runs once, so that its profiler events count the launches
@@ -489,7 +552,7 @@ def log(msg: str) -> None:
 
 
 def phase(name: str) -> None:
-    log(f"== {name}")
+    log(f"== {name}  (at {time.perf_counter() - _T0:.1f} s)")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -520,8 +583,10 @@ def cuda_ms(fn, reps: int) -> float:
 def compare(name: str, got: torch.Tensor, want: torch.Tensor,
             rtol: float = 0.0, atol: float = 1e-6) -> float:
     """Exact (rtol 0) or relative comparison, NaN (NULL) only where the
-    plain version has NaN; returns max |diff| over the other entries."""
-    got, want = got.detach().cpu(), want.detach().cpu()
+    plain version has NaN; returns max |diff| over the other entries.
+    Computed on ``got``'s device (phase 3c's scans hold ~420 M elements:
+    a host copy in float64 took tens of seconds)."""
+    got, want = got.detach(), want.detach().to(got.device)
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
@@ -1507,6 +1572,25 @@ def model_training(dev, card):
     return out, {"training": counts, **dp_counts}
 
 
+def close_params(label, pairs, lr):
+    """``tests/test_torch_train.py``'s ``_close_params`` on the card, leaf
+    by leaf over (got, want) pairs: rtol 1e-4 / atol 1e-6, but an element
+    whose ~0 gradient's rounding turned Adam's step (2 lr at most), 0.1%
+    of a leaf.  Returns (max abs diff, elements off, elements)."""
+    worst, n_miss, n_all = 0.0, 0, 0
+    for i, (g, w) in enumerate(pairs):
+        miss = ~torch.isclose(g, w, rtol=1e-4, atol=1e-6)
+        diff = float((g - w).abs().max()) if g.numel() else 0.0
+        worst = max(worst, diff)
+        n_miss += int(miss.sum())
+        n_all += miss.numel()
+        if miss.any() and (float((g - w).abs()[miss].max()) > 2 * lr
+                           or float(miss.float().mean()) > 1e-3):
+            raise AssertionError(f"{label} leaf {i}: {int(miss.sum())} "
+                                 f"of {miss.numel()} off, max {diff}")
+    return worst, n_miss, n_all
+
+
 def dp_training(dev, card, batches):
     """Phase 4j's data-parallel step: hymba-1.5b at full width and
     DP_LAYERS layers, batch TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO
@@ -1556,20 +1640,9 @@ def dp_training(dev, card, batches):
     loss_dp, loss_one = float(dp_m["loss"]), float(one_m["loss"])
     if abs(loss_dp - loss_one) > DP_LOSS_RTOL * abs(loss_one):
         raise AssertionError(f"4j DP loss {loss_dp}, one device {loss_one}")
-    worst, n_miss, n_all = 0.0, 0, 0
-    for i, (g, w) in enumerate(zip(_leaves(dp_state.params),
-                                   _leaves(one_state.params))):
-        # rtol 1e-4 / atol 1e-6, but an element whose ~0 gradient's
-        # rounding turned Adam's step (2 lr at most), 0.1% of a leaf
-        miss = ~torch.isclose(g, w, rtol=1e-4, atol=1e-6)
-        diff = float((g - w).abs().max())
-        worst = max(worst, diff)
-        n_miss += int(miss.sum())
-        n_all += miss.numel()
-        if miss.any() and (float((g - w).abs()[miss].max()) > 2 * lr
-                           or float(miss.float().mean()) > 1e-3):
-            raise AssertionError(f"4j DP param leaf {i}: {int(miss.sum())} "
-                                 f"of {miss.numel()} off, max {diff}")
+    worst, n_miss, n_all = close_params(
+        "4j DP param", zip(_leaves(dp_state.params),
+                           _leaves(one_state.params)), lr)
     del state, twin, dp_state, one_state
     torch.cuda.empty_cache()
     log(f"4j data parallel: {MODEL_ARCH} at full width, {DP_LAYERS} layers, "
@@ -1735,7 +1808,7 @@ def _decode_vs_prefill(cfg, label, params, batch, dev, card, how):
 def _bf16_serving(cfg, label, batch, dev, card, expect, probe=None,
                   max_len=MODEL_MAX_LEN, extra=None):
     """A model in bf16, timed: prefill, decode per token p50 / p99 over
-    MODEL_TOKENS, tokens/s, one profiled decode step, peak memory.
+    FAMILY_BF16_TOKENS, tokens/s, one profiled decode step, peak memory.
     ``probe`` = (leaf of the params, the f32 draw's leaf cast to bf16):
     the fresh bf16 draw must hold its bits.  ``extra(engine)`` adds its
     dict of measurements before the engine is freed."""
@@ -1754,22 +1827,22 @@ def _bf16_serving(cfg, label, batch, dev, card, expect, probe=None,
     t0 = time.perf_counter()
     tokens, counts = run_path(f"{label} serving (bf16)",
                               lambda: eng.generate_greedy(
-                                  batch, MODEL_TOKENS), ())
+                                  batch, FAMILY_BF16_TOKENS), ())
     t_gen = time.perf_counter() - t0
-    if counts != expect(MODEL_TOKENS):
+    if counts != expect(FAMILY_BF16_TOKENS):
         raise AssertionError(f"{label} bf16: launches {counts}, expected "
-                             f"{expect(MODEL_TOKENS)}")
+                             f"{expect(FAMILY_BF16_TOKENS)}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     first = eng.prefill(batch)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     steps = []
-    for i in range(MODEL_TOKENS):
+    for i in range(FAMILY_BF16_TOKENS):
         t0 = time.perf_counter()
         last = eng.decode(tokens[:, i:i + 1])
         steps.append((time.perf_counter() - t0) * 1e3)
     check_logits([first, last], cfg, b)
-    tok_s = b * MODEL_TOKENS / (sum(steps) / 1e3)
+    tok_s = b * FAMILY_BF16_TOKENS / (sum(steps) / 1e3)
     prof_dec = profile_calls(lambda: eng.decode(tokens[:, :1]), 4)
     attn = {k: v for k, v in prof_dec["kernel_ms_per_call"].items()
             if "decode_split_kernel" in k or "decode_merge_kernel" in k}
@@ -1786,7 +1859,7 @@ def _bf16_serving(cfg, label, batch, dev, card, expect, probe=None,
     log(f"{label} bf16 prefill {prefill_ms:.1f} ms (B={b} x {t} tokens"
         f"{inputs}); decode per token p50 "
         f"{out['bf16_decode_ms_p50']:.2f} ms, p99 "
-        f"{out['bf16_decode_ms_p99']:.2f} ms over {MODEL_TOKENS} steps; "
+        f"{out['bf16_decode_ms_p99']:.2f} ms over {FAMILY_BF16_TOKENS} steps; "
         f"{tok_s:.0f} tokens/s; peak memory {out['bf16_peak_mem_gb']:.2f} "
         f"GB  [{card}]")
     log_profile(f"{label} decode step (bf16)", prof_dec, card)
@@ -2002,7 +2075,7 @@ def modal_families(dev, card):
     # decode step held to a prefill over the prompt plus its tokens
     t_phase = time.perf_counter()
     cfg = get(RWKV_ARCH)
-    batch = {"tokens": model_prompt(cfg)}
+    batch = {"tokens": model_prompt(cfg, t=RWKV_PROMPT)}
     params, n_params = _drawn(cfg, RWKV_ARCH, dev)
     probe = params["layers"][-1]["rwkv"]["cm_v"].to(torch.bfloat16)
     t_f32, err_rwkv, paths["rwkv_f32"] = _decode_vs_prefill(
@@ -2024,7 +2097,7 @@ def modal_families(dev, card):
                     f"(bf16)", prof, card)
         log(f"{RWKV_ARCH}: the WKV loop launches {loop} of the "
             f"{prof['kernels_per_call']:.0f} kernels of that prefill "
-            f"({4 * cfg.n_layers * MODEL_PROMPT} per {MODEL_PROMPT}-token "
+            f"({4 * cfg.n_layers * RWKV_PROMPT} per {RWKV_PROMPT}-token "
             f"prefill)  [{card}]")
         return {"profile_prefill_short": prof,
                 "profile_prefill_tokens": RWKV_PROFILE_TOKENS,
@@ -2419,8 +2492,8 @@ def long_windows(card):
     """``use_preagg`` serving of LONG_SQL at deployment size: planes
     maintained by bulk load and ingest, requests against a CPU engine on
     copies of the store and planes and against ``offline()``, and
-    ``verify_consistency(use_preagg=True)`` over every 300th row, its
-    bitwise columns from the port's certificate.  Also returns the B = 64
+    ``verify_consistency(use_preagg=True)`` over every GATE_STRIDE-th
+    row, its bitwise columns from the port's certificate.  Also returns the B = 64
     features (phase 4h holds its sharded planes to them) and the script,
     the planes' nbytes and the gate's certificate (phase 4i)."""
     from repro_torch.core import (certify, compile_script, replay_online,
@@ -4343,6 +4416,385 @@ def param_pieces(dev, card):
     return res, counts
 
 
+# ---------------------------------------------------------------- phase 4p
+
+
+def state_specs(cfg, params, mesh):
+    """The reference's train cell (``launch/dryrun.py``): params, mu and
+    nu placed by ``param_pspecs(strategy="megatron")`` (ZeRO-3), the step
+    and the residuals replicated (``P()``)."""
+    from repro_torch.distributed.fault import tree_map
+    from repro_torch.distributed.sharding import PartitionSpec, param_pspecs
+    from repro_torch.train import TrainState
+
+    p_specs = param_pspecs(cfg, params, mesh, strategy="megatron")
+    return TrainState(step=PartitionSpec(), params=p_specs, mu=p_specs,
+                      nu=p_specs, compress_err=tree_map(
+                          lambda _: PartitionSpec(), params))
+
+
+def place_state(label, state, specs, mesh):
+    """``state`` placed by ``specs`` on ``mesh`` (new pieces), and the
+    bytes each entry holds, which must equal ``per_device_bytes``."""
+    from repro_torch.distributed.sharding import (device_put, entry_bytes,
+                                                  named_shardings,
+                                                  per_device_bytes)
+
+    placed = device_put(state, named_shardings(specs, mesh))
+    held = entry_bytes(placed)
+    want = per_device_bytes(state, specs, mesh)
+    if not (held == want).all():
+        raise AssertionError(f"{label}: bytes per entry {held.tolist()}, "
+                             f"per_device_bytes {want}")
+    return placed, want
+
+
+def _replicas_equal(tree) -> bool:
+    from repro_torch.distributed.fault import tree_flatten
+    from repro_torch.distributed.sharding import blocks
+
+    return all(torch.equal(x.pieces[e], x.pieces[entries[0]])
+               for x in tree_flatten(tree)[0] for entries in blocks(x)
+               for e in entries[1:])
+
+
+def grads_against_whole(label, cfg, placed, params, batch, dev):
+    """The f32 gradients of the placed state (gathered leaf by leaf)
+    against those of the whole ``params`` it was placed from: per leaf,
+    max |diff| within TP_GRAD_TOL of the leaf's max |g|.  Returns the
+    largest ratio and the grad norm."""
+    from repro_torch.distributed.sharding import gather
+    from repro_torch.train.steps import loss_and_grads
+
+    _, gp = loss_and_grads(cfg, placed.params, batch, TP_MICRO,
+                           torch.float32, dp_axes=("data",))
+    got = [gather(x, dev) for x in _leaves(gp)]
+    del gp
+    _, gw = loss_and_grads(cfg, params, batch, TP_MICRO, torch.float32)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, _leaves(gw))):
+        top = float(w.abs().max())
+        ratio = float((g - w).abs().max()) / top if top else 0.0
+        if ratio > TP_GRAD_TOL:
+            raise AssertionError(f"{label} gradient leaf {i}: max |diff| "
+                                 f"{ratio} of its max |g| {top}")
+        worst = max(worst, ratio)
+    norm = float(torch.sqrt(sum(torch.sum(w * w) for w in _leaves(gw))))
+    del got, gw
+    _free()
+    return {"max_diff_of_max": worst, "grad_norm": norm}
+
+
+def train_pieces_check(arch, shape, dev, card):
+    """Phase 4p (a)'s float32 check of ``arch`` at full width and
+    TP_LAYERS layers on a ``shape`` ("data", "model") mesh of the card.
+    Step 1: the initial state placed twice; the first copy's gradients
+    against the whole params' leaf by leaf (``grads_against_whole``),
+    its step kept as the bits to match; the second copy's step (the
+    launches counted) bitwise the first's and against the whole state's
+    step.  Step 2: the whole route's state after step 1, placed, against
+    the whole route's next step.  Each step: loss and grad norm at
+    TP_RTOL, params / mu / nu at ``close_params`` (phase 4j's
+    optimizer), the same placed leaves, bytes per entry =
+    ``per_device_bytes``, replicas equal.  At most one whole state and
+    one placed state live at a time (a (2, 2) mesh holds two copies)."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.distributed.fault import tree_flatten
+    from repro_torch.distributed.sharding import (Mesh, blocks, entry_bytes,
+                                                  gather)
+    from repro_torch.train import AdamWConfig, adamw_init, build_train_step
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get(arch), n_layers=TP_LAYERS)
+    mesh = Mesh(np.full(shape, dev, dtype=object), ("data", "model"))
+    n_dp = shape[0]
+    label = f"4p {arch} ({TP_LAYERS} layers) on {shape} of the card"
+    gen = torch.Generator(device=dev).manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (TP_BATCH, TP_SEQ),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    params0 = _draw(cfg, dev, torch.float32)
+    specs = state_specs(cfg, params0, mesh)
+    opt = AdamWConfig(**TRAIN_OPT)
+    step_w = build_train_step(cfg, opt, n_micro=TP_MICRO,
+                              compute_dtype=torch.float32)
+    step_p = build_train_step(cfg, opt, n_micro=TP_MICRO,
+                              compute_dtype=torch.float32,
+                              dp_axes=("data",), mesh=mesh)
+    scans = ("linear_scan", "linear_scan_bwd") if cfg.ssm else ()
+    want_scans = {"linear_scan": 2 * cfg.n_layers * TP_MICRO * n_dp,
+                  "linear_scan_bwd": cfg.n_layers * TP_MICRO * n_dp}
+    res = {"steps": [], "launches": []}
+
+    def first_pieces(tree):
+        return [x.pieces[e[0]] for x in tree_flatten(tree)[0]
+                for e in blocks(x)]
+
+    # step 1 from the initial state, first on a copy: its gradients,
+    # then its loss and params kept to hold the counted run to
+    twin, per_entry = place_state(label, adamw_init(params0), specs, mesh)
+    res["grads"] = grads_against_whole(label, cfg, twin, params0, batch,
+                                       dev)
+    twin, m2 = step_p(twin, batch)
+    first = (m2["loss"], [t.clone() for t in first_pieces(twin.params)])
+    del twin, m2
+    _free()
+    placed, _ = place_state(label, adamw_init(params0), specs, mesh)
+    whole = None
+    for k in range(2):
+        leaves = tree_flatten(placed)[0]
+        (new, m), counts = run_path(
+            f"{label} step {k + 1} (f32)", lambda: step_p(placed, batch),
+            scans)
+        res["launches"].append(counts)
+        if scans and {c: counts.get(c, 0) for c in scans} != want_scans:
+            raise AssertionError(f"{label}: launches {counts}, expected "
+                                 f"{want_scans}")
+        if [id(x) for x in tree_flatten(new)[0]] != [id(x) for x in leaves] \
+                or not (entry_bytes(new) == per_entry).all() \
+                or not _replicas_equal(new):
+            raise AssertionError(f"{label}: the stepped state is not the "
+                                 f"same placed leaves with equal replicas "
+                                 f"and {per_entry} bytes an entry")
+        if k == 0:
+            if not (torch.equal(m["loss"], first[0]) and all(
+                    torch.equal(a, b) for a, b in
+                    zip(first_pieces(new.params), first[1]))):
+                raise AssertionError(f"{label}: two runs of the step from "
+                                     f"one state differ")
+            del first
+            whole = adamw_init(params0)
+            del params0
+        whole, mw = step_w(whole, batch)
+        errs = {}
+        for name in ("loss", "grad_norm"):
+            got, want = float(m[name]), float(mw[name])
+            if abs(got - want) > TP_RTOL * abs(want):
+                raise AssertionError(f"{label} step {k + 1}: {name} {got}, "
+                                     f"whole tree {want}")
+            errs[name] = abs(got - want) / abs(want)
+        for field in ("params", "mu", "nu"):
+            errs[field] = close_params(
+                f"{label} step {k + 1} {field}",
+                ((gather(x, dev), w) for x, w in zip(
+                    _leaves(getattr(new, field)),
+                    _leaves(getattr(whole, field)))), TRAIN_OPT["lr"])
+        res["steps"].append(dict(errs, value=float(m["loss"])))
+        del new, placed, leaves
+        _free()
+        if k == 0:
+            # step 2 from the whole route's state after step 1
+            placed, _ = place_state(label, whole, specs, mesh)
+    res.update(entry_bytes=per_entry, s=time.perf_counter() - t0)
+    log(f"{label}, f32, B={TP_BATCH} x {TP_SEQ} in {TP_MICRO} microbatches"
+        + (f" x {n_dp} data blocks" if n_dp > 1 else "") + ": 2 steps "
+        f"(from the initial state, and from the whole route's state after "
+        f"it) against the whole tree's: loss {[r['value'] for r in res['steps']]}"
+        f", loss / grad norm rel. diff "
+        f"{[(r['loss'], r['grad_norm']) for r in res['steps']]}, "
+        f"params / mu / nu (max abs diff, elements off, elements) "
+        f"{[[r[f] for f in ('params', 'mu', 'nu')] for r in res['steps']]}; "
+        f"first step's gradients within {res['grads']['max_diff_of_max']:.3e}"
+        f" of each leaf's max |g| (grad norm {res['grads']['grad_norm']:.4f}"
+        f"); two runs bitwise; bytes per entry = per_device_bytes = "
+        f"{per_entry} before and after; launches {res['launches'][0]}; "
+        f"{res['s']:.1f} s  [{card}]")
+    del whole
+    _free()
+    return res
+
+
+def _timed_steps(step, state, batch, n):
+    """CUDA-event ms of ``n`` steps after one warm-up step."""
+    out = []
+    state, m = step(state, batch)
+    float(m["loss"])
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"4p bf16 loss {float(m['loss'])}")
+    return out
+
+
+def train_pieces_timing(dev, card):
+    """Phase 4p (a)'s timing: llama3-8b at full width and TP_TIME_LAYERS
+    layers, bf16 compute on f32 master weights, TP_TIME_BATCH x
+    TP_TIME_SEQ in TP_TIME_MICRO microbatches: the whole tree's step,
+    then (the first state freed) the pieces' on (1, 4) entries of the
+    card, each TP_TIME_STEPS steps after a warm-up, CUDA events; peak
+    memory of each route."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.train import AdamWConfig, adamw_init, build_train_step
+
+    cfg = dataclasses.replace(get(PIECES_ARCH), n_layers=TP_TIME_LAYERS)
+    mesh = pieces_mesh([dev] * PIECES_N)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (TP_TIME_BATCH, TP_TIME_SEQ),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    opt = AdamWConfig(**TRAIN_OPT)
+    out = {}
+    for route in ("whole", "pieces"):
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        state = adamw_init(_draw(cfg, dev, torch.float32))
+        kw = {}
+        if route == "pieces":
+            state, _ = place_state("4p timing", state, state_specs(
+                cfg, state.params, mesh), mesh)
+            kw = dict(dp_axes=("data",), mesh=mesh)
+        _free()
+        step = build_train_step(cfg, opt, n_micro=TP_TIME_MICRO,
+                                compute_dtype=torch.bfloat16, **kw)
+        ms = _timed_steps(step, state, batch, TP_TIME_STEPS)
+        out[route] = {"ms": ms, "ms_p50": float(np.percentile(ms, 50)),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del state, step
+    _free()
+    for route, r in out.items():
+        log(f"4p {PIECES_ARCH} ({TP_TIME_LAYERS} layers) bf16 train step, "
+            f"{TP_TIME_BATCH} x {TP_TIME_SEQ} in {TP_TIME_MICRO} "
+            f"microbatches, {route}"
+            + (f" on (1, {PIECES_N}) of the card" if route == "pieces"
+               else "") + f": p50 {r['ms_p50']:.1f} ms over "
+            f"{TP_TIME_STEPS} steps {[round(x, 1) for x in r['ms']]} (CUDA "
+            f"events), peak memory {r['peak_gb']:.2f} GB  [{card}]")
+    return out
+
+
+def train_pieces_distinct(card):
+    """Phase 4p (b): where four cards are visible (one line saying it did
+    not run otherwise), llama3-8b at full width and depth trained over
+    (1, 4) distinct cards: params drawn piece by piece on each card
+    (``fill_placed``, seed 0), ``adamw_init`` of them (f32 master state
+    and moments in pieces, step on card 0), bf16 compute, TP4_BATCH x
+    TP4_SEQ in TP4_MICRO microbatches, TP4_STEPS steps: finite losses,
+    the first within TRAIN_LOSS_TOL of ln(vocab); per card the bytes
+    (= ``per_device_bytes``), peak memory, and one more step's launches
+    and busy share (``busy_by_card``); the step p50 (host clock, every
+    card synchronised)."""
+    import math
+
+    from repro_torch.configs import get
+    from repro_torch.distributed.sharding import (cuda_devices, device_put,
+                                                  entry_bytes,
+                                                  named_shardings,
+                                                  param_pspecs,
+                                                  per_device_bytes)
+    from repro_torch.models import fill_placed, init_params
+    from repro_torch.train import AdamWConfig, adamw_init, build_train_step
+
+    cards = cuda_devices()
+    if len(cards) < PIECES_N:
+        log(f"4p (b) did not run: {len(cards)} CUDA device visible; training "
+            f"on weights in pieces over distinct cards needs {PIECES_N} "
+            f"(phase 4p (a) ran it on entries that repeat this card)  "
+            f"[{card}]")
+        return {"ran": False, "cards": len(cards)}
+    t_b = time.perf_counter()
+    cards = cards[:PIECES_N]
+    mesh = pieces_mesh(cards)
+    names = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[:PIECES_N]
+    cfg = get(PIECES_ARCH)
+    t0 = time.perf_counter()
+    meta = init_params(cfg, torch.Generator(), dtype=torch.float32,
+                       device="meta")
+    specs = param_pspecs(cfg, meta, mesh, strategy="megatron")
+    placed = fill_placed(cfg, device_put(meta, named_shardings(specs, mesh)),
+                         seed=0)
+    state = adamw_init(placed)
+    del placed
+    for c in cards:
+        torch.cuda.synchronize(c)
+        torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(meta))
+    held = entry_bytes((state.params, state.mu, state.nu))
+    want = per_device_bytes((meta, meta, meta), (specs, specs, specs), mesh)
+    if not (held == want).all():
+        raise AssertionError(f"4p (b): bytes per card {held.tolist()}, "
+                             f"per_device_bytes {want}")
+    gen = np.random.default_rng(7)
+    batches = [{"tokens": torch.from_numpy(gen.integers(
+        0, cfg.vocab_size, (TP4_BATCH, TP4_SEQ)).astype(np.int32)).to(
+        cards[0])} for _ in range(TP4_STEPS + 1)]
+    step = build_train_step(cfg, AdamWConfig(**TRAIN_OPT), n_micro=TP4_MICRO,
+                            compute_dtype=torch.bfloat16, dp_axes=("data",),
+                            mesh=mesh)
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    losses, ms = [], []
+    for batch in batches[:TP4_STEPS]:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        for c in cards:
+            torch.cuda.synchronize(c)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    ln_v = math.log(cfg.vocab_size)
+    if not all(map(math.isfinite, losses)) or \
+            abs(losses[0] - ln_v) > TRAIN_LOSS_TOL:
+        raise AssertionError(f"4p (b): losses {losses} (ln V = {ln_v:.4f})")
+    peaks = [torch.cuda.max_memory_allocated(c) / 1e9 for c in cards]
+    by_card = busy_by_card(lambda: step(state, batches[-1]))
+    if not (entry_bytes((state.params, state.mu, state.nu)) == want).all():
+        raise AssertionError("4p (b): bytes per card changed by the steps")
+    out = {"ran": True, "cards": names, "params_g": n_params / 1e9,
+           "init_s": init_s, "entry_bytes": want, "losses": losses,
+           "ms": ms, "ms_p50": float(np.percentile(ms, 50)),
+           "peak_gb": peaks, "by_card": by_card}
+    log(f"4p (b) {PIECES_ARCH} at full width and depth trained in pieces "
+        f"over {PIECES_N} cards {names}: {out['params_g']:.3f} G params "
+        f"drawn piece by piece and AdamW state made in {init_s:.1f} s; "
+        f"params + mu + nu per card = per_device_bytes = {want} "
+        f"({want / 1e9:.2f} GB); bf16, {TP4_BATCH} x {TP4_SEQ} in "
+        f"{TP4_MICRO} microbatches: losses {losses} (ln V = {ln_v:.4f}); "
+        f"step p50 {out['ms_p50']:.1f} ms over {TP4_STEPS} steps "
+        f"{[round(x, 1) for x in ms]}; peak memory by card "
+        f"{[round(p, 2) for p in peaks]} GB; one more step by card "
+        f"(kernels, device ms, busy share) "
+        f"{[(r['kernels'], round(r['device_ms'], 1), round(r['busy_share'], 3)) for r in by_card['cards'].values()]}"
+        f" over {by_card['wall_ms']:.1f} ms")
+    del state, batches, step
+    for c in cards:
+        torch.cuda.synchronize(c)
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_b
+    return out
+
+
+def train_pieces(dev, card):
+    """Phase 4p: (a) on entries of the card, the f32 checks and the bf16
+    timing; (b) over four distinct cards where four are visible."""
+    res = {"checks": {}}
+    counts = {}
+    t0 = time.perf_counter()
+    for arch, shapes in TP_CHECKS.items():
+        for shape in shapes:
+            r = train_pieces_check(arch, shape, dev, card)
+            res["checks"][f"{arch} {shape}"] = r
+            for k, c in enumerate(r["launches"]):
+                counts[f"train_pieces_{arch}_{shape[0]}x{shape[1]}_{k}"] = c
+    res["bf16"] = train_pieces_timing(dev, card)
+    res["a_s"] = time.perf_counter() - t0
+    res["distinct"] = train_pieces_distinct(card)
+    return res, counts
+
+
 # ---------------------------------------------------------------- phase 4n
 
 
@@ -4933,6 +5385,15 @@ def main(argv) -> int:
     log(f"phase 4o took {pieces['phase_s']:.1f} s ((a) {pieces['a_s']:.1f} "
         f"s)")
 
+    phase(f"4p training on weights in pieces ({', '.join(TP_CHECKS)}; "
+          f"param_pspecs megatron, the train cell's state)")
+    t0 = time.perf_counter()
+    train_pieces_res, counts = train_pieces(dev, card)
+    paths.update(counts)
+    train_pieces_res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 4p took {train_pieces_res['phase_s']:.1f} s ((a) "
+        f"{train_pieces_res['a_s']:.1f} s)")
+
     phase("4n entry points (tools/torch_*, examples/torch_*), the "
           "roofline of whole steps, the dry run")
     t0 = time.perf_counter()
@@ -5084,7 +5545,7 @@ def main(argv) -> int:
             "certifier_preview_pipeline": deploy_res,
             "decode_partials_shapes": res_fd, "segagg_shapes": seg_shapes,
             "decode_partials_32k": res_fd32, "mesh": mesh_res,
-            "param_pieces": pieces,
+            "param_pieces": pieces, "train_pieces": train_pieces_res,
             "entry_points_rooflines": entry,
             "load_s": t_load, "ingest_s": t_ingest}, indent=1))
     print(json.dumps({"kernels": kernels}))

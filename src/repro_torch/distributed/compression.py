@@ -14,6 +14,13 @@ at one path of the model's layer list are one stacked tensor there
 (``fault.tree_stacks``), so they share one int8 scale and one top-k
 threshold; a leaf that is 0-d in the reference passes through.  Both
 return (grads, err) trees for ``train.optimizer.adamw_update``.
+
+Neither runs on a placed state (``Placed`` leaves, weights in pieces):
+a per-tensor scale or threshold would have to be agreed over the pieces
+of every leaf, and the reference's placed train cell
+(``launch/dryrun.py``) passes no compressor.  ``refuse_placed`` raises
+``ValueError`` there; ``adamw_init`` and ``adamw_update`` call it before
+they build or change anything.
 """
 
 from __future__ import annotations
@@ -23,8 +30,20 @@ from typing import Callable, List
 import torch
 
 from .fault import tree_flatten, tree_stacks, tree_unflatten
+from .sharding import Placed
 
-__all__ = ["int8_compress", "topk_compress", "compression_ratio"]
+__all__ = ["int8_compress", "topk_compress", "compression_ratio",
+           "refuse_placed"]
+
+
+def refuse_placed(tree, what: str) -> None:
+    """Raise ``ValueError`` where ``tree`` holds ``Placed`` leaves:
+    gradient compression on a placed state is not ported."""
+    if any(isinstance(x, Placed) for x in tree_flatten(tree)[0]):
+        raise ValueError(
+            f"{what}: gradient compression on a placed state (Placed "
+            f"leaves, weights in pieces) is not supported; the "
+            f"reference's placed train cell passes no compressor")
 
 
 def _quant_dequant_int8(xs: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -44,6 +63,7 @@ def _top_fraction(xs: List[torch.Tensor], frac: float
 
 def _error_feedback(fn: Callable, grads, err):
     """g' = fn(g + err) per stacked tensor; err' = (g + err) - g'."""
+    refuse_placed((grads, err), "compression")
     g_leaves = tree_flatten(grads)[0]
     e_leaves = tree_flatten(err)[0]
     new_g, new_e = list(g_leaves), list(e_leaves)

@@ -35,7 +35,13 @@ zeros, so a tree larger than one card is never whole: the reference's
 ``axis_pieces`` reads a placed leaf's layout along one mesh axis (the
 dimension the axis splits, and the pieces along it in entry order) and
 ``axis_mesh`` the entries along that axis: what
-``models.tensor_parallel`` computes on.
+``models.tensor_parallel`` computes on.  A train step on a placed state
+walks a leaf's distinct ``blocks`` once (the replicas of a block are
+equal, and its gradient is one sum over them), updates its pieces entry
+by entry (``map_pieces``) and runs data block ``j`` on row ``j`` of the
+mesh (``mesh_rows``, ``take_row``).  ``gather`` is differentiable: a
+piece that requires grad gets the gradient of the part of the whole
+leaf that it filled.
 
 Feature-store sharding (paper §5 / §7.2 tablet partitioning): the online
 store is *key*-partitioned, so window folds never cross shards.
@@ -53,6 +59,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -68,7 +75,8 @@ __all__ = ["Mesh", "PartitionSpec", "NamedSharding", "auto_pspec",
            "gather_stacked", "canonical_device", "cuda_devices",
            "shard_shape", "per_device_bytes", "shard_slices", "Placed",
            "device_put", "gather", "entry_bytes", "axis_pieces",
-           "axis_mesh"]
+           "axis_mesh", "blocks", "map_pieces", "is_placed", "mesh_rows",
+           "take_row", "same_mesh", "home"]
 
 
 class PartitionSpec(tuple):
@@ -509,16 +517,22 @@ class Placed:
                 f"pieces {self.pieces.shape})")
 
 
+def same_mesh(a: Mesh, b: Mesh) -> bool:
+    """Whether two meshes have the same axes and the same device at every
+    entry."""
+    return a is b or (a.axis_names == b.axis_names
+                      and a.devices.shape == b.devices.shape
+                      and all(canonical_device(d) == canonical_device(e)
+                              for d, e in zip(a.devices.flat,
+                                              b.devices.flat)))
+
+
 def _same_layout(x: Placed, sharding: NamedSharding) -> bool:
     """Whether ``x``'s pieces are the ones ``sharding`` places: the same
     mesh entries, each holding the same block (specs that differ only
     in axes of size 1 place alike)."""
     a, b = x.mesh, sharding.mesh
-    if a is not b and (a.axis_names != b.axis_names
-                       or a.devices.shape != b.devices.shape
-                       or any(canonical_device(d) != canonical_device(e)
-                              for d, e in zip(a.devices.flat,
-                                              b.devices.flat))):
+    if not same_mesh(a, b):
         return False
     return x.spec == sharding.spec or all(
         shard_slices(x.shape, x.spec, a, i)
@@ -548,14 +562,14 @@ def _place(x, sharding: NamedSharding) -> Placed:
 
 
 def _whole(x: Placed, device) -> torch.Tensor:
+    """The whole leaf on ``device``, each block copied from its first
+    entry (a replica's block once).  The copies are recorded by autograd
+    where a piece requires grad, so that piece gets the gradient of its
+    block; the block's other replicas get none."""
     out = torch.empty(x.shape, dtype=x.dtype, device=device)
-    done = set()
-    for i in np.ndindex(x.pieces.shape):
-        sl = shard_slices(x.shape, x.spec, x.mesh, i)
-        key = tuple(s.start for s in sl)
-        if key not in done:                  # a replica's block once
-            done.add(key)
-            out[sl].copy_(x.pieces[i])
+    for entries in blocks(x):
+        out[shard_slices(x.shape, x.spec, x.mesh, entries[0])].copy_(
+            x.pieces[entries[0]])
     return out
 
 
@@ -654,3 +668,91 @@ def _along(x: Placed, axis: str) -> List[torch.Tensor]:
         index[ax] = k
         out.append(x.pieces[tuple(index)])
     return out
+
+
+@functools.lru_cache(maxsize=4096)
+def _blocks(shape, spec: PartitionSpec, mesh: Mesh
+            ) -> Tuple[Tuple[Tuple[int, ...], ...], ...]:
+    groups: Dict[Tuple[int, ...], List[Tuple[int, ...]]] = {}
+    for i in np.ndindex(mesh.devices.shape):
+        key = tuple(s.start for s in shard_slices(shape, spec, mesh, i))
+        groups.setdefault(key, []).append(i)
+    return tuple(tuple(g) for g in groups.values())
+
+
+def blocks(x: Placed) -> Tuple[Tuple[Tuple[int, ...], ...], ...]:
+    """A placed leaf's distinct blocks, each as the mesh entries that hold
+    it (its replicas, equal pieces) in entry order; the blocks in the
+    order of their first entries.  A leaf split along every mesh axis of
+    size > 1 has one entry per block; a replicated one, one block."""
+    return _blocks(tuple(x.shape), x.spec, x.mesh)
+
+
+def home(x) -> torch.device:
+    """The device a leaf's consumer computes on: mesh entry 0's device of
+    a ``Placed``, a tensor's own."""
+    return x.pieces.flat[0].device if isinstance(x, Placed) else x.device
+
+
+def map_pieces(fn, x: Placed, *more: Placed, shape=None) -> Placed:
+    """A ``Placed`` on ``x``'s mesh and spec whose piece at each entry is
+    ``fn`` of the pieces of ``x`` (and of ``more``, placed alike) at that
+    entry, entry by entry: each on its own card.  Its global shape is
+    ``x``'s, or ``shape``; its dtype that of ``fn``'s results."""
+    arr = np.empty(x.pieces.shape, dtype=object)
+    for i in np.ndindex(arr.shape):
+        arr[i] = fn(x.pieces[i], *(m.pieces[i] for m in more))
+    return Placed(x.sharding, x.shape if shape is None else shape,
+                  arr.flat[0].dtype, arr)
+
+
+def is_placed(tree) -> bool:
+    """Whether ``tree`` holds ``Placed`` leaves: all of them (True) or none
+    (False); a tree that mixes the two raises ``ValueError``."""
+    kinds = {isinstance(x, Placed) for x in tree_flatten(tree)[0]}
+    if len(kinds) > 1:
+        raise ValueError("a tree with some leaves placed (device_put) and "
+                         "some not: place all of them or none")
+    return kinds == {True}
+
+
+def mesh_rows(mesh: Mesh, axes: Sequence[str] = ()
+              ) -> List[Tuple[Tuple[slice, ...], Mesh]]:
+    """The rows of ``mesh`` along the mesh axes ``axes`` (the data axes of
+    a train step): row ``j`` is the sub-mesh at index ``j`` of those axes
+    (flattened, the first named axis major, as ``P(None, axes)`` splits
+    a batch), every other axis whole; as ``(index into mesh.devices,
+    sub-mesh)`` pairs keeping every axis name, the row's ``axes`` at size
+    1.  One row, the mesh itself, where those axes have one entry (or
+    ``axes`` is empty)."""
+    missing = [a for a in axes if a not in mesh.shape]
+    if missing:
+        raise ValueError(f"mesh {dict(mesh.shape)} has no axes {missing}")
+    sizes = [mesh.shape[a] for a in axes]
+    n = int(np.prod(sizes))
+    if n == 1:
+        return [(tuple(slice(None) for _ in mesh.axis_names), mesh)]
+    out = []
+    for j in range(n):
+        coord = dict(zip(axes, np.unravel_index(j, sizes)))
+        index = tuple(slice(int(coord[a]), int(coord[a]) + 1)
+                      if a in coord else slice(None)
+                      for a in mesh.axis_names)
+        out.append((index, Mesh(mesh.devices[index], mesh.axis_names)))
+    return out
+
+
+def take_row(x: Placed, index: Tuple[slice, ...], row: Mesh
+             ) -> Optional[Placed]:
+    """``x`` as placed on one row of its mesh (``mesh_rows``): the pieces
+    of the row's entries, the same spec on the row's sub-mesh.  None
+    where the spec splits ``x`` along an axis that the row cuts (no row
+    then holds whole blocks: the leaf is read whole, ``gather``)."""
+    if row is x.mesh:
+        return x
+    mesh_shape = _mesh_shape(x.mesh)
+    cut = {a for a, n in _mesh_shape(row).items() if n < mesh_shape[a]}
+    if any(a in cut for entry in x.spec for a in _axes(entry)):
+        return None
+    return Placed(NamedSharding(row, x.spec), x.shape, x.dtype,
+                  x.pieces[index])

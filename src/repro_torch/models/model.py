@@ -35,7 +35,9 @@ rematerialisation (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint``).
 
 Params placed by ``device_put(params, named_shardings(param_pspecs(...),
-mesh))`` serve as they are (``forward_prefill``, ``decode_step``): the
+mesh))`` serve and train as they are (``forward_prefill``,
+``decode_step``, ``forward_train``; ``train.steps`` differentiates each
+piece on its card): the
 activations live on the home card (mesh entry 0's device), the
 embedding and the logits take the vocab-parallel route, a GQA layer's
 heads, a SwiGLU MLP and MoE experts run on the cards that hold their
@@ -446,7 +448,7 @@ def _pad_seq(x: torch.Tensor, cap: int) -> torch.Tensor:
     contribution in pieces piece by piece)."""
     if isinstance(x, Placed):
         return tp.map_pieces(lambda t: _pad_seq(t, cap), x,
-                             (x.shape[0], cap) + tuple(x.shape[2:]))
+                             shape=(x.shape[0], cap) + tuple(x.shape[2:]))
     s = x.shape[1]
     if s >= cap:
         return x[:, :cap].contiguous()
@@ -505,7 +507,10 @@ def forward_train(cfg: ArchConfig, params: Params, batch,
     reentrant), so the backward recomputes one layer at a time: on the
     hybrid family the scan's forward runs twice per layer and its
     backward once.  The audio encoder runs without remat, as in the
-    reference."""
+    reference.  Params in pieces take the routes of ``_layer_fwd`` and
+    the vocab-parallel embedding and logits; the loss is taken on the
+    tokens' card, and a leaf gathered for a layer (``_pieces_or_whole``)
+    is gathered again when the backward recomputes that layer."""
     x, label_mask = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     enc_out = _encode(cfg, params, batch)

@@ -27,6 +27,16 @@ so the splits are explicit here, each on the pieces that
   that reads it and freed after it, the ZeRO-3 way.  It costs memory, not
   bits.
 
+The backward of every split is fixed as its forward is: ``spread``'s
+gradient is the cards' gradients summed on the home card in entry order
+in float32 (autograd alone would add them in the order its per-device
+threads deliver them), ``row_sum``'s hands each card its copy of the
+output gradient, and the vocab-parallel embedding's and logits' land on
+the cards that hold the pieces (autograd's, through the cross-card
+copies).  A train step (``train.steps.loss_and_grads``) differentiates
+each piece where it lives; ``whole``'s gather carries the gradient back
+to the pieces it read.  No float atomics, no collective library.
+
 The home card is the one the activations live on: mesh entry 0's device
 (``home``).  Entries that name one device more than once run every piece
 on that device, which is how the CPU tests and a one-card host exercise
@@ -44,7 +54,8 @@ import torch.nn.functional as F
 from ..distributed.fault import tree_flatten, tree_unflatten
 from ..distributed.sharding import (Mesh, NamedSharding, PartitionSpec,
                                     Placed, axis_mesh, axis_pieces,
-                                    canonical_device, gather)
+                                    canonical_device, gather, home,
+                                    map_pieces)
 
 __all__ = ["AXIS", "HEAD_SPEC", "home", "tree_home", "split", "spread",
            "row_sum", "embedding", "logits", "whole", "whole_tree", "on",
@@ -54,12 +65,6 @@ AXIS = "model"
 # a (B, S, Hkv, D) KV cache split by KV head: card k holds heads
 # [k Hkv/n, (k + 1) Hkv/n), the head group its attention computes
 HEAD_SPEC = PartitionSpec(None, None, AXIS, None)
-
-
-def home(x) -> torch.device:
-    """The device a leaf's consumer computes on: mesh entry 0's device of
-    a ``Placed``, a tensor's own."""
-    return x.pieces.flat[0].device if isinstance(x, Placed) else x.device
 
 
 def tree_home(tree) -> Optional[torch.device]:
@@ -97,26 +102,73 @@ def split(leaves: Sequence, dims: Sequence[int]
     return out
 
 
+class _Spread(torch.autograd.Function):
+    """``spread`` with its backward pinned: the cards' gradients summed on
+    x's card in entry order ``0 .. n-1``, in float32, cast once (the
+    mirror of ``row_sum``'s forward).  Autograd's own sum of the copies'
+    gradients runs one thread per device and adds them as they arrive,
+    in an order that varies from run to run."""
+
+    @staticmethod
+    def forward(ctx, x, devices):
+        ctx.home, ctx.dtype = x.device, x.dtype
+        copies: Dict[torch.device, torch.Tensor] = {}
+        out = []
+        for d in devices:
+            key = canonical_device(d)
+            if key in copies:
+                out.append(copies[key].view_as(x))
+            else:
+                copies[key] = x.to(d)
+                out.append(copies[key])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        acc = grads[0].to(ctx.home, torch.float32)
+        for g in grads[1:]:
+            acc = acc + g.to(ctx.home, torch.float32)
+        return acc.to(ctx.dtype), None
+
+
 def spread(x: torch.Tensor, devices: Sequence[torch.device]
            ) -> List[torch.Tensor]:
-    """``x`` on each of ``devices``, copied once per distinct device."""
-    copies: Dict[torch.device, torch.Tensor] = {}
-    out = []
-    for d in devices:
-        key = canonical_device(d)
-        if key not in copies:
-            copies[key] = x.to(d)
-        out.append(copies[key])
-    return out
+    """``x`` on each of ``devices``, copied once per distinct device; its
+    gradient is the copies' summed on x's card in entry order, in
+    float32 (``_Spread``)."""
+    return list(_Spread.apply(x, tuple(devices)))
+
+
+class _RowSum(torch.autograd.Function):
+    """``row_sum``: the forward's fixed-order float32 sum; the backward
+    hands each card its copy of the output gradient (one copy per
+    distinct card), in its part's dtype."""
+
+    @staticmethod
+    def forward(ctx, dev, dtype, *parts):
+        ctx.where = [(p.device, p.dtype) for p in parts]
+        acc = parts[0].to(dev, torch.float32)
+        for p in parts[1:]:
+            acc = acc + p.to(dev, torch.float32)
+        return acc.to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        copies: Dict[tuple, torch.Tensor] = {}
+        out = []
+        for dev, dtype in ctx.where:
+            key = (canonical_device(dev), dtype)
+            if key not in copies:
+                copies[key] = g.to(dev, dtype)
+            out.append(copies[key])
+        return (None, None, *out)
 
 
 def row_sum(parts: Sequence[torch.Tensor], dev, dtype) -> torch.Tensor:
     """Row-parallel reduction: the partial products summed on ``dev`` in
-    entry order, in float32, cast to ``dtype`` once."""
-    acc = parts[0].to(dev, torch.float32)
-    for p in parts[1:]:
-        acc = acc + p.to(dev, torch.float32)
-    return acc.to(dtype)
+    entry order, in float32, cast to ``dtype`` once; its backward gives
+    each part the output gradient on the part's card (``_RowSum``)."""
+    return _RowSum.apply(dev, dtype, *parts)
 
 
 def whole(x, dev) -> torch.Tensor:
@@ -194,15 +246,6 @@ def placed_along(mesh: Mesh, spec: PartitionSpec, shape, dtype,
         index[ax] = k
         arr[tuple(index)] = t
     return Placed(NamedSharding(mesh, spec), shape, dtype, arr)
-
-
-def map_pieces(fn, x: Placed, shape) -> Placed:
-    """A ``Placed`` of global ``shape`` on ``x``'s mesh and spec whose
-    pieces are ``fn`` of ``x``'s, entry by entry."""
-    arr = np.empty(x.pieces.shape, dtype=object)
-    for i in np.ndindex(arr.shape):
-        arr[i] = fn(x.pieces[i])
-    return Placed(x.sharding, shape, x.dtype, arr)
 
 
 def head_mesh(cfg, attn) -> Optional[Mesh]:

@@ -16,20 +16,34 @@ leaf of the layer list counts one dimension more for the decay rule
 moments into the state's tensors (JAX's are immutable and its step
 donates them; updating in place keeps one copy of the state on the
 card) and returns a state holding them.
+
+A state placed by ``distributed.sharding.device_put`` (the reference's
+train cell: params, ``mu`` and ``nu`` by ``param_pspecs``, ZeRO-3; step
+and residuals ``P()``), or built by ``adamw_init`` from placed params,
+holds ``Placed`` leaves.  Every piece is updated on its own card, the
+clip scale and the learning rate copied to each card once; the global
+norm counts each distinct block of a leaf once (its replicas are equal)
+and sums the entries' partial squares on the home card (mesh entry 0's
+device) in entry order.  Replicas, given one gradient, stay bitwise
+equal.  Compression is refused there (``distributed.compression``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from ..distributed.compression import refuse_placed
 from ..distributed.fault import tree_flatten, tree_map, tree_stacks
+from ..distributed.sharding import (Placed, blocks, canonical_device, home,
+                                    is_placed, map_pieces)
 
 __all__ = ["TrainState", "AdamWConfig", "adamw_init", "adamw_update",
-           "global_norm"]
+           "global_norm", "step_count"]
 
 F32 = torch.float32
 
@@ -54,27 +68,44 @@ class AdamWConfig:
     total_steps: int = 10_000
 
 
+def _each(fn, x):
+    """``fn`` of a tensor, or of every piece of a ``Placed`` on its card."""
+    return map_pieces(fn, x) if isinstance(x, Placed) else fn(x)
+
+
 def adamw_init(params, with_compression: bool = False) -> TrainState:
     """A fresh state on the params' device (the card, for params made by
     ``models.init_params`` without ``device="cpu"``): an f32 copy of the
     params, zero moments, and a zero residual per leaf (full-shape with
-    compression, 0-d without)."""
+    compression, 0-d without).  Params in pieces (``Placed``) give
+    params, ``mu`` and ``nu`` placed like them, each piece made on its
+    card, and the step and the 0-d residuals on the home card (mesh
+    entry 0's device); compression is refused there."""
     leaves = tree_flatten(params)[0]
-    device = leaves[0].device
+    if with_compression:
+        refuse_placed(params, "adamw_init(with_compression=True)")
+    device = home(leaves[0])
 
     def zeros(p):
         return torch.zeros(p.shape, dtype=F32, device=p.device)
 
     def scalar(p):
-        return torch.zeros((), dtype=F32, device=p.device)
+        return torch.zeros((), dtype=F32, device=home(p))
 
     return TrainState(
         step=torch.zeros((), dtype=torch.int32, device=device),
-        params=tree_map(lambda p: p.detach().to(F32).clone(), params),
-        mu=tree_map(zeros, params),
-        nu=tree_map(zeros, params),
-        compress_err=tree_map(zeros if with_compression else scalar,
-                              params))
+        params=tree_map(lambda x: _each(
+            lambda p: p.detach().to(F32).clone(), x), params),
+        mu=tree_map(lambda x: _each(zeros, x), params),
+        nu=tree_map(lambda x: _each(zeros, x), params),
+        compress_err=tree_map(lambda x: _each(zeros, x) if with_compression
+                              else scalar(x), params))
+
+
+def step_count(step) -> torch.Tensor:
+    """The step counter as a tensor on the home card (a ``Placed`` 0-d
+    step, as ``device_put`` of a state places it, read at entry 0)."""
+    return step.pieces.flat[0] if isinstance(step, Placed) else step
 
 
 def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -87,8 +118,26 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(F32)))
-                          for leaf in tree_flatten(tree)[0]))
+    """sqrt of the sum of every leaf's squares, in float32.  On a placed
+    tree each distinct block counts once: every entry sums the squares
+    of the blocks it holds first (``sharding.blocks``) on its card, and
+    the home card adds those partial sums in entry order."""
+    leaves = tree_flatten(tree)[0]
+    if not is_placed(tree):
+        return torch.sqrt(sum(torch.sum(torch.square(leaf.to(F32)))
+                              for leaf in leaves))
+    parts: Dict[tuple, torch.Tensor] = {}
+    for x in leaves:
+        for entries in blocks(x):
+            e = entries[0]
+            sq = torch.sum(torch.square(x.pieces[e].to(F32)))
+            parts[e] = sq if e not in parts else parts[e] + sq
+    dev = home(leaves[0])
+    total = None
+    for e in sorted(parts):
+        t = parts[e].to(dev)
+        total = t if total is None else total + t
+    return torch.sqrt(total)
 
 
 def adamw_update(state: TrainState, grads, cfg: AdamWConfig,
@@ -96,8 +145,17 @@ def adamw_update(state: TrainState, grads, cfg: AdamWConfig,
     """One AdamW step from ``grads`` (a tree like the params, any float
     dtype): clip by the global norm, compress (``compress(grads, err) ->
     (grads, err)``) if asked, update.  The state's params and moments are
-    written in place; ``grads`` is left as it was."""
-    step = state.step + 1
+    written in place; ``grads`` is left as it was.
+
+    A placed state takes placed gradients (``Placed`` like its params,
+    ``train.steps.loss_and_grads``): each entry's piece is updated on its
+    card from that entry's gradient piece, with the step's scalars (the
+    learning rate, the bias corrections and the clip scale, made on the
+    home card) copied to each card once.  A placed step counter is
+    advanced in place on every entry."""
+    if compress is not None:
+        refuse_placed(state.params, "adamw_update(compress=...)")
+    step = step_count(state.step) + 1
     t = step.to(F32)
     lr = _schedule(cfg, t)
 
@@ -113,14 +171,19 @@ def adamw_update(state: TrainState, grads, cfg: AdamWConfig,
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - b1 ** t
     bc2 = 1 - b2 ** t
-    params = tree_flatten(state.params)[0]
-    rank = [0] * len(params)
-    for idx, stacked in tree_stacks(state.params):
-        for i in idx:
-            rank[i] = params[i].dim() + stacked
-    for p, g, m, v, r in zip(params, tree_flatten(grads)[0],
-                             tree_flatten(state.mu)[0],
-                             tree_flatten(state.nu)[0], rank):
+    first = canonical_device(t.device)
+    scalars = {first: (lr, bc1, bc2, scale)}
+
+    def on(dev):
+        """The step's scalars on ``dev``, copied there once."""
+        key = canonical_device(dev)
+        if key not in scalars:
+            scalars[key] = tuple(None if x is None else x.to(dev)
+                                 for x in scalars[first])
+        return scalars[key]
+
+    def update(p, g, m, v, r):
+        lr, bc1, bc2, scale = on(p.device)
         g = g.to(F32) * scale if scale is not None else g
         m_new = b1 * m + (1 - b1) * g
         v_new = b2 * v + (1 - b2) * torch.square(g)
@@ -131,5 +194,25 @@ def adamw_update(state: TrainState, grads, cfg: AdamWConfig,
         p.copy_(p_new)
         m.copy_(m_new)
         v.copy_(v_new)
-    return TrainState(step=step, params=state.params, mu=state.mu,
+
+    params = tree_flatten(state.params)[0]
+    rank = [0] * len(params)
+    for idx, stacked in tree_stacks(state.params):
+        for i in idx:
+            rank[i] = len(params[i].shape) + stacked
+    for p, g, m, v, r in zip(params, tree_flatten(grads)[0],
+                             tree_flatten(state.mu)[0],
+                             tree_flatten(state.nu)[0], rank):
+        if not isinstance(p, Placed):
+            update(p, g, m, v, r)
+            continue
+        for i in np.ndindex(p.pieces.shape):
+            update(p.pieces[i], g.pieces[i], m.pieces[i], v.pieces[i], r)
+    new_step = step
+    if isinstance(state.step, Placed):
+        for i in np.ndindex(state.step.pieces.shape):
+            piece = state.step.pieces[i]
+            piece.copy_(step.to(piece.device))
+        new_step = state.step
+    return TrainState(step=new_step, params=state.params, mu=state.mu,
                       nu=state.nu, compress_err=new_err)

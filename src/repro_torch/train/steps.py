@@ -20,7 +20,21 @@ serving steps, as in the JAX package's ``repro/train/steps.py``.
     entry's device with a copy of the cast params placed there once per
     step, the blocks' losses and gradients brought back to the state's
     device and averaged in data order.  Accumulation, clipping,
-    compression and AdamW stay on the state's device.
+    compression and AdamW stay on the state's device;
+  * on a state placed by ``distributed.sharding.device_put`` (the
+    reference's train cell: params, ``mu`` and ``nu`` by
+    ``param_pspecs``, ZeRO-3), weights in pieces: each piece is cast to
+    the compute dtype on its own card once per step, the forward and
+    backward read the pieces where they lie (``models.tensor_parallel``:
+    the vocab-parallel embedding and logits, GQA head groups, SwiGLU and
+    expert pieces on their cards, any other layout gathered for its
+    layer and recomputed with it), each piece's gradient is summed over
+    the microbatches in f32 on its card, and a block's gradient is the
+    sum of its replicas' in entry order.  With ``dp_axes`` data block
+    ``j`` runs on the pieces of row ``j`` of the mesh (a leaf that the
+    data axes split is gathered whole for it).  AdamW updates every
+    piece on its card (``train.optimizer``), so the step returns the
+    same ``Placed`` leaves, updated in place.
 """
 
 from __future__ import annotations
@@ -32,10 +46,13 @@ import torch
 
 from ..configs.base import ArchConfig, ShapeSpec
 from ..distributed.fault import tree_flatten, tree_unflatten
-from ..distributed.sharding import canonical_device
+from ..distributed.sharding import (Placed, blocks, canonical_device,
+                                    is_placed, map_pieces, mesh_rows,
+                                    same_mesh, take_row)
 from ..models import (decode_step, forward_prefill, forward_train,
                       model_input_spec)
-from .optimizer import AdamWConfig, TrainState, adamw_update, global_norm
+from .optimizer import (AdamWConfig, TrainState, adamw_update, global_norm,
+                        step_count)
 
 __all__ = ["build_train_step", "build_prefill_step", "build_decode_step",
            "train_batch_spec", "default_n_micro", "loss_and_grads",
@@ -60,22 +77,16 @@ def default_n_micro(cfg: ArchConfig, shape: ShapeSpec) -> int:
 def dp_devices(mesh, dp_axes: Sequence[str]) -> list:
     """The device of every data block of ``P(None, dp_axes)``: the mesh's
     entries along ``dp_axes`` (the first axis major, as a spec names
-    them), at index 0 of its other axes."""
-    missing = [a for a in dp_axes if a not in mesh.shape]
-    if missing:
-        raise ValueError(f"mesh {dict(mesh.shape)} has no axes {missing}")
-    names = mesh.axis_names
-    other = [a for a in names if a not in dp_axes]
-    devs = np.transpose(mesh.devices, [names.index(a) for a in dp_axes]
-                        + [names.index(a) for a in other])
-    return list(devs.reshape(int(np.prod([mesh.shape[a] for a in dp_axes])),
-                             -1)[:, 0])
+    them), at index 0 of its other axes (the first entry of each of
+    ``sharding.mesh_rows``)."""
+    return [row.devices.flat[0] for _, row in mesh_rows(mesh, dp_axes)]
 
 
 def loss_and_grads(cfg: ArchConfig, params, batch, n_micro: int = 1,
                    compute_dtype=torch.bfloat16,
                    use_kernel: Optional[bool] = None,
-                   devices: Optional[Sequence[torch.device]] = None):
+                   devices: Optional[Sequence[torch.device]] = None,
+                   dp_axes: Optional[Sequence[str]] = None):
     """(loss, grads) of one global batch without an update (the train
     step's first half; ``use_kernel=False`` runs the plain versions).
 
@@ -98,7 +109,22 @@ def loss_and_grads(cfg: ArchConfig, params, batch, n_micro: int = 1,
     prefix on every row), so the mean of the equal blocks' mean losses is
     the microbatch's, and so are the gradients.  MoE layers are refused:
     ``moe_capacity`` would count a block's tokens, not the
-    microbatch's."""
+    microbatch's.
+
+    Params in pieces (every leaf ``Placed``): ``_placed_loss_and_grads``,
+    the gradients ``Placed`` like the params, in f32; ``dp_axes`` (not
+    ``devices``) names the mesh axes whose rows take the data blocks."""
+    if is_placed(params):
+        if devices is not None:
+            raise ValueError("params in pieces run their data blocks on "
+                             "the rows of their own mesh: pass dp_axes, "
+                             "not devices")
+        return _placed_loss_and_grads(cfg, params, batch, n_micro,
+                                      compute_dtype, use_kernel,
+                                      tuple(dp_axes or ()))
+    if dp_axes:
+        raise ValueError("dp_axes reads the mesh of params in pieces; "
+                         "whole params take devices (dp_devices)")
     leaves = tree_flatten(params)[0]
     cast = [p.detach().to(compute_dtype).requires_grad_() for p in leaves]
     params_c = tree_unflatten(params, cast)
@@ -182,6 +208,113 @@ def _dp_loss_and_grads(cfg, params, cast, batch, n_micro, use_kernel,
     return loss_acc / (n_micro * n_dp), tree_unflatten(params, acc)
 
 
+def _placed_loss_and_grads(cfg, params, batch, n_micro, compute_dtype,
+                           use_kernel, dp_axes):
+    """``loss_and_grads`` on params in pieces.
+
+    Every piece is cast to ``compute_dtype`` on its card (once) and is an
+    input of the backward.  The microbatch's rows split into one block
+    per row of the mesh along ``dp_axes`` (``sharding.mesh_rows``; one
+    block, the whole mesh, without them); block j's forward and backward
+    read row j's pieces (``take_row``; a leaf that the data axes split is
+    read whole, gathered from its pieces) with the activations on the
+    row's first entry's device.  Each piece's gradient is summed in f32
+    on its card over the microbatches; then each block of a leaf
+    (``sharding.blocks``) sums its replicas' gradients in entry order
+    (data order) on its first entry's card, divides by the number of
+    blocks run, and hands every replica its copy.  The losses come back
+    to mesh entry 0's device and are averaged in data order.
+
+    The backward runs on the calling thread
+    (``torch.autograd.set_multithreading_enabled(False)``): a layer's
+    work spans cards, and the autograd engine's per-device threads could
+    otherwise each start ``torch.utils.checkpoint``'s recompute of one
+    layer at once (its non-reentrant recompute takes no lock, and the
+    count of recomputed tensors overruns).  One thread also fixes the
+    order in which every gradient is accumulated."""
+    leaves = tree_flatten(params)[0]
+    mesh = leaves[0].mesh
+    if any(x.mesh is not mesh for x in leaves):
+        raise ValueError("params in pieces on more than one mesh")
+    rows = mesh_rows(mesh, dp_axes)
+    n_dp = len(rows)
+    _refuse_moe(cfg, n_dp)
+    mb = _micro_rows(batch, n_micro)
+    if mb % n_dp:
+        raise ValueError(f"a microbatch of {mb} rows does not split into "
+                         f"{n_dp} data blocks")
+    bl = mb // n_dp
+    cast = [map_pieces(lambda t: t.detach().to(compute_dtype)
+                       .requires_grad_(), x) for x in leaves]
+    entry = np.empty(mesh.devices.shape, dtype=object)
+    for e in np.ndindex(entry.shape):
+        entry[e] = e
+    # per row: the tree its block reads, the (leaf, entry) pieces that
+    # take its gradients, and the device of its activations
+    views = []
+    for index, row in rows:
+        tree, inputs = [], []
+        for li, x in enumerate(cast):
+            v = take_row(x, index, row)
+            tree.append(x if v is None else v)
+            inputs += [(li, e) for e in
+                       (entry if v is None else entry[index]).flat]
+        views.append((tree_unflatten(params, tree), inputs,
+                      row.devices.flat[0]))
+    home = mesh.devices.flat[0]
+    acc: Dict[tuple, torch.Tensor] = {}
+    loss_acc = torch.zeros((), dtype=torch.float32, device=home)
+    with torch.enable_grad(), torch.autograd.set_multithreading_enabled(
+            False):
+        for i in range(n_micro):
+            for j, (tree, inputs, dev) in enumerate(views):
+                lo = i * mb + j * bl
+                block = {k: v[lo:lo + bl].to(dev) for k, v in batch.items()}
+                loss, _ = forward_train(cfg, tree, block,
+                                        use_kernel=use_kernel)
+                grads = torch.autograd.grad(
+                    loss, [cast[li].pieces[e] for li, e in inputs],
+                    materialize_grads=True)
+                for key, g in zip(inputs, grads):
+                    g = g.to(torch.float32)
+                    if key in acc:
+                        acc[key].add_(g)
+                    else:
+                        acc[key] = g
+                loss_acc = loss_acc + loss.detach().to(home)
+    del views
+    return (loss_acc / (n_micro * n_dp),
+            tree_unflatten(params, [_block_grads(x, li, acc, n_micro * n_dp)
+                                    for li, x in enumerate(cast)]))
+
+
+def _block_grads(x: Placed, li: int, acc, div: int) -> Placed:
+    """Leaf ``li``'s gradient, placed like ``x``: per block, its entries'
+    f32 sums added in entry order on the block's first card, divided by
+    ``div``, one copy per card that holds the block."""
+    pieces = np.empty(x.pieces.shape, dtype=object)
+    for entries in blocks(x):
+        first = x.pieces[entries[0]]
+        total = None
+        for e in entries:
+            g = acc.pop((li, e), None)
+            if g is not None:
+                g = g.to(first.device)
+                total = g if total is None else total + g
+        if total is None:
+            total = torch.zeros(first.shape, dtype=torch.float32,
+                                device=first.device)
+        total = total / div
+        copies = {}
+        for e in entries:
+            dev = x.pieces[e].device
+            key = canonical_device(dev)
+            if key not in copies:
+                copies[key] = total.to(dev)
+            pieces[e] = copies[key]
+    return Placed(x.sharding, x.shape, torch.float32, pieces)
+
+
 def build_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
                      n_micro: int = 1, compress: Optional[Callable] = None,
                      compute_dtype=torch.bfloat16,
@@ -198,7 +331,16 @@ def build_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
     rows run in ``dp_devices(mesh, dp_axes)`` blocks (``loss_and_grads``'
     ``devices``; the gradients then come back f32 even with one
     microbatch).  An MoE config with more than one block raises
-    ``ValueError``."""
+    ``ValueError``.
+
+    A state in pieces (``device_put`` of a state placed by
+    ``param_pspecs``, or ``adamw_init`` of placed params) steps as it is
+    placed: ``mesh`` must be its params' mesh, whose rows along
+    ``dp_axes`` take the data blocks; compression is refused there
+    (``adamw_update``).
+    The returned state holds the same ``Placed`` leaves, updated in
+    place, and the metrics stay on the home card (mesh entry 0's
+    device)."""
     opt_cfg = opt_cfg or AdamWConfig()
     devices = None
     if dp_axes is not None:
@@ -208,12 +350,20 @@ def build_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
         _refuse_moe(cfg, len(devices))
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        loss, grads = loss_and_grads(cfg, state.params, batch, n_micro,
-                                     compute_dtype, devices=devices)
+        if is_placed(state.params):
+            placed_on = tree_flatten(state.params)[0][0].mesh
+            if mesh is not None and not same_mesh(mesh, placed_on):
+                raise ValueError(f"the step's mesh {mesh} is not the mesh "
+                                 f"of the state's pieces {placed_on}")
+            loss, grads = loss_and_grads(cfg, state.params, batch, n_micro,
+                                         compute_dtype, dp_axes=dp_axes)
+        else:
+            loss, grads = loss_and_grads(cfg, state.params, batch, n_micro,
+                                         compute_dtype, devices=devices)
         new_state = adamw_update(state, grads, opt_cfg, compress=compress)
         metrics = {"loss": loss.to(torch.float32),
                    "grad_norm": global_norm(grads),
-                   "step": new_state.step}
+                   "step": step_count(new_state.step).clone()}
         return new_state, metrics
 
     return train_step

@@ -1352,3 +1352,105 @@ def test_weights_in_pieces_on_four_cards(arch):
     if count < 4:
         pytest.skip(f"needs four visible CUDA devices, {count} visible")
     _pieces_on(arch, [torch.device("cuda", i) for i in range(4)])
+
+
+def _train_pieces_on(arch, cards):
+    """Reduced ``arch`` (8 heads, 4 KV heads, 2 layers) in float32: the
+    reference's train cell on a (1, 4) mesh over ``cards``
+    (``TrainState(step=P(), params=p_specs, mu=p_specs, nu=p_specs,
+    compress_err=P())``, ``param_pspecs(strategy="megatron")``, placed by
+    ``device_put``), one ``build_train_step(..., dp_axes=("data",),
+    mesh=...)`` step in two microbatches against the whole tree's step on
+    the home card: loss and grad norm at rtol 1e-4, params at
+    ``tests/test_torch_train.py``'s bars (``chip_smoke.py`` phase 4p
+    (a)'s); the gradients on the pieces' cards; the same step from
+    another copy of the state bitwise equal; hymba's SSM through the scan
+    kernels (2 forward and 1 backward launch per layer and
+    microbatch)."""
+    import dataclasses
+
+    from repro_torch.configs import reduced
+    from repro_torch.distributed.fault import tree_flatten, tree_map
+    from repro_torch.distributed.sharding import (Mesh, PartitionSpec,
+                                                  Placed, device_put, gather,
+                                                  named_shardings,
+                                                  param_pspecs)
+    from repro_torch.models import init_params
+    from repro_torch.train import (AdamWConfig, TrainState, adamw_init,
+                                   build_train_step)
+    from repro_torch.train.steps import loss_and_grads
+
+    home = cards[0]
+    cfg = dataclasses.replace(reduced(arch), n_heads=8, n_kv_heads=4,
+                              n_layers=2)
+    mesh = Mesh(np.array([cards], dtype=object), ("data", "model"))
+    opt = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (4, 40)).astype(np.int32)).to(home)
+    batch = {"tokens": tokens}
+
+    def fresh():
+        return adamw_init(init_params(
+            cfg, torch.Generator(device=home).manual_seed(0),
+            dtype=torch.float32, device=home))
+
+    whole = fresh()
+    p_specs = param_pspecs(cfg, whole.params, mesh, strategy="megatron")
+    specs = TrainState(step=PartitionSpec(), params=p_specs, mu=p_specs,
+                       nu=p_specs, compress_err=tree_map(
+                           lambda _: PartitionSpec(), whole.params))
+    shardings = named_shardings(specs, mesh)
+    placed = device_put(whole, shardings)
+    _, grads = loss_and_grads(cfg, placed.params, batch, 2, torch.float32,
+                              dp_axes=("data",))
+    for g, p in zip(tree_flatten(grads)[0],
+                    tree_flatten(placed.params)[0]):
+        assert [t.device for t in g.pieces.flat] == \
+            [t.device for t in p.pieces.flat]
+    del grads
+    step = build_train_step(cfg, opt, n_micro=2, compute_dtype=torch.float32,
+                            dp_axes=("data",), mesh=mesh)
+    dispatch.reset_launch_counts()
+    new, m = step(placed, batch)
+    torch.cuda.synchronize()
+    if cfg.ssm is not None:
+        assert dispatch.launch_counts() == {
+            "linear_scan": 2 * 2 * cfg.n_layers,
+            "linear_scan_bwd": 2 * cfg.n_layers}
+    twin, m2 = step(device_put(fresh(), shardings), batch)
+    assert torch.equal(m["loss"], m2["loss"])
+    for a, b in zip(tree_flatten(new.params)[0],
+                    tree_flatten(twin.params)[0]):
+        assert isinstance(a, Placed)
+        for i in np.ndindex(a.pieces.shape):
+            assert torch.equal(a.pieces[i], b.pieces[i])
+    one, om = build_train_step(cfg, opt, n_micro=2,
+                               compute_dtype=torch.float32)(whole, batch)
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(m[k]), float(om[k]), rtol=1e-4)
+    for g, w in zip(tree_flatten(new.params)[0],
+                    tree_flatten(one.params)[0]):
+        g, w = gather(g, "cpu").numpy(), w.cpu().numpy()
+        miss = ~np.isclose(g, w, rtol=1e-4, atol=1e-6)
+        if miss.any():
+            assert np.abs(g - w)[miss].max() <= 2 * opt.lr
+            assert miss.mean() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3-8b", "hymba-1.5b"])
+def test_train_on_pieces_on_entries_of_the_card(arch):
+    dev = require_cuda()
+    _train_pieces_on(arch, [torch.device("cuda", dev.index or 0)] * 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3-8b", "hymba-1.5b"])
+def test_train_on_pieces_on_four_cards(arch):
+    """Skipped where fewer than four cards are visible (``chip_smoke.py``
+    phase 4p (b) says the same)."""
+    require_cuda()
+    count = torch.cuda.device_count()
+    if count < 4:
+        pytest.skip(f"needs four visible CUDA devices, {count} visible")
+    _train_pieces_on(arch, [torch.device("cuda", i) for i in range(4)])

@@ -408,7 +408,7 @@ def _chip_smoke():
 def test_long_deployment_certificate():
     """``chip_smoke.py``'s long-window deployment, as the reference sees
     it: the planes it builds, and over the gate's thinned tables (every
-    300th row) a certificate with no C-BUF, C-PREAGG-EDGE or C-KEYCARD
+    ``GATE_STRIDE``-th row) a certificate with no C-BUF, C-PREAGG-EDGE or C-KEYCARD
     hit, whose bitwise columns under pre-agg are the ones the card's gate
     holds bitwise."""
     from repro.core.analysis.certificate import certify

@@ -18,6 +18,15 @@ rtol 1e-4 / atol 1e-6 by ~3e-6 — in the one-device step as in the DP
 step, against the reference — which is 0.39% of that leaf, above
 ``_close_params``' 0.1% cap: the cap counts a single Adam rounding
 flip in a small leaf as a miss, whichever route takes the step.  The
+leaf is ``layers[1]["ssm"]["w_b"]``, the element (59, 0), with one and
+with two microbatches, and the cause is summation order: its gradient
+is a sum that nearly cancels (port 2.4278e-07, reference 2.4381e-07,
+against a median |g| of 4.6e-4 over the leaf), and the 1.0e-9 between
+them is the float32 rounding that every element of the leaf carries
+(up to 2.8e-9 there); bracketing the port's scan as the reference's
+associative scan moves it by 3e-11 only.  After the clip (global norm
+2.516), Adam's first step lr g / (|g| + eps) at |g| ~ 10 eps turns it
+into 3.3e-6 of the param (lr eps dg / (|g| + eps)^2 = 3.5e-6).  The
 blocks are the batch's rows in order (none reordered); the data
 devices are the mesh's entries along the data axis; MoE under more
 than one block raises.
