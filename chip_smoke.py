@@ -275,6 +275,30 @@ Phases (each prints its own lines; any failure exits non-zero):
              ``per_device_bytes``), peak memory, launches and busy
              share, the step p50; one line saying (b) did not run
              elsewhere;
+   q. MoE trained over data blocks — each microbatch's blocks rank and
+             keep their (token, expert) pairs as the whole microbatch
+             does (its capacity, the earlier blocks' counts carried
+             block to block): (a) qwen2-moe-a2.7b in float32 at full
+             width and 2 layers, B = 4 x 128 in 2 microbatches, phase
+             4j's optimizer, with the router as drawn and with column 0
+             of each layer's router moved along the layer's mean input
+             (so that the capacity drops pairs): the whole tree's DP
+             step on a (2, 1) mesh of the card and the placed step on
+             (2, 2) entries of it against the one-device step (loss and
+             grad norm at rtol 1e-4, params / mu / nu at
+             ``tests/test_torch_train.py``'s bars, every layer's kept
+             pairs equal; with the skewed router a capacity sized per
+             block keeps another set), the DP step twice bitwise; int8
+             and top-k compression on a (1, 4) placed state bitwise the
+             whole tree's (gradients and residuals, replicas equal); (b)
+             where four cards are visible, qwen2-moe-a2.7b at full width
+             and 12 layers over a (2, 2) ("data", "model") mesh of
+             distinct cards, train_4k's 4,096 tokens at batch 8 in 4
+             microbatches, 3 steps: finite losses, the first within 1
+             nat of ln(vocab), per card the bytes (=
+             ``per_device_bytes``), peak memory, launches and busy share,
+             the step p50 (CUDA events); one line saying (b) did not run
+             elsewhere;
    n. entry points and step rooflines — (a) the port's CI gates
              (``tools/torch_check_consistency.py --bitwise 4``,
              ``torch_check_replay.py``, ``torch_check_recovery.py 4``)
@@ -504,10 +528,10 @@ PIECES_F32_BATCH, PIECES_F32_PROMPT, PIECES_F32_TOKENS = 2, 128, 4
 PIECES_ARCH, PIECES_BIG = "llama3-8b", "dbrx-132b"
 PIECES_BATCH, PIECES_PROMPT, PIECES_TOKENS = 8, 1024, 32
 # phase 4p: training on weights in pieces, megatron.  (a) float32 checks
-# at full width cut to TP_LAYERS layers on the meshes of TP_CHECKS (two
-# MoE data blocks raise), TP_BATCH x TP_SEQ in TP_MICRO microbatches (4
-# rows, so that (2, 2)'s two data blocks each take a row of both
-# microbatches); llama3-8b's bf16 step timed at TP_TIME_LAYERS layers,
+# at full width cut to TP_LAYERS layers on the meshes of TP_CHECKS (the
+# MoE model's two data blocks are phase 4q's), TP_BATCH x TP_SEQ in
+# TP_MICRO microbatches (4 rows, so that (2, 2)'s two data blocks each
+# take a row of both microbatches); llama3-8b's bf16 step timed at TP_TIME_LAYERS layers,
 # TP_TIME_BATCH x TP_TIME_SEQ in TP_TIME_MICRO microbatches; (b) four
 # cards: llama3-8b at full size, train_4k's sequence, batch 256 cut to
 # TP4_BATCH
@@ -526,6 +550,18 @@ TP_GRAD_TOL = 1e-4
 TP_TIME_LAYERS, TP_TIME_STEPS = 4, 3
 TP_TIME_BATCH, TP_TIME_SEQ, TP_TIME_MICRO = 8, 1024, 4
 TP4_SEQ, TP4_BATCH, TP4_MICRO, TP4_STEPS = 4096, 8, 4, 3
+# phase 4q: MoE trained over data blocks.  (a) MOE_DP_ARCH at full width
+# and TP_LAYERS layers, TP_BATCH x TP_SEQ in TP_MICRO microbatches, 4j's
+# optimizer; the skewed router adds MOE_SKEW times the unit mean of a
+# layer's inputs to its router's column 0 (most tokens then put expert 0
+# in their top 4, far above a microbatch's capacity of 22 pairs an
+# expert); (b) four cards on a
+# (2, 2) mesh, train_4k's sequence and TP4_BATCH rows in TP4_MICRO
+# microbatches as 4p (b), depth cut to MOE4_LAYERS (PERF.md §4: at 24
+# layers the f32 params, mu and nu alone are 51.0 GB a card)
+MOE_DP_ARCH = "qwen2-moe-a2.7b"
+MOE_SKEW = 4.0
+MOE4_LAYERS = 12
 
 # phase 4n: the CUDA function (or Triton kernel) that every launch of a
 # port kernel runs once, so that its profiler events count the launches
@@ -4795,6 +4831,413 @@ def train_pieces(dev, card):
     return res, counts
 
 
+# ---------------------------------------------------------------- phase 4q
+
+
+class KeptPairs:
+    """While entered: per ``forward_train`` call of ``train.steps`` (a
+    microbatch, or one data block of it) and per MoE layer in order, the
+    routed experts and the slots that ``layers.moe_dispatch`` gave them.
+    The backward's recomputes of a layer run after the call returns and
+    are not recorded."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        from repro_torch.train import steps
+
+        self.calls, self.on = [], False
+        self._saved = (steps.forward_train, layers.moe_dispatch)
+        fwd, disp = self._saved
+
+        def forward(*a, **kw):
+            self.calls.append([])
+            self.on = True
+            try:
+                return fwd(*a, **kw)
+            finally:
+                self.on = False
+
+        def dispatch(top_i, cfg, route=None):
+            out = disp(top_i, cfg, route)
+            if self.on:
+                self.calls[-1].append((top_i.clone(), out))
+            return out
+
+        steps.forward_train, layers.moe_dispatch = forward, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        from repro_torch.train import steps
+
+        steps.forward_train, layers.moe_dispatch = self._saved
+        return False
+
+    def masks(self, cfg, n_dp: int, per_block: bool = False):
+        """[microbatch][layer] -> a (tokens of the microbatch, ep) bool
+        tensor, True where the pair is kept.  ``per_block``: as a
+        capacity sized from each block's own tokens would keep them."""
+        from repro_torch.models.layers import moe_dispatch
+
+        ep = cfg.moe.n_experts_padded
+        out = []
+        for i in range(0, len(self.calls), n_dp):
+            layers = []
+            for layer in range(len(self.calls[i])):
+                parts = []
+                for block in self.calls[i:i + n_dp]:
+                    top_i, (_, se, st, slot, cap) = block[layer]
+                    if per_block:
+                        _, se, st, slot, cap = moe_dispatch(top_i, cfg)
+                    m = torch.zeros((top_i.shape[0], ep), dtype=torch.bool,
+                                    device=top_i.device)
+                    keep = slot < ep * cap
+                    m[st[keep], se[keep].long()] = True
+                    parts.append(m)
+                layers.append(torch.cat(parts))
+            out.append(layers)
+        return out
+
+
+def _same_masks(a, b) -> bool:
+    return len(a) == len(b) and all(
+        len(x) == len(y) and all(torch.equal(p, q) for p, q in zip(x, y))
+        for x, y in zip(a, b))
+
+
+def skew_router(cfg, params, batch):
+    """Column 0 of each layer's router moved, in place, by MOE_SKEW x the
+    unit mean of that layer's MoE inputs over ``batch`` (layer by layer,
+    each mean taken with the layers before it skewed)."""
+    from repro_torch.models import forward_train, layers
+
+    real = layers.moe_route
+    for li, lp in enumerate(params["layers"]):
+        seen = []
+
+        def route(p, xf, cfg_, seen=seen):
+            seen.append(xf.detach())
+            return real(p, xf, cfg_)
+
+        layers.moe_route = route
+        try:
+            with torch.no_grad():
+                forward_train(cfg, params, batch, remat=False)
+        finally:
+            layers.moe_route = real
+        m = seen[li].float().mean(0)
+        lp["moe"]["router"][:, 0] += MOE_SKEW * m / m.norm()
+        del seen
+    return params
+
+
+def moe_dp_variant(cfg, skewed, batch, dev, card):
+    """Phase 4q (a) for one router: the placed step on (2, 2) entries of
+    the card, the one-device step, then the DP step on a (2, 1) mesh of
+    the card twice, each from the seeded initial state (drawn again each
+    time: two states of the model fit the card, three do not)."""
+    from repro_torch.distributed.sharding import (Mesh, device_put,
+                                                  entry_bytes, gather,
+                                                  named_shardings,
+                                                  param_pspecs,
+                                                  per_device_bytes)
+    from repro_torch.train import AdamWConfig, adamw_init, build_train_step
+
+    label = (f"4q {cfg.name} ({cfg.n_layers} layers, "
+             f"{'skewed' if skewed else 'drawn'} router)")
+    opt = AdamWConfig(**TRAIN_OPT)
+    n_pairs = TP_BATCH // TP_MICRO * TP_SEQ * cfg.moe.top_k
+
+    def params0():
+        params = _draw(cfg, dev, torch.float32)
+        return skew_router(cfg, params, batch) if skewed else params
+
+    def step(state, **kw):
+        with KeptPairs() as rec:
+            new, m = build_train_step(cfg, opt, n_micro=TP_MICRO,
+                                      compute_dtype=torch.float32,
+                                      **kw)(state, batch)
+            torch.cuda.synchronize()
+        return new, m, rec
+
+    res = {}
+    # the placed step: params, mu and nu placed like the params (two
+    # copies on (2, 2)), gathered after the step
+    mesh = Mesh(np.full((2, 2), dev, dtype=object), ("data", "model"))
+    params = params0()
+    specs = param_pspecs(cfg, params, mesh, strategy="megatron")
+    placed = device_put(params, named_shardings(specs, mesh))
+    want_bytes = 3 * per_device_bytes(params, specs, mesh)
+    del params
+    state = adamw_init(placed)
+    del placed
+    held = entry_bytes((state.params, state.mu, state.nu))
+    if not (held == want_bytes).all():
+        raise AssertionError(f"{label}: bytes per entry {held.tolist()}, "
+                             f"per_device_bytes {want_bytes}")
+    new, pm, prec = step(state, dp_axes=("data",), mesh=mesh)
+    got = {f: [gather(x, dev) for x in _leaves(getattr(new, f))]
+           for f in ("params", "mu", "nu")}
+    if not _replicas_equal((new.params, new.mu, new.nu)):
+        raise AssertionError(f"{label}: placed replicas differ")
+    del state, new
+    _free()
+    # the one-device step
+    state = adamw_init(params0())
+    _free()
+    one, om, orec = step(state)
+    del state
+    want = orec.masks(cfg, 1)
+    drops = sum(n_pairs - int(m.sum()) for lm in want for m in lm)
+
+    def against_one(name, metrics, fields, rec, n_dp):
+        errs = {}
+        for k in ("loss", "grad_norm"):
+            g, w = float(metrics[k]), float(om[k])
+            if abs(g - w) > TP_RTOL * abs(w):
+                raise AssertionError(f"{label} {name}: {k} {g}, one device "
+                                     f"{w}")
+            errs[k] = abs(g - w) / abs(w)
+        for f in ("params", "mu", "nu"):
+            errs[f] = close_params(f"{label} {name} {f}", zip(
+                fields[f], _leaves(getattr(one, f))), TRAIN_OPT["lr"])
+        if not _same_masks(rec.masks(cfg, n_dp), want):
+            raise AssertionError(f"{label} {name}: kept pairs differ from "
+                                 f"the one-device step's")
+        errs["per_block_differs"] = not _same_masks(
+            rec.masks(cfg, n_dp, per_block=True), want)
+        if skewed and not errs["per_block_differs"]:
+            raise AssertionError(f"{label} {name}: a capacity sized per "
+                                 f"block keeps the same pairs")
+        return errs
+
+    res["placed_2x2"] = against_one("placed (2, 2)", pm, got, prec, 2)
+    del got
+    _free()
+    # the DP step, twice
+    runs = []
+    for _ in range(2):
+        state = adamw_init(params0())
+        _free()
+        dp_mesh = Mesh(np.array([[dev], [dev]], dtype=object),
+                       ("data", "model"))
+        new, dm, drec = step(state, dp_axes=("data",), mesh=dp_mesh)
+        del state
+        if not runs:
+            res["dp_2x1"] = against_one("DP (2, 1)", dm, {
+                f: list(_leaves(getattr(new, f)))
+                for f in ("params", "mu", "nu")}, drec, 2)
+            runs.append((dm["loss"], [t.clone() for t in _leaves(
+                new.params)]))
+        elif not (torch.equal(dm["loss"], runs[0][0]) and all(
+                torch.equal(a, b) for a, b in
+                zip(_leaves(new.params), runs[0][1]))):
+            raise AssertionError(f"{label}: two DP steps from one state "
+                                 f"differ")
+        del new
+        _free()
+    del runs, one
+    _free()
+    res.update(loss=float(om["loss"]), drops=drops,
+               pairs=n_pairs * TP_MICRO * cfg.n_layers)
+    log(f"{label}: placed (2, 2) and DP (2, 1) steps against the one-device "
+        f"step: loss {res['loss']:.6f}; rel. diff loss / grad norm "
+        f"{[(r['loss'], r['grad_norm']) for r in (res['placed_2x2'], res['dp_2x1'])]}"
+        f"; params / mu / nu (max abs diff, elements off, elements) "
+        f"{[[r[f] for f in ('params', 'mu', 'nu')] for r in (res['placed_2x2'], res['dp_2x1'])]}"
+        f"; kept pairs equal in every layer and microbatch, {drops} of "
+        f"{res['pairs']} pairs dropped; a per-block capacity keeps another "
+        f"set: {[r['per_block_differs'] for r in (res['placed_2x2'], res['dp_2x1'])]}"
+        f"; DP step twice bitwise; bytes per entry = per_device_bytes = "
+        f"{want_bytes}  [{card}]")
+    return res
+
+
+def compression_on_pieces(cfg, batch, dev, card):
+    """Phase 4q (a)'s compression check: the one-device gradients of the
+    seeded model and a seeded residual (0.01 N), whole and placed on a
+    (1, 4) mesh of the card by ``param_pspecs(strategy="megatron")``
+    (norms and routers replicated on the four entries): int8 and top-k
+    compression of the pieces bitwise the whole tree's, gradients and
+    residuals, the replicas equal."""
+    from repro_torch.distributed.compression import (int8_compress,
+                                                     topk_compress)
+    from repro_torch.distributed.fault import tree_map
+    from repro_torch.distributed.sharding import (blocks, device_put, gather,
+                                                  named_shardings,
+                                                  param_pspecs)
+    from repro_torch.train.steps import loss_and_grads
+
+    params = _draw(cfg, dev, torch.float32)
+    _, grads = loss_and_grads(cfg, params, batch, TP_MICRO, torch.float32)
+    mesh = pieces_mesh([dev] * PIECES_N)
+    shardings = named_shardings(param_pspecs(cfg, params, mesh,
+                                             strategy="megatron"), mesh)
+    del params
+    gen = torch.Generator(device=dev).manual_seed(8)
+    err = tree_map(lambda g: 0.01 * torch.randn(
+        g.shape, generator=gen, device=dev), grads)
+    placed_g = device_put(grads, shardings)
+    placed_e = device_put(err, shardings)
+    replicated = sum(len(b) > 1 for x in _leaves(placed_g)
+                     for b in blocks(x))
+    res = {"replicated_blocks": replicated}
+    for name, fn in (("int8", int8_compress), ("topk", topk_compress)):
+        want = fn(grads, err)
+        got = fn(placed_g, placed_e)
+        for part, w, g in zip(("gradients", "residuals"), want, got):
+            for i, (x, y) in enumerate(zip(_leaves(g), _leaves(w))):
+                if not torch.equal(gather(x, dev), y):
+                    raise AssertionError(f"4q {name} {part} leaf {i}: the "
+                                         f"pieces differ from the whole")
+        if not _replicas_equal(got):
+            raise AssertionError(f"4q {name}: replicas differ")
+        res[name] = "bitwise"
+        del want, got
+        _free()
+    del grads, err, placed_g, placed_e
+    _free()
+    log(f"4q compression on a (1, {PIECES_N}) placed state of {cfg.name} "
+        f"({cfg.n_layers} layers; {replicated} replicated blocks): int8 and "
+        f"top-k gradients and residuals bitwise the whole tree's, replicas "
+        f"equal  [{card}]")
+    return res
+
+
+def moe_dp_distinct(card):
+    """Phase 4q (b): where four cards are visible (one line saying it did
+    not run otherwise), MOE_DP_ARCH at full width and MOE4_LAYERS layers
+    over a (2, 2) ("data", "model") mesh of distinct cards: params drawn
+    piece by piece (``fill_placed``, seed 0), ``adamw_init`` of them, bf16
+    compute, TP4_BATCH x TP4_SEQ in TP4_MICRO microbatches (each in two
+    data blocks, one per mesh row), TP4_STEPS steps: finite losses, the
+    first within TRAIN_LOSS_TOL of ln(vocab); per card the bytes of
+    params, mu and nu (= ``per_device_bytes``) and peak memory, and one
+    more step's launches and busy share (``busy_by_card``); the step p50
+    from CUDA events (card 0's stream waits for every card's)."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get
+    from repro_torch.distributed.sharding import (Mesh, cuda_devices,
+                                                  device_put, entry_bytes,
+                                                  named_shardings,
+                                                  param_pspecs,
+                                                  per_device_bytes)
+    from repro_torch.models import fill_placed, init_params
+    from repro_torch.train import AdamWConfig, adamw_init, build_train_step
+
+    cards = cuda_devices()
+    if len(cards) < PIECES_N:
+        log(f"4q (b) did not run: {len(cards)} CUDA device visible; MoE "
+            f"training over a (2, 2) mesh of distinct cards needs "
+            f"{PIECES_N} (phase 4q (a) ran it on entries that repeat this "
+            f"card)  [{card}]")
+        return {"ran": False, "cards": len(cards)}
+    t_b = time.perf_counter()
+    cards = cards[:PIECES_N]
+    mesh = Mesh(np.array(cards, dtype=object).reshape(2, 2),
+                ("data", "model"))
+    names = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[:PIECES_N]
+    cfg = dataclasses.replace(get(MOE_DP_ARCH), n_layers=MOE4_LAYERS)
+    t0 = time.perf_counter()
+    meta = init_params(cfg, torch.Generator(), dtype=torch.float32,
+                       device="meta")
+    specs = param_pspecs(cfg, meta, mesh, strategy="megatron")
+    state = adamw_init(fill_placed(
+        cfg, device_put(meta, named_shardings(specs, mesh)), seed=0))
+    for c in cards:
+        torch.cuda.synchronize(c)
+        torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    held = entry_bytes((state.params, state.mu, state.nu))
+    want = per_device_bytes((meta, meta, meta), (specs, specs, specs), mesh)
+    if not (held == want).all():
+        raise AssertionError(f"4q (b): bytes per card {held.tolist()}, "
+                             f"per_device_bytes {want}")
+    gen = np.random.default_rng(9)
+    batches = [{"tokens": torch.from_numpy(gen.integers(
+        0, cfg.vocab_size, (TP4_BATCH, TP4_SEQ)).astype(np.int32)).to(
+        cards[0])} for _ in range(TP4_STEPS + 1)]
+    step = build_train_step(cfg, AdamWConfig(**TRAIN_OPT), n_micro=TP4_MICRO,
+                            compute_dtype=torch.bfloat16, dp_axes=("data",),
+                            mesh=mesh)
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    losses, ms = [], []
+    for batch in batches[:TP4_STEPS]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(torch.cuda.current_stream(cards[0]))
+        state, m = step(state, batch)
+        home = torch.cuda.current_stream(cards[0])
+        for c in cards[1:]:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(c))
+            home.wait_event(done)
+        end.record(home)
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    ln_v = math.log(cfg.vocab_size)
+    if not all(map(math.isfinite, losses)) or \
+            abs(losses[0] - ln_v) > TRAIN_LOSS_TOL:
+        raise AssertionError(f"4q (b): losses {losses} (ln V = {ln_v:.4f})")
+    peaks = [torch.cuda.max_memory_allocated(c) / 1e9 for c in cards]
+    by_card = busy_by_card(lambda: step(state, batches[-1]))
+    if not (entry_bytes((state.params, state.mu, state.nu)) == want).all():
+        raise AssertionError("4q (b): bytes per card changed by the steps")
+    out = {"ran": True, "cards": names, "layers": MOE4_LAYERS,
+           "params_g": sum(t.numel() for t in _leaves(meta)) / 1e9,
+           "init_s": init_s, "entry_bytes": want, "losses": losses,
+           "ms": ms, "ms_p50": float(np.percentile(ms, 50)),
+           "peak_gb": peaks, "by_card": by_card}
+    log(f"4q (b) {MOE_DP_ARCH} at full width, {MOE4_LAYERS} layers, trained "
+        f"over a (2, 2) mesh of {PIECES_N} cards {names}: "
+        f"{out['params_g']:.3f} G params drawn piece by piece and AdamW "
+        f"state made in {init_s:.1f} s; params + mu + nu per card = "
+        f"per_device_bytes = {want} ({want / 1e9:.2f} GB); bf16, "
+        f"{TP4_BATCH} x {TP4_SEQ} in {TP4_MICRO} microbatches of 2 data "
+        f"blocks: losses {losses} (ln V = {ln_v:.4f}); step p50 "
+        f"{out['ms_p50']:.1f} ms over {TP4_STEPS} steps "
+        f"{[round(x, 1) for x in ms]} (CUDA events); peak memory by card "
+        f"{[round(p, 2) for p in peaks]} GB; one more step by card "
+        f"(kernels, device ms, busy share) "
+        f"{[(r['kernels'], round(r['device_ms'], 1), round(r['busy_share'], 3)) for r in by_card['cards'].values()]}"
+        f" over {by_card['wall_ms']:.1f} ms")
+    del state, batches, step
+    for c in cards:
+        torch.cuda.synchronize(c)
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_b
+    return out
+
+
+def moe_dp_training(dev, card):
+    """Phase 4q: (a) on entries of the card, the float32 checks with the
+    router as drawn and skewed, and compression on a placed state; (b)
+    over four distinct cards where four are visible."""
+    import dataclasses
+
+    from repro_torch.configs import get
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get(MOE_DP_ARCH), n_layers=TP_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (TP_BATCH, TP_SEQ),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    res = {"drawn": moe_dp_variant(cfg, False, batch, dev, card),
+           "skewed": moe_dp_variant(cfg, True, batch, dev, card),
+           "compression": compression_on_pieces(cfg, batch, dev, card)}
+    res["a_s"] = time.perf_counter() - t0
+    res["distinct"] = moe_dp_distinct(card)
+    return res
+
+
 # ---------------------------------------------------------------- phase 4n
 
 
@@ -5394,6 +5837,14 @@ def main(argv) -> int:
     log(f"phase 4p took {train_pieces_res['phase_s']:.1f} s ((a) "
         f"{train_pieces_res['a_s']:.1f} s)")
 
+    phase(f"4q MoE trained over data blocks ({MOE_DP_ARCH}; the "
+          f"microbatch's capacity across blocks, compression on pieces)")
+    t0 = time.perf_counter()
+    moe_dp_res = moe_dp_training(dev, card)
+    moe_dp_res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 4q took {moe_dp_res['phase_s']:.1f} s ((a) "
+        f"{moe_dp_res['a_s']:.1f} s)")
+
     phase("4n entry points (tools/torch_*, examples/torch_*), the "
           "roofline of whole steps, the dry run")
     t0 = time.perf_counter()
@@ -5546,6 +5997,7 @@ def main(argv) -> int:
             "decode_partials_shapes": res_fd, "segagg_shapes": seg_shapes,
             "decode_partials_32k": res_fd32, "mesh": mesh_res,
             "param_pieces": pieces, "train_pieces": train_pieces_res,
+            "moe_dp": moe_dp_res,
             "entry_points_rooflines": entry,
             "load_s": t_load, "ingest_s": t_ingest}, indent=1))
     print(json.dumps({"kernels": kernels}))

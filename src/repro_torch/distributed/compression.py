@@ -15,64 +15,97 @@ at one path of the model's layer list are one stacked tensor there
 threshold; a leaf that is 0-d in the reference passes through.  Both
 return (grads, err) trees for ``train.optimizer.adamw_update``.
 
-Neither runs on a placed state (``Placed`` leaves, weights in pieces):
-a per-tensor scale or threshold would have to be agreed over the pieces
-of every leaf, and the reference's placed train cell
-(``launch/dryrun.py``) passes no compressor.  ``refuse_placed`` raises
-``ValueError`` there; ``adamw_init`` and ``adamw_update`` call it before
-they build or change anything.
+On a placed state (``Placed`` leaves, weights in pieces; the reference
+takes one scale or threshold per tensor whatever its sharding, and XLA
+reduces them over a sharded leaf) the scale and the threshold are the
+whole tree's, bit for bit, and every piece is compressed on its card:
+
+  * int8: each distinct block's ``|x|.max()`` (``sharding.blocks``; its
+    replicas are equal) on its card, the maxes reduced on the home card
+    (mesh entry 0's device) and the 0-d scale copied to each card; a max
+    does not depend on order;
+  * top-k: ``k`` from the stacked tensor's element count, the threshold
+    the k-th largest ``|x|`` over one replica of each block, gathered on
+    the home card (a replica counted twice would move it);
+  * ``g + err``, the quantize-dequantize or the mask, and the new
+    residual piece by piece: the replicas stay bitwise equal.  A 0-d
+    residual (the reference cell's ``P()``) broadcasts; the new one is
+    placed like the gradient.
+
+A grads / residual pair that mixes ``Placed`` and whole leaves raises
+``ValueError``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, Dict, List
 
 import torch
 
 from .fault import tree_flatten, tree_stacks, tree_unflatten
-from .sharding import Placed
+from .sharding import (Placed, blocks, canonical_device, home, is_placed,
+                       map_pieces)
 
-__all__ = ["int8_compress", "topk_compress", "compression_ratio",
-           "refuse_placed"]
-
-
-def refuse_placed(tree, what: str) -> None:
-    """Raise ``ValueError`` where ``tree`` holds ``Placed`` leaves:
-    gradient compression on a placed state is not ported."""
-    if any(isinstance(x, Placed) for x in tree_flatten(tree)[0]):
-        raise ValueError(
-            f"{what}: gradient compression on a placed state (Placed "
-            f"leaves, weights in pieces) is not supported; the "
-            f"reference's placed train cell passes no compressor")
+__all__ = ["int8_compress", "topk_compress", "compression_ratio"]
 
 
-def _quant_dequant_int8(xs: List[torch.Tensor]) -> List[torch.Tensor]:
-    scale = torch.stack([x.abs().max() for x in xs]).max() / 127.0
+def _one_per_block(x) -> List[torch.Tensor]:
+    """A tensor; of a ``Placed``, the first entry's piece of each distinct
+    block (each element of the leaf once)."""
+    if isinstance(x, Placed):
+        return [x.pieces[e[0]] for e in blocks(x)]
+    return [x]
+
+
+def _copies(t: torch.Tensor) -> Callable[[torch.device], torch.Tensor]:
+    """``t`` on a device, copied there once."""
+    made: Dict[torch.device, torch.Tensor] = {canonical_device(t.device): t}
+
+    def on(dev):
+        key = canonical_device(dev)
+        if key not in made:
+            made[key] = t.to(dev)
+        return made[key]
+    return on
+
+
+def _quant_dequant_int8(xs: List) -> List:
+    dev = home(xs[0])
+    scale = torch.stack([t.abs().max().to(dev) for x in xs
+                         for t in _one_per_block(x)]).max() / 127.0
     scale = torch.where(scale == 0, 1.0, scale)
-    return [torch.clamp(torch.round(x / scale), -127, 127)
-            .to(torch.int8).to(torch.float32) * scale for x in xs]
+    on = _copies(scale)
+
+    def qdq(t):
+        s = on(t.device)
+        return torch.clamp(torch.round(t / s), -127, 127) \
+            .to(torch.int8).to(torch.float32) * s
+    return [map_pieces(qdq, x) for x in xs]
 
 
-def _top_fraction(xs: List[torch.Tensor], frac: float
-                  ) -> List[torch.Tensor]:
-    flat = torch.cat([x.abs().reshape(-1) for x in xs])
+def _top_fraction(xs: List, frac: float) -> List:
+    dev = home(xs[0])
+    flat = torch.cat([t.abs().reshape(-1).to(dev) for x in xs
+                      for t in _one_per_block(x)])
     k = max(1, int(flat.shape[0] * frac))
-    thresh = torch.topk(flat, k).values[-1]
-    return [torch.where(x.abs() >= thresh, x, 0.0) for x in xs]
+    on = _copies(torch.topk(flat, k).values[-1])
+    del flat
+    return [map_pieces(lambda t: torch.where(t.abs() >= on(t.device), t,
+                                             0.0), x) for x in xs]
 
 
 def _error_feedback(fn: Callable, grads, err):
     """g' = fn(g + err) per stacked tensor; err' = (g + err) - g'."""
-    refuse_placed((grads, err), "compression")
+    is_placed((grads, err))           # all Placed or none
     g_leaves = tree_flatten(grads)[0]
     e_leaves = tree_flatten(err)[0]
     new_g, new_e = list(g_leaves), list(e_leaves)
     for idx, stacked in tree_stacks(grads):
-        if g_leaves[idx[0]].dim() + stacked == 0:
+        if len(g_leaves[idx[0]].shape) + stacked == 0:
             continue
-        xs = [g_leaves[i] + e_leaves[i] for i in idx]
+        xs = [map_pieces(torch.add, g_leaves[i], e_leaves[i]) for i in idx]
         for i, x, y in zip(idx, xs, fn(xs)):
-            new_g[i], new_e[i] = y, x - y
+            new_g[i], new_e[i] = y, map_pieces(torch.sub, x, y)
     return tree_unflatten(grads, new_g), tree_unflatten(err, new_e)
 
 

@@ -694,11 +694,14 @@ def home(x) -> torch.device:
     return x.pieces.flat[0].device if isinstance(x, Placed) else x.device
 
 
-def map_pieces(fn, x: Placed, *more: Placed, shape=None) -> Placed:
+def map_pieces(fn, x, *more, shape=None):
     """A ``Placed`` on ``x``'s mesh and spec whose piece at each entry is
     ``fn`` of the pieces of ``x`` (and of ``more``, placed alike) at that
     entry, entry by entry: each on its own card.  Its global shape is
-    ``x``'s, or ``shape``; its dtype that of ``fn``'s results."""
+    ``x``'s, or ``shape``; its dtype that of ``fn``'s results.  A tensor
+    ``x`` (whole leaves) gives ``fn(x, *more)``."""
+    if not isinstance(x, Placed):
+        return fn(x, *more)
     arr = np.empty(x.pieces.shape, dtype=object)
     for i in np.ndindex(arr.shape):
         arr[i] = fn(x.pieces[i], *(m.pieces[i] for m in more))

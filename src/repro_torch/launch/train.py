@@ -11,7 +11,8 @@ reference builds a mesh over the visible devices; here
 ``--data-parallel N`` trains on an (N, 1) ("data", "model") mesh: each
 microbatch's rows in N blocks, one on each of the first N visible cards
 (or, with fewer cards visible, on ``--device`` repeated N times, which
-it says), the update on ``--device`` (``train.steps``).
+it says), the update on ``--device`` (``train.steps``); an MoE model's
+blocks keep the (token, expert) pairs the whole microbatch keeps.
 """
 
 # lint: module-ok J002 — host-eager driver: the training loop deliberately

@@ -34,6 +34,7 @@ The same functions as ``repro/models/layers.py``, on tensors:
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -51,7 +52,7 @@ __all__ = ["rms_norm", "swiglu", "rope_tables", "apply_rope",
            "chunked_attention", "init_gqa", "gqa_forward", "init_ssm",
            "ssm_forward", "layer_norm", "gelu_mlp", "init_mla",
            "mla_forward", "init_moe", "moe_route",
-           "moe_capacity",
+           "moe_capacity", "BlockRouting", "moe_dispatch",
            "moe_forward", "init_rwkv",
            "rwkv_time_mix", "rwkv_channel_mix", "normal_init"]
 
@@ -523,19 +524,88 @@ def moe_capacity(moe, n_tokens: int) -> int:
                          * moe.capacity_factor))
 
 
-def moe_forward(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+@dataclasses.dataclass
+class BlockRouting:
+    """One MoE layer's view of the microbatch whose data block it routes
+    (``train.steps``' data-parallel blocks, run one after another in data
+    order): ``n_tokens``, the microbatch's routed tokens, sizes the
+    capacity; ``before``, an (ep,) int32 tensor on the block's card, counts
+    each expert's (token, expert) pairs in the earlier blocks (None for
+    the first block).  The layer's first forward sets ``through`` =
+    ``before`` + this block's counts, what the next block reads; the
+    backward's recompute of the layer (remat) reads ``before`` again and
+    leaves ``through`` as it is."""
+
+    n_tokens: int
+    before: Optional[torch.Tensor] = None
+    through: Optional[torch.Tensor] = None
+
+
+def moe_dispatch(top_i: torch.Tensor, cfg, route: Optional[BlockRouting]
+                 = None):
+    """The capacity-bounded slots of (n, k) routed experts: the (token,
+    expert) pairs sorted by expert (stable: token order within an
+    expert), each ranked within its expert, and the first ``cap`` of each
+    given slot ``expert * cap + rank`` of an (ep cap, d) buffer; a dropped
+    pair gets ``ep * cap``.  ``cap = moe_capacity(moe, n)``, ``n`` the
+    routed tokens, as in the reference's ``moe_forward``.
+
+    With ``route`` (a data block of a microbatch) the rank is the one the
+    pair has in the whole microbatch, in the reference's token order: the
+    expert's pairs in the earlier blocks (``route.before``) plus its
+    stable rank in this block, and ``cap`` is the microbatch's
+    (``route.n_tokens``).  Returns (order, sorted experts (int32), sorted
+    tokens, slots (int64), cap)."""
+    e = cfg.moe
+    n, k = top_i.shape
+    ep, dev = e.n_experts_padded, top_i.device
+    flat_expert = top_i.reshape(-1).to(torch.int32)            # (n k,)
+    order = torch.argsort(flat_expert, stable=True)
+    se = flat_expert[order]
+    st = torch.div(order, k, rounding_mode="floor")            # token
+    grp_start = torch.searchsorted(
+        se, torch.arange(ep, dtype=torch.int32, device=dev),
+        side="left").to(torch.int32)
+    rank = torch.arange(n * k, dtype=torch.int32, device=dev) \
+        - grp_start[se.long()]
+    cap = moe_capacity(e, n)
+    if route is not None:
+        cap = moe_capacity(e, route.n_tokens)
+        if route.before is not None:
+            rank = rank + route.before[se.long()]
+        if route.through is None:
+            counts = torch.diff(grp_start, append=torch.full(
+                (1,), n * k, dtype=torch.int32, device=dev))
+            route.through = counts if route.before is None \
+                else route.before + counts
+    slot = torch.where(rank < cap, se * cap + rank,
+                       torch.full_like(rank, ep * cap)).long()
+    return order, se, st, slot, cap
+
+
+def moe_forward(p: Params, x: torch.Tensor, cfg,
+                route: Optional[BlockRouting] = None) -> torch.Tensor:
     """Top-k routed experts via the reference's sort-based grouped matmul.
 
     (token, expert) pairs are sorted by expert (stable: token order within
     an expert), ranked within their expert, and the first ``cap`` of each
     take its slots of an (ep, cap, d) buffer, ``cap = ceil(n k / n_experts
     * capacity_factor)`` from the unpadded count (an over-capacity pair is
-    dropped: it contributes nothing).  The dispatch writes into an (ep cap
-    + 1, d) buffer whose last row takes the dropped pairs and is cut off.
-    The grouped products are batched matmuls over experts.  The combine
-    sums each token's k weighted contributions in ``x.dtype`` from zero,
-    in the order of their sorted positions (the order of the reference's
-    ``.at[].add`` scatter): gathers and adds only, no float atomics.
+    dropped: it contributes nothing; ``moe_dispatch``).  The dispatch
+    writes into an (ep cap + 1, d) buffer whose last row takes the dropped
+    pairs and is cut off.  The grouped products are batched matmuls over
+    experts.  The combine sums each token's k weighted contributions in
+    ``x.dtype`` from zero, in the order of their sorted positions (the
+    order of the reference's ``.at[].add`` scatter): gathers and adds
+    only, no float atomics.
+
+    ``route`` (a ``BlockRouting``): ``x`` is one data block of a
+    microbatch, and the pairs are ranked and kept as in the whole
+    microbatch (``moe_dispatch``).  The buffer has the microbatch's
+    ``cap``, so each expert product has the whole step's shapes and a
+    kept pair the slot it has there; the block's other slots are zeros.
+    The router, a kept pair's products, the shared experts and the
+    combine are per token.
 
     Experts in pieces (``w_gate|w_up|w_down`` split by ``model`` along the
     expert axis over the same n cards, n dividing ``n_experts_padded``):
@@ -553,21 +623,8 @@ def moe_forward(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     if any(isinstance(t, Placed) for t in p.values()):
         p = dict(p, router=tp.on(p["router"], x.device))
     top_w, top_i = moe_route(p, xf, cfg)
-
-    flat_expert = top_i.reshape(-1).to(torch.int32)            # (n k,)
-    order = torch.argsort(flat_expert, stable=True)
-    se = flat_expert[order]
-    st = torch.div(order, k, rounding_mode="floor")            # token
+    order, se, st, slot, cap = moe_dispatch(top_i, cfg, route)
     sw = top_w.reshape(-1)[order]
-    grp_start = torch.searchsorted(
-        se, torch.arange(ep, dtype=torch.int32, device=x.device),
-        side="left").to(torch.int32)
-    rank = torch.arange(n * k, dtype=torch.int32, device=x.device) \
-        - grp_start[se.long()]
-    cap = moe_capacity(e, n)
-    keep = rank < cap
-    slot = torch.where(keep, se * cap + rank,
-                       torch.full_like(rank, ep * cap)).long()
 
     buf = torch.zeros((ep * cap + 1, d), dtype=x.dtype, device=x.device)
     buf = buf.index_put((slot,), xf[st])[:ep * cap]

@@ -380,12 +380,14 @@ def kv_head_mesh(cfg: ArchConfig, params: Params):
 
 def _layer_fwd(cfg: ArchConfig, p: Params, x, *, positions, window: int,
                cache=None, enc_out=None, causal: bool = True,
-               use_kernel=None):
+               use_kernel=None, route=None):
     """One layer.  Returns (y, layer cache): prefill gives this
     sequence's {"attn": {"k", "v"} or {"latent"}, "ssm"} (RWKV: {"shift1",
     "S", "shift2"}); decode updates ``cache``.  ``causal=False`` is an
     audio encoder layer (no cache); ``enc_out`` adds an audio decoder
-    layer's cross-attention.  Weights in pieces: the blocks that read
+    layer's cross-attention.  ``route`` (a ``layers.BlockRouting``) ranks
+    an MoE layer's pairs as in the whole microbatch that ``x`` is a data
+    block of.  Weights in pieces: the blocks that read
     pieces (a GQA ``attn``, a SwiGLU ``mlp``, ``moe``) get them as they
     are; every other placed leaf is gathered whole onto x's card for
     this layer only (``_pieces_or_whole``)."""
@@ -423,7 +425,7 @@ def _layer_fwd(cfg: ArchConfig, p: Params, x, *, positions, window: int,
                            enc_out)
     h = _norm(cfg, x, p["norm2"])
     if cfg.moe is not None:
-        y = L.moe_forward(p["moe"], h, cfg)
+        y = L.moe_forward(p["moe"], h, cfg, route=route)
     elif cfg.family == "audio":
         y = L.gelu_mlp(h, **p["mlp"])
     else:
@@ -497,7 +499,8 @@ def _encode(cfg: ArchConfig, params: Params, batch):
 
 
 def forward_train(cfg: ArchConfig, params: Params, batch,
-                  remat: bool = True, use_kernel: Optional[bool] = None):
+                  remat: bool = True, use_kernel: Optional[bool] = None,
+                  routing=None):
     """Teacher-forced forward over ``batch["tokens"]`` (B, T) (behind
     ``patches`` for VLM; over the encoded ``frames`` for audio); returns
     (loss, {"logits": (B, S, vocab_padded)}), S = P + T for VLM.
@@ -510,21 +513,27 @@ def forward_train(cfg: ArchConfig, params: Params, batch,
     reference.  Params in pieces take the routes of ``_layer_fwd`` and
     the vocab-parallel embedding and logits; the loss is taken on the
     tokens' card, and a leaf gathered for a layer (``_pieces_or_whole``)
-    is gathered again when the backward recomputes that layer."""
+    is gathered again when the backward recomputes that layer.
+
+    ``routing`` (one ``layers.BlockRouting`` per layer; MoE configs):
+    ``batch`` is one data block of a microbatch, and each MoE layer ranks
+    and keeps its pairs as in the whole microbatch (``train.steps``)."""
     x, label_mask = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     enc_out = _encode(cfg, params, batch)
 
-    def layer(lp, window, h):
+    def layer(lp, window, route, h):
         return _layer_fwd(cfg, lp, h, positions=positions, window=window,
-                          enc_out=enc_out, use_kernel=use_kernel)[0]
+                          enc_out=enc_out, use_kernel=use_kernel,
+                          route=route)[0]
 
-    for lp, window in zip(params["layers"], _windows(cfg)):
+    routes = routing or [None] * len(params["layers"])
+    for lp, window, route in zip(params["layers"], _windows(cfg), routes):
         if remat:
-            x = checkpoint(layer, lp, window, x, use_reentrant=False,
+            x = checkpoint(layer, lp, window, route, x, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = layer(lp, window, x)
+            x = layer(lp, window, route, x)
     logits = _logits(cfg, params, x)
     loss = loss_fn(cfg, logits, batch["tokens"], label_mask)
     return loss, {"logits": logits}

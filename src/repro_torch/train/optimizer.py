@@ -25,7 +25,10 @@ clip scale and the learning rate copied to each card once; the global
 norm counts each distinct block of a leaf once (its replicas are equal)
 and sums the entries' partial squares on the home card (mesh entry 0's
 device) in entry order.  Replicas, given one gradient, stay bitwise
-equal.  Compression is refused there (``distributed.compression``).
+equal.  Compression works piece by piece there, with the whole tree's
+per-tensor scale or threshold (``distributed.compression``); its
+residuals are placed like the params (``adamw_init(...,
+with_compression=True)``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,6 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..distributed.compression import refuse_placed
 from ..distributed.fault import tree_flatten, tree_map, tree_stacks
 from ..distributed.sharding import (Placed, blocks, canonical_device, home,
                                     is_placed, map_pieces)
@@ -68,22 +70,16 @@ class AdamWConfig:
     total_steps: int = 10_000
 
 
-def _each(fn, x):
-    """``fn`` of a tensor, or of every piece of a ``Placed`` on its card."""
-    return map_pieces(fn, x) if isinstance(x, Placed) else fn(x)
-
-
 def adamw_init(params, with_compression: bool = False) -> TrainState:
     """A fresh state on the params' device (the card, for params made by
     ``models.init_params`` without ``device="cpu"``): an f32 copy of the
     params, zero moments, and a zero residual per leaf (full-shape with
     compression, 0-d without).  Params in pieces (``Placed``) give
     params, ``mu`` and ``nu`` placed like them, each piece made on its
-    card, and the step and the 0-d residuals on the home card (mesh
-    entry 0's device); compression is refused there."""
+    card, and the step on the home card (mesh entry 0's device); the
+    residuals are zero pieces placed like the params with compression,
+    0-d on the home card without."""
     leaves = tree_flatten(params)[0]
-    if with_compression:
-        refuse_placed(params, "adamw_init(with_compression=True)")
     device = home(leaves[0])
 
     def zeros(p):
@@ -94,12 +90,12 @@ def adamw_init(params, with_compression: bool = False) -> TrainState:
 
     return TrainState(
         step=torch.zeros((), dtype=torch.int32, device=device),
-        params=tree_map(lambda x: _each(
+        params=tree_map(lambda x: map_pieces(
             lambda p: p.detach().to(F32).clone(), x), params),
-        mu=tree_map(lambda x: _each(zeros, x), params),
-        nu=tree_map(lambda x: _each(zeros, x), params),
-        compress_err=tree_map(lambda x: _each(zeros, x) if with_compression
-                              else scalar(x), params))
+        mu=tree_map(lambda x: map_pieces(zeros, x), params),
+        nu=tree_map(lambda x: map_pieces(zeros, x), params),
+        compress_err=tree_map(lambda x: map_pieces(zeros, x)
+                              if with_compression else scalar(x), params))
 
 
 def step_count(step) -> torch.Tensor:
@@ -152,9 +148,9 @@ def adamw_update(state: TrainState, grads, cfg: AdamWConfig,
     card from that entry's gradient piece, with the step's scalars (the
     learning rate, the bias corrections and the clip scale, made on the
     home card) copied to each card once.  A placed step counter is
-    advanced in place on every entry."""
-    if compress is not None:
-        refuse_placed(state.params, "adamw_update(compress=...)")
+    advanced in place on every entry.  With ``compress`` the clipped f32
+    gradients (each piece on its card) are compressed before the
+    update, and the state's residuals replaced by the new ones."""
     step = step_count(state.step) + 1
     t = step.to(F32)
     lr = _schedule(cfg, t)
@@ -162,12 +158,6 @@ def adamw_update(state: TrainState, grads, cfg: AdamWConfig,
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
-    new_err = state.compress_err
-    if compress is not None:
-        grads = tree_map(lambda g: g.to(F32) * scale, grads)
-        grads, new_err = compress(grads, state.compress_err)
-        scale = None
-
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - b1 ** t
     bc2 = 1 - b2 ** t
@@ -178,13 +168,19 @@ def adamw_update(state: TrainState, grads, cfg: AdamWConfig,
         """The step's scalars on ``dev``, copied there once."""
         key = canonical_device(dev)
         if key not in scalars:
-            scalars[key] = tuple(None if x is None else x.to(dev)
-                                 for x in scalars[first])
+            scalars[key] = tuple(x.to(dev) for x in scalars[first])
         return scalars[key]
+
+    new_err = state.compress_err
+    clipped = compress is not None
+    if clipped:
+        grads = tree_map(lambda g: map_pieces(
+            lambda t: t.to(F32) * on(t.device)[3], g), grads)
+        grads, new_err = compress(grads, state.compress_err)
 
     def update(p, g, m, v, r):
         lr, bc1, bc2, scale = on(p.device)
-        g = g.to(F32) * scale if scale is not None else g
+        g = g if clipped else g.to(F32) * scale
         m_new = b1 * m + (1 - b1) * g
         v_new = b2 * v + (1 - b2) * torch.square(g)
         mhat = m_new / bc1

@@ -20,7 +20,10 @@ serving steps, as in the JAX package's ``repro/train/steps.py``.
     entry's device with a copy of the cast params placed there once per
     step, the blocks' losses and gradients brought back to the state's
     device and averaged in data order.  Accumulation, clipping,
-    compression and AdamW stay on the state's device;
+    compression and AdamW stay on the state's device.  An MoE layer ranks
+    and keeps a block's (token, expert) pairs as in the whole microbatch
+    (``layers.BlockRouting``: the microbatch's capacity, each expert's
+    pairs in the earlier blocks carried from block to block);
   * on a state placed by ``distributed.sharding.device_put`` (the
     reference's train cell: params, ``mu`` and ``nu`` by
     ``param_pspecs``, ZeRO-3), weights in pieces: each piece is cast to
@@ -51,6 +54,7 @@ from ..distributed.sharding import (Placed, blocks, canonical_device,
                                     same_mesh, take_row)
 from ..models import (decode_step, forward_prefill, forward_train,
                       model_input_spec)
+from ..models.layers import BlockRouting
 from .optimizer import (AdamWConfig, TrainState, adamw_update, global_norm,
                         step_count)
 
@@ -107,9 +111,10 @@ def loss_and_grads(cfg: ArchConfig, params, batch, n_micro: int = 1,
     over the microbatches.  Every family gives every row of a batch the
     same number of loss positions (``label_mask`` is the batch's, a VLM
     prefix on every row), so the mean of the equal blocks' mean losses is
-    the microbatch's, and so are the gradients.  MoE layers are refused:
-    ``moe_capacity`` would count a block's tokens, not the
-    microbatch's.
+    the microbatch's, and so are the gradients.  MoE layers route each
+    block as part of its microbatch (``_block_routes``): the reference's
+    ``moe_forward`` ranks the pairs of the whole microbatch, so a block's
+    kept pairs are the ones the one-device step keeps.
 
     Params in pieces (every leaf ``Placed``): ``_placed_loss_and_grads``,
     the gradients ``Placed`` like the params, in f32; ``dp_axes`` (not
@@ -163,18 +168,28 @@ def _micro_rows(batch, n_micro: int) -> int:
     return b // n_micro
 
 
-def _refuse_moe(cfg: ArchConfig, n_dp: int) -> None:
-    if cfg.moe is not None and n_dp > 1:
-        raise ValueError(
-            f"{cfg.name}: MoE under data parallelism over {n_dp} blocks: "
-            f"moe_capacity would be sized from a block's tokens, not the "
-            f"microbatch's as in the reference's partitioned step")
+def _block_routes(cfg: ArchConfig, n_dp: int, batch, rows: int, dev,
+                  previous: Optional[Sequence[BlockRouting]]
+                  ) -> Optional[list]:
+    """The ``layers.BlockRouting`` of each layer for the next data block
+    of a microbatch of ``rows`` rows, on ``dev``: None without MoE or
+    with one block; else the microbatch's routed tokens (its rows times
+    the positions of a row, a VLM prefix included) and, per layer, the
+    expert counts through the previous block (``previous``, None for a
+    microbatch's first block) copied to ``dev``.  No host sync: the
+    counts stay tensors."""
+    if cfg.moe is None or n_dp == 1:
+        return None
+    seq = batch["tokens"].shape[1] + (batch["patches"].shape[1]
+                                      if "patches" in batch else 0)
+    if previous is None:
+        return [BlockRouting(rows * seq) for _ in range(cfg.n_layers)]
+    return [BlockRouting(r.n_tokens, r.through.to(dev)) for r in previous]
 
 
 def _dp_loss_and_grads(cfg, params, cast, batch, n_micro, use_kernel,
                        devices):
     n_dp = len(devices)
-    _refuse_moe(cfg, n_dp)
     home = cast[0].device
     mb = _micro_rows(batch, n_micro)
     if mb % n_dp:
@@ -193,12 +208,15 @@ def _dp_loss_and_grads(cfg, params, cast, batch, n_micro, use_kernel,
     loss_acc = torch.zeros((), dtype=torch.float32, device=home)
     with torch.enable_grad():
         for i in range(n_micro):
+            routes = None
             for j, dev in enumerate(devices):
                 lo = i * mb + j * bl
                 block = {k: v[lo:lo + bl].to(dev) for k, v in batch.items()}
                 leaves_j = on_dev[dev]
+                routes = _block_routes(cfg, n_dp, batch, mb, dev, routes)
                 loss, _ = forward_train(cfg, tree_unflatten(params, leaves_j),
-                                        block, use_kernel=use_kernel)
+                                        block, use_kernel=use_kernel,
+                                        routing=routes)
                 for a, g in zip(acc, torch.autograd.grad(
                         loss, leaves_j, materialize_grads=True)):
                     a.add_(g.to(device=home, dtype=torch.float32))
@@ -218,7 +236,9 @@ def _placed_loss_and_grads(cfg, params, batch, n_micro, compute_dtype,
     block, the whole mesh, without them); block j's forward and backward
     read row j's pieces (``take_row``; a leaf that the data axes split is
     read whole, gathered from its pieces) with the activations on the
-    row's first entry's device.  Each piece's gradient is summed in f32
+    row's first entry's device; an MoE layer routes each block as part
+    of its microbatch (``_block_routes``).  Each piece's gradient is
+    summed in f32
     on its card over the microbatches; then each block of a leaf
     (``sharding.blocks``) sums its replicas' gradients in entry order
     (data order) on its first entry's card, divides by the number of
@@ -238,7 +258,6 @@ def _placed_loss_and_grads(cfg, params, batch, n_micro, compute_dtype,
         raise ValueError("params in pieces on more than one mesh")
     rows = mesh_rows(mesh, dp_axes)
     n_dp = len(rows)
-    _refuse_moe(cfg, n_dp)
     mb = _micro_rows(batch, n_micro)
     if mb % n_dp:
         raise ValueError(f"a microbatch of {mb} rows does not split into "
@@ -267,11 +286,14 @@ def _placed_loss_and_grads(cfg, params, batch, n_micro, compute_dtype,
     with torch.enable_grad(), torch.autograd.set_multithreading_enabled(
             False):
         for i in range(n_micro):
+            routes = None
             for j, (tree, inputs, dev) in enumerate(views):
                 lo = i * mb + j * bl
                 block = {k: v[lo:lo + bl].to(dev) for k, v in batch.items()}
+                routes = _block_routes(cfg, n_dp, batch, mb, dev, routes)
                 loss, _ = forward_train(cfg, tree, block,
-                                        use_kernel=use_kernel)
+                                        use_kernel=use_kernel,
+                                        routing=routes)
                 grads = torch.autograd.grad(
                     loss, [cast[li].pieces[e] for li, e in inputs],
                     materialize_grads=True)
@@ -330,14 +352,14 @@ def build_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
     mesh axes carrying the batch, as the reference's; every microbatch's
     rows run in ``dp_devices(mesh, dp_axes)`` blocks (``loss_and_grads``'
     ``devices``; the gradients then come back f32 even with one
-    microbatch).  An MoE config with more than one block raises
-    ``ValueError``.
+    microbatch).
 
     A state in pieces (``device_put`` of a state placed by
     ``param_pspecs``, or ``adamw_init`` of placed params) steps as it is
     placed: ``mesh`` must be its params' mesh, whose rows along
-    ``dp_axes`` take the data blocks; compression is refused there
-    (``adamw_update``).
+    ``dp_axes`` take the data blocks; ``compress`` works piece by piece
+    there, with one scale or threshold per tensor of the reference
+    (``distributed.compression``).
     The returned state holds the same ``Placed`` leaves, updated in
     place, and the metrics stay on the home card (mesh entry 0's
     device)."""
@@ -347,7 +369,6 @@ def build_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
         if mesh is None:
             raise ValueError("dp_axes needs the mesh that carries them")
         devices = dp_devices(mesh, tuple(dp_axes))
-        _refuse_moe(cfg, len(devices))
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         if is_placed(state.params):

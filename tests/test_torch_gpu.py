@@ -1454,3 +1454,124 @@ def test_train_on_pieces_on_four_cards(arch):
     if count < 4:
         pytest.skip(f"needs four visible CUDA devices, {count} visible")
     _train_pieces_on(arch, [torch.device("cuda", i) for i in range(4)])
+
+
+def _moe_dp_on(cards):
+    """Reduced qwen2-moe-a2.7b (4 experts, top-2, 2 layers) in float32,
+    B = 8 x 32 in 2 microbatches, on the card: the whole tree's DP step
+    with one data block per card of ``cards`` (a (4, 1) mesh), and the
+    reference's train cell placed by ``param_pspecs(strategy=
+    "megatron")`` on a (2, 2) mesh over them, one data block per mesh
+    row, each against the one-device step on the home card: loss and
+    grad norm at rtol 1e-4, params at ``tests/test_torch_train.py``'s
+    bars (``chip_smoke.py`` phase 4q (a) at full width)."""
+    import dataclasses
+
+    from repro_torch.configs import reduced
+    from repro_torch.distributed.fault import tree_flatten, tree_map
+    from repro_torch.distributed.sharding import (Mesh, PartitionSpec,
+                                                  device_put, gather,
+                                                  named_shardings,
+                                                  param_pspecs)
+    from repro_torch.models import init_params
+    from repro_torch.train import (AdamWConfig, TrainState, adamw_init,
+                                   build_train_step)
+
+    home = cards[0]
+    cfg = dataclasses.replace(reduced("qwen2-moe-a2.7b"), n_layers=2)
+    opt = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (8, 32)).astype(np.int32)).to(home)}
+
+    def fresh():
+        return adamw_init(init_params(
+            cfg, torch.Generator(device=home).manual_seed(0),
+            dtype=torch.float32, device=home))
+
+    def run(state, **kw):
+        return build_train_step(cfg, opt, n_micro=2,
+                                compute_dtype=torch.float32, **kw)(
+            state, batch)
+
+    one, om = run(fresh())
+    rows = Mesh(np.array([[c] for c in cards], dtype=object),
+                ("data", "model"))
+    grid = Mesh(np.array(cards, dtype=object).reshape(2, 2),
+                ("data", "model"))
+    whole = fresh()
+    p_specs = param_pspecs(cfg, whole.params, grid, strategy="megatron")
+    specs = TrainState(step=PartitionSpec(), params=p_specs, mu=p_specs,
+                       nu=p_specs, compress_err=tree_map(
+                           lambda _: PartitionSpec(), whole.params))
+    placed = device_put(whole, named_shardings(specs, grid))
+    for new, m in (run(fresh(), dp_axes=("data",), mesh=rows),
+                   run(placed, dp_axes=("data",), mesh=grid)):
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(m[k]), float(om[k]),
+                                       rtol=1e-4)
+        for g, w in zip(tree_flatten(new.params)[0],
+                        tree_flatten(one.params)[0]):
+            g, w = gather(g, "cpu").numpy(), w.cpu().numpy()
+            miss = ~np.isclose(g, w, rtol=1e-4, atol=1e-6)
+            if miss.any():
+                assert np.abs(g - w)[miss].max() <= 2 * opt.lr
+                assert miss.mean() <= 1e-3
+
+
+@pytest.mark.gpu
+def test_moe_dp_step_on_entries_of_the_card():
+    dev = require_cuda()
+    _moe_dp_on([torch.device("cuda", dev.index or 0)] * 4)
+
+
+@pytest.mark.gpu
+def test_moe_dp_step_on_four_cards():
+    """Skipped where fewer than four cards are visible (``chip_smoke.py``
+    phase 4q (b) says the same)."""
+    require_cuda()
+    count = torch.cuda.device_count()
+    if count < 4:
+        pytest.skip(f"needs four visible CUDA devices, {count} visible")
+    _moe_dp_on([torch.device("cuda", i) for i in range(4)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["int8", "topk"])
+def test_compression_on_pieces_on_the_card(scheme):
+    """Seeded gradients and residuals of reduced llama3-8b (8 heads, 4 KV
+    heads, 2 layers) on the card, whole and placed by
+    ``param_pspecs(strategy="megatron")`` on (1, 4) entries of it:
+    compressed gradients and residuals of the pieces bitwise the whole
+    tree's, the replicas equal."""
+    import dataclasses
+
+    from repro_torch.configs import reduced
+    from repro_torch.distributed.compression import (int8_compress,
+                                                     topk_compress)
+    from repro_torch.distributed.fault import tree_flatten, tree_map
+    from repro_torch.distributed.sharding import (Mesh, blocks, device_put,
+                                                  gather, named_shardings,
+                                                  param_pspecs)
+    from repro_torch.models import init_params
+
+    dev = require_cuda()
+    cfg = dataclasses.replace(reduced("llama3-8b"), n_heads=8, n_kv_heads=4)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32, device=dev)
+    mesh = Mesh(np.array([[dev] * 4], dtype=object), ("data", "model"))
+    shardings = named_shardings(param_pspecs(cfg, params, mesh,
+                                             strategy="megatron"), mesh)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                           device=dev), params)
+    err = tree_map(lambda p: 0.01 * torch.randn(p.shape, generator=gen,
+                                                device=dev), params)
+    fn = {"int8": int8_compress, "topk": topk_compress}[scheme]
+    want = fn(grads, err)
+    got = fn(device_put(grads, shardings), device_put(err, shardings))
+    for w_tree, g_tree in zip(want, got):
+        for w, g in zip(tree_flatten(w_tree)[0], tree_flatten(g_tree)[0]):
+            assert torch.equal(gather(g, dev), w)
+            for entries in blocks(g):
+                for e in entries[1:]:
+                    assert torch.equal(g.pieces[e], g.pieces[entries[0]])

@@ -28,8 +28,8 @@ associative scan moves it by 3e-11 only.  After the clip (global norm
 2.516), Adam's first step lr g / (|g| + eps) at |g| ~ 10 eps turns it
 into 3.3e-6 of the param (lr eps dg / (|g| + eps)^2 = 3.5e-6).  The
 blocks are the batch's rows in order (none reordered); the data
-devices are the mesh's entries along the data axis; MoE under more
-than one block raises.
+devices are the mesh's entries along the data axis.  MoE over data
+blocks: ``tests/test_torch_train_moe_dp.py``.
 """
 
 import dataclasses
@@ -142,14 +142,6 @@ def test_dp_devices_follow_the_data_axis():
         mesh.devices.T.flat)
     with pytest.raises(ValueError, match="no axes"):
         TS.dp_devices(mesh, ("pod",))
-
-
-def test_moe_under_data_parallelism_raises():
-    cfg = dataclasses.replace(reduced("qwen2-moe-a2.7b"), n_layers=2)
-    with pytest.raises(ValueError, match="moe_capacity"):
-        TS.build_train_step(cfg, dp_axes=("data",), mesh=_dp_mesh())
-    # one data block is the one-device step
-    TS.build_train_step(cfg, dp_axes=("data",), mesh=_dp_mesh(1))
 
 
 def test_launcher_data_parallel_flag(tmp_path, capsys):

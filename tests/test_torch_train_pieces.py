@@ -24,8 +24,9 @@ by ``train_state_from_jax``; one and two microbatches:
 * after the step every leaf is the same ``Placed`` in the same sharding,
   the bytes per entry unchanged (= ``per_device_bytes``), replicas
   bitwise equal, and a second run from the same state bitwise the first;
-* MoE with two data blocks, and compression on a placed state, raise
-  ``ValueError``;
+* qwen2-moe-a2.7b on (2, 2) routes each data block as part of its
+  microbatch (its kept pairs: ``tests/test_torch_train_moe_dp.py``;
+  compression on a placed state: the ``_compression`` file beside this);
 * the backward of the splits: ``spread`` sums the cards' gradients in
   entry order, ``row_sum`` hands each card the output gradient, the
   vocab-parallel embedding's and logits' gradients are the unsharded
@@ -46,7 +47,6 @@ from repro.models import model as JM
 from repro.train import optimizer as JO
 from repro.train import steps as JS
 from repro_torch.configs import reduced
-from repro_torch.distributed.compression import int8_compress
 from repro_torch.distributed.fault import tree_flatten, tree_map
 from repro_torch.distributed.sharding import (Mesh, NamedSharding,
                                               PartitionSpec as P, Placed,
@@ -182,8 +182,6 @@ def test_placed_step_matches_reference_and_one_device(arch, case, n_micro):
     strategy, shape, dp_axes = CASES[case]
     ctx = _ctx(arch)
     mesh = _mesh(shape)
-    if ctx["tcfg"].moe is not None and shape[0] > 1:
-        dp_axes = None          # two MoE data blocks raise (test below)
     jnew, jm, one, om = _reference_and_one_device(ctx, n_micro)
     state, specs, whole = _placed_state(ctx, mesh, strategy)
     leaves = tree_flatten(state)[0]
@@ -288,25 +286,12 @@ def test_data_blocks_read_their_rows():
 
 
 def test_refusals():
-    """MoE with two data blocks, compression on a placed state, a step
-    built on another mesh, a tree that mixes placed and whole leaves,
-    and ``devices`` for params in pieces raise ``ValueError``."""
+    """A step built on another mesh, a tree that mixes placed and whole
+    leaves, and ``devices`` for params in pieces raise ``ValueError``."""
     ctx = _ctx("qwen2-moe-a2.7b")
     mesh = _mesh((2, 2))
     state = _placed_state(ctx, mesh, "megatron")[0]
     batch = {"tokens": torch.from_numpy(ctx["tokens"])}
-    with pytest.raises(ValueError, match="moe_capacity"):
-        TS.build_train_step(ctx["tcfg"], dp_axes=("data",), mesh=mesh)
-    with pytest.raises(ValueError, match="moe_capacity"):
-        TS.loss_and_grads(ctx["tcfg"], state.params, batch, 1,
-                          torch.float32, dp_axes=("data",))
-    with pytest.raises(ValueError, match="placed state"):
-        TS.build_train_step(ctx["tcfg"], compress=int8_compress)(
-            state, batch)
-    with pytest.raises(ValueError, match="placed state"):
-        TO.adamw_init(state.params, with_compression=True)
-    with pytest.raises(ValueError, match="placed state"):
-        int8_compress(state.params, state.params)
     with pytest.raises(ValueError, match="not the mesh"):
         TS.build_train_step(ctx["tcfg"], mesh=_mesh((1, 4)))(state, batch)
     with pytest.raises(ValueError, match="some leaves placed"):
