@@ -299,6 +299,31 @@ Phases (each prints its own lines; any failure exits non-zero):
              ``per_device_bytes``), peak memory, launches and busy share,
              the step p50 (CUDA events); one line saying (b) did not run
              elsewhere;
+   r. every family's layers on their weight pieces (the product
+             route: column pieces' outputs joined on the home card, row
+             pieces' partial products summed there in entry order, MLA's
+             absorbed decode by head group, the recurrences and attention
+             on the home card), ``param_pspecs(strategy="megatron")``:
+             (a) on (1, 4) entries of the card, float32 at full width,
+             rwkv6-7b, hymba-1.5b (5 KV heads on four entries) and
+             minicpm3-4b at 2 layers and whisper-tiny whole, B = 2 x 128
+             (whisper beside its 1,500 frames) and 4 greedy tokens
+             against the whole tree within 2e-4 with the whole tree's
+             launches; rwkv6-7b and hymba-1.5b one train step on (1, 4)
+             and (2, 2) (4 x 128 in 2 microbatches) against the whole
+             tree's (loss and grad norm at rtol 1e-4, params / mu / nu at
+             ``tests/test_torch_train.py``'s bars), two runs bitwise, the
+             scan launches the whole tree's; the bytes gathered whole for
+             leaves that a product reads, 0 (``tensor_parallel.gather``
+             wrapped here), and the leaves still gathered (hymba's
+             ``log_a``); (b) where four cards are visible, rwkv6-7b at
+             full width and depth (8.06 G params) drawn piece by piece on
+             a (1, 4) mesh of distinct cards and trained with
+             ``dp_axes=("data",)``, 8 x 128 in 2 microbatches, 3 steps:
+             the first loss within 1 nat of ln(vocab), the last lower,
+             per card the bytes (= ``per_device_bytes``), peak memory,
+             kernels and busy share, the step p50 (CUDA events); one line
+             saying (b) did not run elsewhere;
    n. entry points and step rooflines — (a) the port's CI gates
              (``tools/torch_check_consistency.py --bitwise 4``,
              ``torch_check_replay.py``, ``torch_check_recovery.py 4``)
@@ -562,6 +587,27 @@ TP4_SEQ, TP4_BATCH, TP4_MICRO, TP4_STEPS = 4096, 8, 4, 3
 MOE_DP_ARCH = "qwen2-moe-a2.7b"
 MOE_SKEW = 4.0
 MOE4_LAYERS = 12
+
+# phase 4r: every family's layers on their weight pieces (the product
+# route of models.tensor_parallel), param_pspecs(strategy="megatron").
+# (a) float32 at full width on (1, 4) entries of the card, depth cut to
+# FP_ARCHS[arch] layers (whisper-tiny whole): prefill FP_BATCH x
+# FP_PROMPT (whisper beside its 1,500 frames) and FP_TOKENS greedy tokens
+# against the whole tree within PIECES_TOL; FP_TRAIN one train step each
+# on (1, 4) and (2, 2), 4p (a)'s sizes and bars.  (b) four cards:
+# rwkv6-7b at full width and depth trained as the reference's train cell
+# places it, drawn piece by piece, train_4k's 256 x 4,096 cut to
+# RWKV4_BATCH x RWKV4_SEQ in RWKV4_MICRO microbatches (its WKV loop walks
+# every token: a train step at 4 layers over 2 x 1,024 took 8.2 s on one
+# H100, PERF.md)
+FP_ARCHS = {"rwkv6-7b": 2, "hymba-1.5b": 2, "minicpm3-4b": 2,
+            "whisper-tiny": None}
+FP_TRAIN = {"rwkv6-7b": ((1, 4), (2, 2)), "hymba-1.5b": ((1, 4), (2, 2))}
+FP_BATCH, FP_PROMPT, FP_TOKENS = 2, 128, 4
+# leaves that no product reads, gathered whole where split (hymba's
+# log_a: split along its channels by auto_pspec, read elementwise)
+FP_UNREAD = ("log_a",)
+RWKV4_BATCH, RWKV4_SEQ, RWKV4_MICRO, RWKV4_STEPS = 8, 128, 2, 3
 
 # phase 4n: the CUDA function (or Triton kernel) that every launch of a
 # port kernel runs once, so that its profiler events count the launches
@@ -5238,6 +5284,384 @@ def moe_dp_training(dev, card):
     return res
 
 
+# ---------------------------------------------------------------- phase 4r
+
+
+class Gathers:
+    """While entered: every leaf that ``models.tensor_parallel`` gathers
+    whole for a call (its shape and bytes), by wrapping the module's
+    ``gather``."""
+
+    def __enter__(self):
+        from repro_torch.models import tensor_parallel as tp
+
+        self.seen = []
+        self._real = tp.gather
+
+        def gathering(x, device):
+            self.seen.append((tuple(x.shape),
+                              x.shape.numel() * x.element_size()))
+            return self._real(x, device)
+
+        tp.gather = gathering
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import tensor_parallel as tp
+
+        tp.gather = self._real
+        return False
+
+
+def leaf_names(params):
+    """{shape: names} of a params tree's leaves (a layer's names once)."""
+    names = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (str(k),))
+        elif isinstance(t, list):
+            for v in t:
+                walk(v, path)
+        else:
+            names.setdefault(tuple(t.shape), set()).add("/".join(path))
+
+    walk(params, ())
+    return names
+
+
+def gathered_report(label, seen, names):
+    """The bytes gathered whole for leaves that a product reads (a shape
+    that any such leaf has counts as one), which must be 0, and {leaf
+    names: [gathers, bytes]} of everything gathered."""
+    product, kinds = 0, {}
+    for shape, nbytes in seen:
+        ns = names.get(shape, {f"? {shape}"})
+        k = kinds.setdefault(", ".join(sorted(ns)), [0, 0])
+        k[0] += 1
+        k[1] += nbytes
+        if any(n.split("/")[-1] not in FP_UNREAD for n in ns):
+            product += nbytes
+    if product:
+        raise AssertionError(f"{label}: {product} bytes gathered whole for "
+                             f"leaves that a product reads: {kinds}")
+    return product, kinds
+
+
+def _fp_expect(cfg):
+    """The kernels a family's serving path launches."""
+    if cfg.family == "hybrid":
+        return ("linear_scan", "decode_partials")
+    return ("decode_partials",) if cfg.attn_type == "gqa" else ()
+
+
+def family_pieces_serving(arch, mesh, dev, card):
+    """Phase 4r (a) serving: ``arch`` at full width and FP_ARCHS[arch]
+    layers in float32, drawn whole on the card (seed 0) and placed on
+    ``mesh``; ``generate_greedy`` of FP_TOKENS through the pieces and the
+    kernels, then teacher-forced (prefill + decode); the whole tree the
+    same way: logits within PIECES_TOL, the same launches, 0 bytes
+    gathered for leaves that a product reads."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.serve.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    cfg = get(arch)
+    if FP_ARCHS[arch] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=FP_ARCHS[arch])
+    label = (f"4r {arch} ({cfg.n_layers} layers) in pieces over (1, "
+             f"{PIECES_N}) of the card")
+    params = _draw(cfg, dev, torch.float32)
+    placed, per_entry = place_megatron(cfg, params, mesh)
+    names = leaf_names(params)
+    batch = model_batch(cfg, model_prompt(cfg, FP_BATCH, FP_PROMPT), dev)
+    max_len = FP_PROMPT + FP_TOKENS
+    expect = _fp_expect(cfg)
+    eng = ServingEngine(cfg, placed, max_len=max_len, dtype=torch.float32)
+    with Gathers() as g:
+        tokens, counts = run_path(
+            f"{label} (f32)", lambda: eng.generate_greedy(batch, FP_TOKENS),
+            expect)
+        got = teacher_forced(eng, batch, tokens)
+    del eng, placed
+    _free()
+    one_eng = ServingEngine(cfg, params, max_len=max_len,
+                            dtype=torch.float32, device=dev)
+    _, one_counts = run_path(
+        f"4r {arch} whole tree (f32)",
+        lambda: one_eng.generate_greedy(batch, FP_TOKENS), expect)
+    one = teacher_forced(one_eng, batch, tokens)
+    del one_eng, params
+    _free()
+    if counts != one_counts:
+        raise AssertionError(f"{label}: launches {counts}, whole tree "
+                             f"{one_counts}")
+    check_logits(got, cfg, FP_BATCH)
+    err = max(compare(f"{label} vs whole step {i}", torch.from_numpy(x),
+                      torch.from_numpy(y), rtol=PIECES_TOL, atol=PIECES_TOL)
+              for i, (x, y) in enumerate(zip(got, one)))
+    if not np.array_equal(np.stack([x.argmax(-1) for x in got[:-1]], 1),
+                          tokens):
+        raise AssertionError(f"{label}: teacher-forced argmax differs from "
+                             f"generate_greedy's tokens")
+    product, kinds = gathered_report(label, g.seen, names)
+    secs = time.perf_counter() - t0
+    log(f"{label} f32 B={FP_BATCH} x {FP_PROMPT} + {FP_TOKENS} greedy "
+        f"tokens: logits within {PIECES_TOL} of the whole tree (max abs "
+        f"diff {err}); launches {counts} = the whole tree's; bytes "
+        f"gathered for leaves a product reads {product}; gathered "
+        f"{kinds or 'nothing'}; bytes per entry = per_device_bytes = "
+        f"{per_entry}; {secs:.1f} s  [{card}]")
+    return {"err": err, "launches": counts, "product_bytes": product,
+            "gathered": kinds, "entry_bytes": per_entry, "s": secs}
+
+
+def family_pieces_training(arch, shape, dev, card):
+    """Phase 4r (a) training: ``arch`` at full width and 2 layers, the
+    reference's train cell (``state_specs``) on a ``shape`` ("data",
+    "model") mesh of the card, TP_BATCH x TP_SEQ in TP_MICRO
+    microbatches, phase 4j's optimizer, float32: the placed step twice
+    from the initial state (bitwise), then the whole tree's step: loss
+    and grad norm at TP_RTOL, params / mu / nu at ``close_params``, the
+    same placed leaves with ``per_device_bytes`` an entry and equal
+    replicas, the scan launches the whole tree's times the data blocks,
+    0 bytes gathered for leaves that a product reads."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.distributed.fault import tree_flatten
+    from repro_torch.distributed.sharding import (Mesh, blocks, entry_bytes,
+                                                  gather)
+    from repro_torch.train import AdamWConfig, adamw_init, build_train_step
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get(arch), n_layers=TP_LAYERS)
+    mesh = Mesh(np.full(shape, dev, dtype=object), ("data", "model"))
+    n_dp = shape[0]
+    label = f"4r {arch} ({TP_LAYERS} layers) trained on {shape} of the card"
+    gen = torch.Generator(device=dev).manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (TP_BATCH, TP_SEQ),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    params0 = _draw(cfg, dev, torch.float32)
+    names = leaf_names(params0)
+    specs = state_specs(cfg, params0, mesh)
+    opt = AdamWConfig(**TRAIN_OPT)
+    step_p = build_train_step(cfg, opt, n_micro=TP_MICRO,
+                              compute_dtype=torch.float32,
+                              dp_axes=("data",), mesh=mesh)
+    scans = ("linear_scan", "linear_scan_bwd") if cfg.ssm else ()
+
+    def first_pieces(tree):
+        return [x.pieces[e[0]] for x in tree_flatten(tree)[0]
+                for e in blocks(x)]
+
+    runs = []
+    for k in range(2):
+        placed, per_entry = place_state(label, adamw_init(params0), specs,
+                                        mesh)
+        leaves = tree_flatten(placed)[0]
+        with Gathers() as g:
+            (new, m), counts = run_path(f"{label} run {k + 1} (f32)",
+                                        lambda: step_p(placed, batch), scans)
+        if [id(x) for x in tree_flatten(new)[0]] != [id(x) for x in leaves] \
+                or not (entry_bytes(new) == per_entry).all() \
+                or not _replicas_equal(new):
+            raise AssertionError(f"{label}: the stepped state is not the "
+                                 f"same placed leaves with equal replicas "
+                                 f"and {per_entry} bytes an entry")
+        if k == 0:
+            runs.append((m["loss"], [t.clone() for t in
+                                     first_pieces(new.params)]))
+            del new, placed, leaves
+            _free()
+        elif not (torch.equal(m["loss"], runs[0][0]) and all(
+                torch.equal(a, b) for a, b in
+                zip(first_pieces(new.params), runs[0][1]))):
+            raise AssertionError(f"{label}: two runs of the step from one "
+                                 f"state differ")
+    del runs, placed, leaves
+    whole = adamw_init(params0)
+    del params0
+    (whole, mw), whole_counts = run_path(
+        f"4r {arch} whole tree step (f32)",
+        lambda: build_train_step(cfg, opt, n_micro=TP_MICRO,
+                                 compute_dtype=torch.float32)(whole, batch),
+        scans)
+    if any(counts.get(c, 0) != n_dp * whole_counts.get(c, 0)
+           for c in scans):
+        raise AssertionError(f"{label}: launches {counts}, whole tree "
+                             f"{whole_counts} x {n_dp} data blocks")
+    errs = {}
+    for name in ("loss", "grad_norm"):
+        got, want = float(m[name]), float(mw[name])
+        if abs(got - want) > TP_RTOL * abs(want):
+            raise AssertionError(f"{label}: {name} {got}, whole tree "
+                                 f"{want}")
+        errs[name] = abs(got - want) / abs(want)
+    for field in ("params", "mu", "nu"):
+        errs[field] = close_params(
+            f"{label} {field}",
+            ((gather(x, dev), w) for x, w in zip(
+                _leaves(getattr(new, field)),
+                _leaves(getattr(whole, field)))), TRAIN_OPT["lr"])
+    product, kinds = gathered_report(label, g.seen, names)
+    del new, whole
+    _free()
+    secs = time.perf_counter() - t0
+    log(f"{label}, f32, B={TP_BATCH} x {TP_SEQ} in {TP_MICRO} microbatches"
+        + (f" x {n_dp} data blocks" if n_dp > 1 else "") + f": loss "
+        f"{float(m['loss'])}, against the whole tree's step: loss / grad "
+        f"norm rel. diff {errs['loss']:.3e} / {errs['grad_norm']:.3e}, "
+        f"params / mu / nu (max abs diff, elements off, elements) "
+        f"{[errs[f] for f in ('params', 'mu', 'nu')]}; two runs bitwise; "
+        f"launches {counts} (whole tree {whole_counts}); bytes gathered "
+        f"for leaves a product reads {product}; gathered "
+        f"{kinds or 'nothing'}; bytes per entry = per_device_bytes = "
+        f"{per_entry}; {secs:.1f} s  [{card}]")
+    return dict(errs, loss=float(m["loss"]), launches=counts,
+                whole_launches=whole_counts, product_bytes=product,
+                gathered=kinds, entry_bytes=per_entry, s=secs)
+
+
+def rwkv_distinct(card):
+    """Phase 4r (b): where four cards are visible (one line saying it did
+    not run otherwise), rwkv6-7b at full width and depth trained as the
+    reference's train cell places it: params drawn piece by piece on each
+    card of a (1, 4) mesh (``fill_placed``, seed 0), ``adamw_init`` of
+    them, ``dp_axes=("data",)``, bf16 compute, RWKV4_BATCH x RWKV4_SEQ
+    in RWKV4_MICRO microbatches, RWKV4_STEPS steps: the first loss
+    within TRAIN_LOSS_TOL of ln(vocab), the last lower; per card the
+    bytes of params, mu and nu (= ``per_device_bytes`` on ``meta``) and
+    peak memory, and one more step's kernels and busy share
+    (``busy_by_card``); the step p50 from CUDA events (card 0's stream
+    waits for every card's)."""
+    import math
+
+    from repro_torch.configs import get
+    from repro_torch.distributed.sharding import (cuda_devices, device_put,
+                                                  entry_bytes,
+                                                  named_shardings,
+                                                  param_pspecs,
+                                                  per_device_bytes)
+    from repro_torch.models import fill_placed, init_params
+    from repro_torch.train import AdamWConfig, adamw_init, build_train_step
+
+    cards = cuda_devices()
+    if len(cards) < PIECES_N:
+        log(f"4r (b) did not run: {len(cards)} CUDA device visible; "
+            f"{RWKV_ARCH} trained over distinct cards needs {PIECES_N} "
+            f"(phase 4r (a) ran its layers on entries that repeat this "
+            f"card)  [{card}]")
+        return {"ran": False, "cards": len(cards)}
+    t_b = time.perf_counter()
+    cards = cards[:PIECES_N]
+    mesh = pieces_mesh(cards)
+    names = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[:PIECES_N]
+    cfg = get(RWKV_ARCH)
+    t0 = time.perf_counter()
+    meta = init_params(cfg, torch.Generator(), dtype=torch.float32,
+                       device="meta")
+    specs = param_pspecs(cfg, meta, mesh, strategy="megatron")
+    state = adamw_init(fill_placed(
+        cfg, device_put(meta, named_shardings(specs, mesh)), seed=0))
+    for c in cards:
+        torch.cuda.synchronize(c)
+        torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    held = entry_bytes((state.params, state.mu, state.nu))
+    want = per_device_bytes((meta, meta, meta), (specs, specs, specs), mesh)
+    if not (held == want).all():
+        raise AssertionError(f"4r (b): bytes per card {held.tolist()}, "
+                             f"per_device_bytes {want}")
+    # one batch, every step: its loss must fall
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (RWKV4_BATCH, RWKV4_SEQ)).astype(np.int32)).to(
+        cards[0])}
+    step = build_train_step(cfg, AdamWConfig(**TRAIN_OPT),
+                            n_micro=RWKV4_MICRO,
+                            compute_dtype=torch.bfloat16, dp_axes=("data",),
+                            mesh=mesh)
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    losses, ms = [], []
+    for _ in range(RWKV4_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(torch.cuda.current_stream(cards[0]))
+        state, m = step(state, batch)
+        home = torch.cuda.current_stream(cards[0])
+        for c in cards[1:]:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(c))
+            home.wait_event(done)
+        end.record(home)
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    ln_v = math.log(cfg.vocab_size)
+    if not all(map(math.isfinite, losses)) or \
+            abs(losses[0] - ln_v) > TRAIN_LOSS_TOL or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"4r (b): losses {losses} (ln V = {ln_v:.4f})")
+    peaks = [torch.cuda.max_memory_allocated(c) / 1e9 for c in cards]
+    by_card = busy_by_card(lambda: step(state, batch))
+    if not (entry_bytes((state.params, state.mu, state.nu)) == want).all():
+        raise AssertionError("4r (b): bytes per card changed by the steps")
+    out = {"ran": True, "cards": names,
+           "params_g": sum(t.numel() for t in _leaves(meta)) / 1e9,
+           "init_s": init_s, "entry_bytes": want, "losses": losses,
+           "ms": ms, "ms_p50": float(np.percentile(ms[1:], 50)),
+           "peak_gb": peaks, "by_card": by_card}
+    log(f"4r (b) {RWKV_ARCH} at full width and depth trained in pieces over "
+        f"{PIECES_N} cards {names}: {out['params_g']:.3f} G params drawn "
+        f"piece by piece and AdamW state made in {init_s:.1f} s; params + "
+        f"mu + nu per card = per_device_bytes = {want} ({want / 1e9:.2f} "
+        f"GB); bf16, {RWKV4_BATCH} x {RWKV4_SEQ} in {RWKV4_MICRO} "
+        f"microbatches: losses {losses} (ln V = {ln_v:.4f}); first step "
+        f"{ms[0]:.1f} ms, step p50 {out['ms_p50']:.1f} ms over the next "
+        f"{RWKV4_STEPS - 1} {[round(x, 1) for x in ms[1:]]} (CUDA events); "
+        f"peak memory by card {[round(p, 2) for p in peaks]} GB; one more "
+        f"step by card (kernels, device ms, busy share) "
+        f"{[(r['kernels'], round(r['device_ms'], 1), round(r['busy_share'], 3)) for r in by_card['cards'].values()]}"
+        f" over {by_card['wall_ms']:.1f} ms")
+    del state, batch, step
+    for c in cards:
+        torch.cuda.synchronize(c)
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_b
+    return out
+
+
+def family_pieces(dev, card):
+    """Phase 4r: (a) on entries of the card, each family served on its
+    pieces and rwkv6-7b / hymba-1.5b trained on them; (b) rwkv6-7b at
+    full size over four distinct cards where four are visible."""
+    mesh = pieces_mesh([dev] * PIECES_N)
+    res = {"serving": {}, "training": {}}
+    counts = {}
+    t0 = time.perf_counter()
+    for arch in FP_ARCHS:
+        r = family_pieces_serving(arch, mesh, dev, card)
+        res["serving"][arch] = r
+        counts[f"family_pieces_{arch}"] = r["launches"]
+    for arch, shapes in FP_TRAIN.items():
+        for shape in shapes:
+            r = family_pieces_training(arch, shape, dev, card)
+            res["training"][f"{arch} {shape}"] = r
+            counts[f"family_pieces_{arch}_{shape[0]}x{shape[1]}"] = \
+                r["launches"]
+    res["a_s"] = time.perf_counter() - t0
+    res["distinct"] = rwkv_distinct(card)
+    return res, counts
+
+
 # ---------------------------------------------------------------- phase 4n
 
 
@@ -5845,6 +6269,16 @@ def main(argv) -> int:
     log(f"phase 4q took {moe_dp_res['phase_s']:.1f} s ((a) "
         f"{moe_dp_res['a_s']:.1f} s)")
 
+    phase(f"4r every family's layers on their weight pieces "
+          f"({', '.join(FP_ARCHS)}; param_pspecs megatron, the product "
+          f"route)")
+    t0 = time.perf_counter()
+    fam_pieces, counts = family_pieces(dev, card)
+    paths.update(counts)
+    fam_pieces["phase_s"] = time.perf_counter() - t0
+    log(f"phase 4r took {fam_pieces['phase_s']:.1f} s ((a) "
+        f"{fam_pieces['a_s']:.1f} s)")
+
     phase("4n entry points (tools/torch_*, examples/torch_*), the "
           "roofline of whole steps, the dry run")
     t0 = time.perf_counter()
@@ -5997,7 +6431,7 @@ def main(argv) -> int:
             "decode_partials_shapes": res_fd, "segagg_shapes": seg_shapes,
             "decode_partials_32k": res_fd32, "mesh": mesh_res,
             "param_pieces": pieces, "train_pieces": train_pieces_res,
-            "moe_dp": moe_dp_res,
+            "moe_dp": moe_dp_res, "family_pieces": fam_pieces,
             "entry_points_rooflines": entry,
             "load_s": t_load, "ingest_s": t_ingest}, indent=1))
     print(json.dumps({"kernels": kernels}))

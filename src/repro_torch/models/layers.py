@@ -22,9 +22,13 @@ The same functions as ``repro/models/layers.py``, on tensors:
     a fixed order (no float atomics);
   * weights in pieces (``Placed`` leaves of a tree placed by
     ``param_pspecs``): ``gqa_forward`` runs card k's head group on card
-    k (its cache in KV-head pieces), ``swiglu`` column / row parallel,
-    ``moe_forward`` each card's experts on their card; any other layout
-    is gathered whole for the call (``models.tensor_parallel``);
+    k (its cache in KV-head pieces) where the entries divide the KV
+    heads, ``moe_forward`` each card's experts on their card, and every
+    other projection of every family -- GQA whose KV heads the entries
+    do not divide, MLA, hymba's SSM branch, RWKV6's mixes, the audio
+    encoder, cross-attention and GELU MLP, SwiGLU -- reads its column
+    or row pieces where they lie (``models.tensor_parallel``'s product
+    route), while the recurrences and attention run on x's card;
   * ``layer_norm`` and the biased tanh-GELU MLP (the audio family);
   * RWKV6's time mix runs the WKV recurrence as a Python loop over time
     in float32 (the reference's sequential ``lax.scan``, no Pallas call
@@ -88,20 +92,10 @@ def _silu_gate(x, g, u):
 def swiglu(x, w_gate, w_up, w_down):
     """``silu(x W_gate) * (x W_up)`` through ``W_down``.  Weights in pieces
     split by column (gate, up) and by row (down) over the same cards run
-    there, the partial products summed on x's card in entry order; any
-    other placement is gathered whole for the call."""
-    if any(isinstance(w, Placed) for w in (w_gate, w_up, w_down)):
-        ws = tp.split((w_gate, w_up, w_down), (1, 1, 0))
-        if ws is None:
-            return swiglu(x, *(tp.whole(w, x.device)
-                               for w in (w_gate, w_up, w_down)))
-        xs = tp.spread(x, [w.device for w in ws[0]])
-        return tp.row_sum([_silu_gate(xk, xk @ g, xk @ u) @ dn
-                           for xk, g, u, dn in zip(xs, *ws)],
-                          x.device, x.dtype)
-    g = x @ w_gate
-    u = x @ w_up
-    return _silu_gate(x, g, u) @ w_down
+    there, the partial products summed on x's card in entry order
+    (``tp.column_row``)."""
+    return tp.column_row(x, (w_gate, w_up), w_down,
+                         lambda g, u: _silu_gate(g, g, u))
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -115,10 +109,14 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def gelu_mlp(x, w_up, b_up, w_down, b_down):
     """``jax.nn.gelu`` defaults to the tanh approximation (``F.gelu`` to
-    the exact erf form), in float32."""
-    h = x @ w_up + b_up
-    h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
-    return h @ w_down + b_down
+    the exact erf form), in float32.  Weights in pieces: ``w_up`` by
+    column and ``w_down`` by row, card k adding its slice of ``b_up``
+    (``tp.column_row``); ``b_down`` added on x's card."""
+    def act(h):
+        return F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
+
+    y = tp.column_row(x, (w_up,), w_down, act, biases=(b_up,))
+    return y + tp.on(b_down, x.device)
 
 
 def rope_tables(positions: torch.Tensor, dim: int, theta: float
@@ -263,8 +261,10 @@ def gqa_forward(p: Params, x: torch.Tensor, cfg, *, positions,
     Weights in pieces (``Placed``): where ``wq|wk|wv`` are split by column
     and ``wo`` by row over the same n cards and n divides the KV heads,
     the head route (``_gqa_heads``) runs card k's head group on card k,
-    whatever mesh is active; any other placement is gathered whole for
-    the call.
+    whatever mesh is active.  Otherwise (hymba-1.5b's 5 KV heads on four
+    entries) the product route: q/k/v by column, concatenated on x's
+    card (``tp.columns``), attention there over a whole cache, ``wo`` by
+    row (``tp.matmul``).
     """
     if any(isinstance(t, Placed) for t in p.values()):
         mesh = tp.head_mesh(cfg, p)
@@ -272,7 +272,6 @@ def gqa_forward(p: Params, x: torch.Tensor, cfg, *, positions,
             return _gqa_heads(p, x, cfg, mesh, positions=positions,
                               cache=cache, window=window, chunk=chunk,
                               use_kernel=use_kernel)
-        p = tp.whole_tree(p, x.device)
     b, s, _ = x.shape
     hq, dh = cfg.n_heads, cfg.head_dim
     q, k, v = _qkv(x, p["wq"], p["wk"], p["wv"], p.get("q_norm"),
@@ -299,22 +298,20 @@ def gqa_forward(p: Params, x: torch.Tensor, cfg, *, positions,
             out = _cached_attention(q, k, v, ck, cv, pos, window,
                                     use_kernel)
         new_cache = {"k": ck, "v": cv, "len": pos + 1}
-    y = out.reshape(b, s, hq * dh) @ p["wo"]
+    y = tp.matmul(out.reshape(b, s, hq * dh), p["wo"])
     return y, new_cache
 
 
 def _qkv(x, wq, wk, wv, q_norm, k_norm, cfg, positions):
     """The roped q (B, S, ·, Dh) and k, and v, of x's heads through
-    ``wq|wk|wv`` (the whole model's, or one head group's), behind the
-    q/k norms where the config has them."""
+    ``wq|wk|wv`` (the whole model's, one head group's, or column pieces:
+    ``tp.columns``), behind the q/k norms where the config has them."""
     b, s, _ = x.shape
     dh = cfg.head_dim
-    q = (x @ wq).reshape(b, s, -1, dh)
-    k = (x @ wk).reshape(b, s, -1, dh)
-    v = (x @ wv).reshape(b, s, -1, dh)
+    q, k, v = (t.reshape(b, s, -1, dh) for t in tp.columns(x, (wq, wk, wv)))
     if cfg.qk_norm:
-        q = rms_norm(q, q_norm, cfg.norm_eps)
-        k = rms_norm(k, k_norm, cfg.norm_eps)
+        q = rms_norm(q, tp.on(q_norm, x.device), cfg.norm_eps)
+        k = rms_norm(k, tp.on(k_norm, x.device), cfg.norm_eps)
     cos, sin = rope_tables(positions, dh, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
@@ -423,6 +420,11 @@ def mla_forward(p: Params, x: torch.Tensor, cfg, *, positions,
     scores masked where t >= len + 1, a softmax, then ``v_up``, cast to
     x's dtype before ``wo`` -- plain torch ops, as the reference's plain
     jnp.
+
+    Weights in pieces: ``q_down`` and ``kv_down`` (replicated) read on
+    x's card, ``q_up|k_up|v_up`` by column and ``wo`` by row
+    (``tp.matmul``); the absorbed decode reads ``k_up`` / ``v_up`` head
+    group by head group on their cards (``tp.by_head``).
     """
     m = cfg.mla
     b, s, _ = x.shape
@@ -430,9 +432,10 @@ def mla_forward(p: Params, x: torch.Tensor, cfg, *, positions,
     dn, dr, dv = m.nope_dim, m.rope_dim, m.v_dim
     f32 = torch.float32
 
-    q = ((x @ p["q_down"]) @ p["q_up"]).reshape(b, s, h, dn + dr)
+    q = tp.matmul(tp.matmul(x, p["q_down"]), p["q_up"]).reshape(
+        b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    latent = x @ p["kv_down"]
+    latent = tp.matmul(x, p["kv_down"])
     c_kv = latent[..., :m.kv_rank]
     cos, sin = rope_tables(positions, dr, cfg.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
@@ -441,13 +444,14 @@ def mla_forward(p: Params, x: torch.Tensor, cfg, *, positions,
     lat = torch.cat([c_kv, k_rope], dim=-1)
 
     if cache is None:
-        k_nope = (c_kv @ p["k_up"]).reshape(b, s, h, dn)
-        v = (c_kv @ p["v_up"]).reshape(b, s, h, dv)
+        k_nope, v = tp.columns(c_kv, (p["k_up"], p["v_up"]))
+        k_nope = k_nope.reshape(b, s, h, dn)
+        v = v.reshape(b, s, h, dv)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
                       dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
         out = chunked_attention(qq, k, v, chunk=chunk)
-        y = out.reshape(b, s, h * dv) @ p["wo"]
+        y = tp.matmul(out.reshape(b, s, h * dv), p["wo"])
         return y, {"latent": lat}
 
     if s != 1:
@@ -459,8 +463,8 @@ def mla_forward(p: Params, x: torch.Tensor, cfg, *, positions,
     c_cache = cl[..., :m.kv_rank].to(f32)
     r_cache = cl[..., m.kv_rank:].to(f32)
 
-    k_up = p["k_up"].reshape(m.kv_rank, h, dn).to(f32)
-    q_abs = torch.einsum("bshn,rhn->bshr", q_nope.to(f32), k_up)
+    q_abs = tp.by_head(lambda qn, w: torch.einsum(
+        "bshn,rhn->bshr", qn, w.to(f32)), q_nope.to(f32), p["k_up"], h)
     scores = torch.einsum("bshr,btr->bhst", q_abs, c_cache)
     scores = scores + torch.einsum("bshr,btr->bhst", q_rope.to(f32),
                                    r_cache)
@@ -470,9 +474,9 @@ def mla_forward(p: Params, x: torch.Tensor, cfg, *, positions,
     scores = torch.where(live[:, None, None, :], scores, _NEG)
     pattn = torch.softmax(scores, dim=-1)
     o_lat = torch.einsum("bhst,btr->bshr", pattn, c_cache)
-    v_up = p["v_up"].reshape(m.kv_rank, h, dv).to(f32)
-    out = torch.einsum("bshr,rhv->bshv", o_lat, v_up)
-    y = out.reshape(b, s, h * dv).to(x.dtype) @ p["wo"]
+    out = tp.by_head(lambda o, w: torch.einsum(
+        "bshr,rhv->bshv", o, w.to(f32)), o_lat, p["v_up"], h)
+    y = tp.matmul(out.reshape(b, s, h * dv).to(x.dtype), p["wo"])
     return y, {"latent": cl, "len": pos + 1}
 
 
@@ -714,7 +718,9 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg, *,
     step are batched products; the loop over time (the reference's
     ``lax.scan``) keeps only the state update, in float32: the outer
     product, ``S + u kv``, r's product with it, and ``w S + kv`` -- four
-    launches a step.  Returns (out, (x[:, -1], S_final))."""
+    launches a step.  Returns (out, (x[:, -1], S_final)).  Weights in
+    pieces: ``wr|wk|wv|wg|ww`` by column, ``wo`` by row (``tp.matmul``),
+    ``mu|w0|u_bonus`` replicated; the loop runs on x's card."""
     b, s, d = x.shape
     h, dh = cfg.n_heads, cfg.head_dim
     f32 = torch.float32
@@ -722,14 +728,16 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg, *,
         state = (torch.zeros((b, d), dtype=x.dtype, device=x.device),
                  torch.zeros((b, h, dh, dh), dtype=f32, device=x.device))
     shift, S = state
-    mr, mk, mv, mg, mw = _shift_lerps(x, shift, p["mu"])
-    r = (mr @ p["wr"]).to(f32).reshape(b, s, h, 1, dh)
-    k = (mk @ p["wk"]).to(f32).reshape(b, s, h, dh, 1)
-    v = (mv @ p["wv"]).to(f32).reshape(b, s, h, 1, dh)
-    g = mg @ p["wg"]
-    wlog = -torch.exp(p["w0"].to(f32) + (mw @ p["ww"]).to(f32))
+    dev = x.device
+    mr, mk, mv, mg, mw = _shift_lerps(x, shift, tp.on(p["mu"], dev))
+    r = tp.matmul(mr, p["wr"]).to(f32).reshape(b, s, h, 1, dh)
+    k = tp.matmul(mk, p["wk"]).to(f32).reshape(b, s, h, dh, 1)
+    v = tp.matmul(mv, p["wv"]).to(f32).reshape(b, s, h, 1, dh)
+    g = tp.matmul(mg, p["wg"])
+    wlog = -torch.exp(tp.on(p["w0"], dev).to(f32)
+                      + tp.matmul(mw, p["ww"]).to(f32))
     w = torch.exp(wlog).reshape(b, s, h, dh, 1)              # in (0, 1)
-    u = p["u_bonus"].to(f32).reshape(1, h, dh, 1)
+    u = tp.on(p["u_bonus"], dev).to(f32).reshape(1, h, dh, 1)
 
     ys = []
     for t in range(s):
@@ -738,21 +746,25 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg, *,
         S = torch.addcmul(kv, w[:, t], S)
     y = torch.cat(ys, dim=2).transpose(1, 2).reshape(b, s, d)
     y = y * F.silu(g.to(f32))
-    return y.to(x.dtype) @ p["wo"], (x[:, -1], S)
+    return tp.matmul(y.to(x.dtype), p["wo"]), (x[:, -1], S)
 
 
 def rwkv_channel_mix(p: Params, x: torch.Tensor, *,
                      shift: Optional[torch.Tensor] = None):
     """relu(k)^2 through ``cm_v`` under a sigmoid gate; returns (out,
-    x[:, -1]), the latter the next call's ``shift``."""
+    x[:, -1]), the latter the next call's ``shift``.  Weights in pieces:
+    ``cm_k`` by column and ``cm_v`` by row, relu^2 on each card
+    (``tp.column_row``), ``cm_r`` by column (``tp.matmul``)."""
     b, _, d = x.shape
     if shift is None:
         shift = torch.zeros((b, d), dtype=x.dtype, device=x.device)
-    xk, xr = _shift_lerps(x, shift, p["mu_cm"])
-    k = xk @ p["cm_k"]
-    k = torch.square(F.relu(k.to(torch.float32))).to(x.dtype)
-    kv = k @ p["cm_v"]
-    r = torch.sigmoid((xr @ p["cm_r"]).to(torch.float32))
+    xk, xr = _shift_lerps(x, shift, tp.on(p["mu_cm"], x.device))
+
+    def act(k):
+        return torch.square(F.relu(k.to(torch.float32))).to(x.dtype)
+
+    kv = tp.column_row(xk, (p["cm_k"],), p["cm_v"], act)
+    r = torch.sigmoid(tp.matmul(xr, p["cm_r"]).to(torch.float32))
     return (r * kv.to(torch.float32)).to(x.dtype), x[:, -1]
 
 
@@ -795,19 +807,28 @@ def ssm_forward(p: Params, x: torch.Tensor, cfg, *,
     Decode (S = 1): the one-step update on the carried state.  Returns
     (y (B, S, d), new_state (B, di, n) float32); training drops the
     state.
+
+    Weights in pieces: ``in_proj`` by column (its ``[xi | z]`` halves
+    joined in order on x's card), ``w_b|w_c`` and ``out_proj`` by row
+    (``tp.matmul``; ``auto_pspec`` splits ``w_b|w_c`` along d at full
+    width), ``w_dt|b_dt|d_skip`` replicated; ``log_a``, split along its
+    channels and read elementwise, is gathered (``tp.on``); the scan runs
+    on x's card.
     """
     sm = cfg.ssm
     b, s, _ = x.shape
     di, n = sm.expand * cfg.d_model, sm.state_dim
     f32 = torch.float32
 
-    xz = x @ p["in_proj"]
+    def leaf(name):
+        return tp.on(p[name], x.device).to(f32)
+
+    xz = tp.matmul(x, p["in_proj"])
     xi, z = xz[..., :di], xz[..., di:]
-    dt = F.softplus(xi.to(f32) * p["w_dt"].to(f32) + p["b_dt"].to(f32))
-    a = (dt[..., None] * p["log_a"].to(f32)).exp_()          # (B,S,di,n)
+    dt = F.softplus(xi.to(f32) * leaf("w_dt") + leaf("b_dt"))
+    a = (dt[..., None] * leaf("log_a")).exp_()               # (B,S,di,n)
     x32 = x.to(f32)
-    bmat = x32 @ p["w_b"].to(f32)
-    cmat = x32 @ p["w_c"].to(f32)
+    bmat, cmat = tp.columns(x32, (p["w_b"], p["w_c"]), dtype=f32)
     u = (dt * xi.to(f32))[..., None] * bmat[:, :, None, :]
 
     if s == 1:
@@ -824,6 +845,6 @@ def ssm_forward(p: Params, x: torch.Tensor, cfg, *,
         new_state = hs[:, -1].clone()
     del a, u
     y = torch.einsum("bsdn,bsn->bsd", hs, cmat)
-    y = y + p["d_skip"].to(f32) * xi.to(f32)
+    y = y + leaf("d_skip") * xi.to(f32)
     y = y * F.silu(z.to(f32))
-    return y.to(x.dtype) @ p["out_proj"], new_state
+    return tp.matmul(y.to(x.dtype), p["out_proj"]), new_state

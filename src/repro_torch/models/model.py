@@ -40,11 +40,16 @@ mesh))`` serve and train as they are (``forward_prefill``,
 piece on its card): the
 activations live on the home card (mesh entry 0's device), the
 embedding and the logits take the vocab-parallel route, a GQA layer's
-heads, a SwiGLU MLP and MoE experts run on the cards that hold their
-pieces, and every other leaf is gathered whole for the layer that reads
-it (``models.tensor_parallel``).  The decode state's GQA K/V are then
-held in KV-head pieces (``init_decode_state(mesh=)``).
-``fill_placed`` draws such a tree piece by piece on each piece's card.
+heads run in groups on the cards that hold them where the entries divide
+the KV heads, MoE experts on their cards, and every other projection of
+every family reads its column or row pieces where they lie
+(``models.tensor_parallel``'s product route), the recurrences and
+attention on the home card.  A leaf is gathered whole only where another
+mesh axis splits it too (``megatron_zero``) or where no product reads it
+(hymba's ``log_a``).  The decode state's GQA K/V are held in KV-head
+pieces where the heads run in groups (``init_decode_state(mesh=)``).
+``fill_placed`` draws such a tree, of every family, piece by piece on
+each piece's card.
 """
 
 from __future__ import annotations
@@ -174,28 +179,61 @@ def params_from_jax(cfg: ArchConfig, params_np: Params,
 
 
 def _piece_init(cfg: ArchConfig, path: Tuple[str, ...]):
-    """How ``init_params`` draws the leaf at ``path``: ("normal", scale)
-    or ("const", value); the leaves of GQA attention (``attn`` and the
-    audio ``xattn``), the dense and audio MLPs, MoE and the norms."""
-    d, name = cfg.d_model, path[-1]
+    """How ``init_params`` draws the leaf at ``path``: ("normal", scale),
+    ("const", value) or ("neg_exp", scale) (``-exp(scale N)``, the SSM's
+    ``log_a``), for every leaf of every family: GQA attention (``attn``
+    and the audio ``xattn``), MLA, the dense and audio MLPs, MoE, the
+    SSM branch and its mix weights, RWKV6 (``layers.init_*``) and the
+    norms.  A leaf it does not know raises."""
+    d, f, name = cfg.d_model, cfg.d_ff, path[-1]
     block = path[-2] if len(path) > 1 else ""
+    s = d ** -0.5
     if name in ("embed", "lm_head"):
         return "normal", 0.02
     if "norm" in name:
         return "const", 1.0
-    if block in ("attn", "xattn") and cfg.attn_type != "mla":
-        return "normal", d ** -0.5
-    if block == "mlp":
-        if name in ("b_up", "b_down"):
-            return "const", 0.0
-        return "normal", (cfg.d_ff if name == "w_down" else d) ** -0.5
-    if block == "moe":
+    if name in ("mix_a", "mix_s"):
+        return "const", 0.5
+    table: Dict[str, Tuple[str, float]] = {}
+    if block in ("attn", "xattn") and cfg.attn_type == "mla":
+        m = cfg.mla
+        table = {"q_down": ("normal", s), "kv_down": ("normal", s),
+                 "q_up": ("normal", m.q_rank ** -0.5),
+                 "k_up": ("normal", m.kv_rank ** -0.5),
+                 "v_up": ("normal", m.kv_rank ** -0.5),
+                 "wo": ("normal", s)}
+    elif block in ("attn", "xattn"):
+        table = {n: ("normal", s) for n in ("wq", "wk", "wv", "wo")}
+    elif block == "mlp":
+        table = {"w_gate": ("normal", s), "w_up": ("normal", s),
+                 "w_down": ("normal", f ** -0.5), "b_up": ("const", 0.0),
+                 "b_down": ("const", 0.0)}
+    elif block == "moe":
         e = cfg.moe
-        fan = {"w_down": e.d_expert,
-               "shared_down": e.n_shared * e.d_expert}.get(name, d)
-        return "normal", fan ** -0.5
-    raise ValueError(f"fill_placed draws the GQA, MLP, MoE and norm "
-                     f"leaves; {'/'.join(path)} is not one")
+        table = {"router": ("normal", s), "w_gate": ("normal", s),
+                 "w_up": ("normal", s),
+                 "w_down": ("normal", e.d_expert ** -0.5)}
+        if e.n_shared:
+            table.update(shared_gate=("normal", s), shared_up=("normal", s),
+                         shared_down=("normal",
+                                      (e.n_shared * e.d_expert) ** -0.5))
+    elif block == "ssm":
+        di = cfg.ssm.expand * d
+        table = {"in_proj": ("normal", s), "w_dt": ("normal", 0.1),
+                 "b_dt": ("const", -4.0), "log_a": ("neg_exp", 0.5),
+                 "w_b": ("normal", s), "w_c": ("normal", s),
+                 "d_skip": ("const", 1.0),
+                 "out_proj": ("normal", di ** -0.5)}
+    elif block == "rwkv":
+        table = {n: ("normal", s) for n in ("wr", "wk", "wv", "wg", "wo",
+                                            "cm_k", "cm_r")}
+        table.update(ww=("normal", s * 0.1), u_bonus=("normal", 0.1),
+                     cm_v=("normal", f ** -0.5), w0=("const", -6.0),
+                     mu=("const", 0.5), mu_cm=("const", 0.5))
+    if name not in table:
+        raise ValueError(f"fill_placed draws the leaves of every family's "
+                         f"layers; {'/'.join(path)} is not one")
+    return table[name]
 
 
 def fill_placed(cfg: ArchConfig, params: Params, seed: int) -> Params:
@@ -238,7 +276,10 @@ def fill_placed(cfg: ArchConfig, params: Params, seed: int) -> Params:
                 int(key.generate_state(1, np.uint64)[0] >> 1))
             draw = torch.randn(piece.shape, generator=gen,
                                dtype=torch.float32, device=piece.device)
-            piece.copy_(draw.mul_(value))
+            draw.mul_(value)
+            if kind == "neg_exp":
+                draw.exp_().neg_()
+            piece.copy_(draw)
             del draw
     return params
 
@@ -296,7 +337,8 @@ def _windows(cfg: ArchConfig) -> List[int]:
 
 def _norm(cfg: ArchConfig, x, scale):
     """A layer's norm: the audio family's layer norm (zero bias), every
-    other family's RMS norm."""
+    other family's RMS norm; a replicated scale read on x's card."""
+    scale = tp.on(scale, x.device)
     if cfg.family == "audio":
         return L.layer_norm(x, scale, torch.zeros_like(scale), cfg.norm_eps)
     return L.rms_norm(x, scale, cfg.norm_eps)
@@ -306,76 +348,59 @@ def _rwkv_layer(cfg: ArchConfig, p: Params, x, cache):
     """An RWKV6 layer: time mix, then channel mix, each behind an RMS norm
     and carrying its token shift; returns (y, {"shift1", "S",
     "shift2"})."""
-    eps = cfg.norm_eps
     y, (shift1, S) = L.rwkv_time_mix(
-        p["rwkv"], L.rms_norm(x, p["norm1"], eps), cfg,
+        p["rwkv"], _norm(cfg, x, p["norm1"]), cfg,
         state=None if cache is None else (cache["shift1"], cache["S"]))
     x = x + y
     y, shift2 = L.rwkv_channel_mix(
-        p["rwkv"], L.rms_norm(x, p["norm2"], eps),
+        p["rwkv"], _norm(cfg, x, p["norm2"]),
         shift=None if cache is None else cache["shift2"])
     return x + y, {"shift1": shift1, "S": S, "shift2": shift2}
 
 
 def _encoder_gqa(cfg: ArchConfig, p: Params, h, positions):
-    """The audio encoder's bidirectional self-attention (roped)."""
+    """The audio encoder's bidirectional self-attention (roped).  Weights
+    in pieces take the product route (``tp.columns``, ``tp.matmul``):
+    q/k/v by column, attention on h's card, ``wo`` by row."""
     b, s, _ = h.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (h @ p["wq"]).reshape(b, s, hq, dh)
-    k = (h @ p["wk"]).reshape(b, s, hkv, dh)
-    v = (h @ p["wv"]).reshape(b, s, hkv, dh)
+    q, k, v = tp.columns(h, (p["wq"], p["wk"], p["wv"]))
+    q = q.reshape(b, s, hq, dh)
+    k = k.reshape(b, s, hkv, dh)
+    v = v.reshape(b, s, hkv, dh)
     cos, sin = L.rope_tables(positions, dh, cfg.rope_theta)
     out = L.chunked_attention(L.apply_rope(q, cos, sin),
                               L.apply_rope(k, cos, sin), v, causal=False,
                               chunk=ATTN_CHUNK)
-    return out.reshape(b, s, hq * dh) @ p["wo"]
+    return tp.matmul(out.reshape(b, s, hq * dh), p["wo"])
 
 
 def _cross_gqa(cfg: ArchConfig, p: Params, h, enc_out):
     """The audio decoder's cross-attention over ``enc_out``, without
     rope; keys and values are projected from ``enc_out`` at every call,
-    decode steps included, as in the reference."""
+    decode steps included, as in the reference.  Weights in pieces take
+    the product route, as ``_encoder_gqa``'s."""
     b, s, _ = h.shape
     t = enc_out.shape[1]
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (h @ p["wq"]).reshape(b, s, hq, dh)
-    k = (enc_out @ p["wk"]).reshape(b, t, hkv, dh)
-    v = (enc_out @ p["wv"]).reshape(b, t, hkv, dh)
+    q = tp.matmul(h, p["wq"]).reshape(b, s, hq, dh)
+    k, v = tp.columns(enc_out, (p["wk"], p["wv"]))
+    k = k.reshape(b, t, hkv, dh)
+    v = v.reshape(b, t, hkv, dh)
     out = L.chunked_attention(q, k, v, causal=False, chunk=ATTN_CHUNK)
-    return out.reshape(b, s, hq * dh) @ p["wo"]
-
-
-def _pieces_or_whole(cfg: ArchConfig, p: Params, dev) -> Params:
-    """A layer's params with every ``Placed`` leaf gathered whole onto
-    ``dev`` (the gather route) but those of the blocks that read pieces
-    themselves: a GQA ``attn`` (not the audio family's, whose encoder
-    and cross-attention read whole weights), a SwiGLU ``mlp`` and
-    ``moe``; the MLA, SSM, RWKV6 and audio blocks read whole leaves."""
-    if not any(isinstance(t, Placed) for v in p.values()
-               for t in (v.values() if isinstance(v, dict) else (v,))):
-        return p
-    keep = _piece_blocks(cfg)
-    return {k: v if k in keep else tp.whole_tree(v, dev)
-            for k, v in p.items()}
-
-
-def _piece_blocks(cfg: ArchConfig) -> set:
-    if cfg.family in ("ssm", "audio"):
-        return set()
-    keep = {"moe" if cfg.moe is not None else "mlp"}
-    if cfg.attn_type != "mla":
-        keep.add("attn")
-    return keep
+    return tp.matmul(out.reshape(b, s, hq * dh), p["wo"])
 
 
 def kv_head_mesh(cfg: ArchConfig, params: Params):
     """The mesh whose entries hold the decode state's K/V in KV-head
     pieces for ``params`` (``init_decode_state(mesh=)``): that of the
-    first layer's attention where its heads run in groups on its pieces,
-    else None."""
-    if "attn" not in _piece_blocks(cfg):
+    first layer's GQA attention where its heads run in groups on its
+    pieces, else None (MLA, RWKV6, KV heads the entries do not
+    divide)."""
+    attn = params["layers"][0].get("attn")
+    if attn is None or "wq" not in attn:
         return None
-    return tp.head_mesh(cfg, params["layers"][0]["attn"])
+    return tp.head_mesh(cfg, attn)
 
 
 def _layer_fwd(cfg: ArchConfig, p: Params, x, *, positions, window: int,
@@ -387,11 +412,9 @@ def _layer_fwd(cfg: ArchConfig, p: Params, x, *, positions, window: int,
     audio encoder layer (no cache); ``enc_out`` adds an audio decoder
     layer's cross-attention.  ``route`` (a ``layers.BlockRouting``) ranks
     an MoE layer's pairs as in the whole microbatch that ``x`` is a data
-    block of.  Weights in pieces: the blocks that read
-    pieces (a GQA ``attn``, a SwiGLU ``mlp``, ``moe``) get them as they
-    are; every other placed leaf is gathered whole onto x's card for
-    this layer only (``_pieces_or_whole``)."""
-    p = _pieces_or_whole(cfg, p, x.device)
+    block of.  Weights in pieces: every block reads its own leaves where
+    they lie (``layers``, ``models.tensor_parallel``); the norm scales
+    and hymba's mix weights are replicated and read on x's card."""
     if cfg.family == "ssm":
         return _rwkv_layer(cfg, p, x, cache)
     h = _norm(cfg, x, p["norm1"])
@@ -415,8 +438,9 @@ def _layer_fwd(cfg: ArchConfig, p: Params, x, *, positions, window: int,
             p["ssm"], h, cfg, state=None if cache is None else cache["ssm"],
             use_kernel=use_kernel)
         f32 = torch.float32
-        mixed = (p["mix_a"].to(f32) * attn_out.to(f32)
-                 + p["mix_s"].to(f32) * ssm_out.to(f32)).to(x.dtype)
+        mixed = (tp.on(p["mix_a"], x.device).to(f32) * attn_out.to(f32)
+                 + tp.on(p["mix_s"], x.device).to(f32)
+                 * ssm_out.to(f32)).to(x.dtype)
         x = x + mixed
     else:
         x = x + attn_out
@@ -512,8 +536,9 @@ def forward_train(cfg: ArchConfig, params: Params, batch,
     backward once.  The audio encoder runs without remat, as in the
     reference.  Params in pieces take the routes of ``_layer_fwd`` and
     the vocab-parallel embedding and logits; the loss is taken on the
-    tokens' card, and a leaf gathered for a layer (``_pieces_or_whole``)
-    is gathered again when the backward recomputes that layer.
+    tokens' card, and the backward's recompute of a layer reads its
+    pieces again (a leaf gathered for it, ``tp.whole``, is gathered
+    again).
 
     ``routing`` (one ``layers.BlockRouting`` per layer; MoE configs):
     ``batch`` is one data block of a microbatch, and each MoE layer ranks

@@ -29,8 +29,9 @@ serving steps, as in the JAX package's ``repro/train/steps.py``.
     ``param_pspecs``, ZeRO-3), weights in pieces: each piece is cast to
     the compute dtype on its own card once per step, the forward and
     backward read the pieces where they lie (``models.tensor_parallel``:
-    the vocab-parallel embedding and logits, GQA head groups, SwiGLU and
-    expert pieces on their cards, any other layout gathered for its
+    the vocab-parallel embedding and logits, GQA head groups, expert
+    pieces and every family's column / row products on their cards; a
+    leaf no product reads, or that ``data`` splits too, gathered for its
     layer and recomputed with it), each piece's gradient is summed over
     the microbatches in f32 on its card, and a block's gradient is the
     sum of its replicas' in entry order.  With ``dp_axes`` data block

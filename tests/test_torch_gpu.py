@@ -1575,3 +1575,101 @@ def test_compression_on_pieces_on_the_card(scheme):
             for entries in blocks(g):
                 for e in entries[1:]:
                     assert torch.equal(g.pieces[e], g.pieces[entries[0]])
+
+
+@pytest.mark.gpu
+def test_hymba_product_route_on_entries_of_the_card():
+    """Reduced hymba-1.5b with 10 heads and 5 KV heads of 16 (d = 128, 2
+    layers: the KV heads do not split four ways, ``Hkv * D`` does, as
+    5 x 64 at full width) in float32, placed by ``param_pspecs(strategy=
+    "megatron")`` on (1, 4) entries of the card: the product route, with
+    the kernels, against the whole tree.  Greedy serving: logits within
+    2e-4, ``decode_partials`` launched once a layer and step on all heads
+    (the whole tree's count), the cache whole on the card; one train step
+    in two microbatches: the scan launches equal the whole tree's, loss
+    and grad norm at rtol 1e-4; only ``log_a`` gathered (``chip_smoke.py``
+    phase 4r (a) at full width)."""
+    import dataclasses
+
+    from repro_torch.configs import reduced
+    from repro_torch.distributed.fault import tree_map
+    from repro_torch.distributed.sharding import (Mesh, PartitionSpec,
+                                                  device_put,
+                                                  named_shardings,
+                                                  param_pspecs)
+    from repro_torch.models import init_params
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.train import (AdamWConfig, TrainState, adamw_init,
+                                   build_train_step)
+
+    dev = require_cuda()
+    home = torch.device("cuda", dev.index or 0)
+    cfg = dataclasses.replace(reduced("hymba-1.5b"), d_model=128,
+                              n_heads=10, n_kv_heads=5, head_dim=16,
+                              n_layers=2)
+    params = init_params(cfg, torch.Generator(device=home).manual_seed(0),
+                         dtype=torch.float32, device=home)
+    mesh = Mesh(np.array([[home] * 4], dtype=object), ("data", "model"))
+    p_specs = param_pspecs(cfg, params, mesh, strategy="megatron")
+    placed = device_put(params, named_shardings(p_specs, mesh))
+    prompt = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    gathered = []
+    real = tp.gather
+
+    def gathering(x, device):
+        gathered.append(tuple(x.shape))
+        return real(x, device)
+
+    def serve(p):
+        eng = ServingEngine(cfg, p, max_len=32, dtype=torch.float32,
+                            device=home)
+        dispatch.reset_launch_counts()
+        tokens = eng.generate_greedy({"tokens": prompt}, 4)
+        torch.cuda.synchronize()
+        counts = dispatch.launch_counts()
+        out = [eng.prefill({"tokens": prompt})]
+        for i in range(4):
+            out.append(eng.decode(tokens[:, i:i + 1]))
+        return np.stack(out), counts, eng
+
+    tp.gather = gathering
+    try:
+        got, counts, eng = serve(placed)
+        assert isinstance(eng.state["layers"][0]["attn"]["k"], torch.Tensor)
+        want, want_counts, _ = serve(params)
+        assert counts == want_counts and counts["decode_partials"] == \
+            cfg.n_layers * 4
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+        log_a = tuple(params["layers"][0]["ssm"]["log_a"].shape)
+        assert set(gathered) == {log_a}
+        gathered.clear()
+        opt = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+        batch = {"tokens": torch.from_numpy(np.random.default_rng(4).integers(
+            0, cfg.vocab_size, (4, 40)).astype(np.int32)).to(home)}
+        whole = adamw_init(params)
+        specs = TrainState(step=PartitionSpec(), params=p_specs, mu=p_specs,
+                           nu=p_specs, compress_err=tree_map(
+                               lambda _: PartitionSpec(), whole.params))
+        state = device_put(whole, named_shardings(specs, mesh))
+        runs = {}
+        for name, st, kw in (("pieces", state, dict(dp_axes=("data",),
+                                                     mesh=mesh)),
+                             ("whole", whole, {})):
+            dispatch.reset_launch_counts()
+            _, m = build_train_step(cfg, opt, n_micro=2,
+                                    compute_dtype=torch.float32, **kw)(
+                st, batch)
+            torch.cuda.synchronize()
+            runs[name] = (m, dispatch.launch_counts())
+        assert runs["pieces"][1] == runs["whole"][1] == {
+            "linear_scan": 2 * 2 * cfg.n_layers,
+            "linear_scan_bwd": 2 * cfg.n_layers}
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(runs["pieces"][0][k]),
+                                       float(runs["whole"][0][k]),
+                                       rtol=1e-4)
+        assert set(gathered) == {log_a}
+    finally:
+        tp.gather = real

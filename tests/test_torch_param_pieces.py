@@ -14,9 +14,11 @@ and against the port's unsharded model:
   divide runs one head group per entry (``decode_partials`` once per
   entry, layer and step, on ``Hq / n`` heads) and keeps its cache in
   KV-head pieces; where they do not (reduced llama3-8b and dbrx-132b
-  have 2 KV heads, so (1, 4) refuses) its weights are gathered whole for
-  the call, and so are experts split over ``data`` as well ((2, 2)); no
-  other leaf is ever gathered;
+  have 2 KV heads on (1, 4)) it takes the product route: q/k/v by
+  column, attention on the home entry over a whole cache (one
+  ``decode_partials`` on all heads), ``wo`` by row, nothing gathered;
+  experts split over ``data`` as well ((2, 2)) are gathered whole for
+  the call; no other leaf is ever gathered;
 * the bytes each entry holds of the params and of the head-split cache
   equal ``per_device_bytes``;
 * ``megatron_zero`` on (2, 2) (every layer leaf names ``data``: the
@@ -168,9 +170,7 @@ def test_megatron_pieces_match_reference(case, shape, monkeypatch):
     heads = cfg.n_kv_heads % n == 0
     lp = case["params"]["layers"][0]
     expect = set()
-    if not heads:          # the refusal: KV heads the entries do not divide
-        expect |= {tuple(lp["attn"][k].shape)
-                   for k in ("wq", "wk", "wv", "wo")}
+    # KV heads the entries do not divide: the product route, no gather
     if cfg.moe is not None and data > 1:     # experts split over data too
         expect |= {tuple(lp["moe"][k].shape)
                    for k in ("w_gate", "w_up", "w_down")}
@@ -336,6 +336,8 @@ def test_fill_placed_refuses_what_it_cannot_draw():
     mesh = _mesh((1, 2))
     meta = TM.init_params(cfg, torch.Generator(), dtype=torch.float32,
                           device="meta")
+    meta["layers"][0]["ssm"]["w_extra"] = torch.empty(
+        (cfg.d_model, 8), device="meta")
     placed = device_put(meta, named_shardings(
         param_pspecs(cfg, meta, mesh, strategy="megatron"), mesh))
     with pytest.raises(ValueError, match="is not one"):

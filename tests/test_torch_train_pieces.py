@@ -242,17 +242,19 @@ def _record_gathers(monkeypatch):
     ("llama3-8b", "megatron_zero-2x2")])
 def test_routes_in_training(arch, case, monkeypatch):
     """What the placed step reads whole: nothing on megatron for the GQA
-    (head route), SwiGLU, MoE and vocabulary leaves; hymba's SSM leaves
-    (the gather route, per layer, recomputed with it); under
-    megatron_zero the layer leaves that ``data`` splits."""
+    (head route), SwiGLU, MoE, vocabulary and SSM projection leaves; of
+    hymba's SSM branch only ``log_a`` (split along its channels, read
+    elementwise: per layer, recomputed with it); under megatron_zero the
+    layer leaves that ``data`` splits."""
     strategy, shape, dp_axes = CASES[case]
     ctx = _ctx(arch)
     mesh = _mesh(shape)
     state = _placed_state(ctx, mesh, strategy)[0]
     seen = _record_gathers(monkeypatch)
     _step(ctx, 1, mesh, dp_axes, state)
-    ssm = {tuple(x.shape) for x in tree_flatten(
-        state.params["layers"][0].get("ssm", {}))[0] if any(x.spec)}
+    ssm = {tuple(x.shape) for n, x in
+           state.params["layers"][0].get("ssm", {}).items()
+           if n == "log_a" and any(x.spec)}
     data_split = {tuple(x.shape) for x in tree_flatten(
         state.params["layers"])[0] if "data" in x.spec}
     if strategy == "megatron_zero":
