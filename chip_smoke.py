@@ -324,6 +324,22 @@ Phases (each prints its own lines; any failure exits non-zero):
              per card the bytes (= ``per_device_bytes``), peak memory,
              kernels and busy share, the step p50 (CUDA events); one line
              saying (b) did not run elsewhere;
+   s. MLA's latent in sequence pieces under a decode mesh, placed by
+             ``cache_pspecs`` (``sharded_decode.sharded_mla_decode``):
+             (a) minicpm3-4b in float32 at full width and 2 layers on
+             (1, 4) entries of the card, B = 4 live to 5 / 1,030 /
+             2,500 / 4,000 of 4,096 positions, 4 greedy steps within
+             1e-5 of the whole latent, the same tokens, the latent its
+             own pieces after every step with 0 bytes of it gathered
+             (``sharding._whole`` wrapped here), layer 0's pieces
+             bitwise; (b) where four cards are visible, minicpm3-4b at
+             full width and depth over a (1, 4) mesh of distinct cards:
+             f32 at B = 2 against the unsharded decode on card 0 within
+             2e-4, then decode_32k's B = 128 in bf16 with the latent
+             drawn piece by piece (per card = ``per_device_bytes``),
+             token p50 / p99 (CUDA events), peak memory, kernels and
+             busy share by card; one line saying (b) did not run
+             elsewhere;
    n. entry points and step rooflines — (a) the port's CI gates
              (``tools/torch_check_consistency.py --bitwise 4``,
              ``torch_check_replay.py``, ``torch_check_recovery.py 4``)
@@ -608,6 +624,21 @@ FP_BATCH, FP_PROMPT, FP_TOKENS = 2, 128, 4
 # log_a: split along its channels by auto_pspec, read elementwise)
 FP_UNREAD = ("log_a",)
 RWKV4_BATCH, RWKV4_SEQ, RWKV4_MICRO, RWKV4_STEPS = 8, 128, 2, 3
+# phase 4s: MLA's latent in sequence pieces under a decode mesh (the
+# layout of cache_pspecs, models.sharded_decode.sharded_mla_decode).
+# (a) MLA_ARCH in float32 at full width cut to MLA_LAYERS layers on (1,
+# PIECES_N) entries of the card: a latent of MLA_SEQ positions (4,096 or
+# more: cache_pspecs splits it) drawn from the seed, the rows live to
+# MLA_LENS (row 0 inside chunk 0 alone), MLA_STEPS greedy steps against
+# the whole-latent decode within MLA_TOL, no byte of latent gathered.
+# (b) four cards: MLA_ARCH at full width and depth at decode_32k's batch
+# (MLA4_BATCH) and MESH_SEQ positions, a bf16 latent drawn piece by
+# piece to MESH_LIVE live positions a row, params bf16 on card 0,
+# MLA4_TOKENS timed tokens; its f32 check at MLA4_F32_BATCH rows over
+# the same cards against the unsharded decode on card 0 within MESH_TOL
+MLA_LAYERS, MLA_SEQ, MLA_STEPS, MLA_TOL = 2, 4096, 4, 1e-5
+MLA_LENS = (5, 1030, 2500, 4000)
+MLA4_BATCH, MLA4_F32_BATCH, MLA4_TOKENS = 128, 2, 16
 
 # phase 4n: the CUDA function (or Triton kernel) that every launch of a
 # port kernel runs once, so that its profiler events count the launches
@@ -3817,12 +3848,9 @@ def mesh_states(cfg, b, dtype, mesh, dev):
     specs (``cache_pspecs``, whose K/V spec at this length is the
     decode's own: entry (d, s) holds data block d, chunk s) and its
     filler: ``fill(state)`` draws every K/V block of ``mesh``'s grid from
-    the seed in entry order, into a piece on the generator's card or
-    through one piece-shaped buffer there (a whole cache's block, a
-    piece on another card: the same values either way), and sets every
-    length to MESH_LIVE."""
-    from repro_torch.distributed.sharding import (Placed, cache_pspecs,
-                                                  shard_slices)
+    the seed in entry order (``fill_caches``) and sets every length to
+    MESH_LIVE."""
+    from repro_torch.distributed.sharding import cache_pspecs, shard_slices
     from repro_torch.models.model import init_decode_state
     from repro_torch.models.sharded_decode import decode_cache_spec
 
@@ -3837,26 +3865,36 @@ def mesh_states(cfg, b, dtype, mesh, dev):
               for i in np.ndindex(mesh.devices.shape)]
 
     def fill(state):
-        gen = torch.Generator(device=dev).manual_seed(23)
-        buf = None
-        for lc in state["layers"]:
-            for t in (lc["attn"]["k"], lc["attn"]["v"]):
-                parts = (list(t.pieces.flat) if isinstance(t, Placed)
-                         else [t[sl] for sl in blocks])
-                for part in parts:
-                    if part.is_contiguous() and part.device == gen.device:
-                        part.normal_(generator=gen)
-                        continue
-                    # a whole cache's block, or a piece on another card
-                    if buf is None:
-                        buf = torch.empty(part.shape, dtype=part.dtype,
-                                          device=gen.device)
-                    part.copy_(buf.normal_(generator=gen))
+        fill_caches(state, ("k", "v"), blocks, dev)
         state["len"] = torch.full((b,), MESH_LIVE, dtype=torch.int32,
                                   device=dev)
         return state
 
     return specs, meta, fill
+
+
+def fill_caches(state, names, blocks, dev, seed=23):
+    """Every layer's ``attn`` caches ``names`` drawn from the seed, block
+    by block in ``blocks``' order (a ``Placed`` leaf's pieces in entry
+    order, the same blocks), into a piece on the generator's card or
+    through one piece-shaped buffer there (a whole cache's block, a piece
+    on another card: the same values either way)."""
+    from repro_torch.distributed.sharding import Placed
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    buf = None
+    for lc in state["layers"]:
+        for t in (lc["attn"][n] for n in names):
+            parts = (list(t.pieces.flat) if isinstance(t, Placed)
+                     else [t[sl] for sl in blocks])
+            for part in parts:
+                if part.is_contiguous() and part.device == gen.device:
+                    part.normal_(generator=gen)
+                    continue
+                if buf is None:
+                    buf = torch.empty(part.shape, dtype=part.dtype,
+                                      device=gen.device)
+                part.copy_(buf.normal_(generator=gen))
 
 
 def mesh_decode(dev, card):
@@ -5288,28 +5326,33 @@ def moe_dp_training(dev, card):
 
 
 class Gathers:
-    """While entered: every leaf that ``models.tensor_parallel`` gathers
-    whole for a call (its shape and bytes), by wrapping the module's
-    ``gather``."""
+    """While entered: every leaf gathered whole for a call (its shape and
+    bytes), by wrapping ``module``'s ``name``: by default what
+    ``models.tensor_parallel`` gathers (a params leaf); with
+    ``distributed.sharding``'s ``_whole``, every copy of a ``Placed``
+    leaf into one tensor (``gather``, and ``device_put`` placing a leaf
+    anew)."""
+
+    def __init__(self, module="repro_torch.models.tensor_parallel",
+                 name="gather"):
+        import importlib
+
+        self._module, self._name = importlib.import_module(module), name
 
     def __enter__(self):
-        from repro_torch.models import tensor_parallel as tp
-
         self.seen = []
-        self._real = tp.gather
+        self._real = getattr(self._module, self._name)
 
         def gathering(x, device):
             self.seen.append((tuple(x.shape),
                               x.shape.numel() * x.element_size()))
             return self._real(x, device)
 
-        tp.gather = gathering
+        setattr(self._module, self._name, gathering)
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.models import tensor_parallel as tp
-
-        tp.gather = self._real
+        setattr(self._module, self._name, self._real)
         return False
 
 
@@ -5660,6 +5703,329 @@ def family_pieces(dev, card):
     res["a_s"] = time.perf_counter() - t0
     res["distinct"] = rwkv_distinct(card)
     return res, counts
+
+
+# ---------------------------------------------------------------- phase 4s
+
+
+def mla_states(cfg, b, seq, dtype, mesh, dev):
+    """The ``meta`` decode state of ``b`` rows at ``seq`` positions, its
+    specs (``cache_pspecs``, whose latent spec at 4,096 positions or more
+    is the decode's own: entry (d, s) holds data block d, chunk s) and
+    ``new(pieces)``: a state placed on ``mesh`` piece by piece (or whole
+    on ``dev``), every latent drawn from the seed in ``mesh``'s block
+    order (the same values either way)."""
+    from repro_torch.distributed.sharding import (cache_pspecs, device_put,
+                                                  named_shardings,
+                                                  shard_slices)
+    from repro_torch.models.model import init_decode_state
+    from repro_torch.models.sharded_decode import decode_cache_spec
+
+    meta = init_decode_state(cfg, b, seq, dtype=dtype, device="meta")
+    specs = cache_pspecs(cfg, meta, mesh)
+    spec = decode_cache_spec(b, mesh, ndim=3)
+    if any(lc["attn"]["latent"] != spec for lc in specs["layers"]):
+        raise AssertionError(f"4s: cache_pspecs {specs['layers'][0]} is "
+                             f"not the decode's {spec}")
+    shape = tuple(meta["layers"][0]["attn"]["latent"].shape)
+    blocks = [shard_slices(shape, spec, mesh, i)
+              for i in np.ndindex(mesh.devices.shape)]
+
+    def new(pieces):
+        state = (device_put(meta, named_shardings(specs, mesh)) if pieces
+                 else init_decode_state(cfg, b, seq, dtype=dtype,
+                                        device=dev))
+        fill_caches(state, ("latent",), blocks, dev)
+        return state
+
+    return meta, specs, new
+
+
+def latents(state):
+    return [lc["attn"]["latent"] for lc in state["layers"]]
+
+
+def mla_decode(cfg, params, state, tokens, mesh, dev, check=None):
+    """(logits (steps, B, vocab_padded) f32 on the host, state) of
+    ``tokens`` ((B, 1) each) decoded one at a time under ``mesh``;
+    ``check(state)`` after every step."""
+    from repro_torch.distributed import runtime
+    from repro_torch.models.model import decode_step
+
+    out = []
+    with runtime.use_mesh(mesh):
+        for t in tokens:
+            logits, state = decode_step(cfg, params, state, t.to(dev))
+            out.append(logits.float().cpu())
+            if check is not None:
+                check(state)
+    return torch.stack(out), state
+
+
+def mla_pieces_card(dev, card):
+    """Phase 4s (a): MLA_ARCH in float32 at full width and MLA_LAYERS
+    layers, a latent of MLA_SEQ positions drawn from the seed and placed
+    by ``cache_pspecs`` on (1, PIECES_N) entries of the card, rows live to
+    MLA_LENS; MLA_STEPS greedy steps of the whole latent, then the same
+    tokens on the pieces: logits within MLA_TOL, the same argmax, the
+    latent the same ``Placed`` pieces after every step with no byte of
+    it gathered (every copy of a placed leaf into one tensor counted),
+    layer 0's pieces (its latents depend on the tokens only) bitwise the
+    whole latent's, no port kernel launched (the absorbed decode is plain
+    torch, as the reference's)."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.distributed.sharding import (Placed, entry_bytes,
+                                                  gather, per_device_bytes)
+    from repro_torch.models.model import decode_step
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get(MLA_ARCH), n_layers=MLA_LAYERS)
+    mesh = pieces_mesh([dev] * PIECES_N)
+    b = len(MLA_LENS)
+    label = (f"4s {MLA_ARCH} ({MLA_LAYERS} layers), latent in pieces over "
+             f"(1, {PIECES_N}) of the card")
+    params = _draw(cfg, dev, torch.float32)
+    meta, specs, new = mla_states(cfg, b, MLA_SEQ, torch.float32, mesh, dev)
+    lens = torch.tensor(MLA_LENS, dtype=torch.int32, device=dev)
+
+    def greedy(state, tok):
+        toks, out = [], []
+        for _ in range(MLA_STEPS):
+            toks.append(tok)
+            logits, state = decode_step(cfg, params, state, tok.to(dev))
+            out.append(logits.float().cpu())
+            tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True).to(
+                torch.int32).cpu()
+        return torch.stack(out), toks, state
+
+    whole = new(False)
+    whole["len"] = lens.clone()
+    first = torch.randint(0, cfg.vocab_size, (b, 1), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(9))
+    (want, toks, whole), counts_whole = run_path(
+        f"4s {MLA_ARCH} whole latent (f32)", lambda: greedy(whole, first),
+        ())
+    state = new(True)
+    state["len"] = lens.clone()
+    placed = latents(state)
+    held = entry_bytes(placed)
+    want_bytes = per_device_bytes(latents(meta), latents(specs), mesh)
+
+    def same_pieces(st):
+        for got, was in zip(latents(st), placed):
+            if not isinstance(got, Placed) or any(
+                    a is not c for a, c in zip(got.pieces.flat,
+                                               was.pieces.flat)):
+                raise AssertionError(f"{label}: the latent is not its "
+                                     f"placed pieces after a step")
+
+    with Gathers("repro_torch.distributed.sharding", "_whole") as g:
+        (got, state), counts = run_path(
+            f"{label} (f32)",
+            lambda: mla_decode(cfg, params, state, toks, mesh, dev,
+                               same_pieces), ())
+    lat_shape = tuple(placed[0].shape)
+    lat_gathered = sum(n for shp, n in g.seen if shp == lat_shape)
+    if lat_gathered or any(counts.values()) or any(counts_whole.values()):
+        raise AssertionError(f"{label}: {lat_gathered} bytes of latent "
+                             f"gathered ({g.seen}); launches {counts}, "
+                             f"whole {counts_whole}")
+    if not (held == want_bytes).all():
+        raise AssertionError(f"{label}: bytes per entry {held.tolist()}, "
+                             f"per_device_bytes {want_bytes}")
+    check_logits([x.numpy() for x in got], cfg, b)
+    err = compare(f"{label} vs the whole latent", got, want, rtol=MLA_TOL,
+                  atol=MLA_TOL)
+    # the largest share of its allowance that an element's diff takes
+    used = float(((got - want).abs() / (MLA_TOL + MLA_TOL * want.abs()))
+                 .max())
+    if not torch.equal(got[:-1, :, :cfg.vocab_size].argmax(-1),
+                       torch.stack(toks[1:])[..., 0].long()):
+        raise AssertionError(f"{label}: argmax differs from the whole "
+                             f"latent's greedy tokens")
+    same_bits(f"{label}: layer 0's latent", gather(latents(state)[0], dev),
+              latents(whole)[0])
+    secs = time.perf_counter() - t0
+    log(f"{label}: f32, B={b} live to {list(MLA_LENS)} of {MLA_SEQ}, "
+        f"{MLA_STEPS} greedy steps: logits within {MLA_TOL} of the whole "
+        f"latent (max abs diff {err}, at most {used:.3f} of an element's "
+        f"allowance), the same tokens; latent bytes "
+        f"gathered {lat_gathered} (gathered: {g.seen}); layer 0's pieces "
+        f"bitwise the whole latent's; bytes per entry = per_device_bytes "
+        f"= {want_bytes}; port kernels launched {counts or 'none'}; "
+        f"{secs:.1f} s  [{card}]")
+    del params, state, whole
+    _free()
+    return {"err": err, "allowance_used": used,
+            "latent_bytes_gathered": lat_gathered,
+            "gathered": g.seen, "entry_bytes": want_bytes,
+            "launches": counts, "s": secs}
+
+
+def mla_pieces_distinct(card):
+    """Phase 4s (b): where four cards are visible (one line saying it did
+    not run otherwise), MLA_ARCH at full width and depth on a (1, 4) mesh
+    of four cards.  float32 at MLA4_F32_BATCH rows of MESH_SEQ positions,
+    MESH_STEPS seeded tokens: the latent in pieces against the unsharded
+    decode on card 0, the same draw, within MESH_TOL.  bf16 at
+    MLA4_BATCH rows: the latent drawn piece by piece on each card, its
+    bytes a card equal to ``per_device_bytes`` and to the shapes'
+    arithmetic; params on card 0; MLA4_TOKENS tokens timed with CUDA
+    events (card 0's stream waits for every card's), peak memory by card,
+    one more token's kernels and busy share by card."""
+    from repro_torch.configs import get
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed.sharding import (Placed, cuda_devices,
+                                                  entry_bytes,
+                                                  per_device_bytes)
+    from repro_torch.models.model import decode_step
+
+    cards = cuda_devices()
+    if len(cards) < PIECES_N:
+        log(f"4s (b) did not run: {len(cards)} CUDA device visible; "
+            f"{MLA_ARCH} decode_32k with the latent over distinct cards "
+            f"needs {PIECES_N} (phase 4s (a) ran the latent in pieces on "
+            f"entries that repeat this card)  [{card}]")
+        return {"ran": False, "cards": len(cards)}
+    t_b = time.perf_counter()
+    cards = cards[:PIECES_N]
+    dev = cards[0]
+    mesh = pieces_mesh(cards)
+    names = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[:PIECES_N]
+    cfg = get(MLA_ARCH)
+
+    def free():
+        for c in cards:
+            torch.cuda.synchronize(c)
+            torch.cuda.empty_cache()
+
+    def tokens(b, n, seed):
+        gen = torch.Generator().manual_seed(seed)
+        return torch.randint(0, cfg.vocab_size, (n, b, 1), generator=gen,
+                             dtype=torch.int32)
+
+    def live(b):
+        return torch.full((b,), MESH_LIVE, dtype=torch.int32, device=dev)
+
+    # the float32 check: pieces over the cards against one card
+    params = _draw(cfg, dev, torch.float32)
+    _, _, new = mla_states(cfg, MLA4_F32_BATCH, MESH_SEQ, torch.float32,
+                           mesh, dev)
+    toks = tokens(MLA4_F32_BATCH, MESH_STEPS, 5)
+    state = new(True)
+    state["len"] = live(MLA4_F32_BATCH)
+    (got, state), counts_f32 = run_path(
+        f"4s (b) latent in pieces over {PIECES_N} cards (f32)",
+        lambda: mla_decode(cfg, params, state, toks, mesh, dev), ())
+    on_cards = [p.device for p in latents(state)[0].pieces.flat]
+    del state
+    free()
+    one = new(False)
+    one["len"] = live(MLA4_F32_BATCH)
+    want, _ = mla_decode(cfg, params, one, toks, None, dev)
+    del one, params
+    free()
+    check_logits([x.numpy() for x in got], cfg, MLA4_F32_BATCH)
+    err = compare(f"4s (b) pieces over {PIECES_N} cards vs unsharded", got,
+                  want, rtol=MESH_TOL, atol=MESH_TOL)
+    if on_cards != cards or any(counts_f32.values()):
+        raise AssertionError(f"4s (b): pieces on {on_cards}, launches "
+                             f"{counts_f32}")
+    log(f"4s (b) {MLA_ARCH} f32 B={MLA4_F32_BATCH}, latent {MESH_SEQ} live "
+        f"to {MESH_LIVE}, in pieces over {PIECES_N} cards {names}: "
+        f"{MESH_STEPS} steps within {MESH_TOL} of the unsharded decode on "
+        f"{dev} (max abs diff {err})")
+
+    # bf16 at decode_32k's batch: a latent no one card holds
+    params = _draw(cfg, dev, torch.bfloat16)
+    meta, specs, new = mla_states(cfg, MLA4_BATCH, MESH_SEQ,
+                                  torch.bfloat16, mesh, dev)
+    before = [torch.cuda.memory_allocated(c) for c in cards]
+    t0 = time.perf_counter()
+    state = new(True)
+    state["len"] = live(MLA4_BATCH)
+    free()
+    fill_s = time.perf_counter() - t0
+    grew = [torch.cuda.memory_allocated(c) - a for c, a in zip(cards, before)]
+    m = cfg.mla
+    arith = (cfg.n_layers * MLA4_BATCH * (MESH_SEQ // PIECES_N)
+             * (m.kv_rank + m.rope_dim) * 2)
+    want_bytes = per_device_bytes(latents(meta), latents(specs), mesh)
+    held = entry_bytes(latents(state))
+    if not ((held == want_bytes).all() and want_bytes == arith):
+        raise AssertionError(f"4s (b): latent bytes a card {held.tolist()},"
+                             f" per_device_bytes {want_bytes}, shapes "
+                             f"{arith}")
+    it = iter(tokens(MLA4_BATCH, MLA4_TOKENS + 3, 7).to(dev))
+
+    def step():
+        nonlocal state
+        with runtime.use_mesh(mesh):
+            logits, state = decode_step(cfg, params, state, next(it))
+        return logits
+
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    step()                                               # warm-up
+    ms = []
+    for _ in range(MLA4_TOKENS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(torch.cuda.current_stream(dev))
+        logits = step()
+        home = torch.cuda.current_stream(dev)
+        for c in cards[1:]:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(c))
+            home.wait_event(done)
+        end.record(home)
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    check_logits([logits.float().cpu().numpy()], cfg, MLA4_BATCH)
+    peaks = [torch.cuda.max_memory_allocated(c) / 1e9 for c in cards]
+    _, counts = run_path(f"4s (b) {MLA_ARCH} token over {PIECES_N} cards "
+                         f"(bf16)", step, ())
+    by_card = busy_by_card(step)
+    if any(counts.values()) or not all(
+            isinstance(t, Placed) for t in latents(state)) or not (
+            entry_bytes(latents(state)) == want_bytes).all():
+        raise AssertionError(f"4s (b): launches {counts}, or the latent is "
+                             f"not its pieces after the tokens")
+    out = {"ran": True, "cards": names, "f32_err": err,
+           "entry_bytes": want_bytes, "allocated": grew, "fill_s": fill_s,
+           "ms": ms, "ms_p50": float(np.percentile(ms, 50)),
+           "ms_p99": float(np.percentile(ms, 99)), "peak_gb": peaks,
+           "by_card": by_card}
+    log(f"4s (b) {MLA_ARCH} at full width and depth, bf16 B={MLA4_BATCH}, "
+        f"latent {MESH_SEQ} live to {MESH_LIVE}, in pieces over {PIECES_N} "
+        f"cards {names}: latent bytes a card = per_device_bytes = "
+        f"{want_bytes} ({want_bytes / 1e9:.2f} GB; allocated {grew}), "
+        f"drawn in {fill_s:.1f} s; per token p50 {out['ms_p50']:.2f} ms, "
+        f"p99 {out['ms_p99']:.2f} ms over {MLA4_TOKENS} tokens (CUDA "
+        f"events) {[round(x, 2) for x in ms]}; peak memory by card "
+        f"{[round(p, 2) for p in peaks]} GB; one more token by card "
+        f"(kernels, device ms, busy share) "
+        f"{[(r['kernels'], round(r['device_ms'], 1), round(r['busy_share'], 3)) for r in by_card['cards'].values()]}"
+        f" over {by_card['wall_ms']:.1f} ms")
+    del state, params
+    free()
+    out["phase_s"] = time.perf_counter() - t_b
+    return out
+
+
+def mla_pieces(dev, card):
+    """Phase 4s: (a) on entries of the card; (b) over four distinct cards
+    where four are visible."""
+    t0 = time.perf_counter()
+    res = {"card": mla_pieces_card(dev, card)}
+    res["a_s"] = time.perf_counter() - t0
+    res["distinct"] = mla_pieces_distinct(card)
+    return res, {"mla_pieces_f32": res["card"]["launches"]}
 
 
 # ---------------------------------------------------------------- phase 4n
@@ -6279,6 +6645,15 @@ def main(argv) -> int:
     log(f"phase 4r took {fam_pieces['phase_s']:.1f} s ((a) "
         f"{fam_pieces['a_s']:.1f} s)")
 
+    phase(f"4s MLA's latent in sequence pieces under a decode mesh "
+          f"({MLA_ARCH}; cache_pspecs' layout)")
+    t0 = time.perf_counter()
+    mla_pieces_res, counts = mla_pieces(dev, card)
+    paths.update(counts)
+    mla_pieces_res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 4s took {mla_pieces_res['phase_s']:.1f} s ((a) "
+        f"{mla_pieces_res['a_s']:.1f} s)")
+
     phase("4n entry points (tools/torch_*, examples/torch_*), the "
           "roofline of whole steps, the dry run")
     t0 = time.perf_counter()
@@ -6432,6 +6807,7 @@ def main(argv) -> int:
             "decode_partials_32k": res_fd32, "mesh": mesh_res,
             "param_pieces": pieces, "train_pieces": train_pieces_res,
             "moe_dp": moe_dp_res, "family_pieces": fam_pieces,
+            "mla_pieces": mla_pieces_res,
             "entry_points_rooflines": entry,
             "load_s": t_load, "ingest_s": t_ingest}, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -15,7 +15,9 @@ The same functions as ``repro/models/layers.py``, on tensors:
     ``kernels.chunked_scan.linear_scan``;
   * MLA (minicpm3) prefill expands K/V per head into the same chunked
     attention; its decode is absorbed attention over the latent cache,
-    plain torch ops as in the reference (no Pallas call there);
+    plain torch ops as in the reference (no Pallas call there), on each
+    sequence piece of the latent under an active mesh
+    (``models.sharded_decode``);
   * MoE (qwen2-moe, dbrx) routes with the reference's sort-based,
     capacity-bounded dispatch; the grouped expert products are plain
     batched matmuls and the combine sums each token's contributions in
@@ -50,7 +52,7 @@ from ..distributed.sharding import NamedSharding, Placed, device_put, gather
 from ..kernels.chunked_scan import linear_scan
 from ..kernels.flash_decode import decode_partials, finalize_partials
 from . import tensor_parallel as tp
-from .sharded_decode import sharded_decode_attention
+from .sharded_decode import sharded_decode_attention, sharded_mla_decode
 
 __all__ = ["rms_norm", "swiglu", "rope_tables", "apply_rope",
            "chunked_attention", "init_gqa", "gqa_forward", "init_ssm",
@@ -419,7 +421,13 @@ def mla_forward(p: Params, x: torch.Tensor, cfg, *, positions,
     runs *absorbed* attention against the whole latent cache: float32
     scores masked where t >= len + 1, a softmax, then ``v_up``, cast to
     x's dtype before ``wo`` -- plain torch ops, as the reference's plain
-    jnp.
+    jnp.  Under an active mesh (``distributed.runtime``) whose decode
+    axis divides the cache length, the latent is read and written in its
+    sequence pieces instead, each on its entry's device, and the pieces'
+    partial states merged on x's card
+    (``sharded_decode.sharded_mla_decode``; the latent comes back as
+    ``Placed``).  A latent in pieces with no such mesh is gathered whole
+    onto x's device first.
 
     Weights in pieces: ``q_down`` and ``kv_down`` (replicated) read on
     x's card, ``q_up|k_up|v_up`` by column and ``wo`` by row
@@ -458,22 +466,31 @@ def mla_forward(p: Params, x: torch.Tensor, cfg, *, positions,
         raise ValueError(f"cached decode takes one token, got {s}")
     pos = cache["len"]                                        # (B,)
     cl = cache["latent"]
-    rows = torch.arange(b, device=cl.device)
-    cl[rows, pos.long()] = lat[:, 0].to(cl.dtype)
-    c_cache = cl[..., :m.kv_rank].to(f32)
-    r_cache = cl[..., m.kv_rank:].to(f32)
-
     q_abs = tp.by_head(lambda qn, w: torch.einsum(
         "bshn,rhn->bshr", qn, w.to(f32)), q_nope.to(f32), p["k_up"], h)
-    scores = torch.einsum("bshr,btr->bhst", q_abs, c_cache)
-    scores = scores + torch.einsum("bshr,btr->bhst", q_rope.to(f32),
-                                   r_cache)
-    scores = scores * (dn + dr) ** -0.5
-    t_pos = torch.arange(cl.shape[1], dtype=torch.int32, device=cl.device)
-    live = t_pos[None, :] < (pos + 1)[:, None]
-    scores = torch.where(live[:, None, None, :], scores, _NEG)
-    pattn = torch.softmax(scores, dim=-1)
-    o_lat = torch.einsum("bhst,btr->bshr", pattn, c_cache)
+    mesh = _decode_mesh(cl)
+    if mesh is not None:
+        # the latent in sequence pieces, each read and written on its card
+        o_lat, cl = sharded_mla_decode(
+            q_abs, q_rope, cl, lat, pos, mesh, m.kv_rank,
+            (dn + dr) ** -0.5, axis=runtime.decode_axis())
+    else:
+        if isinstance(cl, Placed):
+            cl = gather(cl, x.device)
+        rows = torch.arange(b, device=cl.device)
+        cl[rows, pos.long()] = lat[:, 0].to(cl.dtype)
+        c_cache = cl[..., :m.kv_rank].to(f32)
+        r_cache = cl[..., m.kv_rank:].to(f32)
+        scores = torch.einsum("bshr,btr->bhst", q_abs, c_cache)
+        scores = scores + torch.einsum("bshr,btr->bhst", q_rope.to(f32),
+                                       r_cache)
+        scores = scores * (dn + dr) ** -0.5
+        t_pos = torch.arange(cl.shape[1], dtype=torch.int32,
+                             device=cl.device)
+        live = t_pos[None, :] < (pos + 1)[:, None]
+        scores = torch.where(live[:, None, None, :], scores, _NEG)
+        pattn = torch.softmax(scores, dim=-1)
+        o_lat = torch.einsum("bhst,btr->bshr", pattn, c_cache)
     out = tp.by_head(lambda o, w: torch.einsum(
         "bshr,rhv->bshv", o, w.to(f32)), o_lat, p["v_up"], h)
     y = tp.matmul(out.reshape(b, s, h * dv).to(x.dtype), p["wo"])

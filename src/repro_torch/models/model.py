@@ -29,10 +29,9 @@ n_frames, d) for audio).  The decode state is ``{"len": (B,) int32,
 ``"mlp"``.  A decode state placed by ``distributed.sharding.device_put``
 (e.g. by ``cache_pspecs``, from a ``device="meta"`` state: allocated
 piece by piece) holds ``Placed`` leaves; ``decode_step`` reads GQA K/V
-in pieces under a decode mesh and every other leaf whole.  Training runs
-the layer loop with per-layer
-rematerialisation (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint``).
+and MLA's latent in pieces under a decode mesh and every other leaf
+whole.  Training runs the layer loop with per-layer rematerialisation
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
 
 Params placed by ``device_put(params, named_shardings(param_pspecs(...),
 mesh))`` serve and train as they are (``forward_prefill``,
@@ -696,13 +695,14 @@ def _head_state(cfg: ArchConfig, b: int, max_len: int, dtype, mesh):
 
 
 def _whole_but_kv(state: Dict[str, Any], home) -> Dict[str, Any]:
-    """``state`` with every ``Placed`` leaf but a GQA layer's ``attn``
-    K/V gathered onto ``home`` (``gqa_forward`` decides for those)."""
+    """``state`` with every ``Placed`` leaf but a layer's ``attn`` caches
+    (GQA's K/V, MLA's latent) gathered onto ``home`` (``gqa_forward`` and
+    ``mla_forward`` decide for those)."""
     def whole(t):
         return gather(t, home) if isinstance(t, Placed) else t
 
     def layer(lc):
-        return {k: ({n: t if n in ("k", "v") else whole(t)
+        return {k: ({n: t if n in ("k", "v", "latent") else whole(t)
                      for n, t in v.items()} if k == "attn" else whole(v))
                 for k, v in lc.items()}
 
@@ -720,17 +720,26 @@ def decode_step(cfg: ArchConfig, params: Params, state: Dict[str, Any],
     holds the same tensors); SSM and RWKV states and ``len`` are
     replaced; audio reads ``state["enc_out"]``.
 
-    A state placed by ``distributed.sharding.device_put``: GQA K/V held
-    in pieces (``Placed``) are read and written in pieces under an active
-    decode mesh (``models.sharded_decode``) and come back so; every other
-    leaf (``len``, SSM / conv / RWKV states, MLA latents, ``enc_out``,
-    and K/V with no such mesh) is gathered whole onto the params' device
-    at its first use and returned whole.  Params in pieces: the work
-    runs on their home card (mesh entry 0's device) and the cards of
-    their pieces, a GQA layer on the head route reading and writing its
-    K/V in KV-head pieces whatever mesh is active (``_gqa_heads``).  (The reference's automatic
-    partitioning would keep a leaf that ``cache_pspecs`` splits, such as
-    an SSM state with ``model`` on a dimension of 128 or more, split.)
+    A state placed by ``distributed.sharding.device_put``: GQA K/V and
+    MLA's latent held in pieces (``Placed``) are read and written in
+    their sequence pieces (and batch blocks over ``data``) under an
+    active decode mesh (``models.sharded_decode``) and come back so,
+    never gathered -- minicpm3-4b's latent at decode_32k (B = 128, S =
+    32,768) is 149,786,984,448 bytes, 37,446,746,112 a card over four,
+    beside 8.5 GB of bf16 params.  Every other leaf (``len``, SSM / conv
+    / RWKV states, ``enc_out``, and the caches with no such mesh) is
+    gathered whole onto the params' device at its first use and returned
+    whole: at their reference cells rwkv6-7b's ``S`` is 4.30 GB and each
+    shift 0.034 GB, hymba-1.5b's SSM states 0.007 GB, whisper-tiny's
+    ``enc_out`` a few MB, each fitting one card whole (splitting a
+    recurrence's state would multiply its launches).  Params in pieces:
+    the work runs on their home card (mesh entry 0's device) and the
+    cards of their pieces, a GQA layer on the head route reading and
+    writing its K/V in KV-head pieces whatever mesh is active
+    (``_gqa_heads``), MLA's ``k_up`` / ``v_up`` by head group beside a
+    latent in sequence pieces.  (The reference's automatic partitioning
+    would keep a leaf that ``cache_pspecs`` splits, such as an SSM state
+    with ``model`` on a dimension of 128 or more, split.)
     """
     state = _whole_but_kv(state, tp.home(params["embed"]))
     x = tp.embedding(token.long().to(tp.home(params["embed"])),

@@ -22,7 +22,9 @@ already at the slot (no host sync, no data-dependent branch); one
 ``decode_partials`` (the CUDA kernel on a card) runs over the chunk with
 the row's live range in chunk positions.  The partials come to the home
 device (q's), are merged per data block in shard order, and the blocks
-are joined in data order.  Entries that differ only along other mesh
+are joined in data order.  The copies out, the work and the copies home
+are issued in three passes over the entries, so that distinct cards
+work at once (``_over_entries``).  Entries that differ only along other mesh
 axes are replicas: each is written, the first computes.  The entries may
 be distinct cards or repeat one device.
 
@@ -32,6 +34,14 @@ does.  The kernel (like the TPU kernel) treats an empty row otherwise —
 l = S, o = the sum of every value row, the whole chunk read — so such a
 row is given its chunk's first key instead (one key row read) and its
 state is replaced by the identity before the merge.
+
+MLA's latent cache (B, S, kv_rank + rope_dim) takes the same route
+(``sharded_mla_decode``), placed P(bspec, model, None).  The
+reference's absorbed decode is plain ``jnp`` and reaches no Pallas
+kernel, so each entry computes its piece's partial state in plain
+torch: f32 scores ``q_abs · c + q_rope · r`` over the piece (the piece
+alone cast to f32), then (m, l, o) over its ``c`` half; the same merge
+combines them.
 """
 
 from __future__ import annotations
@@ -44,20 +54,23 @@ import torch
 from ..distributed.sharding import NamedSharding, PartitionSpec, device_put
 from ..kernels.flash_decode import decode_partials
 
-__all__ = ["sharded_decode_attention", "chunk_range", "decode_cache_spec"]
+__all__ = ["sharded_decode_attention", "sharded_mla_decode", "chunk_range",
+           "decode_cache_spec"]
 
 _NEG = -1e30
 
 
 def decode_cache_spec(b: int, mesh, axis: str = "model",
-                      batch_axis: Optional[str] = "data") -> PartitionSpec:
-    """The spec of a (B, S, Hkv, D) cache under the sequence-sharded
-    decode, the reference's ``in_specs``: the batch over ``batch_axis``
-    where it divides, the sequence over ``axis``."""
+                      batch_axis: Optional[str] = "data",
+                      ndim: int = 4) -> PartitionSpec:
+    """The spec of a (B, S, Hkv, D) cache (``ndim`` 4) or a (B, S, R)
+    latent cache (``ndim`` 3) under the sequence-sharded decode, the
+    reference's ``in_specs``: the batch over ``batch_axis`` where it
+    divides, the sequence over ``axis``."""
     bspec = batch_axis if (batch_axis in mesh.shape
                            and b % mesh.shape[batch_axis] == 0
                            and b >= mesh.shape[batch_axis]) else None
-    return PartitionSpec(bspec, axis, None, None)
+    return PartitionSpec(bspec, axis, *([None] * (ndim - 2)))
 
 
 def chunk_range(pos: torch.Tensor, start: int, s_loc: int, window=0):
@@ -71,18 +84,87 @@ def chunk_range(pos: torch.Tensor, start: int, s_loc: int, window=0):
     return lo, hi, lo < hi
 
 
-def _write(pk, pv, k_new, v_new, pos, start: int) -> None:
-    """The new token's K/V at chunk position ``pos - start`` of pieces
-    ``pk`` / ``pv`` where the chunk owns it; elsewhere the slot's own
-    value is written back (the reference's owner-or-old write)."""
-    s_loc = pk.shape[1]
+def _write(pieces, news, pos, start: int) -> None:
+    """Each row's new entry (``news[j]`` (B, ...) for the (B, S_loc, ...)
+    piece ``pieces[j]``) at chunk position ``pos - start`` where the
+    chunk owns it; elsewhere the slot's own value is written back (the
+    reference's owner-or-old write)."""
+    s_loc = pieces[0].shape[1]
     local = pos - start
-    own = ((local >= 0) & (local < s_loc))[:, None, None]
+    own = (local >= 0) & (local < s_loc)
     slot = torch.clamp(local, 0, s_loc - 1).long()
-    rows = torch.arange(pk.shape[0], device=pk.device)
-    for piece, new in ((pk, k_new), (pv, v_new)):
-        piece[rows, slot] = torch.where(own, new.to(piece.dtype),
+    rows = torch.arange(pieces[0].shape[0], device=pieces[0].device)
+    for piece, new in zip(pieces, news):
+        keep = own.reshape((-1,) + (1,) * (new.dim() - 1))
+        piece[rows, slot] = torch.where(keep, new.to(piece.dtype),
                                         piece[rows, slot])
+
+
+def _entries(caches, b: int, mesh, axis: str, batch_axis: Optional[str]):
+    """``caches`` (leaves of one shape, ``Placed`` or whole) placed by the
+    decode's spec, and the mesh entries to visit as (index, shard s,
+    data block d, replica) -- a replica differs from another entry only
+    along other mesh axes: it is written, never read -- with the
+    shard and data-block counts."""
+    sharding = NamedSharding(mesh, decode_cache_spec(
+        b, mesh, axis, batch_axis, len(caches[0].shape)))
+    placed = device_put(tuple(caches), (sharding,) * len(caches))
+    bspec = sharding.spec[0]
+    names = mesh.axis_names
+    a_s = names.index(axis)
+    a_b = names.index(bspec) if bspec is not None else None
+    entries = [(i, i[a_s], i[a_b] if a_b is not None else 0,
+                any(x for j, x in enumerate(i) if j not in (a_s, a_b)))
+               for i in np.ndindex(mesh.devices.shape)]
+    return (placed, entries, mesh.shape[axis],
+            mesh.shape[bspec] if bspec is not None else 1)
+
+
+def _dead_to_identity(live, m, l, o):
+    """A piece's partial state with every row that has no live position
+    in the chunk replaced by exactly the merge identity (m = −1e30, l =
+    0, o = 0)."""
+    return (torch.where(live[:, None], m, _NEG),
+            torch.where(live[:, None], l, 0.0),
+            torch.where(live[:, None, None], o, 0.0))
+
+
+def _over_entries(entries, send, work, home, n_shards: int,
+                  n_blocks: int):
+    """``parts[d][s]``, the partial states of the mesh entries on
+    ``home``, in three passes: every entry's inputs copied to its device
+    (``send(entry)``), then every entry's work there (``work(entry,
+    inputs)``: the write, and (m, l, o), or None for a replica), then
+    the partials copied to ``home``.  A copy between two cards makes
+    each card's stream wait for the other's earlier work, so a partial
+    brought home between two entries' work would hold the next card
+    until the last one finished: the passes let the cards work at
+    once."""
+    inputs = [send(e) for e in entries]
+    outs = [work(e, x) for e, x in zip(entries, inputs)]
+    parts = [[None] * n_shards for _ in range(n_blocks)]
+    for (_, s, d, _), out in zip(entries, outs):
+        if out is not None:
+            parts[d][s] = tuple(t.to(home) for t in out)
+    return parts
+
+
+def _merge(parts) -> torch.Tensor:
+    """The aggregator merge of ``parts[d][s] = (m, l, o)`` ((B_blk, H),
+    (B_blk, H), (B_blk, H, ·) f32 on one device): per data block across
+    shards the global max, then the rescaled sums in shard order, o_g /
+    max(l_g, 1e-30); the blocks joined in data order."""
+    outs = []
+    for blk in parts:
+        m = torch.stack([x[0] for x in blk])
+        corr = torch.exp(m - m.amax(dim=0))
+        l_g = blk[0][1] * corr[0]
+        o_g = blk[0][2] * corr[0][..., None]
+        for s in range(1, len(blk)):
+            l_g = l_g + blk[s][1] * corr[s]
+            o_g = o_g + blk[s][2] * corr[s][..., None]
+        outs.append(o_g / torch.clamp(l_g, min=1e-30)[..., None])
+    return torch.cat(outs)
 
 
 def sharded_decode_attention(q, cache_k, cache_v, k_new, v_new, pos,
@@ -97,51 +179,96 @@ def sharded_decode_attention(q, cache_k, cache_v, k_new, v_new, pos,
     token's K/V are written into its owning chunk's pieces (in place).
     Returns (out (B, 1, Hq, D) on the home device, cache_k, cache_v),
     the caches as ``Placed``."""
-    home = q.device
     b = q.shape[0]
-    sharding = NamedSharding(mesh, decode_cache_spec(b, mesh, axis,
-                                                     batch_axis))
-    ck, cv = device_put((cache_k, cache_v), (sharding, sharding))
-    bspec = sharding.spec[0]
-    names = mesh.axis_names
-    a_s = names.index(axis)
-    a_b = names.index(bspec) if bspec is not None else None
-    n_shards = mesh.shape[axis]
-    n_blocks = mesh.shape[bspec] if bspec is not None else 1
+    (ck, cv), entries, n_shards, n_blocks = _entries(
+        (cache_k, cache_v), b, mesh, axis, batch_axis)
     bl, s_loc = b // n_blocks, ck.shape[1] // n_shards
     q0 = q[:, 0].to(torch.float32)
-    parts = [[None] * n_shards for _ in range(n_blocks)]
-    for i in np.ndindex(mesh.devices.shape):
-        s, d = i[a_s], (i[a_b] if a_b is not None else 0)
-        dev = mesh.devices[i]
-        rows = slice(d * bl, (d + 1) * bl)
-        p = pos[rows].to(dev)
+
+    def send(e):
+        i, _, d, replica = e
+        dev, rows = mesh.devices[i], slice(d * bl, (d + 1) * bl)
+        return (pos[rows].to(dev), k_new[rows, 0].to(dev),
+                v_new[rows, 0].to(dev),
+                None if replica else q0[rows].to(dev))
+
+    def work(e, x):
+        i, s, _, replica = e
+        p, kn, vn, qd = x
         pk, pv = ck.pieces[i], cv.pieces[i]
-        _write(pk, pv, k_new[rows, 0].to(dev), v_new[rows, 0].to(dev), p,
-               s * s_loc)
-        if any(x for j, x in enumerate(i) if j not in (a_s, a_b)):
-            continue                          # a replica: written only
+        _write((pk, pv), (kn, vn), p, s * s_loc)
+        if replica:
+            return None                       # written only
         lo, hi, live = chunk_range(p, s * s_loc, s_loc, window)
         # a dead row reads its chunk's first key, not the whole chunk
-        m, l, o = decode_partials(q0[rows].to(dev), pk, pv,
-                                  torch.where(live, lo, 0),
-                                  torch.where(live, hi, 1),
-                                  use_kernel=use_kernel)
-        # dead rows add exactly the merge identity (m = -1e30, l = 0, o = 0)
-        parts[d][s] = (torch.where(live[:, None], m, _NEG).to(home),
-                       torch.where(live[:, None], l, 0.0).to(home),
-                       torch.where(live[:, None, None], o, 0.0).to(home))
-    outs = []
-    for blk in parts:
-        # the aggregator merge across shards: the global max, then the
-        # rescaled sums in shard order
-        m = torch.stack([x[0] for x in blk])
-        corr = torch.exp(m - m.amax(dim=0))
-        l_g = blk[0][1] * corr[0]
-        o_g = blk[0][2] * corr[0][..., None]
-        for s in range(1, n_shards):
-            l_g = l_g + blk[s][1] * corr[s]
-            o_g = o_g + blk[s][2] * corr[s][..., None]
-        outs.append(o_g / torch.clamp(l_g, min=1e-30)[..., None])
-    out = torch.cat(outs).to(q.dtype)
+        part = decode_partials(qd, pk, pv, torch.where(live, lo, 0),
+                               torch.where(live, hi, 1),
+                               use_kernel=use_kernel)
+        return _dead_to_identity(live, *part)
+
+    parts = _over_entries(entries, send, work, q.device, n_shards,
+                          n_blocks)
+    out = _merge(parts).to(q.dtype)
     return out[:, None], ck, cv
+
+
+def _mla_partials(q, piece, hi, kv_rank: int, scale: float):
+    """(m, l, o) in f32 of one latent piece (B_blk, S_loc, R): the scores
+    of q = (q_abs, q_rope) (B_blk, H, R) against the piece cast to f32,
+    times ``scale``, masked at chunk positions >= ``hi``; their row max,
+    the sum of their exp, and the exp times the piece's ``c`` half
+    (B_blk, H, kv_rank)."""
+    f = piece.to(torch.float32)
+    scores = torch.einsum("bhr,btr->bht", q, f) * scale
+    t = torch.arange(piece.shape[1], dtype=torch.int32, device=piece.device)
+    scores = torch.where((t[None, :] < hi[:, None])[:, None, :], scores,
+                         _NEG)
+    m = scores.amax(dim=-1)
+    e = torch.exp(scores - m[..., None])
+    return m, e.sum(dim=-1), torch.einsum("bht,btr->bhr", e,
+                                          f[..., :kv_rank])
+
+
+def sharded_mla_decode(q_abs, q_rope, cache_latent, lat_new, pos, mesh,
+                       kv_rank: int, scale: float, axis: str = "model",
+                       batch_axis: Optional[str] = "data"):
+    """One absorbed MLA decode step against a sequence-sharded latent
+    cache.
+
+    q_abs: (B, 1, H, kv_rank) and q_rope: (B, 1, H, rope_dim) on the home
+    device; cache_latent: (B, S, kv_rank + rope_dim) in pieces
+    (``Placed``) or whole, S a multiple of the axis size; lat_new: (B, 1,
+    kv_rank + rope_dim), the token's c_kv beside its roped k_rope; pos:
+    (B,) current lengths; ``scale``: (nope + rope)^-0.5.  On each entry's
+    device, the owner-or-old write of lat_new at ``pos - start``, then
+    the piece's partial state over each row's live range (MLA has no
+    window: the whole prefix), a row with none the merge identity; the
+    partials copied to the home device once per entry, merged per data
+    block in shard order.  Returns (o_lat (B, 1, H, kv_rank) f32 on the
+    home device, the latent as ``Placed``)."""
+    b = q_abs.shape[0]
+    (cl,), entries, n_shards, n_blocks = _entries(
+        (cache_latent,), b, mesh, axis, batch_axis)
+    bl, s_loc = b // n_blocks, cl.shape[1] // n_shards
+    q = torch.cat([q_abs[:, 0], q_rope[:, 0]], dim=-1).to(torch.float32)
+
+    def send(e):
+        i, _, d, replica = e
+        dev, rows = mesh.devices[i], slice(d * bl, (d + 1) * bl)
+        return (pos[rows].to(dev), lat_new[rows, 0].to(dev),
+                None if replica else q[rows].to(dev))
+
+    def work(e, x):
+        i, s, _, replica = e
+        p, new, qd = x
+        piece = cl.pieces[i]
+        _write((piece,), (new,), p, s * s_loc)
+        if replica:
+            return None                       # written only
+        _, hi, live = chunk_range(p, s * s_loc, s_loc)
+        return _dead_to_identity(
+            live, *_mla_partials(qd, piece, hi, kv_rank, scale))
+
+    parts = _over_entries(entries, send, work, q_abs.device, n_shards,
+                          n_blocks)
+    return _merge(parts)[:, None], cl

@@ -1229,6 +1229,62 @@ def test_pieces_decode_on_distinct_cards(arch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_mla_latent_pieces_on_card(shape):
+    """Reduced minicpm3-4b in float32 on the card, B = 4, a latent of
+    4,096 positions drawn from a seed and placed by ``cache_pspecs`` on
+    a mesh of the card's entries (rows live to 5 / 1,030 / 2,500 /
+    4,000): 4 greedy steps on the pieces within 1e-5 of the whole-latent
+    decode, the latent still ``Placed`` after every step, no kernel
+    launched (the absorbed decode is plain torch)."""
+    from repro_torch.configs import reduced
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed.sharding import (Mesh, Placed,
+                                                  cache_pspecs, device_put,
+                                                  named_shardings)
+    from repro_torch.models import model as TM
+
+    dev = require_cuda()
+    cfg = reduced("minicpm3-4b")
+    params = TM.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dtype=torch.float32, device=dev)
+    b, s = 4, 4096
+    width = cfg.mla.kv_rank + cfg.mla.rope_dim
+    gen = torch.Generator(device=dev).manual_seed(1)
+    latent = [torch.randn((b, s, width), generator=gen, device=dev)
+              for _ in range(cfg.n_layers)]
+    mesh = Mesh(np.full(shape, dev, dtype=object), ("data", "model"))
+
+    def state():
+        return {"len": torch.tensor([5, 1030, 2500, 4000], dtype=torch.int32,
+                                    device=dev),
+                "layers": [{"attn": {"latent": t.clone()}} for t in latent]}
+
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (b, 1)).astype(np.int32)).to(dev)
+    whole, st, toks = [], state(), []
+    for _ in range(4):
+        toks.append(tok)
+        logits, st = TM.decode_step(cfg, params, st, tok)
+        whole.append(logits.cpu().numpy())
+        tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True).to(
+            torch.int32)
+    st = state()
+    st = device_put(st, named_shardings(cache_pspecs(cfg, st, mesh), mesh))
+    got = []
+    dispatch.reset_launch_counts()
+    with runtime.use_mesh(mesh):
+        for t in toks:
+            logits, st = TM.decode_step(cfg, params, st, t)
+            got.append(logits.cpu().numpy())
+            assert all(isinstance(lc["attn"]["latent"], Placed)
+                       for lc in st["layers"])
+    assert not any(dispatch.launch_counts().values())
+    np.testing.assert_allclose(np.stack(got), np.stack(whole), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
 def test_counted_step_records_one_cost_per_launch(kind):
     """``roofline.analyze_step`` over a step on the card: each kernel's
