@@ -340,6 +340,32 @@ Phases (each prints its own lines; any failure exits non-zero):
              token p50 / p99 (CUDA events), peak memory, kernels and
              busy share by card; one line saying (b) did not run
              elsewhere;
+   t. a placed decode state keeps its placement under a decode mesh
+             (``cache_pspecs``' layout; RWKV6's ``S`` in batch blocks and
+             hymba's SSM state in channel pieces updated on their cards,
+             ``sharded_decode.placed_wkv_step`` / ``placed_ssm_step``):
+             (a) float32 at full width on (1, 4) and (2, 2) entries of
+             the card, hymba-1.5b at 3 layers (a window layer between two
+             global ones) prefilled with 4 x 4,000 tokens into 4,096
+             positions, rows then live to 5 / 1,030 / 2,500 / 4,000,
+             rwkv6-7b at 2 layers, whisper-tiny whole on (2, 2): 4 greedy
+             steps within 1e-5 of the whole state, the same tokens, every
+             leaf in its layout after every step, bytes per entry =
+             ``per_device_bytes``, 0 bytes of ``S`` / SSM state / K/V
+             gathered; (b) hymba-1.5b's long_500k cell uncut (B = 1 x
+             524,288, 32 layers, bf16 K/V drawn piece by piece to 524,000
+             live positions on (1, 4) entries of the card): token p50 /
+             p99 (CUDA events), kernels, busy share, peak memory, and
+             ``decode_partials`` on one 131,072-key piece and one
+             decode_32k 8,192-key piece (B = 128) beside SDPA and their
+             bounds; (c) where four cards are visible, hymba-1.5b's
+             decode_32k cell uncut over a (1, 4) mesh of distinct cards
+             (B = 128 x 32,768, bf16 K/V and f32 SSM state drawn piece by
+             piece, params on card 0): f32 at B = 2 against the
+             unsharded decode on card 0 within 2e-4, bytes a card =
+             ``per_device_bytes``, token p50 / p99, peak memory, kernels
+             and busy share by card; one line saying (c) did not run
+             elsewhere;
    n. entry points and step rooflines — (a) the port's CI gates
              (``tools/torch_check_consistency.py --bitwise 4``,
              ``torch_check_replay.py``, ``torch_check_recovery.py 4``)
@@ -639,6 +665,29 @@ RWKV4_BATCH, RWKV4_SEQ, RWKV4_MICRO, RWKV4_STEPS = 8, 128, 2, 3
 MLA_LAYERS, MLA_SEQ, MLA_STEPS, MLA_TOL = 2, 4096, 4, 1e-5
 MLA_LENS = (5, 1030, 2500, 4000)
 MLA4_BATCH, MLA4_F32_BATCH, MLA4_TOKENS = 128, 2, 16
+# phase 4t: a placed decode state keeps its placement under a decode mesh
+# (cache_pspecs' layout, the reference's out_shardings): RWKV6's S in
+# batch blocks and hymba's SSM state in channel pieces, each updated on
+# its card.  (a) float32 at full width, depth cut to STATE_ARCHS[arch][0]
+# layers (hymba-1.5b: 0 and 2 global, 1 a window layer; whisper-tiny
+# whole): len(MLA_LENS) prompts of STATE_PROMPT[arch] tokens prefilled
+# into STATE_SEQ[arch] positions (hymba's rows then live to MLA_LENS),
+# MLA_STEPS greedy steps on the meshes of STATE_ARCHS[arch][1] against
+# the whole state within MLA_TOL.  (b) hymba-1.5b's long_500k cell uncut:
+# B = 1 x LONG_SEQ, all 32 layers, bf16 K/V drawn piece by piece to
+# LONG_LIVE live positions on (1, PIECES_N) entries of the card,
+# LONG_TOKENS timed tokens; decode_partials on one piece of this cell and
+# of decode_32k's beside SDPA.  (c) four cards: hymba-1.5b's decode_32k
+# cell uncut (HYMBA4_BATCH x MESH_SEQ, MESH_LIVE live), params bf16 on
+# card 0, HYMBA4_TOKENS timed tokens; its f32 check at MLA4_F32_BATCH
+STATE_ARCHS = {"hymba-1.5b": (3, ((1, PIECES_N), (2, 2))),
+               "rwkv6-7b": (2, ((1, PIECES_N), (2, 2))),
+               "whisper-tiny": (None, ((2, 2),))}
+STATE_PROMPT = {"hymba-1.5b": 4000, "rwkv6-7b": 16, "whisper-tiny": 16}
+STATE_SEQ = {"hymba-1.5b": MLA_SEQ, "rwkv6-7b": 32,
+             "whisper-tiny": AUDIO_MAX_LEN}
+LONG_SEQ, LONG_LIVE, LONG_TOKENS = 524_288, 524_000, 8
+HYMBA4_BATCH, HYMBA4_TOKENS = 128, 8
 
 # phase 4n: the CUDA function (or Triton kernel) that every launch of a
 # port kernel runs once, so that its profiler events count the launches
@@ -3875,26 +3924,32 @@ def mesh_states(cfg, b, dtype, mesh, dev):
 
 def fill_caches(state, names, blocks, dev, seed=23):
     """Every layer's ``attn`` caches ``names`` drawn from the seed, block
-    by block in ``blocks``' order (a ``Placed`` leaf's pieces in entry
+    by block in ``blocks``' order (``fill_blocks``)."""
+    fill_blocks([lc["attn"][n] for lc in state["layers"] for n in names],
+                blocks, dev, seed)
+
+
+def fill_blocks(leaves, blocks, dev, seed):
+    """``leaves`` (of one shape) drawn from the seed in turn, block by
+    block in ``blocks``' order (a ``Placed`` leaf's pieces in entry
     order, the same blocks), into a piece on the generator's card or
-    through one piece-shaped buffer there (a whole cache's block, a piece
+    through one piece-shaped buffer there (a whole leaf's block, a piece
     on another card: the same values either way)."""
     from repro_torch.distributed.sharding import Placed
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     buf = None
-    for lc in state["layers"]:
-        for t in (lc["attn"][n] for n in names):
-            parts = (list(t.pieces.flat) if isinstance(t, Placed)
-                     else [t[sl] for sl in blocks])
-            for part in parts:
-                if part.is_contiguous() and part.device == gen.device:
-                    part.normal_(generator=gen)
-                    continue
-                if buf is None:
-                    buf = torch.empty(part.shape, dtype=part.dtype,
-                                      device=gen.device)
-                part.copy_(buf.normal_(generator=gen))
+    for t in leaves:
+        parts = (list(t.pieces.flat) if isinstance(t, Placed)
+                 else [t[sl] for sl in blocks])
+        for part in parts:
+            if part.is_contiguous() and part.device == gen.device:
+                part.normal_(generator=gen)
+                continue
+            if buf is None:
+                buf = torch.empty(part.shape, dtype=part.dtype,
+                                  device=gen.device)
+            part.copy_(buf.normal_(generator=gen))
 
 
 def mesh_decode(dev, card):
@@ -5708,6 +5763,26 @@ def family_pieces(dev, card):
 # ---------------------------------------------------------------- phase 4s
 
 
+def timed_tokens(step, n, cards):
+    """Per token ms of ``n`` calls of ``step`` (CUDA events on the first
+    card's stream, which waits for every other card's work)."""
+    ms = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        home = torch.cuda.current_stream(cards[0])
+        start.record(home)
+        logits = step()
+        for c in cards[1:]:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(c))
+            home.wait_event(done)
+        end.record(home)
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return ms, logits
+
+
 def mla_states(cfg, b, seq, dtype, mesh, dev):
     """The ``meta`` decode state of ``b`` rows at ``seq`` positions, its
     specs (``cache_pspecs``, whose latent spec at 4,096 positions or more
@@ -5972,20 +6047,7 @@ def mla_pieces_distinct(card):
     for c in cards:
         torch.cuda.reset_peak_memory_stats(c)
     step()                                               # warm-up
-    ms = []
-    for _ in range(MLA4_TOKENS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record(torch.cuda.current_stream(dev))
-        logits = step()
-        home = torch.cuda.current_stream(dev)
-        for c in cards[1:]:
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(c))
-            home.wait_event(done)
-        end.record(home)
-        end.synchronize()
-        ms.append(start.elapsed_time(end))
+    ms, logits = timed_tokens(step, MLA4_TOKENS, cards)
     check_logits([logits.float().cpu().numpy()], cfg, MLA4_BATCH)
     peaks = [torch.cuda.max_memory_allocated(c) / 1e9 for c in cards]
     _, counts = run_path(f"4s (b) {MLA_ARCH} token over {PIECES_N} cards "
@@ -6026,6 +6088,514 @@ def mla_pieces(dev, card):
     res["a_s"] = time.perf_counter() - t0
     res["distinct"] = mla_pieces_distinct(card)
     return res, {"mla_pieces_f32": res["card"]["launches"]}
+
+
+# ---------------------------------------------------------------- phase 4t
+
+
+def clone_tree(tree):
+    """Every tensor of a tree of dicts and lists, cloned."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone_tree(v) for v in tree]
+    return tree.clone()
+
+
+def held_layout(label, state, shardings):
+    """Raise unless every leaf of ``state`` is a ``Placed`` in the layout
+    of the ``NamedSharding`` at its place (``sharding._same_layout``)."""
+    from repro_torch.distributed.sharding import Placed, _same_layout
+
+    if isinstance(shardings, dict):
+        for k, sh in shardings.items():
+            held_layout(label, state[k], sh)
+    elif isinstance(shardings, list):
+        for x, sh in zip(state, shardings, strict=True):
+            held_layout(label, x, sh)
+    elif not (isinstance(state, Placed) and _same_layout(state, shardings)):
+        raise AssertionError(f"{label}: a leaf left its layout: {state}, "
+                             f"want {shardings.spec}")
+
+
+def kv_leaves(tree):
+    return [lc["attn"][k] for lc in tree["layers"] for k in "kv"]
+
+
+def ssm_leaves(tree):
+    return [lc["ssm"] for lc in tree["layers"]]
+
+
+def hymba_state(cfg, b, seq, live, dtype, mesh, dev, pieces):
+    """hymba's decode state of ``b`` rows at ``seq`` positions placed by
+    ``cache_pspecs`` on ``mesh`` piece by piece from ``meta`` (or whole on
+    ``dev``), every K/V and SSM block drawn from the seed in ``mesh``'s
+    block order (the same values either way), every row live to
+    ``live``; with its ``meta`` tree, specs and shardings."""
+    from repro_torch.distributed.sharding import (cache_pspecs, device_put,
+                                                  named_shardings,
+                                                  shard_slices)
+    from repro_torch.models.model import init_decode_state
+    from repro_torch.models.sharded_decode import decode_cache_spec
+
+    meta = init_decode_state(cfg, b, seq, dtype=dtype, device="meta")
+    specs = cache_pspecs(cfg, meta, mesh)
+    shardings = named_shardings(specs, mesh)
+    kv = decode_cache_spec(b, mesh)
+    if any(lc["attn"][k] != kv for lc in specs["layers"] for k in "kv"):
+        raise AssertionError(f"4t: cache_pspecs {specs['layers'][0]} is "
+                             f"not the decode's {kv}")
+
+    def blocks(leaf, spec):
+        return [shard_slices(tuple(leaf.shape), spec, mesh, i)
+                for i in np.ndindex(mesh.devices.shape)]
+
+    lc0, sc0 = meta["layers"][0], specs["layers"][0]
+    if pieces:
+        state = device_put(meta, shardings)
+        for p in state["len"].pieces.flat:
+            p.fill_(live)
+    else:
+        state = init_decode_state(cfg, b, seq, dtype=dtype, device=dev)
+        state["len"].fill_(live)
+    fill_caches(state, ("k", "v"), blocks(lc0["attn"]["k"], kv), dev)
+    fill_blocks(ssm_leaves(state), blocks(lc0["ssm"], sc0["ssm"]), dev,
+                seed=31)
+    return state, meta, specs, shardings
+
+
+def state_pieces_card(dev, card):
+    """Phase 4t (a): each arch of STATE_ARCHS in float32 at full width and
+    its layers, drawn on the card (seed 0); STATE_PROMPT[arch] seeded
+    tokens a row prefilled into STATE_SEQ[arch] positions (hymba's rows
+    then live to MLA_LENS: its scan kernel runs here), MLA_STEPS greedy
+    steps of the whole state, then the same tokens on the state placed
+    by ``cache_pspecs`` on each mesh of entries of the card: logits
+    within MLA_TOL, the same argmax, every leaf a ``Placed`` in its
+    layout after every step with the bytes ``per_device_bytes`` says,
+    and no byte of ``S``, SSM state or K/V gathered (every copy of a
+    placed leaf into one tensor counted: only ``len``, RWKV6's shifts and
+    whisper's ``enc_out`` are read whole)."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.distributed.sharding import (Mesh, cache_pspecs,
+                                                  device_put, entry_bytes,
+                                                  named_shardings,
+                                                  per_device_bytes)
+    from repro_torch.models.model import decode_step, forward_prefill
+
+    res, counts = {}, {}
+    b = len(MLA_LENS)
+    for arch, (layers, shapes) in STATE_ARCHS.items():
+        t0 = time.perf_counter()
+        cfg = get(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        name = f"4t {arch} ({cfg.n_layers} layers)"
+        params = _draw(cfg, dev, torch.float32)
+        prompt = torch.from_numpy(model_prompt(cfg, b, STATE_PROMPT[arch]))
+        batch = model_batch(cfg, prompt.to(dev), dev)
+        (_, state0), c = run_path(
+            f"{name} prefill (f32)",
+            lambda: forward_prefill(cfg, params, batch,
+                                    cache_capacity=STATE_SEQ[arch]),
+            ("linear_scan",) if cfg.family == "hybrid" else ())
+        counts[f"state_pieces_{arch}_prefill"] = c
+        if cfg.family == "hybrid":
+            state0["len"] = torch.tensor(MLA_LENS, dtype=torch.int32,
+                                         device=dev)
+        del batch
+        expect = () if cfg.family == "ssm" else ("decode_partials",)
+        read_whole = {(b,), (b, cfg.d_model)}
+        if "enc_out" in state0:
+            read_whole.add(tuple(state0["enc_out"].shape))
+
+        def greedy(state, tok):
+            toks, out = [], []
+            for _ in range(MLA_STEPS):
+                toks.append(tok)
+                logits, state = decode_step(cfg, params, state, tok.to(dev))
+                out.append(logits.float().cpu())
+                tok = logits[:, :cfg.vocab_size].argmax(
+                    -1, keepdim=True).to(torch.int32).cpu()
+            return torch.stack(out), toks
+
+        first = torch.randint(0, cfg.vocab_size, (b, 1), dtype=torch.int32,
+                              generator=torch.Generator().manual_seed(9))
+        (want, toks), c = run_path(f"{name} whole state (f32)",
+                                   lambda: greedy(clone_tree(state0), first),
+                                   expect)
+        counts[f"state_pieces_{arch}_whole"] = c
+        for shape in shapes:
+            mesh = Mesh(np.full(shape, dev, dtype=object), ("data", "model"))
+            label = f"{name}, state in pieces over {shape} of the card"
+            specs = cache_pspecs(cfg, state0, mesh)
+            shardings = named_shardings(specs, mesh)
+            want_bytes = per_device_bytes(state0, specs, mesh)
+
+            def check(st):
+                held_layout(label, st, shardings)
+                if not (entry_bytes(st) == want_bytes).all():
+                    raise AssertionError(f"{label}: bytes per entry "
+                                         f"{entry_bytes(st).tolist()}, "
+                                         f"per_device_bytes {want_bytes}")
+
+            state = device_put(state0, shardings)
+            check(state)
+            with Gathers("repro_torch.distributed.sharding", "_whole") as g:
+                (got, state), c = run_path(
+                    f"{label} (f32)",
+                    lambda: mla_decode(cfg, params, state, toks, mesh, dev,
+                                       check), expect)
+            counts[f"state_pieces_{arch}_{shape[0]}x{shape[1]}"] = c
+            state_bytes = sum(n for shp, n in g.seen if shp not in read_whole)
+            if state_bytes:
+                raise AssertionError(f"{label}: {state_bytes} bytes of state "
+                                     f"gathered ({g.seen})")
+            check_logits([x.numpy() for x in got], cfg, b)
+            err = compare(f"{label} vs the whole state", got, want,
+                          rtol=MLA_TOL, atol=MLA_TOL)
+            used = float(((got - want).abs()
+                          / (MLA_TOL + MLA_TOL * want.abs())).max())
+            if not torch.equal(got[:-1, :, :cfg.vocab_size].argmax(-1),
+                               torch.stack(toks[1:])[..., 0].long()):
+                raise AssertionError(f"{label}: argmax differs from the "
+                                     f"whole state's greedy tokens")
+            bitwise = torch.equal(got, want)
+            read = sorted({shp for shp, _ in g.seen})
+            log(f"{label}: f32 B={b}, {MLA_STEPS} greedy steps: logits "
+                f"within {MLA_TOL} of the whole state (max abs diff {err}, "
+                f"at most {used:.3f} of an element's allowance; bitwise "
+                f"{bitwise}), the same tokens; every leaf in its "
+                f"cache_pspecs layout after every step; bytes per entry = "
+                f"per_device_bytes = {want_bytes}; state bytes gathered "
+                f"{state_bytes} (read whole: {read}); launches {c}  "
+                f"[{card}]")
+            res[f"{arch} {shape}"] = {
+                "err": err, "allowance_used": used, "bitwise": bitwise,
+                "state_bytes_gathered": state_bytes, "read_whole": read,
+                "entry_bytes": want_bytes, "launches": c}
+            del state
+        del params, state0
+        _free()
+        res[f"{arch} s"] = time.perf_counter() - t0
+    return res, counts
+
+
+def piece_partials(dev, b, keys, card, heads=(25, 5, 64)):
+    """``decode_partials`` on one sequence piece of ``keys`` positions of
+    hymba-1.5b's cache (B = ``b``, Hq, Hkv, D = ``heads``, bf16, every
+    key live: a global layer's call on a piece its rows fill): two runs
+    bitwise; m, l and the finalized output o / l against the plain
+    version at rtol 1e-4 / atol 1e-5, and o itself, an unnormalised sum
+    of ``keys`` products whose f32 rounding at 131,072 keys passes atol
+    1e-5 where it cancels (6.9e-05 on an H100), reported beside the
+    plain version's own distance from the float64 plain version; times
+    of the kernel, its plain version and one SDPA call, and the bound
+    from ``ops.cost`` at the run's live keys."""
+    from repro_torch.kernels.flash_decode.kernel import decode_partials_cuda
+    from repro_torch.kernels.flash_decode.ops import cost
+    from repro_torch.kernels.flash_decode.ref import (decode_partials_ref,
+                                                      finalize_partials)
+
+    gen = torch.Generator(device=dev).manual_seed(37 + b)
+    hq, hkv, d = heads
+    q = torch.randn((b, hq, d), generator=gen, device=dev)
+    k, v = (torch.randn((b, keys, hkv, d), generator=gen,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    lo = torch.zeros((b,), dtype=torch.int32, device=dev)
+    hi = torch.full((b,), keys, dtype=torch.int32, device=dev)
+    got = decode_partials_cuda(q, k, v, lo, hi)
+    again = decode_partials_cuda(q, k, v, lo, hi)
+    want = decode_partials_ref(q, k, v, lo, hi)
+    name = f"decode_partials[piece {b} x {keys}]"
+    for part, x, y in zip("mlo", got, again):
+        same_bits(f"{name}/{part}", x, y)
+    err = max(compare(f"{name}/{part}", x, z, rtol=1e-4, atol=1e-5)
+              for part, x, z in (("m", got[0], want[0]), ("l", got[1],
+                                                          want[1]),
+                                 ("o / l", finalize_partials(*got),
+                                  finalize_partials(*want))))
+    exact = decode_partials_ref(q, k, v, lo, hi, dtype=torch.float64)[2]
+    o_err = float((got[2] - want[2]).abs().max())
+    o_kernel = float((got[2].double() - exact).abs().max())
+    o_plain = float((want[2].double() - exact).abs().max())
+    del got, again, want, exact
+    live = b * keys
+    # least work: each live K and V row read once (bf16), q read and the
+    # partials written once; 4 * d flops per live key and head
+    b_ms, b_by = bound(cost(b, hq, hkv, d, live, 2))
+    r = {"b": b, "keys": keys, "live_keys": live, "max_abs_err": err,
+         "o_max_abs_err": o_err, "o_kernel_vs_f64": o_kernel,
+         "o_plain_vs_f64": o_plain,
+         "ms": cuda_ms(lambda: decode_partials_cuda(q, k, v, lo, hi), 20),
+         "plain_ms": cuda_ms(lambda: decode_partials_ref(q, k, v, lo, hi),
+                             3),
+         "library_ms": cuda_ms(lambda: decode_library(q, k, v, lo, hi), 20),
+         "bound_ms": b_ms, "bound_by": b_by}
+    log(f"{name} Hq={hq} Hkv={hkv} D={d} bf16, every key live: m, l, o / l "
+        f"== plain (rtol 1e-4), two runs equal, max_abs_err={err}; o max "
+        f"abs diff {o_err} (from float64: kernel {o_kernel}, plain "
+        f"{o_plain}); ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+        f"library_ms={r['library_ms']:.4f} bound_ms={b_ms:.5f} ({b_by})  "
+        f"[{card}]")
+    del q, k, v
+    _free()
+    return r
+
+
+def long_context(dev, card):
+    """Phase 4t (b): hymba-1.5b's long_500k cell uncut on (1, PIECES_N)
+    entries of the card: B = 1 x LONG_SEQ, all layers, params bf16 (seed
+    0), the state placed by ``cache_pspecs`` and drawn piece by piece
+    (K/V bf16, SSM state f32) to LONG_LIVE live positions: K/V bytes per
+    entry = ``per_device_bytes`` = the shapes' arithmetic; LONG_TOKENS
+    seeded tokens timed (CUDA events), one more counted (one
+    ``decode_partials`` per entry and layer) and one profiled (kernels,
+    busy share), peak memory, every leaf in its layout after them; then
+    ``decode_partials`` on one piece of this cell and of decode_32k's
+    (``piece_partials``)."""
+    from repro_torch.configs import get
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed.sharding import (entry_bytes,
+                                                  per_device_bytes)
+    from repro_torch.models.model import decode_step
+
+    t0 = time.perf_counter()
+    cfg = get(MODEL_ARCH)
+    mesh = pieces_mesh([dev] * PIECES_N)
+    label = (f"4t (b) {MODEL_ARCH} long_500k, B=1 x {LONG_SEQ}, state in "
+             f"pieces over (1, {PIECES_N}) of the card")
+    params = _draw(cfg, dev, torch.bfloat16)
+    before = torch.cuda.memory_allocated(dev)
+    t_fill = time.perf_counter()
+    state, meta, specs, shardings = hymba_state(
+        cfg, 1, LONG_SEQ, LONG_LIVE, torch.bfloat16, mesh, dev, True)
+    _free()
+    fill_s = time.perf_counter() - t_fill
+    grew = torch.cuda.memory_allocated(dev) - before
+
+    kv_bytes = per_device_bytes(kv_leaves(meta), kv_leaves(specs), mesh)
+    arith = (cfg.n_layers * 2 * (LONG_SEQ // PIECES_N) * cfg.n_kv_heads
+             * cfg.head_dim * 2)
+    want_bytes = per_device_bytes(meta, specs, mesh)
+    if not ((entry_bytes(kv_leaves(state)) == kv_bytes).all()
+            and kv_bytes == arith
+            and (entry_bytes(state) == want_bytes).all()):
+        raise AssertionError(f"{label}: K/V bytes per entry "
+                             f"{entry_bytes(kv_leaves(state)).tolist()}, "
+                             f"per_device_bytes {kv_bytes}, shapes {arith}")
+    tokens = torch.randint(0, cfg.vocab_size, (LONG_TOKENS + 3, 1, 1),
+                           dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(11))
+    it = iter(tokens.to(dev))
+
+    def step():
+        nonlocal state
+        with runtime.use_mesh(mesh):
+            logits, state = decode_step(cfg, params, state, next(it))
+        return logits
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    step()                                               # warm-up
+    ms, logits = timed_tokens(step, LONG_TOKENS, [dev])
+    check_logits([logits.float().cpu().numpy()], cfg, 1)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    _, counts = run_path(f"{label} token (bf16)", step, ("decode_partials",))
+    if counts["decode_partials"] != cfg.n_layers * PIECES_N:
+        raise AssertionError(f"{label}: {counts} launches, want one "
+                             f"decode_partials per entry and layer")
+    busy = busy_share(step)
+    held_layout(label, state, shardings)
+    if not (entry_bytes(state) == want_bytes).all():
+        raise AssertionError(f"{label}: bytes per entry moved")
+    out = {"kv_bytes_per_entry": kv_bytes, "entry_bytes": want_bytes,
+           "allocated": grew, "fill_s": fill_s, "ms": ms,
+           "ms_p50": float(np.percentile(ms, 50)),
+           "ms_p99": float(np.percentile(ms, 99)), "peak_gb": peak,
+           "launches": counts, "busy": busy}
+    log(f"{label}: K/V bytes per entry = per_device_bytes = {kv_bytes} "
+        f"({kv_bytes * PIECES_N} in all; allocated {grew}), drawn in "
+        f"{fill_s:.1f} s; bf16 token p50 {out['ms_p50']:.2f} ms, p99 "
+        f"{out['ms_p99']:.2f} ms over {LONG_TOKENS} tokens (CUDA events) "
+        f"{[round(x, 2) for x in ms]}; launches {counts}; one token "
+        f"{busy['kernels']} kernels, device {busy['device_ms']:.1f} ms of "
+        f"{busy['wall_ms']:.1f}, busy share {busy['device_busy_share']:.3f};"
+        f" peak memory {peak:.2f} GB; every leaf in its layout  [{card}]")
+    del state, params
+    _free()
+    out["pieces"] = {
+        "long_500k": piece_partials(dev, 1, LONG_SEQ // PIECES_N, card),
+        "decode_32k": piece_partials(dev, HYMBA4_BATCH,
+                                     MESH_SEQ // PIECES_N, card)}
+    out["s"] = time.perf_counter() - t0
+    return out, counts
+
+
+def hymba_decode_distinct(card):
+    """Phase 4t (c): where four cards are visible (one line saying it did
+    not run otherwise), hymba-1.5b's decode_32k cell uncut over a (1, 4)
+    mesh of distinct cards.  float32 at MLA4_F32_BATCH rows of MESH_SEQ
+    positions, MESH_STEPS seeded tokens: the state in pieces against the
+    unsharded decode on card 0, the same draw, within MESH_TOL.  bf16 at
+    HYMBA4_BATCH rows: K/V (bf16) and SSM state (f32) drawn piece by piece
+    on each card, their bytes a card = ``per_device_bytes`` = the shapes'
+    arithmetic; params on card 0; HYMBA4_TOKENS tokens timed with CUDA
+    events, peak memory by card, one more token's launches and kernels
+    and busy share by card; ``decode_partials`` on one 8,192-key piece
+    on card 0."""
+    from repro_torch.configs import get
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed.sharding import (cuda_devices, entry_bytes,
+                                                  per_device_bytes)
+    from repro_torch.models.model import decode_step
+
+    cards = cuda_devices()
+    if len(cards) < PIECES_N:
+        log(f"4t (c) did not run: {len(cards)} CUDA device visible; "
+            f"{MODEL_ARCH} decode_32k with the state over distinct cards "
+            f"needs {PIECES_N} (phase 4t (a), (b) ran the state in pieces "
+            f"on entries that repeat this card)  [{card}]")
+        return {"ran": False, "cards": len(cards)}, {}
+    t0 = time.perf_counter()
+    cards = cards[:PIECES_N]
+    dev = cards[0]
+    mesh = pieces_mesh(cards)
+    names = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[:PIECES_N]
+    cfg = get(MODEL_ARCH)
+
+    def free():
+        for c in cards:
+            torch.cuda.synchronize(c)
+            torch.cuda.empty_cache()
+
+    def tokens(b, n, seed):
+        gen = torch.Generator().manual_seed(seed)
+        return torch.randint(0, cfg.vocab_size, (n, b, 1), generator=gen,
+                             dtype=torch.int32)
+
+    # the float32 check: pieces over the cards against one card
+    params = _draw(cfg, dev, torch.float32)
+    toks = tokens(MLA4_F32_BATCH, MESH_STEPS, 5)
+    state, _, _, shardings = hymba_state(
+        cfg, MLA4_F32_BATCH, MESH_SEQ, MESH_LIVE, torch.float32, mesh, dev,
+        True)
+    (got, state), counts_f32 = run_path(
+        f"4t (c) state in pieces over {PIECES_N} cards (f32)",
+        lambda: mla_decode(cfg, params, state, toks, mesh, dev),
+        ("decode_partials",))
+    held_layout("4t (c) f32", state, shardings)
+    on_cards = [p.device for p in state["layers"][0]["ssm"].pieces.flat]
+    del state
+    free()
+    one, _, _, _ = hymba_state(cfg, MLA4_F32_BATCH, MESH_SEQ, MESH_LIVE,
+                               torch.float32, mesh, dev, False)
+    want, _ = mla_decode(cfg, params, one, toks, None, dev)
+    del one, params
+    free()
+    check_logits([x.numpy() for x in got], cfg, MLA4_F32_BATCH)
+    err = compare(f"4t (c) pieces over {PIECES_N} cards vs unsharded", got,
+                  want, rtol=MESH_TOL, atol=MESH_TOL)
+    if on_cards != cards:
+        raise AssertionError(f"4t (c): SSM pieces on {on_cards}")
+    log(f"4t (c) {MODEL_ARCH} f32 B={MLA4_F32_BATCH}, {MESH_SEQ} positions "
+        f"live to {MESH_LIVE}, state in pieces over {PIECES_N} cards "
+        f"{names}: {MESH_STEPS} steps within {MESH_TOL} of the unsharded "
+        f"decode on {dev} (max abs diff {err}); every leaf in its layout")
+
+    # bf16 at decode_32k's batch: K/V no one card holds
+    params = _draw(cfg, dev, torch.bfloat16)
+    before = [torch.cuda.memory_allocated(c) for c in cards]
+    t_fill = time.perf_counter()
+    state, meta, specs, shardings = hymba_state(
+        cfg, HYMBA4_BATCH, MESH_SEQ, MESH_LIVE, torch.bfloat16, mesh, dev,
+        True)
+    free()
+    fill_s = time.perf_counter() - t_fill
+    grew = [torch.cuda.memory_allocated(c) - a for c, a in zip(cards, before)]
+
+    kv_bytes = per_device_bytes(kv_leaves(meta), kv_leaves(specs), mesh)
+    ssm_bytes = per_device_bytes(ssm_leaves(meta), ssm_leaves(specs), mesh)
+    kv_arith = (cfg.n_layers * 2 * HYMBA4_BATCH * (MESH_SEQ // PIECES_N)
+                * cfg.n_kv_heads * cfg.head_dim * 2)
+    sm = cfg.ssm
+    ssm_arith = (cfg.n_layers * HYMBA4_BATCH * sm.expand * cfg.d_model
+                 // PIECES_N * sm.state_dim * 4)
+    want_bytes = per_device_bytes(meta, specs, mesh)
+    if not ((entry_bytes(kv_leaves(state)) == kv_bytes).all()
+            and (entry_bytes(ssm_leaves(state)) == ssm_bytes).all()
+            and kv_bytes == kv_arith and ssm_bytes == ssm_arith
+            and (entry_bytes(state) == want_bytes).all()):
+        raise AssertionError(f"4t (c): K/V bytes a card "
+                             f"{entry_bytes(kv_leaves(state)).tolist()} "
+                             f"(per_device_bytes {kv_bytes}, shapes "
+                             f"{kv_arith}), SSM state "
+                             f"{entry_bytes(ssm_leaves(state)).tolist()}"
+                             f" ({ssm_bytes}, {ssm_arith})")
+    it = iter(tokens(HYMBA4_BATCH, HYMBA4_TOKENS + 3, 7).to(dev))
+
+    def step():
+        nonlocal state
+        with runtime.use_mesh(mesh):
+            logits, state = decode_step(cfg, params, state, next(it))
+        return logits
+
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    step()                                               # warm-up
+    ms, logits = timed_tokens(step, HYMBA4_TOKENS, cards)
+    check_logits([logits.float().cpu().numpy()], cfg, HYMBA4_BATCH)
+    peaks = [torch.cuda.max_memory_allocated(c) / 1e9 for c in cards]
+    _, counts = run_path(f"4t (c) {MODEL_ARCH} token over {PIECES_N} cards "
+                         f"(bf16)", step, ("decode_partials",))
+    by_card = busy_by_card(step)
+    held_layout("4t (c) bf16", state, shardings)
+    if counts["decode_partials"] != cfg.n_layers * PIECES_N or not (
+            entry_bytes(state) == want_bytes).all():
+        raise AssertionError(f"4t (c): launches {counts}, or bytes a card "
+                             f"moved")
+    out = {"ran": True, "cards": names, "f32_err": err,
+           "kv_bytes_per_card": kv_bytes, "ssm_bytes_per_card": ssm_bytes,
+           "allocated": grew, "fill_s": fill_s, "ms": ms,
+           "ms_p50": float(np.percentile(ms, 50)),
+           "ms_p99": float(np.percentile(ms, 99)), "peak_gb": peaks,
+           "launches": counts, "by_card": by_card}
+    log(f"4t (c) {MODEL_ARCH} decode_32k uncut, bf16 B={HYMBA4_BATCH}, "
+        f"{MESH_SEQ} positions live to {MESH_LIVE}, state in pieces over "
+        f"{PIECES_N} cards {names}: bytes a card = per_device_bytes: K/V "
+        f"{kv_bytes}, SSM state {ssm_bytes} (allocated {grew}), drawn in "
+        f"{fill_s:.1f} s; per token p50 {out['ms_p50']:.2f} ms, p99 "
+        f"{out['ms_p99']:.2f} ms over {HYMBA4_TOKENS} tokens (CUDA events) "
+        f"{[round(x, 2) for x in ms]}; peak memory by card "
+        f"{[round(p, 2) for p in peaks]} GB; launches {counts}; one more "
+        f"token by card (kernels, device ms, busy share) "
+        f"{[(r['kernels'], round(r['device_ms'], 1), round(r['busy_share'], 3)) for r in by_card['cards'].values()]}"
+        f" over {by_card['wall_ms']:.1f} ms")
+    del state, params
+    free()
+    out["piece"] = piece_partials(dev, HYMBA4_BATCH, MESH_SEQ // PIECES_N,
+                                  card)
+    out["phase_s"] = time.perf_counter() - t0
+    return out, {"state_pieces_distinct": counts}
+
+
+def state_pieces(dev, card):
+    """Phase 4t: (a) and (b) on entries of the card; (c) over four
+    distinct cards where four are visible."""
+    t0 = time.perf_counter()
+    res, counts = state_pieces_card(dev, card)
+    res["a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["long_500k"], c = long_context(dev, card)
+    counts["state_pieces_long_500k"] = c
+    res["b_s"] = time.perf_counter() - t0
+    res["distinct"], c = hymba_decode_distinct(card)
+    counts.update(c)
+    return res, counts
 
 
 # ---------------------------------------------------------------- phase 4n
@@ -6654,6 +7224,16 @@ def main(argv) -> int:
     log(f"phase 4s took {mla_pieces_res['phase_s']:.1f} s ((a) "
         f"{mla_pieces_res['a_s']:.1f} s)")
 
+    phase(f"4t a placed decode state keeps its placement "
+          f"({', '.join(STATE_ARCHS)}; cache_pspecs' layout), "
+          f"{MODEL_ARCH} long_500k and decode_32k")
+    t0 = time.perf_counter()
+    state_res, counts = state_pieces(dev, card)
+    paths.update(counts)
+    state_res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 4t took {state_res['phase_s']:.1f} s ((a) "
+        f"{state_res['a_s']:.1f} s, (b) {state_res['b_s']:.1f} s)")
+
     phase("4n entry points (tools/torch_*, examples/torch_*), the "
           "roofline of whole steps, the dry run")
     t0 = time.perf_counter()
@@ -6807,7 +7387,7 @@ def main(argv) -> int:
             "decode_partials_32k": res_fd32, "mesh": mesh_res,
             "param_pieces": pieces, "train_pieces": train_pieces_res,
             "moe_dp": moe_dp_res, "family_pieces": fam_pieces,
-            "mla_pieces": mla_pieces_res,
+            "mla_pieces": mla_pieces_res, "state_pieces": state_res,
             "entry_points_rooflines": entry,
             "load_s": t_load, "ingest_s": t_ingest}, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
 """Distribution runtime context for model code.
 
 Model layers are mesh-agnostic by default.  The sequence-sharded decode
-(``models.sharded_decode``) reads the active mesh and its decode axis
-from here; a driver sets them around the decode steps (``use_mesh``).
-The mesh is the port's ``distributed.sharding.Mesh``.
+(``models.sharded_decode``) and ``model.decode_step``'s placed state
+read the active mesh and its decode axis from here (``decode_mesh``);
+a driver sets them around the decode steps (``use_mesh``).  The mesh is
+the port's ``distributed.sharding.Mesh``.
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ from __future__ import annotations
 import contextlib
 from typing import Optional
 
-__all__ = ["set_mesh", "get_mesh", "decode_axis", "use_mesh"]
+__all__ = ["set_mesh", "get_mesh", "decode_axis", "decode_mesh",
+           "use_mesh"]
 
 _MESH = None
 _DECODE_AXIS: Optional[str] = None
@@ -29,6 +31,15 @@ def get_mesh():
 
 def decode_axis() -> Optional[str]:
     return _DECODE_AXIS
+
+
+def decode_mesh():
+    """The active mesh where it has the decode axis (an active decode
+    mesh), else None."""
+    if _MESH is None or _DECODE_AXIS is None \
+            or _DECODE_AXIS not in _MESH.shape:
+        return None
+    return _MESH
 
 
 @contextlib.contextmanager

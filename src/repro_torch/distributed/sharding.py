@@ -76,7 +76,7 @@ __all__ = ["Mesh", "PartitionSpec", "NamedSharding", "auto_pspec",
            "shard_shape", "per_device_bytes", "shard_slices", "Placed",
            "device_put", "gather", "entry_bytes", "axis_pieces",
            "axis_mesh", "blocks", "map_pieces", "is_placed", "mesh_rows",
-           "take_row", "same_mesh", "home"]
+           "take_row", "same_mesh", "home", "place_like"]
 
 
 class PartitionSpec(tuple):
@@ -587,6 +587,22 @@ def device_put(tree, shardings):
     if struct != sh_struct:
         raise ValueError(f"tree {struct} and shardings {sh_struct} differ")
     return tree_unflatten(tree, [_place(x, s) for x, s in zip(leaves, shs)])
+
+
+def place_like(tree, like):
+    """``tree`` with every tensor whose place in ``like`` (a tree of dicts
+    and lists of the same structure) holds a ``Placed`` leaf placed as
+    that leaf (``device_put`` onto its sharding: new pieces, no whole
+    copy kept); every other leaf as it is.  What a step that read placed
+    leaves whole returns, written back in their layout."""
+    if isinstance(tree, dict):
+        return {k: place_like(v, like[k]) if k in like else v
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [place_like(v, w) for v, w in zip(tree, like)]
+    if isinstance(like, Placed) and isinstance(tree, torch.Tensor):
+        return _place(tree, like.sharding)
+    return tree
 
 
 def gather(tree, device):

@@ -68,7 +68,10 @@ def feature_hash_triton(codes: torch.Tensor, dim: int,
     n = flat.numel()
     if n:
         grid = (-(-n // BLOCK),)
-        _kernel()[grid](flat, out, n, SALT_C=salt & 0xFFFFFFFF, DIM=dim,
-                        C1_C=C1, C2_C=C2, BLOCK_C=BLOCK, num_warps=4)
+        # Triton launches on the current card: make it the codes' card
+        with torch.cuda.device(flat.device):
+            _kernel()[grid](flat, out, n, SALT_C=salt & 0xFFFFFFFF,
+                            DIM=dim, C1_C=C1, C2_C=C2, BLOCK_C=BLOCK,
+                            num_warps=4)
         dispatch.count_launch("feature_hash")
     return out.reshape(codes.shape)

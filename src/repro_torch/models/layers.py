@@ -52,7 +52,8 @@ from ..distributed.sharding import NamedSharding, Placed, device_put, gather
 from ..kernels.chunked_scan import linear_scan
 from ..kernels.flash_decode import decode_partials, finalize_partials
 from . import tensor_parallel as tp
-from .sharded_decode import sharded_decode_attention, sharded_mla_decode
+from .sharded_decode import (placed_ssm_step, placed_wkv_step,
+                             sharded_decode_attention, sharded_mla_decode)
 
 __all__ = ["rms_norm", "swiglu", "rope_tables", "apply_rope",
            "chunked_attention", "init_gqa", "gqa_forward", "init_ssm",
@@ -219,11 +220,8 @@ def _decode_mesh(cache_k):
     cache's sequence axis divides the decode axis size.  The mesh's
     entries may be distinct devices: the cache is then held in pieces,
     one on each entry's device (``sharded_decode``)."""
-    mesh = runtime.get_mesh()
-    axis = runtime.decode_axis()
-    if mesh is None or axis is None or axis not in mesh.shape:
-        return None
-    if cache_k.shape[1] % mesh.shape[axis]:
+    mesh = runtime.decode_mesh()
+    if mesh is None or cache_k.shape[1] % mesh.shape[runtime.decode_axis()]:
         return None
     return mesh
 
@@ -737,7 +735,12 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg, *,
     product, ``S + u kv``, r's product with it, and ``w S + kv`` -- four
     launches a step.  Returns (out, (x[:, -1], S_final)).  Weights in
     pieces: ``wr|wk|wv|wg|ww`` by column, ``wo`` by row (``tp.matmul``),
-    ``mu|w0|u_bonus`` replicated; the loop runs on x's card."""
+    ``mu|w0|u_bonus`` replicated; the loop runs on x's card.
+
+    A state in pieces (``Placed``, ``model.decode_step`` under a decode
+    mesh): ``shift`` is read whole on x's card; each step of ``S`` runs
+    on the cards of its pieces (``sharded_decode.placed_wkv_step``), and
+    S comes back placed as it came."""
     b, s, d = x.shape
     h, dh = cfg.n_heads, cfg.head_dim
     f32 = torch.float32
@@ -746,6 +749,8 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg, *,
                  torch.zeros((b, h, dh, dh), dtype=f32, device=x.device))
     shift, S = state
     dev = x.device
+    if isinstance(shift, Placed):
+        shift = gather(shift, dev)
     mr, mk, mv, mg, mw = _shift_lerps(x, shift, tp.on(p["mu"], dev))
     r = tp.matmul(mr, p["wr"]).to(f32).reshape(b, s, h, 1, dh)
     k = tp.matmul(mk, p["wk"]).to(f32).reshape(b, s, h, dh, 1)
@@ -758,6 +763,11 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg, *,
 
     ys = []
     for t in range(s):
+        if isinstance(S, Placed):
+            y_t, S = placed_wkv_step(r[:, t], k[:, t], v[:, t], w[:, t], u,
+                                     S)
+            ys.append(y_t)
+            continue
         kv = k[:, t] * v[:, t]                                 # (B,H,dh,dh)
         ys.append(r[:, t] @ torch.addcmul(S, u, kv))           # (B,H,1,dh)
         S = torch.addcmul(kv, w[:, t], S)
@@ -771,10 +781,13 @@ def rwkv_channel_mix(p: Params, x: torch.Tensor, *,
     """relu(k)^2 through ``cm_v`` under a sigmoid gate; returns (out,
     x[:, -1]), the latter the next call's ``shift``.  Weights in pieces:
     ``cm_k`` by column and ``cm_v`` by row, relu^2 on each card
-    (``tp.column_row``), ``cm_r`` by column (``tp.matmul``)."""
+    (``tp.column_row``), ``cm_r`` by column (``tp.matmul``).  A
+    ``shift`` in pieces is read whole on x's card."""
     b, _, d = x.shape
     if shift is None:
         shift = torch.zeros((b, d), dtype=x.dtype, device=x.device)
+    elif isinstance(shift, Placed):
+        shift = gather(shift, x.device)
     xk, xr = _shift_lerps(x, shift, tp.on(p["mu_cm"], x.device))
 
     def act(k):
@@ -831,6 +844,14 @@ def ssm_forward(p: Params, x: torch.Tensor, cfg, *,
     width), ``w_dt|b_dt|d_skip`` replicated; ``log_a``, split along its
     channels and read elementwise, is gathered (``tp.on``); the scan runs
     on x's card.
+
+    A decode state in pieces (``Placed``, ``model.decode_step`` under a
+    decode mesh; ``cache_pspecs`` splits its channels over ``model``):
+    each piece's update and its ``h · C`` run on the piece's card, the y
+    pieces joined on x's card before ``d_skip``, the gate and
+    ``out_proj`` (``sharded_decode.placed_ssm_step``; ``log_a``'s piece
+    read in place where the params' pieces lie on the same cards), and
+    the state comes back placed as it came.
     """
     sm = cfg.ssm
     b, s, _ = x.shape
@@ -843,25 +864,32 @@ def ssm_forward(p: Params, x: torch.Tensor, cfg, *,
     xz = tp.matmul(x, p["in_proj"])
     xi, z = xz[..., :di], xz[..., di:]
     dt = F.softplus(xi.to(f32) * leaf("w_dt") + leaf("b_dt"))
-    a = (dt[..., None] * leaf("log_a")).exp_()               # (B,S,di,n)
     x32 = x.to(f32)
     bmat, cmat = tp.columns(x32, (p["w_b"], p["w_c"]), dtype=f32)
-    u = (dt * xi.to(f32))[..., None] * bmat[:, :, None, :]
 
-    if s == 1:
-        if state is None:
-            state = torch.zeros((b, di, n), dtype=f32, device=x.device)
-        h = a[:, 0] * state + u[:, 0]                          # (B, di, n)
-        hs = h[:, None]
-        new_state = h
+    if s == 1 and isinstance(state, Placed):
+        y, new_state = placed_ssm_step(dt[:, 0], xi[:, 0].to(f32),
+                                       p["log_a"], bmat[:, 0], cmat[:, 0],
+                                       state)
+        y = y[:, None]
     else:
-        if state is not None:
-            raise ValueError("the prefill scan starts from a zero state")
-        hs = linear_scan(a.reshape(b, s, di * n), u.reshape(b, s, di * n),
-                         use_kernel=use_kernel).reshape(b, s, di, n)
-        new_state = hs[:, -1].clone()
-    del a, u
-    y = torch.einsum("bsdn,bsn->bsd", hs, cmat)
+        a = (dt[..., None] * leaf("log_a")).exp_()           # (B,S,di,n)
+        u = (dt * xi.to(f32))[..., None] * bmat[:, :, None, :]
+        if s == 1:
+            if state is None:
+                state = torch.zeros((b, di, n), dtype=f32, device=x.device)
+            h = a[:, 0] * state + u[:, 0]                      # (B, di, n)
+            hs = h[:, None]
+            new_state = h
+        else:
+            if state is not None:
+                raise ValueError("the prefill scan starts from a zero state")
+            hs = linear_scan(a.reshape(b, s, di * n),
+                             u.reshape(b, s, di * n),
+                             use_kernel=use_kernel).reshape(b, s, di, n)
+            new_state = hs[:, -1].clone()
+        del a, u
+        y = torch.einsum("bsdn,bsn->bsd", hs, cmat)
     y = y + leaf("d_skip") * xi.to(f32)
     y = y * F.silu(z.to(f32))
     return tp.matmul(y.to(x.dtype), p["out_proj"]), new_state

@@ -28,10 +28,12 @@ n_frames, d) for audio).  The decode state is ``{"len": (B,) int32,
 "S", "shift2"}``; an MoE layer holds ``"moe"`` where a dense one holds
 ``"mlp"``.  A decode state placed by ``distributed.sharding.device_put``
 (e.g. by ``cache_pspecs``, from a ``device="meta"`` state: allocated
-piece by piece) holds ``Placed`` leaves; ``decode_step`` reads GQA K/V
-and MLA's latent in pieces under a decode mesh and every other leaf
-whole.  Training runs the layer loop with per-layer rematerialisation
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
+piece by piece) holds ``Placed`` leaves; under a decode mesh
+``decode_step`` reads GQA K/V and MLA's latent in their pieces, updates
+RWKV6's ``S`` and hymba's SSM state piece by piece on their cards, and
+returns every leaf in the layout it came in.  Training runs the layer
+loop with per-layer rematerialisation (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint``).
 
 Params placed by ``device_put(params, named_shardings(param_pspecs(...),
 mesh))`` serve and train as they are (``forward_prefill``,
@@ -61,8 +63,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, ShapeSpec
 from ..distributed.fault import tree_flatten
+from ..distributed import runtime
 from ..distributed.sharding import (NamedSharding, Placed, axis_mesh,
-                                    device_put, gather, shard_slices)
+                                    device_put, gather, place_like,
+                                    shard_slices)
 from ..kernels.dispatch import resolve_device
 from . import layers as L
 from . import tensor_parallel as tp
@@ -697,18 +701,21 @@ def _head_state(cfg: ArchConfig, b: int, max_len: int, dtype, mesh):
 def _whole_but_kv(state: Dict[str, Any], home) -> Dict[str, Any]:
     """``state`` with every ``Placed`` leaf but a layer's ``attn`` caches
     (GQA's K/V, MLA's latent) gathered onto ``home`` (``gqa_forward`` and
-    ``mla_forward`` decide for those)."""
-    def whole(t):
-        return gather(t, home) if isinstance(t, Placed) else t
-
+    ``mla_forward`` decide for those): a placed state with no decode
+    mesh active."""
     def layer(lc):
-        return {k: ({n: t if n in ("k", "v", "latent") else whole(t)
-                     for n, t in v.items()} if k == "attn" else whole(v))
+        return {k: ({n: t if n in ("k", "v", "latent") else _at(t, home)
+                     for n, t in v.items()} if k == "attn" else _at(v, home))
                 for k, v in lc.items()}
 
-    out = {k: whole(v) for k, v in state.items() if k != "layers"}
+    out = {k: _at(v, home) for k, v in state.items() if k != "layers"}
     out["layers"] = [layer(lc) for lc in state["layers"]]
     return out
+
+
+def _at(x, home):
+    """A leaf read whole on ``home``: a ``Placed`` one gathered there."""
+    return gather(x, home) if isinstance(x, Placed) else x
 
 
 def decode_step(cfg: ArchConfig, params: Params, state: Dict[str, Any],
@@ -720,33 +727,40 @@ def decode_step(cfg: ArchConfig, params: Params, state: Dict[str, Any],
     holds the same tensors); SSM and RWKV states and ``len`` are
     replaced; audio reads ``state["enc_out"]``.
 
-    A state placed by ``distributed.sharding.device_put``: GQA K/V and
-    MLA's latent held in pieces (``Placed``) are read and written in
-    their sequence pieces (and batch blocks over ``data``) under an
-    active decode mesh (``models.sharded_decode``) and come back so,
-    never gathered -- minicpm3-4b's latent at decode_32k (B = 128, S =
-    32,768) is 149,786,984,448 bytes, 37,446,746,112 a card over four,
-    beside 8.5 GB of bf16 params.  Every other leaf (``len``, SSM / conv
-    / RWKV states, ``enc_out``, and the caches with no such mesh) is
-    gathered whole onto the params' device at its first use and returned
-    whole: at their reference cells rwkv6-7b's ``S`` is 4.30 GB and each
-    shift 0.034 GB, hymba-1.5b's SSM states 0.007 GB, whisper-tiny's
-    ``enc_out`` a few MB, each fitting one card whole (splitting a
-    recurrence's state would multiply its launches).  Params in pieces:
-    the work runs on their home card (mesh entry 0's device) and the
-    cards of their pieces, a GQA layer on the head route reading and
-    writing its K/V in KV-head pieces whatever mesh is active
-    (``_gqa_heads``), MLA's ``k_up`` / ``v_up`` by head group beside a
-    latent in sequence pieces.  (The reference's automatic partitioning
-    would keep a leaf that ``cache_pspecs`` splits, such as an SSM state
-    with ``model`` on a dimension of 128 or more, split.)
+    A state placed by ``distributed.sharding.device_put`` (e.g. by
+    ``cache_pspecs``) under an active decode mesh (``distributed.
+    runtime``) keeps its placement, the layout of the reference's
+    ``out_shardings``: every placed leaf comes back placed as it came
+    (``sharding._same_layout``), and the state returned holds no whole
+    copy of one.  GQA K/V and MLA's latent are read and written in their
+    sequence pieces (and batch blocks over ``data``,
+    ``models.sharded_decode``) -- minicpm3-4b's latent at decode_32k (B =
+    128, S = 32,768) is 149,786,984,448 bytes, 37,446,746,112 a card
+    over four, hymba-1.5b's K/V 171,798,691,840 bytes.  RWKV6's ``S``
+    (batch blocks over ``data``) and hymba's SSM state (channel pieces
+    over ``model``) are updated piece by piece on their cards
+    (``sharded_decode.placed_wkv_step`` / ``placed_ssm_step``), never
+    gathered.  ``len``, RWKV6's shifts and whisper's ``enc_out`` (at
+    most a few MB a card) are read whole on the home card and written
+    back in their pieces (``sharding.place_like``).  With no decode mesh
+    active every placed leaf is gathered whole onto the params' device
+    at its first use (``_whole_but_kv``) and returned whole.
+
+    Params in pieces: the work runs on their home card (mesh entry 0's
+    device) and the cards of their pieces, a GQA layer on the head route
+    reading and writing its K/V in KV-head pieces whatever mesh is
+    active (``_gqa_heads``: a cache in another layout comes back in
+    KV-head pieces), MLA's ``k_up`` / ``v_up`` by head group beside a
+    latent in sequence pieces.
     """
-    state = _whole_but_kv(state, tp.home(params["embed"]))
-    x = tp.embedding(token.long().to(tp.home(params["embed"])),
-                     params["embed"])                       # (B, 1, d)
-    pos = state["len"]
+    home = tp.home(params["embed"])
+    placed = runtime.decode_mesh() is not None
+    if not placed:
+        state = _whole_but_kv(state, home)
+    x = tp.embedding(token.long().to(home), params["embed"])  # (B, 1, d)
+    pos = _at(state["len"], home)
     positions = pos[:, None]
-    enc_out = state.get("enc_out")
+    enc_out = _at(state.get("enc_out"), home)
     layers = []
     for lp, lc, window in zip(params["layers"], state["layers"],
                               _windows(cfg)):
@@ -760,6 +774,8 @@ def decode_step(cfg: ArchConfig, params: Params, state: Dict[str, Any],
     new_state = dict(state)
     new_state["layers"] = layers
     new_state["len"] = pos + 1
+    if placed:
+        new_state = place_like(new_state, state)
     return logits, new_state
 
 

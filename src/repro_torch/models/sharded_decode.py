@@ -35,6 +35,16 @@ l = S, o = the sum of every value row, the whole chunk read — so such a
 row is given its chunk's first key instead (one key row read) and its
 state is replaced by the identity before the merge.
 
+A decode state's recurrent leaves placed by ``cache_pspecs`` are updated
+the same way, piece by piece on their entries' devices in the three
+passes: RWKV6's ``S`` (B, H, dh, dh), batch blocks over ``data``
+(``placed_wkv_step``), and hymba's SSM state (B, d_inner, n), channel
+pieces over ``model`` (``placed_ssm_step``).  Each entry gets its
+block's slices of the step's inputs, repeats the whole update's
+arithmetic on its piece (replicas too, so they stay equal), and the
+first entry of each block sends its rows of the output home, where the
+blocks are joined in entry order.  The state never leaves its cards.
+
 MLA's latent cache (B, S, kv_rank + rope_dim) takes the same route
 (``sharded_mla_decode``), placed P(bspec, model, None).  The
 reference's absorbed decode is plain ``jnp`` and reaches no Pallas
@@ -51,11 +61,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..distributed.sharding import NamedSharding, PartitionSpec, device_put
+from ..distributed.sharding import (NamedSharding, PartitionSpec, Placed,
+                                    blocks, canonical_device, device_put,
+                                    gather, shard_slices)
 from ..kernels.flash_decode import decode_partials
 
 __all__ = ["sharded_decode_attention", "sharded_mla_decode", "chunk_range",
-           "decode_cache_spec"]
+           "decode_cache_spec", "three_passes", "placed_wkv_step",
+           "placed_ssm_step"]
 
 _NEG = -1e30
 
@@ -129,23 +142,32 @@ def _dead_to_identity(live, m, l, o):
             torch.where(live[:, None, None], o, 0.0))
 
 
-def _over_entries(entries, send, work, home, n_shards: int,
-                  n_blocks: int):
-    """``parts[d][s]``, the partial states of the mesh entries on
-    ``home``, in three passes: every entry's inputs copied to its device
-    (``send(entry)``), then every entry's work there (``work(entry,
-    inputs)``: the write, and (m, l, o), or None for a replica), then
-    the partials copied to ``home``.  A copy between two cards makes
-    each card's stream wait for the other's earlier work, so a partial
+def three_passes(entries, send, work, home):
+    """``work``'s outputs of every entry on ``home``, in three passes:
+    every entry's inputs copied to its device (``send(entry)``), then
+    every entry's work there (``work(entry, inputs)``: a tuple of
+    tensors, or None where nothing comes home), then the outputs copied
+    to ``home`` in entry order.  A copy between two cards makes each
+    card's stream wait for the other's earlier work, so an output
     brought home between two entries' work would hold the next card
     until the last one finished: the passes let the cards work at
     once."""
     inputs = [send(e) for e in entries]
     outs = [work(e, x) for e, x in zip(entries, inputs)]
+    return [None if out is None else tuple(t.to(home) for t in out)
+            for out in outs]
+
+
+def _over_entries(entries, send, work, home, n_shards: int,
+                  n_blocks: int):
+    """``parts[d][s]``, the partial states of the mesh entries on
+    ``home`` (``three_passes``; ``work`` gives the write, and (m, l, o),
+    or None for a replica)."""
     parts = [[None] * n_shards for _ in range(n_blocks)]
-    for (_, s, d, _), out in zip(entries, outs):
+    for (_, s, d, _), out in zip(entries,
+                                 three_passes(entries, send, work, home)):
         if out is not None:
-            parts[d][s] = tuple(t.to(home) for t in out)
+            parts[d][s] = out
     return parts
 
 
@@ -272,3 +294,128 @@ def sharded_mla_decode(q_abs, q_rope, cache_latent, lat_new, pos, mesh,
     parts = _over_entries(entries, send, work, q_abs.device, n_shards,
                           n_blocks)
     return _merge(parts)[:, None], cl
+
+
+def _state_entries(state: Placed):
+    """A placed state's mesh entries as (index, its block's slices,
+    whether it is the block's first entry), in entry order."""
+    first = {entries[0] for entries in blocks(state)}
+    return [(i, shard_slices(state.shape, state.spec, state.mesh, i),
+             i in first) for i in np.ndindex(state.pieces.shape)]
+
+
+def _join(outs, entries, shape, home, where) -> torch.Tensor:
+    """The outputs of a state's blocks (``three_passes``' first entries)
+    joined on ``home``: each added at ``where(slices)`` of f32 zeros of
+    ``shape``, in entry order (a block whose piece splits the summed
+    dimension adds its partial product)."""
+    out = torch.zeros(shape, dtype=torch.float32, device=home)
+    for (_, sl, _), o in zip(entries, outs):
+        if o is not None:
+            out[where(sl)] += o[0]
+    return out
+
+
+def placed_wkv_step(r, k, v, w, u, S: Placed):
+    """One step of RWKV6's WKV recurrence (``layers.rwkv_time_mix``'s
+    loop body) on a state in pieces, each piece updated on its card.
+
+    r, v: (B, H, 1, dh), k, w: (B, H, dh, 1) f32 on the home device, u:
+    (1, H, dh, 1); S: (B, H, dh, dh) f32, ``Placed`` (``cache_pspecs``:
+    batch blocks over ``data``).  Each entry gets its block's rows and
+    heads of r, k, v, w and u (its columns of them where the block
+    splits a head dimension), copied there once; there ``kv = k v``,
+    ``y = r (S + u kv)`` and ``S' = w S + kv`` on its piece, the whole
+    update's arithmetic on a slice.  Every replica of a block updates
+    its own piece; the first's y comes home, and the blocks' y are
+    joined in entry order (``three_passes``).  Returns (y (B, H, 1, dh)
+    on r's device, S' placed as S)."""
+    entries = _state_entries(S)
+    new = np.empty(S.pieces.shape, dtype=object)
+
+    def send(e):
+        i, (rows, heads, ks, vs), _ = e
+        dev = S.pieces[i].device
+        return tuple(t.to(dev) for t in (
+            r[rows, heads, :, ks], k[rows, heads, ks], v[rows, heads, :, vs],
+            w[rows, heads, ks], u[:, heads, ks]))
+
+    def work(e, x):
+        i, _, first = e
+        rp, kp, vp, wp, up = x
+        piece = S.pieces[i]
+        kv = kp * vp
+        y = rp @ torch.addcmul(piece, up, kv)
+        new[i] = torch.addcmul(kv, wp, piece)
+        return (y,) if first else None
+
+    outs = three_passes(entries, send, work, r.device)
+    y = _join(outs, entries, (S.shape[0], S.shape[1], 1, S.shape[3]),
+              r.device, lambda sl: (sl[0], sl[1], slice(None), sl[3]))
+    return y, Placed(S.sharding, S.shape, S.dtype, new)
+
+
+def _own_piece(x, sl, dev) -> Optional[torch.Tensor]:
+    """The piece of a ``Placed`` ``x`` that holds exactly the block ``sl``
+    on ``dev``, or None (a tensor, or no such piece there)."""
+    if isinstance(x, Placed):
+        for j in np.ndindex(x.pieces.shape):
+            if (shard_slices(x.shape, x.spec, x.mesh, j) == tuple(sl)
+                    and canonical_device(x.pieces[j].device)
+                    == canonical_device(dev)):
+                return x.pieces[j]
+    return None
+
+
+def placed_ssm_step(dt, xi, log_a, bmat, cmat, state: Placed):
+    """One decode step of hymba's SSM branch (``layers.ssm_forward`` at S
+    = 1) on a state in pieces, each piece updated on its card.
+
+    dt, xi: (B, di) f32 and bmat, cmat: (B, n) f32 on the home device;
+    ``log_a`` (di, n), whole or ``Placed``; state: (B, di, n) f32,
+    ``Placed`` (``cache_pspecs``: channel pieces over ``model``, batch
+    blocks over ``data``).  Each entry gets its block's rows and channels
+    of dt and xi, its rows of B and C (its state columns of them) and its
+    channels of ``log_a`` -- the entry's own piece where ``log_a`` is
+    placed with that block on the entry's card (params in pieces on the
+    same cards), else a slice of the whole leaf, gathered once a call
+    -- and computes ``h = exp(dt log_a) * state + (dt xi) B`` and ``y = h
+    · C`` there, the whole update's arithmetic on a slice.  Every
+    replica updates its own piece; the first's y comes home, joined in
+    entry order.  Returns (y (B, di) f32 on dt's device, the new state
+    placed as ``state``)."""
+    home = dt.device
+    entries = _state_entries(state)
+    new = np.empty(state.pieces.shape, dtype=object)
+    whole_a = []
+
+    def log_a_block(sl, dev):
+        own = _own_piece(log_a, sl, dev)
+        if own is not None:
+            return own
+        if not whole_a:
+            whole_a.append(gather(log_a, home)
+                           if isinstance(log_a, Placed) else log_a)
+        return whole_a[0][sl].to(dev)
+
+    def send(e):
+        i, (rows, chans, ns), _ = e
+        dev = state.pieces[i].device
+        return (dt[rows, chans].to(dev), xi[rows, chans].to(dev),
+                log_a_block((chans, ns), dev), bmat[rows, ns].to(dev),
+                cmat[rows, ns].to(dev))
+
+    def work(e, x):
+        i, _, first = e
+        dtp, xip, lap, bp, cp = x
+        a = (dtp[..., None] * lap.to(torch.float32)).exp_()
+        h = a * state.pieces[i] + (dtp * xip)[..., None] * bp[:, None, :]
+        new[i] = h
+        if not first:
+            return None
+        return (torch.einsum("bsdn,bsn->bsd", h[:, None], cp[:, None])[:, 0],)
+
+    outs = three_passes(entries, send, work, home)
+    y = _join(outs, entries, tuple(state.shape[:2]), home,
+              lambda sl: (sl[0], sl[1]))
+    return y, Placed(state.sharding, state.shape, state.dtype, new)

@@ -60,7 +60,9 @@ the entries divide runs card k's group on card k, ``layers._gqa_heads``).
 The port has one controller and is host-bound (~22 us a launch on the
 H100): running the WKV loop on every card would multiply its four
 launches a token by the number of entries.  A per-card recurrence can
-come with a WKV kernel.
+come with a WKV kernel.  (A decode state that is itself placed, by
+``cache_pspecs``, is the other way round: its ``S`` and SSM state are
+updated piece by piece on their own cards, ``models.sharded_decode``.)
 
 The backward of every split is fixed as its forward is: ``spread``'s
 gradient is the cards' gradients summed on the home card in entry order

@@ -161,6 +161,23 @@ def test_feature_hash_kernel_matches_plain():
 
 
 @pytest.mark.gpu
+def test_feature_hash_kernel_on_every_card():
+    """The hash kernel on codes held by each visible card, the current
+    card staying card 0, equals the plain version: the launch runs on
+    the codes' card (a mesh engine hashes each shard's features there)."""
+    require_cuda()
+    pytest.importorskip("triton")
+    codes = torch.from_numpy(np.random.default_rng(4).integers(
+        -2**31, 2**31, 1 << 16).astype(np.int32))
+    want = feature_hash_ref(codes, 1 << 20)
+    for i in range(torch.cuda.device_count()):
+        got = fh_ops.feature_hash(codes.to(torch.device("cuda", i)),
+                                  1 << 20, use_kernel=True)
+        assert got.device.index == i
+        assert torch.equal(got.cpu(), want), i
+
+
+@pytest.mark.gpu
 def test_engine_on_card_matches_cpu_engine():
     require_cuda()
     tables = make_action_tables(n_actions=3000, n_orders=1500, n_users=10,
@@ -1280,6 +1297,82 @@ def test_mla_latent_pieces_on_card(shape):
             assert all(isinstance(lc["attn"]["latent"], Placed)
                        for lc in st["layers"])
     assert not any(dispatch.launch_counts().values())
+    np.testing.assert_allclose(np.stack(got), np.stack(whole), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_hymba_state_pieces_on_card(shape):
+    """``chip_smoke.py`` phase 4t (a)'s hymba check at reduced size on the
+    card, float32: 3 layers (a window layer between two global ones), B
+    = 4 prompts of 300 tokens prefilled into 4,096 positions (the scan
+    kernel), rows then live to 5 / 1,030 / 2,500 / 4,000; the state
+    placed by ``cache_pspecs`` on a mesh of the card's entries (the SSM
+    state in channel pieces, K/V in sequence pieces): 4 greedy steps
+    within 1e-5 of the whole state, every leaf in its layout after every
+    step, one ``decode_partials`` per entry, layer and step, no byte of
+    SSM state or K/V gathered."""
+    import dataclasses
+
+    from repro_torch.configs import reduced
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.fault import tree_flatten
+    from repro_torch.distributed.sharding import (Mesh, Placed,
+                                                  cache_pspecs, device_put,
+                                                  named_shardings)
+    from repro_torch.models import model as TM
+
+    dev = require_cuda()
+    cfg = dataclasses.replace(reduced("hymba-1.5b"), n_layers=3)
+    params = TM.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dtype=torch.float32, device=dev)
+    b, lens = 4, [5, 1030, 2500, 4000]
+    rng = np.random.default_rng(2)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 300))
+                              .astype(np.int32)).to(dev)
+    dispatch.reset_launch_counts()
+    _, state0 = TM.forward_prefill(cfg, params, {"tokens": prompt},
+                                   cache_capacity=4096)
+    assert dispatch.launch_counts().get("linear_scan") == cfg.n_layers
+    state0["len"] = torch.tensor(lens, dtype=torch.int32, device=dev)
+    mesh = Mesh(np.full(shape, dev, dtype=object), ("data", "model"))
+    shardings = named_shardings(cache_pspecs(cfg, state0, mesh), mesh)
+
+    def clone(t):
+        if isinstance(t, dict):
+            return {k: clone(v) for k, v in t.items()}
+        return [clone(v) for v in t] if isinstance(t, list) else t.clone()
+
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1))
+                           .astype(np.int32)).to(dev)
+    whole, st, toks = [], clone(state0), []
+    for _ in range(4):
+        toks.append(tok)
+        logits, st = TM.decode_step(cfg, params, st, tok)
+        whole.append(logits.cpu().numpy())
+        tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True).to(
+            torch.int32)
+    st = device_put(state0, shardings)
+    seen, got = [], []
+    real = SH._whole
+    SH._whole = lambda x, d: seen.append(tuple(x.shape)) or real(x, d)
+    dispatch.reset_launch_counts()
+    try:
+        with runtime.use_mesh(mesh):
+            for t in toks:
+                logits, st = TM.decode_step(cfg, params, st, t)
+                got.append(logits.cpu().numpy())
+                for x, sh in zip(tree_flatten(st)[0],
+                                 tree_flatten(shardings)[0]):
+                    assert isinstance(x, Placed)
+                    assert SH._same_layout(x, sh)
+    finally:
+        SH._whole = real
+    assert dispatch.launch_counts() == {
+        "decode_partials": 4 * cfg.n_layers * mesh.devices.size}
+    assert set(seen) == {(b,)}
     np.testing.assert_allclose(np.stack(got), np.stack(whole), rtol=1e-5,
                                atol=1e-5)
 

@@ -148,3 +148,61 @@ def test_checker_catches_a_forbidden_import(tmp_path):
     f.write_text("from tools._common import RAW_SQL\nimport _common\n")
     assert [m for _, m in _imported_modules(f)] == ["tools._common",
                                                      "_common"]
+
+
+# the reference's public names with no port counterpart: they read XLA's
+# HLO or stand for JAX / Pallas machinery (ROADMAP.md queue 1)
+JAX_ONLY = {"analyze_hlo", "collective_bytes", "PRELIFT_MIN_WIDTH",
+            "store_fn", "online_fast_fn", "shard_map_compat",
+            "PallasUnsupportedError", "tpu_available", "jax_one_hot"}
+REFERENCE = ROOT / "src" / "repro"
+PACKAGES = sorted(p.parent.relative_to(REFERENCE)
+                  for p in REFERENCE.rglob("__init__.py"))
+
+
+def _bound_names(path: pathlib.Path):
+    """The public names an ``__init__.py`` binds at its top level: its
+    imports, functions, classes and assignments."""
+    names = set()
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_every_reference_package_has_a_port():
+    assert len(PACKAGES) > 15
+    for rel in PACKAGES:
+        assert (PORT / rel / "__init__.py").is_file(), rel
+
+
+@pytest.mark.parametrize("rel", PACKAGES, ids=[str(p) for p in PACKAGES])
+def test_package_names_match_the_reference(rel):
+    """Every public name a reference package binds in its ``__init__``
+    (less the JAX-only ones) is a name of the port's package."""
+    dotted = ".".join(("repro_torch",) + rel.parts)
+    mod = importlib.import_module(dotted)
+    missing = sorted(n for n in _bound_names(REFERENCE / rel / "__init__.py")
+                     - JAX_ONLY if not hasattr(mod, n))
+    assert not missing, f"{dotted} lacks {missing}"
+
+
+def test_reexports_that_were_missing():
+    """The names ``repro.core``, ``repro.storage`` and ``repro.data``
+    re-export that the port's packages once lacked."""
+    from repro_torch.core import (AggCall, BinaryOp, ColumnRef, Expr,
+                                  FuncCall, Literal, UnaryOp, cache_stats,
+                                  clear_cache)
+    from repro_torch.data import make_clicks_table
+    from repro_torch.storage import estimate_memory
+
+    assert Expr.__module__ == "repro_torch.core.expr"
+    assert all(issubclass(c, Expr) for c in (AggCall, BinaryOp, ColumnRef,
+                                             FuncCall, Literal, UnaryOp))
+    assert callable(cache_stats) and callable(clear_cache)
+    assert estimate_memory.__module__ == "repro_torch.storage.memest"
+    assert make_clicks_table.__module__ == "repro_torch.data.synthetic"

@@ -99,6 +99,17 @@ PREAGG_SAFE_AGGS = [
 ]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this file runs (restored after): the
+    suite's parallel workers share the cores, and their thread pools
+    fight over them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _int_prices(tables):
     """Integer-valued float32 prices: every combine bracketing exact."""
     for t in tables.values():

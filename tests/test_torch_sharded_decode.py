@@ -13,7 +13,8 @@ the CPU; the JAX package's weights go through ``params_from_jax``.
   placed or whole (placed at the first step): logits against the
   reference's unsharded decode, the gathered cache bitwise the writes
   the decode made (and layer 0's, whose K/V depend on the tokens only,
-  bitwise the unsharded decode's), every other leaf returned whole;
+  bitwise the unsharded decode's), every other leaf returned as handed
+  in (a placed one in its layout, a whole one whole);
 * a cache length the axis does not divide takes the unsharded path;
 * ``sharded_decode_attention`` alone: a shard with no live key adds the
   merge identity and reads one key row of its chunk (the kernel's rule
@@ -37,6 +38,7 @@ from repro.distributed import runtime as jax_runtime
 from repro.models import model as JM
 from repro_torch.configs import reduced
 from repro_torch.distributed import runtime
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.sharding import (Mesh, NamedSharding, Placed,
                                               cache_pspecs, device_put,
                                               gather, named_shardings)
@@ -276,6 +278,9 @@ def test_cache_in_pieces_matches_reference_unsharded(pair, ref_unsharded,
         handed_k = state["layers"][0]["attn"]["k"]
         assert isinstance(handed_k, Placed) and isinstance(state["len"],
                                                            Placed)
+    # the leaves besides K/V, as handed in: placed ones come back so
+    handed_in = [state["len"]] + [v for lc in state["layers"]
+                                  for k, v in lc.items() if k != "attn"]
     writes = []
     real = SD.sharded_decode_attention
 
@@ -296,9 +301,14 @@ def test_cache_in_pieces_matches_reference_unsharded(pair, ref_unsharded,
     assert len(writes) == STEPS * tcfg.n_layers
     if handed == "pieces":                      # read and written in place
         assert state["layers"][0]["attn"]["k"] is handed_k
-    assert not isinstance(state["len"], Placed)
-    assert all(not isinstance(v, Placed) for lc in state["layers"]
-               for k, v in lc.items() if k != "attn")
+    handed_out = [state["len"]] + [v for lc in state["layers"]
+                                   for k, v in lc.items() if k != "attn"]
+    for was, got in zip(handed_in, handed_out, strict=True):
+        if isinstance(was, Placed):
+            assert isinstance(got, Placed)
+            assert SH._same_layout(got, was.sharding)
+        else:
+            assert isinstance(got, torch.Tensor)
     rows = torch.arange(B)
     for layer, (lc, want) in enumerate(zip(state["layers"], before)):
         for j, name in enumerate(("k", "v")):

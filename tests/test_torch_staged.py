@@ -43,6 +43,17 @@ SCRIPTS = {"micro": MICRO_SQL, "smoke": SMOKE_SQL}
 N_HIST = 150
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this file runs (restored after): the
+    suite's parallel workers share the cores, and their thread pools
+    fight over them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(name, got, want, hll=False):
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape, name

@@ -62,6 +62,17 @@ B, S = 4, 20        # S > the reduced sliding window of 8
 CASES = [("hymba-1.5b", 4), ("llama3-8b", 2)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this file runs (restored after): the
+    suite's parallel workers share the cores, and their thread pools
+    fight over them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(arch, n_layers):
     return (dataclasses.replace(jax_reduced(arch), n_layers=n_layers),
             dataclasses.replace(reduced(arch), n_layers=n_layers))

@@ -72,6 +72,17 @@ CASES = {"megatron-1x4": ("megatron", (1, 4), ("data",)),
 _CACHE = {}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread while this file runs (restored after): the
+    suite's parallel workers share the cores, and their thread pools
+    fight over them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _mesh(shape):
     return Mesh(np.full(shape, CPU, dtype=object), ("data", "model"))
 
