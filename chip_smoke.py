@@ -49,7 +49,8 @@ Phases (each prints its own lines; any failure exits non-zero):
              shard's one key of its piece;
 4. main paths, each with the launch counts set to 0 just before it and
              read just after, at deployment size (1.5 M rows; run in
-             the order a, b, e, f, g, h, m, i, c, d, j, k, l, o, n):
+             the order a, b, e, f, g, h, m, i, c, d, j, k, l, o, p, q,
+             r, s, t, u, n):
    a. serving — ``FeatureEngine`` (capacity 1.6 M) bulk load + 4,096 live
              rows, ``request_batch`` at B = 1, 64, 256; the B = 64 batch
              must equal a CPU engine (plain versions) on a copy of the
@@ -125,7 +126,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              with two or more cards the 8-shard deployment over them);
              (b) llama3-8b (8.03 G seeded random params) at full width
              and depth against decode_32k's 32,768-position cache filled
-             from the seed to 32,000 (no prefill), the cache in pieces
+             from the seed to 32,000 (drawn piece by piece, not
+             prefilled: phase 4u (b) prefills llama3-8b's 32k contexts
+             into such a state over four cards), the cache in pieces
              (``distributed.sharding.device_put`` of a ``meta`` state:
              one contiguous tensor per ("data", "model") mesh entry,
              allocated entry by entry; the bytes each entry holds equal
@@ -347,7 +350,9 @@ Phases (each prints its own lines; any failure exits non-zero):
              (a) float32 at full width on (1, 4) and (2, 2) entries of
              the card, hymba-1.5b at 3 layers (a window layer between two
              global ones) prefilled with 4 x 4,000 tokens into 4,096
-             positions, rows then live to 5 / 1,030 / 2,500 / 4,000,
+             positions of the state placed empty on each mesh
+             (``forward_prefill(..., state=)``; no whole state placed),
+             rows then live to 5 / 1,030 / 2,500 / 4,000,
              rwkv6-7b at 2 layers, whisper-tiny whole on (2, 2): 4 greedy
              steps within 1e-5 of the whole state, the same tokens, every
              leaf in its layout after every step, bytes per entry =
@@ -365,6 +370,34 @@ Phases (each prints its own lines; any failure exits non-zero):
              unsharded decode on card 0 within 2e-4, bytes a card =
              ``per_device_bytes``, token p50 / p99, peak memory, kernels
              and busy share by card; one line saying (c) did not run
+             elsewhere;
+   u. the prefill writes into a placed decode state
+             (``forward_prefill(..., state=)``: each layer's K/V, MLA
+             latent, SSM / RWKV6 state written into the pieces on their
+             cards, a block of rows at a time where the batch does not
+             fit): (a) float32 at full width on entries of the card,
+             llama3-8b, minicpm3-4b and rwkv6-7b at 2 layers and
+             hymba-1.5b at 3, 4 x 4,000 prompt tokens into 4,096
+             positions of a state placed empty by ``cache_pspecs`` on
+             (1, 4) and (2, 2), llama3-8b also into the head route's
+             KV-head pieces of (1, 4) megatron params: logits and the
+             state (gathered after) within 1e-5 of the prefill with no
+             state, the state handed in returned, every leaf in its
+             layout with ``per_device_bytes`` an entry, 0 bytes of a
+             placed leaf gathered, then 4 greedy steps with that state's
+             tokens within 2e-4, the same argmax; (b) where four cards
+             are visible, llama3-8b's prefill_32k cell at full width and
+             depth over a (1, 4) mesh of distinct cards, megatron, bf16:
+             its batch of 32 cut to 8, 8 x 32,768 tokens into a state
+             preallocated in KV-head pieces (8,589,934,592 bytes of K/V
+             a card, never whole), in row blocks of 4, the prefill's
+             wall time (CUDA events), tokens/s, peak memory and SM
+             clocks by card, kernels and busy share by card over one
+             row block alone, then 8 decode tokens from the prefilled
+             state (rows
+             rewound to 32,760 positions) with token p50 / p99; its f32
+             check at B = 2 and 4 layers against the unsharded prefill on
+             card 0 within 2e-4; one line saying (b) did not run
              elsewhere;
    n. entry points and step rooflines — (a) the port's CI gates
              (``tools/torch_check_consistency.py --bitwise 4``,
@@ -571,9 +604,11 @@ SHARD_GATE_ROWS = 2_000    # the failover gate's prefix events
 # phase 4m: the device mesh.  (a) 4h's deployment on a Mesh of SHARDS
 # entries that all name the card (one shard's state per entry); (b)
 # llama3-8b at full width and depth decoding against decode_32k's cache
-# of 32,768 positions, every sequence filled from the seed to MESH_LIVE
-# (no prefill), sequence-sharded over a (1, MESH_SEQ_SHARDS) ("data",
-# "model") mesh of the card; decode_32k's batch of 128 is cut to
+# of 32,768 positions, every sequence drawn from the seed to MESH_LIVE
+# (phase 4u (b) prefills such contexts into a placed state over four
+# cards; a draw takes seconds), sequence-sharded over a (1,
+# MESH_SEQ_SHARDS) ("data", "model") mesh of the card; decode_32k's
+# batch of 128 is cut to
 # MESH_BATCH (bf16: 34.4 GB of cache + 16.1 GB of weights) and to
 # MESH_F32_BATCH for the float32 check (~49 GB)
 MESH_ARCH = "llama3-8b"
@@ -688,6 +723,30 @@ STATE_SEQ = {"hymba-1.5b": MLA_SEQ, "rwkv6-7b": 32,
              "whisper-tiny": AUDIO_MAX_LEN}
 LONG_SEQ, LONG_LIVE, LONG_TOKENS = 524_288, 524_000, 8
 HYMBA4_BATCH, HYMBA4_TOKENS = 128, 8
+# phase 4u: the prefill writes into a placed decode state
+# (forward_prefill(..., state=)).  (a) float32 at full width, depth cut to
+# PREFILL_ARCHS[arch] layers (hymba-1.5b: 0 and 2 global, 1 a window
+# layer): len(MLA_LENS) prompts of PREFILL_PROMPT tokens into MLA_SEQ
+# positions, the state placed by cache_pspecs on (1, PIECES_N) and (2, 2)
+# entries of the card (llama3-8b also on the head route of (1, PIECES_N)
+# megatron params), against the whole prefill on the card within MLA_TOL,
+# then MLA_STEPS greedy steps.  (b) four cards: llama3-8b's prefill_32k
+# cell (src/repro/launch/dryrun.py:155-168: build_prefill_step with
+# cache_capacity 32,768 on a (32, 32,768) batch) at full width and
+# depth in bf16, megatron on (1, PIECES_N) distinct cards, PREFILL4_BATCH
+# x MESH_SEQ into a state of MESH_SEQ positions in KV-head pieces (the
+# cell's batch of 32 cut to 8: at 32 the prefill took 518.4 s, and 645.7
+# s on a host with one slow card, more than the 400 s a four-card phase
+# is given; PERF.md §4); its
+# f32 check at MLA4_F32_BATCH rows and PREFILL4_F32_LAYERS layers against
+# the unsharded prefill on card 0 within MESH_TOL; the busy share over
+# one row block run alone; then PREFILL4_TOKENS decode tokens from the
+# prefilled state with every row rewound to PREFILL4_LIVE positions
+PREFILL_ARCHS = {"llama3-8b": 2, "hymba-1.5b": 3, "minicpm3-4b": 2,
+                 "rwkv6-7b": 2}
+PREFILL_PROMPT = 4000
+PREFILL4_BATCH, PREFILL4_F32_LAYERS = 8, 4
+PREFILL4_LIVE, PREFILL4_TOKENS = 32_760, 8
 
 # phase 4n: the CUDA function (or Triton kernel) that every launch of a
 # port kernel runs once, so that its profiler events count the launches
@@ -5763,23 +5822,56 @@ def family_pieces(dev, card):
 # ---------------------------------------------------------------- phase 4s
 
 
+def smi_samples(fn, period_ms=2000):
+    """(``fn()``, per card the median SM clock (MHz), power draw (W) and
+    the highest temperature (C) that ``nvidia-smi`` sampled every
+    ``period_ms`` while ``fn`` ran): a slow card shows here."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=index,clocks.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader,nounits",
+         f"-lms={period_ms}"], stdout=subprocess.PIPE, text=True)
+    try:
+        out = fn()
+    finally:
+        proc.terminate()
+        lines = proc.communicate()[0].strip().splitlines()
+    per = {}
+    for line in lines:
+        fields = [f.strip() for f in line.split(",")]
+        if len(fields) == 4 and all(f.replace(".", "").isdigit()
+                                    for f in fields):
+            per.setdefault(int(fields[0]), []).append(
+                [float(f) for f in fields[1:]])
+    return out, {i: {"samples": len(v),
+                     "sm_mhz": float(np.median([r[0] for r in v])),
+                     "power_w": float(np.median([r[1] for r in v])),
+                     "max_temp_c": max(r[2] for r in v)}
+                 for i, v in sorted(per.items())}
+
+
+def timed_call(fn, cards):
+    """(``fn()``, its ms on CUDA events: the first card's stream, made
+    to wait for every other card's work)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    home = torch.cuda.current_stream(cards[0])
+    start.record(home)
+    out = fn()
+    for c in cards[1:]:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(c))
+        home.wait_event(done)
+    end.record(home)
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def timed_tokens(step, n, cards):
-    """Per token ms of ``n`` calls of ``step`` (CUDA events on the first
-    card's stream, which waits for every other card's work)."""
+    """Per token ms of ``n`` calls of ``step`` (``timed_call``)."""
     ms = []
     for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        home = torch.cuda.current_stream(cards[0])
-        start.record(home)
-        logits = step()
-        for c in cards[1:]:
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(c))
-            home.wait_event(done)
-        end.record(home)
-        end.synchronize()
-        ms.append(start.elapsed_time(end))
+        logits, t = timed_call(step, cards)
+        ms.append(t)
     return ms, logits
 
 
@@ -6094,11 +6186,16 @@ def mla_pieces(dev, card):
 
 
 def clone_tree(tree):
-    """Every tensor of a tree of dicts and lists, cloned."""
+    """Every tensor of a tree of dicts and lists, cloned (a ``Placed``
+    leaf piece by piece)."""
+    from repro_torch.distributed.sharding import Placed, map_pieces
+
     if isinstance(tree, dict):
         return {k: clone_tree(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [clone_tree(v) for v in tree]
+    if isinstance(tree, Placed):
+        return map_pieces(torch.clone, tree)
     return tree.clone()
 
 
@@ -6170,7 +6267,9 @@ def state_pieces_card(dev, card):
     tokens a row prefilled into STATE_SEQ[arch] positions (hymba's rows
     then live to MLA_LENS: its scan kernel runs here), MLA_STEPS greedy
     steps of the whole state, then the same tokens on the state placed
-    by ``cache_pspecs`` on each mesh of entries of the card: logits
+    by ``cache_pspecs`` on each mesh of entries of the card, allocated
+    there empty and prefilled in place (``forward_prefill(...,
+    state=)``, hymba's lengths then set to MLA_LENS): logits
     within MLA_TOL, the same argmax, every leaf a ``Placed`` in its
     layout after every step with the bytes ``per_device_bytes`` says,
     and no byte of ``S``, SSM state or K/V gathered (every copy of a
@@ -6183,7 +6282,8 @@ def state_pieces_card(dev, card):
                                                   device_put, entry_bytes,
                                                   named_shardings,
                                                   per_device_bytes)
-    from repro_torch.models.model import decode_step, forward_prefill
+    from repro_torch.models.model import forward_prefill, init_decode_state
+    from repro_torch.models.sharded_decode import write_region
 
     res, counts = {}, {}
     b = len(MLA_LENS)
@@ -6202,29 +6302,20 @@ def state_pieces_card(dev, card):
                                     cache_capacity=STATE_SEQ[arch]),
             ("linear_scan",) if cfg.family == "hybrid" else ())
         counts[f"state_pieces_{arch}_prefill"] = c
+        lens = torch.tensor(MLA_LENS, dtype=torch.int32, device=dev)
         if cfg.family == "hybrid":
-            state0["len"] = torch.tensor(MLA_LENS, dtype=torch.int32,
-                                         device=dev)
-        del batch
+            state0["len"] = lens.clone()
         expect = () if cfg.family == "ssm" else ("decode_partials",)
         read_whole = {(b,), (b, cfg.d_model)}
         if "enc_out" in state0:
             read_whole.add(tuple(state0["enc_out"].shape))
 
-        def greedy(state, tok):
-            toks, out = [], []
-            for _ in range(MLA_STEPS):
-                toks.append(tok)
-                logits, state = decode_step(cfg, params, state, tok.to(dev))
-                out.append(logits.float().cpu())
-                tok = logits[:, :cfg.vocab_size].argmax(
-                    -1, keepdim=True).to(torch.int32).cpu()
-            return torch.stack(out), toks
-
         first = torch.randint(0, cfg.vocab_size, (b, 1), dtype=torch.int32,
                               generator=torch.Generator().manual_seed(9))
         (want, toks), c = run_path(f"{name} whole state (f32)",
-                                   lambda: greedy(clone_tree(state0), first),
+                                   lambda: greedy_decode(cfg, params,
+                                                         clone_tree(state0),
+                                                         first, dev),
                                    expect)
         counts[f"state_pieces_{arch}_whole"] = c
         for shape in shapes:
@@ -6241,7 +6332,19 @@ def state_pieces_card(dev, card):
                                          f"{entry_bytes(st).tolist()}, "
                                          f"per_device_bytes {want_bytes}")
 
-            state = device_put(state0, shardings)
+            # the state placed empty, piece by piece, and prefilled there
+            state = device_put(init_decode_state(
+                cfg, b, STATE_SEQ[arch], dtype=torch.float32,
+                device="meta"), shardings)
+            (_, state), c = run_path(
+                f"{label} prefill into the placed state (f32)",
+                lambda: forward_prefill(cfg, params, batch,
+                                        cache_capacity=STATE_SEQ[arch],
+                                        state=state),
+                ("linear_scan",) if cfg.family == "hybrid" else ())
+            counts[f"state_pieces_{arch}_{shape[0]}x{shape[1]}_prefill"] = c
+            if cfg.family == "hybrid":
+                write_region(state["len"], lens, (slice(None),))
             check(state)
             with Gathers("repro_torch.distributed.sharding", "_whole") as g:
                 (got, state), c = run_path(
@@ -6277,7 +6380,7 @@ def state_pieces_card(dev, card):
                 "state_bytes_gathered": state_bytes, "read_whole": read,
                 "entry_bytes": want_bytes, "launches": c}
             del state
-        del params, state0
+        del params, state0, batch
         _free()
         res[f"{arch} s"] = time.perf_counter() - t0
     return res, counts
@@ -6594,6 +6697,431 @@ def state_pieces(dev, card):
     counts["state_pieces_long_500k"] = c
     res["b_s"] = time.perf_counter() - t0
     res["distinct"], c = hymba_decode_distinct(card)
+    counts.update(c)
+    return res, counts
+
+
+# ---------------------------------------------------------------- phase 4u
+
+
+def places_of(cfg, params, b, seq, dev, heads):
+    """Where phase 4u (a) prefills: per ``cache_pspecs`` mesh of entries
+    of the card ((1, PIECES_N), (2, 2)) and, with ``heads``, the head
+    route of (1, PIECES_N) megatron params: (label, the params it reads,
+    the empty placed state, a check of the state's layout and bytes, the
+    decode mesh)."""
+    from repro_torch.distributed.sharding import (
+        Mesh, Placed, axis_mesh, cache_pspecs, device_put, entry_bytes,
+        named_shardings, per_device_bytes)
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.model import init_decode_state, kv_head_mesh
+
+    meta = init_decode_state(cfg, b, seq, dtype=torch.float32,
+                             device="meta")
+    out = []
+    for shape in ((1, PIECES_N), (2, 2)):
+        mesh = Mesh(np.full(shape, dev, dtype=object), ("data", "model"))
+        specs = cache_pspecs(cfg, meta, mesh)
+        shardings = named_shardings(specs, mesh)
+        want = per_device_bytes(meta, specs, mesh)
+        label = f"state placed by cache_pspecs on {shape} entries of the card"
+
+        def check(st, label=label, shardings=shardings, want=want):
+            held_layout(label, st, shardings)
+            if not (entry_bytes(st) == want).all():
+                raise AssertionError(f"{label}: bytes per entry "
+                                     f"{entry_bytes(st).tolist()}, "
+                                     f"per_device_bytes {want}")
+            return want
+
+        out.append((label, params, device_put(meta, shardings), check,
+                    mesh))
+    if heads:
+        mesh = pieces_mesh([dev] * PIECES_N)
+        placed, _ = place_megatron(cfg, params, mesh)
+        row = kv_head_mesh(cfg, placed)
+        kv_meta = kv_leaves(meta)
+        want = per_device_bytes(kv_meta, [tp.HEAD_SPEC] * len(kv_meta),
+                                axis_mesh(row, tp.AXIS))
+
+        def check(st):
+            kv = kv_leaves(st)
+            if not (all(isinstance(x, Placed) and x.spec == tp.HEAD_SPEC
+                        for x in kv) and (entry_bytes(kv) == want).all()):
+                raise AssertionError(f"4u head route: K/V {kv[0]}, bytes "
+                                     f"per entry {entry_bytes(kv).tolist()}"
+                                     f", per_device_bytes {want}")
+            return want
+
+        out.append((f"head route of megatron params on (1, {PIECES_N}) "
+                    f"entries of the card", placed,
+                    init_decode_state(cfg, b, seq, dtype=torch.float32,
+                                      mesh=row), check, None))
+    return out
+
+
+def prefill_pieces_card(dev, card):
+    """Phase 4u (a): each arch of PREFILL_ARCHS in float32 at full width
+    and its layers, drawn on the card (seed 0): len(MLA_LENS) seeded
+    prompts of PREFILL_PROMPT tokens prefilled into MLA_SEQ positions
+    with no state handed in, MLA_STEPS greedy steps of that state; then
+    the same prompts prefilled into each place of ``places_of`` (an
+    empty state allocated piece by piece): the logits and every leaf of
+    the state (gathered after the call) within MLA_TOL of the prefill
+    with no state on the same params (the head route's megatron params:
+    their own, itself within PIECES_TOL of the whole params'), the
+    state handed in returned, every leaf in its layout with the bytes
+    ``per_device_bytes`` says, 0 bytes of a placed leaf (or of a params
+    leaf) gathered during the prefill (``sharding._whole`` and
+    ``tensor_parallel.gather`` wrapped), the whole prefill's launches;
+    then the whole state's greedy tokens decoded from it: the same
+    argmax, the logits within MESH_TOL (the sharded decode's bar: its
+    per-piece merge reorders f32 sums, minicpm3-4b's by 1.1e-05 at
+    full width)."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.distributed.fault import tree_flatten
+    from repro_torch.distributed.sharding import gather
+    from repro_torch.models.model import forward_prefill
+
+    res, counts = {}, {}
+    b = len(MLA_LENS)
+    for arch, layers in PREFILL_ARCHS.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get(arch), n_layers=layers)
+        name = f"4u {arch} ({layers} layers)"
+        params = _draw(cfg, dev, torch.float32)
+        batch = model_batch(cfg, torch.from_numpy(model_prompt(
+            cfg, b, PREFILL_PROMPT)).to(dev), dev)
+        expect = ("linear_scan",) if cfg.family == "hybrid" else ()
+        dec = () if cfg.family == "ssm" or cfg.attn_type == "mla" else (
+            "decode_partials",)
+        first = torch.randint(0, cfg.vocab_size, (b, 1), dtype=torch.int32,
+                              generator=torch.Generator().manual_seed(9))
+
+        def whole_run(p, what):
+            """The prefill with no state handed in, and the greedy steps
+            from its state, on params ``p``."""
+            (want, whole), c = run_path(
+                f"{name} {what}: prefill, no state handed in (f32)",
+                lambda: forward_prefill(cfg, p, batch,
+                                        cache_capacity=MLA_SEQ), expect)
+            counts[f"prefill_pieces_{arch}_{what}"] = c
+            (want_dec, toks), c = run_path(
+                f"{name} {what}: greedy steps from that state (f32)",
+                lambda: greedy_decode(cfg, p, clone_tree(whole), first,
+                                      dev), dec)
+            counts[f"prefill_pieces_{arch}_{what}_decode"] = c
+            return want, whole, want_dec, toks
+
+        runs = {id(params): whole_run(params, "whole")}
+        for label, p, state, check, mesh in places_of(
+                cfg, params, b, MLA_SEQ, dev, arch == MESH_ARCH):
+            label = f"{name}, {label}"
+            if id(p) not in runs:
+                runs[id(p)] = whole_run(p, "on its params")
+                pieces_err = compare(
+                    f"{label}: its params' prefill vs the whole params'",
+                    runs[id(p)][0], runs[id(params)][0], rtol=PIECES_TOL,
+                    atol=PIECES_TOL)
+                log(f"{label}: the prefill on these params, no state handed "
+                    f"in, within {PIECES_TOL} of the whole params' (max abs "
+                    f"diff {pieces_err})")
+            want, whole, want_dec, toks = runs[id(p)]
+            with Gathers("repro_torch.distributed.sharding", "_whole") as g, \
+                    Gathers() as gp:
+                (logits, out), c = run_path(
+                    f"{label}: prefill (f32)",
+                    lambda: forward_prefill(cfg, p, batch,
+                                            cache_capacity=MLA_SEQ,
+                                            state=state), expect)
+            gathered = g.seen + gp.seen
+            key = f"prefill_pieces_{arch}_{len(res)}"
+            counts[key] = c
+            if gathered or out is not state or c != counts[
+                    f"prefill_pieces_{arch}_whole"]:
+                raise AssertionError(f"{label}: gathered {gathered}, the "
+                                     f"state handed in returned "
+                                     f"{out is state}, launches {c}")
+            want_bytes = check(out)
+            err = compare(f"{label}: logits vs the stateless prefill", logits,
+                          want, rtol=MLA_TOL, atol=MLA_TOL)
+            state_err = max(
+                compare(f"{label}: state leaf {i} vs the stateless one's",
+                        gather(x, dev), gather(w, dev), rtol=MLA_TOL,
+                        atol=MLA_TOL)
+                for i, (x, w) in enumerate(zip(tree_flatten(out)[0],
+                                               tree_flatten(whole)[0])))
+            (got, out), c = run_path(
+                f"{label}: greedy steps (f32)",
+                lambda: mla_decode(cfg, p, out, toks, mesh, dev), dec)
+            check(out)
+            dec_err = compare(f"{label}: decode vs the whole state's", got,
+                              want_dec, rtol=MESH_TOL, atol=MESH_TOL)
+            if not torch.equal(got[:-1, :, :cfg.vocab_size].argmax(-1),
+                               torch.stack(toks[1:])[..., 0].long()):
+                raise AssertionError(f"{label}: argmax differs from the "
+                                     f"whole state's greedy tokens")
+            log(f"{label}: f32 B={b} x {PREFILL_PROMPT} into {MLA_SEQ} "
+                f"positions: logits within {MLA_TOL} of the prefill with no "
+                f"state handed in (max abs diff {err}), state {state_err}; "
+                f"the state handed "
+                f"in filled and returned, every leaf in its layout, bytes "
+                f"per entry = per_device_bytes = {want_bytes}, 0 bytes "
+                f"gathered; {MLA_STEPS} greedy steps within {MESH_TOL} "
+                f"(max abs diff {dec_err}), the same tokens; launches "
+                f"{c}  [{card}]")
+            res[f"{arch} {label}"] = {"err": err, "state_err": state_err,
+                                      "decode_err": dec_err,
+                                      "entry_bytes": want_bytes,
+                                      "launches": c}
+            counts[f"{key}_decode"] = c
+            del out, state
+        del params, runs, batch
+        _free()
+        res[f"{arch} s"] = time.perf_counter() - t0
+    return res, counts
+
+
+def greedy_decode(cfg, params, state, tok, dev):
+    """(logits (MLA_STEPS, B, vocab_padded) f32 on the host, the inputs)
+    of MLA_STEPS greedy steps from ``state``, ``tok`` first."""
+    from repro_torch.models.model import decode_step
+
+    toks, out = [], []
+    for _ in range(MLA_STEPS):
+        toks.append(tok)
+        logits, state = decode_step(cfg, params, state, tok.to(dev))
+        out.append(logits.float().cpu())
+        tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True).to(
+            torch.int32).cpu()
+    return torch.stack(out), toks
+
+
+def prefill_distinct(card):
+    """Phase 4u (b): where four cards are visible (one line saying it did
+    not run otherwise), llama3-8b's prefill_32k cell over a (1, 4) mesh
+    of distinct cards, megatron params, the state's K/V allocated in
+    KV-head pieces (``init_decode_state(mesh=)``) before the prefill and
+    never whole.  float32 at PREFILL4_F32_LAYERS layers and
+    MLA4_F32_BATCH rows against the unsharded prefill on card 0 (logits
+    and every K/V leaf within MESH_TOL, 0 bytes of a placed leaf
+    gathered during the prefill).  bf16 at full width and depth, params
+    drawn piece by piece: PREFILL4_BATCH x MESH_SEQ tokens into MESH_SEQ
+    positions, K/V bytes a card = ``per_device_bytes`` = the shapes'
+    arithmetic before and after, the prefill's wall time (CUDA events)
+    and tokens/s, peak memory and ``nvidia-smi``'s SM clock, power and
+    temperature by card during it; kernels and busy share by card
+    over one row block's rows prefilled alone; then PREFILL4_TOKENS
+    decode tokens from the prefilled state with every row rewound to
+    PREFILL4_LIVE positions (its K/V there are those of the prompts'
+    first PREFILL4_LIVE tokens: causal layers), the prompts' next token
+    first, then greedy: token p50 / p99 (CUDA events), ``PIECES_N``
+    ``decode_partials`` a layer and token."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.distributed.sharding import (axis_mesh, cuda_devices,
+                                                  entry_bytes, gather,
+                                                  per_device_bytes)
+    from repro_torch.models import fill_placed, init_params
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.model import (_prefill_blocks, decode_step,
+                                          forward_prefill,
+                                          init_decode_state, kv_head_mesh)
+
+    cards = cuda_devices()
+    if len(cards) < PIECES_N:
+        log(f"4u (b) did not run: {len(cards)} CUDA device visible; "
+            f"{MESH_ARCH}'s prefill_32k into a state over distinct cards "
+            f"needs {PIECES_N} (phase 4u (a) prefilled placed states on "
+            f"entries that repeat this card)  [{card}]")
+        return {"ran": False, "cards": len(cards)}, {}
+    t_b = time.perf_counter()
+    cards = cards[:PIECES_N]
+    dev = cards[0]
+    mesh = pieces_mesh(cards)
+    names = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[:PIECES_N]
+    cfg = get(MESH_ARCH)
+
+    def free():
+        for c in cards:
+            torch.cuda.synchronize(c)
+            torch.cuda.empty_cache()
+
+    # the float32 check: the head route over the cards against card 0
+    cfg4 = dataclasses.replace(cfg, n_layers=PREFILL4_F32_LAYERS)
+    params = _draw(cfg4, dev, torch.float32)
+    batch = {"tokens": torch.from_numpy(model_prompt(
+        cfg4, MLA4_F32_BATCH, MESH_SEQ)).to(dev)}
+    want, whole = forward_prefill(cfg4, params, batch,
+                                  cache_capacity=MESH_SEQ)
+    placed, _ = place_megatron(cfg4, params, mesh)
+    del params
+    free()
+    state = init_decode_state(cfg4, MLA4_F32_BATCH, MESH_SEQ,
+                              dtype=torch.float32,
+                              mesh=kv_head_mesh(cfg4, placed))
+    with Gathers("repro_torch.distributed.sharding", "_whole") as g, \
+            Gathers() as gp:
+        (got, state), counts_f32 = run_path(
+            f"4u (b) f32 prefill into K/V pieces over {PIECES_N} cards",
+            lambda: forward_prefill(cfg4, placed, batch,
+                                    cache_capacity=MESH_SEQ, state=state),
+            ())
+    if g.seen or gp.seen:
+        raise AssertionError(f"4u (b) f32: gathered {g.seen + gp.seen}")
+    check_logits([got.float().cpu().numpy()], cfg4, MLA4_F32_BATCH)
+    err = compare(f"4u (b) f32 logits over {PIECES_N} cards vs unsharded",
+                  got, want, rtol=MESH_TOL, atol=MESH_TOL)
+    kv_err = max(compare(f"4u (b) f32 K/V leaf {i} vs unsharded",
+                         gather(x, dev), w, rtol=MESH_TOL, atol=MESH_TOL)
+                 for i, (x, w) in enumerate(zip(kv_leaves(state),
+                                                kv_leaves(whole))))
+    on_cards = [p.device for p in state["layers"][0]["attn"]["k"].pieces.flat]
+    if on_cards != cards:
+        raise AssertionError(f"4u (b): K/V pieces on {on_cards}")
+    log(f"4u (b) {MESH_ARCH} f32 at {PREFILL4_F32_LAYERS} layers, B="
+        f"{MLA4_F32_BATCH} x {MESH_SEQ} into {MESH_SEQ} positions, K/V in "
+        f"pieces over {PIECES_N} cards {names}: logits within {MESH_TOL} of "
+        f"the unsharded prefill on {dev} (max abs diff {err}), K/V "
+        f"{kv_err}; 0 bytes gathered")
+    del want, whole, placed, state, got, batch
+    free()
+
+    # bf16 at full width and depth: the K/V no one card holds
+    t0 = time.perf_counter()
+    placed, per_card = place_megatron(cfg, init_params(
+        cfg, torch.Generator(), dtype=torch.bfloat16, device="meta"), mesh)
+    fill_placed(cfg, placed, seed=0)
+    row = kv_head_mesh(cfg, placed)
+    before = [torch.cuda.memory_allocated(c) for c in cards]
+    state = init_decode_state(cfg, PREFILL4_BATCH, MESH_SEQ,
+                              dtype=torch.bfloat16, mesh=row)
+    free()
+    init_s = time.perf_counter() - t0
+    grew = [torch.cuda.memory_allocated(c) - a for c, a in zip(cards, before)]
+    kv_meta = kv_leaves(init_decode_state(cfg, PREFILL4_BATCH, MESH_SEQ,
+                                          dtype=torch.bfloat16,
+                                          device="meta"))
+    kv_bytes = per_device_bytes(kv_meta, [tp.HEAD_SPEC] * len(kv_meta),
+                                axis_mesh(row, tp.AXIS))
+    kv_arith = (cfg.n_layers * 2 * PREFILL4_BATCH * MESH_SEQ
+                * cfg.n_kv_heads // PIECES_N * cfg.head_dim * 2)
+
+    def held(when):
+        kv = kv_leaves(state)
+        if not ((entry_bytes(kv) == kv_bytes).all() and kv_bytes == kv_arith
+                and all(x.spec == tp.HEAD_SPEC for x in kv)):
+            raise AssertionError(f"4u (b) {when}: K/V bytes a card "
+                                 f"{entry_bytes(kv).tolist()} "
+                                 f"(per_device_bytes {kv_bytes}, shapes "
+                                 f"{kv_arith})")
+
+    held("before the prefill")
+    batch = {"tokens": torch.from_numpy(model_prompt(
+        cfg, PREFILL4_BATCH, MESH_SEQ)).to(dev)}
+    blocks = _prefill_blocks(cfg, placed, PREFILL4_BATCH, MESH_SEQ)
+    rows = blocks[0][0].stop - blocks[0][0].start
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    t0 = time.perf_counter()
+    (((logits, out), prefill_ms), clocks), counts = run_path(
+        f"4u (b) {MESH_ARCH} prefill_32k over {PIECES_N} cards (bf16)",
+        lambda: smi_samples(lambda: timed_call(lambda: forward_prefill(
+            cfg, placed, batch, cache_capacity=MESH_SEQ, state=state),
+            cards)), ())
+    wall_s = time.perf_counter() - t0
+    peaks = [torch.cuda.max_memory_allocated(c) / 1e9 for c in cards]
+    if out is not state:
+        raise AssertionError("4u (b): the prefill built another state")
+    held("after the prefill")
+    check_logits([logits.float().cpu().numpy()], cfg, PREFILL4_BATCH)
+    tok_s = PREFILL4_BATCH * MESH_SEQ / (prefill_ms / 1e3)
+    log(f"4u (b) {MESH_ARCH} prefill_32k at full width and depth, bf16, "
+        f"B={PREFILL4_BATCH} x {MESH_SEQ} into {MESH_SEQ} positions over "
+        f"{PIECES_N} cards {names}: {len(blocks)} row blocks of {rows} "
+        f"rows; K/V bytes a card = per_device_bytes = {kv_bytes} (the "
+        f"shapes' {kv_arith}; allocated {grew}), never whole; params drawn "
+        f"piece by piece ({per_card} bytes a card) and state in "
+        f"{init_s:.1f} s; prefill {prefill_ms:.1f} ms (CUDA events; host "
+        f"{wall_s:.1f} s), {tok_s:.1f} tokens/s; peak memory by card "
+        f"{[round(p, 2) for p in peaks]} GB; launches {counts}; by card "
+        f"during it (nvidia-smi: median SM MHz, median W, max C) "
+        f"{[(c['sm_mhz'], c['power_w'], c['max_temp_c']) for c in clocks.values()]}")
+
+    # kernels and busy share by card: one row block's rows alone
+    small = init_decode_state(cfg, rows, MESH_SEQ, dtype=torch.bfloat16,
+                              mesh=row)
+    by_card = busy_by_card(lambda: forward_prefill(
+        cfg, placed, {"tokens": batch["tokens"][:rows]},
+        cache_capacity=MESH_SEQ, state=small))
+    del small
+    free()
+    log(f"4u (b) one row block ({rows} rows) prefilled alone, by card "
+        f"(kernels, device ms, busy share) "
+        f"{[(r['kernels'], round(r['device_ms'], 1), round(r['busy_share'], 3)) for r in by_card['cards'].values()]}"
+        f" over {by_card['wall_ms']:.1f} ms  [{card}]")
+
+    # decode continuing from the prefilled state
+    state["len"].fill_(PREFILL4_LIVE)
+    tok = batch["tokens"][:, PREFILL4_LIVE:PREFILL4_LIVE + 1]
+
+    def step():
+        nonlocal state, tok
+        logits, state = decode_step(cfg, placed, state, tok)
+        tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True).to(
+            torch.int32)
+        return logits
+
+    (ms, last), dec_counts = run_path(
+        f"4u (b) {MESH_ARCH} decode from the prefilled state over "
+        f"{PIECES_N} cards (bf16)",
+        lambda: timed_tokens(step, PREFILL4_TOKENS, cards),
+        ("decode_partials",))
+    check_logits([last.float().cpu().numpy()], cfg, PREFILL4_BATCH)
+    held("after the decode")
+    want_launches = PREFILL4_TOKENS * cfg.n_layers * PIECES_N
+    if dec_counts["decode_partials"] != want_launches or not torch.equal(
+            state["len"].cpu(), torch.full((PREFILL4_BATCH,), MESH_SEQ,
+                                           dtype=torch.int32)):
+        raise AssertionError(f"4u (b): decode launches {dec_counts} "
+                             f"(expected {want_launches}), or lengths "
+                             f"{state['len'].tolist()}")
+    out = {"ran": True, "cards": names, "f32_err": err, "f32_kv_err": kv_err,
+           "kv_bytes_per_card": kv_bytes, "allocated": grew,
+           "params_bytes_per_card": per_card, "init_s": init_s,
+           "row_blocks": len(blocks), "rows": rows,
+           "prefill_ms": prefill_ms, "prefill_host_s": wall_s,
+           "tokens_per_s": tok_s, "peak_gb": peaks, "clocks": clocks,
+           "by_card_block": by_card,
+           "decode_ms": ms, "decode_p50": float(np.percentile(ms, 50)),
+           "decode_p99": float(np.percentile(ms, 99)),
+           "decode_launches": dec_counts}
+    log(f"4u (b) {PREFILL4_TOKENS} decode tokens from the prefilled state "
+        f"(rows rewound to {PREFILL4_LIVE}): per token p50 "
+        f"{out['decode_p50']:.2f} ms, p99 {out['decode_p99']:.2f} ms (CUDA "
+        f"events) {[round(x, 2) for x in ms]}; launches {dec_counts}; K/V "
+        f"still in their pieces  [{card}]")
+    del state, placed, batch
+    free()
+    out["phase_s"] = time.perf_counter() - t_b
+    return out, {"prefill_pieces_distinct_f32": counts_f32,
+                 "prefill_pieces_distinct": counts,
+                 "prefill_pieces_distinct_decode": dec_counts}
+
+
+def prefill_pieces(dev, card):
+    """Phase 4u: (a) on entries of the card; (b) over four distinct cards
+    where four are visible."""
+    t0 = time.perf_counter()
+    res, counts = prefill_pieces_card(dev, card)
+    res["a_s"] = time.perf_counter() - t0
+    res["distinct"], c = prefill_distinct(card)
     counts.update(c)
     return res, counts
 
@@ -7234,6 +7762,16 @@ def main(argv) -> int:
     log(f"phase 4t took {state_res['phase_s']:.1f} s ((a) "
         f"{state_res['a_s']:.1f} s, (b) {state_res['b_s']:.1f} s)")
 
+    phase(f"4u the prefill writes into a placed decode state "
+          f"({', '.join(PREFILL_ARCHS)}; {MESH_ARCH} prefill_32k over four "
+          f"cards)")
+    t0 = time.perf_counter()
+    prefill_res, counts = prefill_pieces(dev, card)
+    paths.update(counts)
+    prefill_res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 4u took {prefill_res['phase_s']:.1f} s ((a) "
+        f"{prefill_res['a_s']:.1f} s)")
+
     phase("4n entry points (tools/torch_*, examples/torch_*), the "
           "roofline of whole steps, the dry run")
     t0 = time.perf_counter()
@@ -7388,6 +7926,7 @@ def main(argv) -> int:
             "param_pieces": pieces, "train_pieces": train_pieces_res,
             "moe_dp": moe_dp_res, "family_pieces": fam_pieces,
             "mla_pieces": mla_pieces_res, "state_pieces": state_res,
+            "prefill_pieces": prefill_res,
             "entry_points_rooflines": entry,
             "load_s": t_load, "ingest_s": t_ingest}, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -35,10 +35,13 @@ zeros, so a tree larger than one card is never whole: the reference's
 ``axis_pieces`` reads a placed leaf's layout along one mesh axis (the
 dimension the axis splits, and the pieces along it in entry order) and
 ``axis_mesh`` the entries along that axis: what
-``models.tensor_parallel`` computes on.  A train step on a placed state
-walks a leaf's distinct ``blocks`` once (the replicas of a block are
-equal, and its gradient is one sum over them), updates its pieces entry
-by entry (``map_pieces``) and runs data block ``j`` on row ``j`` of the
+``models.tensor_parallel`` computes on.  ``region_pieces`` finds where a
+region of a leaf (a prefill's block of rows and positions) lies in its
+pieces: what a write into a placed leaf reads.  A train step on a
+placed state walks a leaf's distinct ``blocks`` once (the replicas of a
+block are equal, and its gradient is one sum over them), updates its
+pieces entry by entry (``map_pieces``) and runs data block ``j`` on row
+``j`` of the
 mesh (``mesh_rows``, ``take_row``).  ``gather`` is differentiable: a
 piece that requires grad gets the gradient of the part of the whole
 leaf that it filled.
@@ -76,7 +79,7 @@ __all__ = ["Mesh", "PartitionSpec", "NamedSharding", "auto_pspec",
            "shard_shape", "per_device_bytes", "shard_slices", "Placed",
            "device_put", "gather", "entry_bytes", "axis_pieces",
            "axis_mesh", "blocks", "map_pieces", "is_placed", "mesh_rows",
-           "take_row", "same_mesh", "home", "place_like"]
+           "take_row", "same_mesh", "home", "place_like", "region_pieces"]
 
 
 class PartitionSpec(tuple):
@@ -708,6 +711,39 @@ def home(x) -> torch.device:
     """The device a leaf's consumer computes on: mesh entry 0's device of
     a ``Placed``, a tensor's own."""
     return x.pieces.flat[0].device if isinstance(x, Placed) else x.device
+
+
+def region_pieces(x, index: Sequence[slice]
+                  ) -> List[Tuple[Optional[Tuple[int, ...]],
+                                  Tuple[slice, ...], Tuple[slice, ...]]]:
+    """Where the region ``index`` of a leaf lies (one ``slice`` of unit
+    step per leading dimension, the others whole): for every mesh entry
+    of a ``Placed`` ``x`` whose block meets the region, replicas
+    included, in entry order, ``(entry, piece slices, region slices)``
+    -- the same elements as slices of the entry's piece and of the
+    region (counted from its start); for a tensor, ``(None, index,
+    region slices)``, the tensor standing for its only piece.  What a
+    write into a leaf placed along its sequence, batch or channel axis
+    reads (``models.sharded_decode.write_region``)."""
+    index = tuple(slice(*sl.indices(n)[:2])
+                  for sl, n in zip(tuple(index) + (slice(None),)
+                                   * (len(x.shape) - len(index)), x.shape))
+    whole = tuple(slice(0, sl.stop - sl.start) for sl in index)
+    if not isinstance(x, Placed):
+        return [(None, index, whole)]
+    out = []
+    for i in np.ndindex(x.pieces.shape):
+        block = shard_slices(x.shape, x.spec, x.mesh, i)
+        piece_sl, region_sl = [], []
+        for b, r in zip(block, index):
+            lo, hi = max(b.start, r.start), min(b.stop, r.stop)
+            if lo >= hi:
+                break
+            piece_sl.append(slice(lo - b.start, hi - b.start))
+            region_sl.append(slice(lo - r.start, hi - r.start))
+        else:
+            out.append((i, tuple(piece_sl), tuple(region_sl)))
+    return out
 
 
 def map_pieces(fn, x, *more, shape=None):

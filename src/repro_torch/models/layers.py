@@ -59,7 +59,7 @@ __all__ = ["rms_norm", "swiglu", "rope_tables", "apply_rope",
            "chunked_attention", "init_gqa", "gqa_forward", "init_ssm",
            "ssm_forward", "layer_norm", "gelu_mlp", "init_mla",
            "mla_forward", "init_moe", "moe_route",
-           "moe_capacity", "BlockRouting", "moe_dispatch",
+           "moe_capacity", "BlockRouting", "block_routes", "moe_dispatch",
            "moe_forward", "init_rwkv",
            "rwkv_time_mix", "rwkv_channel_mix", "normal_init"]
 
@@ -339,8 +339,10 @@ def _gqa_heads(p: Params, x: torch.Tensor, cfg, mesh, *, positions,
     Card k (the k-th entry of ``mesh`` along ``model``) holds q heads
     [k Hq/n, (k+1) Hq/n) of ``wq`` and the KV heads [k Hkv/n, (k+1)
     Hkv/n) of ``wk|wv`` they read (groups never straddle cards: n
-    divides Hkv), and the matching rows of ``wo``.  x is copied once to
-    each card; there the group's q/k/v, norms and rope, then its
+    divides Hkv), and the matching rows of ``wo``.  x, the positions
+    (and a decode's lengths) are copied once to each card, every card's
+    before any card's work; there the group's q/k/v, norms and rope,
+    then its
     attention: the chunked prefill, or the decode's in-place write at
     ``len`` and one ``decode_partials`` over the group's piece of the
     cache.  The ``wo`` partial products are summed on x's card in entry
@@ -354,7 +356,6 @@ def _gqa_heads(p: Params, x: torch.Tensor, cfg, mesh, *, positions,
                               (1, 1, 1, 0))
     hq, dh = cfg.n_heads // len(wq), cfg.head_dim
     devs = [w.device for w in wq]
-    xs = tp.spread(x, devs)
     if cache is not None:
         if s != 1:
             raise ValueError(f"cached decode takes one token, got {s}")
@@ -362,18 +363,24 @@ def _gqa_heads(p: Params, x: torch.Tensor, cfg, mesh, *, positions,
         ck, cv = device_put((cache["k"], cache["v"]), (sharding, sharding))
         pos = cache["len"]
         cks, cvs = tp.split([ck, cv], (2, 2))
+    # every card's inputs copied before any card's work: a copy between
+    # two cards makes each wait for the other's earlier work, so a copy
+    # made inside the loop would hold card k until card k - 1 finished
+    xs = tp.spread(x, devs)
+    ps = [positions.to(dev) for dev in devs]
+    lens = None if cache is None else [pos.to(dev) for dev in devs]
     norms = [p.get(k) for k in ("q_norm", "k_norm")]
     parts, new_k, new_v = [], [], []
     for i, dev in enumerate(devs):
         q, k, v = _qkv(xs[i], wq[i], wk[i], wv[i],
                        *(None if t is None else tp.on(t, dev)
-                         for t in norms), cfg, positions.to(dev))
+                         for t in norms), cfg, ps[i])
         if cache is None:
             out = chunked_attention(q, k, v, window=window, chunk=chunk)
             new_k.append(k)
             new_v.append(v)
         else:
-            out = _cached_attention(q, k, v, cks[i], cvs[i], pos.to(dev),
+            out = _cached_attention(q, k, v, cks[i], cvs[i], lens[i],
                                     window, use_kernel)
         parts.append(out.reshape(b, s, hq * dh) @ wo[i])
     y = tp.row_sum(parts, dev0, x.dtype)
@@ -558,6 +565,20 @@ class BlockRouting:
     n_tokens: int
     before: Optional[torch.Tensor] = None
     through: Optional[torch.Tensor] = None
+
+
+def block_routes(cfg, n_blocks: int, n_tokens: int, dev, previous=None):
+    """Each layer's ``BlockRouting`` for the next of ``n_blocks`` blocks,
+    run in order, of a batch of ``n_tokens`` routed tokens (a train
+    step's microbatch, a prefill's batch) on ``dev``: None without MoE
+    or with one block; per layer, the expert counts through the previous
+    block (``previous``, None for the first) copied to ``dev``.  No host
+    sync: the counts stay tensors."""
+    if cfg.moe is None or n_blocks == 1:
+        return None
+    if previous is None:
+        return [BlockRouting(n_tokens) for _ in range(cfg.n_layers)]
+    return [BlockRouting(n_tokens, r.through.to(dev)) for r in previous]
 
 
 def moe_dispatch(top_i: torch.Tensor, cfg, route: Optional[BlockRouting]

@@ -12,7 +12,8 @@ and ``ssm`` (rwkv6-7b: attention-free RWKV6 time and channel mixes):
   init_params(cfg, generator, dtype, device)   -> params
   params_from_jax(cfg, params_np, device)      -> params
   forward_train(cfg, params, batch, remat)     -> (loss, {"logits"})
-  forward_prefill(cfg, params, batch, cap)     -> (last logits, state)
+  forward_prefill(cfg, params, batch, cap, state=None)
+                                               -> (last logits, state)
   init_decode_state(cfg, batch, max_len, ...)  -> state
   decode_step(cfg, params, state, token)       -> (logits, state)
   model_input_spec(cfg, shape)                 -> {name: (shape, dtype)}
@@ -62,17 +63,20 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, ShapeSpec
-from ..distributed.fault import tree_flatten
+from ..distributed.fault import tree_flatten, tree_unflatten
 from ..distributed import runtime
 from ..distributed.sharding import (NamedSharding, Placed, axis_mesh,
-                                    device_put, gather, place_like,
-                                    shard_slices)
+                                    device_put, gather, is_placed,
+                                    mesh_rows, place_like, shard_slices,
+                                    take_row)
 from ..kernels.dispatch import resolve_device
 from . import layers as L
 from . import tensor_parallel as tp
+from .sharded_decode import write_region
 
-__all__ = ["ATTN_CHUNK", "init_params", "params_from_jax", "forward_train",
-           "loss_fn", "forward_prefill", "init_decode_state", "decode_step",
+__all__ = ["ATTN_CHUNK", "PREFILL_BLOCK_BYTES", "init_params",
+           "params_from_jax", "forward_train", "loss_fn",
+           "forward_prefill", "init_decode_state", "decode_step",
            "model_input_spec", "train_state_from_jax", "fill_placed",
            "kv_head_mesh"]
 
@@ -595,12 +599,38 @@ def loss_fn(cfg: ArchConfig, logits: torch.Tensor, tokens: torch.Tensor,
 
 def forward_prefill(cfg: ArchConfig, params: Params, batch,
                     cache_capacity: Optional[int] = None,
-                    use_kernel: Optional[bool] = None):
+                    use_kernel: Optional[bool] = None, state=None):
     """Serving prefill: full-sequence forward over the batch (tokens,
     behind ``patches`` for VLM; ``frames`` encoded for audio) that also
     emits the decode state (per-layer KV, or the MLA latent, padded to
     ``cache_capacity``; SSM states; RWKV shifts and S; audio's
-    ``enc_out``) and the last position's logits (B, vocab_padded)."""
+    ``enc_out``) and the last position's logits (B, vocab_padded).
+
+    ``state`` (an ``init_decode_state`` of the batch's rows, whole or
+    placed: K/V in KV-head pieces by ``init_decode_state(mesh=)``, or
+    every leaf by ``device_put`` onto ``cache_pspecs``' shardings) is
+    filled in place and returned, where the reference returns a fresh
+    state (as ``decode_step`` writes its caches in place): no second
+    copy of it is built.  Each layer's contribution goes straight into
+    the leaves' pieces on their cards (``sharded_decode.write_region``):
+    GQA K/V and MLA's latent at positions [0, S) of the rows (zeros
+    after S, as the padding; cut at the capacity, as the padding is),
+    hymba's last SSM state into its channel pieces, RWKV6's ``S`` and
+    shifts and whisper's ``enc_out`` and ``len`` into their blocks; a
+    placed leaf is never gathered.  The rows run in blocks
+    (``_prefill_blocks``): under a ``data`` axis of the params' mesh
+    each data block of the batch (``batch_pspec``) on its own row of the
+    params' pieces (``sharding.take_row``), and a block whose
+    activations would pass ``PREFILL_BLOCK_BYTES`` in row blocks, the
+    block size derived from the shapes and the mesh alone (the whole
+    batch wherever it fits).  MoE layers route each block as part of
+    the whole batch (``layers.BlockRouting``: the batch's capacity, the
+    earlier blocks' counts carried), so they keep the whole batch's
+    pairs.  The logits come back on the first block's card.  With no
+    ``state`` the whole batch runs at once and the state is new."""
+    if state is not None:
+        return _prefill_into(cfg, params, batch, cache_capacity,
+                             use_kernel, state)
     x, _ = _embed_inputs(cfg, params, batch)
     b, s, _ = x.shape
     cap = cache_capacity or s
@@ -621,6 +651,123 @@ def forward_prefill(cfg: ArchConfig, params: Params, batch,
     if enc_out is not None:
         state["enc_out"] = enc_out
     return logits, state
+
+
+# the most bytes that the largest float32 intermediate of one prefill
+# layer may reach in a row block (``_prefill_row_bytes``): the whole
+# batch of every prefill the smoke script ran before row blocks existed
+# fits (hymba-1.5b's 4 x 4,000 rows in f32: 3.3 GB), llama3-8b's
+# prefill_32k on four cards takes blocks of 4 rows
+PREFILL_BLOCK_BYTES = 1 << 32
+
+
+def _prefill_row_bytes(cfg: ArchConfig, params: Params, s: int) -> int:
+    """Bytes that one row adds to the largest float32 intermediate of a
+    prefill layer over ``s`` positions (an audio encoder's frames where
+    they are more): ``chunked_attention``'s scores over one key chunk
+    for the query heads one card computes (a head group on the head
+    route, ``kv_head_mesh``), hymba's scan inputs (d_inner x state per
+    position), the MLP's hidden (d_ff, split over the ``model`` axis of
+    params in pieces).  Shapes and the mesh only."""
+    span = max(s, cfg.encdec.n_frames) if cfg.encdec is not None else s
+    embed = params["embed"]
+    n = embed.mesh.shape.get(tp.AXIS, 1) if isinstance(embed, Placed) else 1
+    widths = [cfg.d_ff // n]
+    if cfg.family != "ssm":
+        mesh = kv_head_mesh(cfg, params)
+        groups = 1 if mesh is None else mesh.shape[tp.AXIS]
+        widths.append(cfg.n_heads // groups * min(ATTN_CHUNK, span))
+    if cfg.family == "hybrid":
+        widths.append(cfg.ssm.expand * cfg.d_model * cfg.ssm.state_dim)
+    return 4 * span * max(widths)
+
+
+def _prefill_blocks(cfg: ArchConfig, params: Params, b: int, s: int):
+    """A prefill's blocks of rows in order, each (row slice, params
+    view).  Params in pieces whose mesh has data axes (``pod``,
+    ``data``) that divide ``b``, as ``batch_pspec`` splits a batch: one
+    data block per row of the mesh along them (``mesh_rows``), read
+    through that row's pieces (``take_row``; a leaf those axes split is
+    read as it is).  Each data block is cut into equal row blocks of at
+    most ``PREFILL_BLOCK_BYTES // _prefill_row_bytes`` rows."""
+    views = [(b, params)]
+    if isinstance(params["embed"], Placed) and is_placed(params):
+        mesh = params["embed"].mesh
+        rows = mesh_rows(mesh, tuple(a for a in ("pod", "data")
+                                     if a in mesh.shape))
+        if len(rows) > 1 and b % len(rows) == 0:
+            leaves = tree_flatten(params)[0]
+            views = []
+            for index, row in rows:
+                taken = [take_row(x, index, row) for x in leaves]
+                views.append((b // len(rows), tree_unflatten(params, [
+                    x if t is None else t for x, t in zip(leaves, taken)])))
+    out, lo = [], 0
+    for n_rows, view in views:
+        most = max(1, PREFILL_BLOCK_BYTES // _prefill_row_bytes(cfg, view,
+                                                                 s))
+        size = -(-n_rows // -(-n_rows // min(most, n_rows)))
+        out += [(slice(lo + r, lo + min(r + size, n_rows)), view)
+                for r in range(0, n_rows, size)]
+        lo += n_rows
+    return out
+
+
+def _write_layer(lc: Dict[str, Any], contrib: Dict[str, Any], rows: slice,
+                 s: int) -> None:
+    """One layer's prefill contribution for ``rows`` written into its
+    state ``lc``: the ``attn`` caches at positions [0, s), zeros after
+    (cut at the capacity), every other leaf at its rows."""
+    for name, c in contrib.items():
+        if name != "attn":
+            write_region(lc[name], c, (rows,))
+            continue
+        for key, t in c.items():
+            dst = lc["attn"][key]
+            write_region(dst, t, (rows, slice(0, s)))
+            if s < dst.shape[1]:
+                write_region(dst, None, (rows, slice(s, dst.shape[1])))
+
+
+def _prefill_into(cfg: ArchConfig, params: Params, batch, cache_capacity,
+                  use_kernel, state):
+    """``forward_prefill`` into ``state``, block by block."""
+    b = batch["tokens"].shape[0]
+    s = batch["tokens"].shape[1] + (batch["patches"].shape[1]
+                                    if cfg.vlm is not None else 0)
+    caps = {t.shape[1] for lc in state["layers"]
+            for t in lc.get("attn", {}).values()}
+    if (len(state["layers"]) != cfg.n_layers or state["len"].shape[0] != b
+            or (cache_capacity is not None and caps
+                and caps != {cache_capacity})):
+        raise ValueError(f"a decode state of {state['len'].shape[0]} rows, "
+                         f"{len(state['layers'])} layers and capacity "
+                         f"{sorted(caps)} does not take a prefill of {b} "
+                         f"rows ({cfg.n_layers} layers, capacity "
+                         f"{cache_capacity})")
+    blocks = _prefill_blocks(cfg, params, b, s)
+    routes, logits = None, []
+    for rows, view in blocks:
+        home = tp.home(view["embed"])
+        sub = {k: v[rows].to(home) for k, v in batch.items()}
+        routes = L.block_routes(cfg, len(blocks), b * s, home, routes)
+        x, _ = _embed_inputs(cfg, view, sub)
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+        enc_out = _encode(cfg, view, sub)
+        for i, (lp, window) in enumerate(zip(view["layers"],
+                                             _windows(cfg))):
+            x, contrib = _layer_fwd(
+                cfg, lp, x, positions=positions, window=window,
+                enc_out=enc_out, use_kernel=use_kernel,
+                route=None if routes is None else routes[i])
+            _write_layer(state["layers"][i], contrib, rows, s)
+        logits.append(_logits(cfg, view, x[:, -1]))
+        write_region(state["len"], torch.full(
+            (x.shape[0],), s, dtype=torch.int32, device=x.device), (rows,))
+        if enc_out is not None:
+            write_region(state["enc_out"], enc_out, (rows,))
+    first = logits[0].device
+    return torch.cat([t.to(first) for t in logits]), state
 
 
 def init_decode_state(cfg: ArchConfig, batch_size: int, max_len: int,

@@ -52,6 +52,14 @@ kernel, so each entry computes its piece's partial state in plain
 torch: f32 scores ``q_abs · c + q_rope · r`` over the piece (the piece
 alone cast to f32), then (m, l, o) over its ``c`` half; the same merge
 combines them.
+
+A prefill into a placed state (``model.forward_prefill(..., state=)``)
+writes each layer's contribution for a block of rows into the leaves in
+place (``write_region``): every entry whose block meets the region --
+the rows' positions [0, S) of a sequence piece, a batch block's rows, a
+channel piece -- gets its part, replicas too, in the same passes: every
+part copied to its entry's card first, then every write there; nothing
+comes home.
 """
 
 from __future__ import annotations
@@ -63,12 +71,12 @@ import torch
 
 from ..distributed.sharding import (NamedSharding, PartitionSpec, Placed,
                                     blocks, canonical_device, device_put,
-                                    gather, shard_slices)
+                                    gather, region_pieces, shard_slices)
 from ..kernels.flash_decode import decode_partials
 
 __all__ = ["sharded_decode_attention", "sharded_mla_decode", "chunk_range",
            "decode_cache_spec", "three_passes", "placed_wkv_step",
-           "placed_ssm_step"]
+           "placed_ssm_step", "write_region"]
 
 _NEG = -1e30
 
@@ -419,3 +427,59 @@ def placed_ssm_step(dt, xi, log_a, bmat, cmat, state: Placed):
     y = _join(outs, entries, tuple(state.shape[:2]), home,
               lambda sl: (sl[0], sl[1]))
     return y, Placed(state.sharding, state.shape, state.dtype, new)
+
+
+def _parts(src):
+    """A write's source as (tensor, its slices in region coordinates):
+    a tensor whole; a ``Placed`` leaf block by block, each from its
+    first entry."""
+    if not isinstance(src, Placed):
+        return [(src, tuple(slice(0, n) for n in src.shape))]
+    return [(src.pieces[entries[0]],
+             shard_slices(src.shape, src.spec, src.mesh, entries[0]))
+            for entries in blocks(src)]
+
+
+def write_region(dst, src, index) -> None:
+    """Write ``src`` into the region ``index`` of ``dst`` in place.
+
+    ``dst``: a tensor or a ``Placed`` leaf (a decode state's); ``index``:
+    one ``slice`` per leading dimension (``sharding.region_pieces``);
+    ``src``: a tensor or a ``Placed`` holding the region's elements from
+    its origin (cut where it is larger than the region), or None for
+    zeros.  Every entry of ``dst`` whose block meets the region, replicas
+    included, gets the part it holds, cast to its dtype, in the passes of
+    ``three_passes``: every part copied to its entry's card (a part
+    already there is read in place), then every entry's writes; nothing
+    comes home."""
+    parts = [] if src is None else _parts(src)
+    targets = region_pieces(dst, index)
+
+    def piece(entry):
+        return dst if entry is None else dst.pieces[entry]
+
+    def send(e):
+        entry, piece_sl, region_sl = e
+        dev = piece(entry).device
+        out = []
+        for t, sl in parts:
+            lo = [max(r.start, s.start) for r, s in zip(region_sl, sl)]
+            hi = [min(r.stop, s.stop) for r, s in zip(region_sl, sl)]
+            if any(a >= b for a, b in zip(lo, hi)):
+                continue
+            at = tuple(slice(p.start + a - r.start, p.start + b - r.start)
+                       for p, r, a, b in zip(piece_sl, region_sl, lo, hi))
+            out.append((at, t[tuple(slice(a - s.start, b - s.start)
+                                    for s, a, b in zip(sl, lo, hi))]
+                        .to(dev)))
+        return out
+
+    def work(e, copies):
+        target = piece(e[0])
+        if src is None:
+            target[e[1]].zero_()
+        for at, t in copies:
+            target[at].copy_(t)
+        return None
+
+    three_passes(targets, send, work, None)

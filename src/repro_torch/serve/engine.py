@@ -695,10 +695,14 @@ class ServingEngine:
 
     def prefill(self, batch) -> np.ndarray:
         """Prefill ``batch["tokens"]`` (B, S), behind ``patches`` (VLM) or
-        beside ``frames`` (audio), each moved to the engine's device; keeps
-        the decode state (KV or MLA latent caches padded to ``max_len``)
-        and returns the last logits.  The previous state is released
-        first, so one state's caches are held at a time."""
+        beside ``frames`` (audio), each moved to the engine's device, into
+        this engine's own ``init_state`` (KV or MLA latent caches of
+        ``max_len`` positions in the engine's dtype, in KV-head pieces on
+        a placed engine's head route: ``forward_prefill(..., state=)``
+        writes each layer into them, a block of rows at a time where the
+        batch's activations would not fit); keeps that state and returns
+        the last logits.  The previous state is released first, so one
+        state's caches are held at a time."""
         self.state = None
         inputs = {"tokens": self._tokens(batch["tokens"])}
         for name in ("patches", "frames"):
@@ -706,7 +710,8 @@ class ServingEngine:
                 inputs[name] = torch.as_tensor(batch[name]).to(self.device)
         logits, self.state = forward_prefill(
             self.cfg, self.params, inputs, cache_capacity=self.max_len,
-            use_kernel=self.use_kernel)
+            use_kernel=self.use_kernel,
+            state=self.init_state(inputs["tokens"].shape[0]))
         return _host(logits)
 
     def decode(self, tokens: np.ndarray) -> np.ndarray:

@@ -55,7 +55,7 @@ from ..distributed.sharding import (Placed, blocks, canonical_device,
                                     same_mesh, take_row)
 from ..models import (decode_step, forward_prefill, forward_train,
                       model_input_spec)
-from ..models.layers import BlockRouting
+from ..models.layers import BlockRouting, block_routes
 from .optimizer import (AdamWConfig, TrainState, adamw_update, global_norm,
                         step_count)
 
@@ -172,20 +172,12 @@ def _micro_rows(batch, n_micro: int) -> int:
 def _block_routes(cfg: ArchConfig, n_dp: int, batch, rows: int, dev,
                   previous: Optional[Sequence[BlockRouting]]
                   ) -> Optional[list]:
-    """The ``layers.BlockRouting`` of each layer for the next data block
-    of a microbatch of ``rows`` rows, on ``dev``: None without MoE or
-    with one block; else the microbatch's routed tokens (its rows times
-    the positions of a row, a VLM prefix included) and, per layer, the
-    expert counts through the previous block (``previous``, None for a
-    microbatch's first block) copied to ``dev``.  No host sync: the
-    counts stay tensors."""
-    if cfg.moe is None or n_dp == 1:
-        return None
+    """``layers.block_routes`` for the next data block of a microbatch of
+    ``rows`` rows: the microbatch's routed tokens are its rows times the
+    positions of a row, a VLM prefix included."""
     seq = batch["tokens"].shape[1] + (batch["patches"].shape[1]
                                       if "patches" in batch else 0)
-    if previous is None:
-        return [BlockRouting(rows * seq) for _ in range(cfg.n_layers)]
-    return [BlockRouting(r.n_tokens, r.through.to(dev)) for r in previous]
+    return block_routes(cfg, n_dp, rows * seq, dev, previous)
 
 
 def _dp_loss_and_grads(cfg, params, cast, batch, n_micro, use_kernel,
@@ -392,9 +384,12 @@ def build_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
 
 
 def build_prefill_step(cfg: ArchConfig, cache_capacity: Optional[int] = None):
-    def prefill_step(params, batch):
+    """The reference's prefill step: ``prefill_step(params, batch,
+    state=None)`` is ``forward_prefill``; a ``state`` (whole or placed,
+    e.g. by ``cache_pspecs``) is filled in place and returned."""
+    def prefill_step(params, batch, state=None):
         return forward_prefill(cfg, params, batch,
-                               cache_capacity=cache_capacity)
+                               cache_capacity=cache_capacity, state=state)
     return prefill_step
 
 

@@ -1822,3 +1822,83 @@ def test_hymba_product_route_on_entries_of_the_card():
         assert set(gathered) == {log_a}
     finally:
         tp.gather = real
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["cache_pspecs", "heads"])
+def test_prefill_into_placed_state_on_every_card(route):
+    """``chip_smoke.py`` phase 4u at reduced size: a (1, 4) mesh whose
+    entries name every visible card in turn (four distinct cards where
+    four are visible), reduced llama3-8b (8 heads, 4 KV heads) in
+    float32, B = 4 prompts of 1,100 tokens into 4,096 positions.  The
+    state placed empty by ``cache_pspecs`` (K/V in sequence pieces), or
+    on megatron params the head route's KV-head pieces, is filled by
+    ``forward_prefill(..., state=)``: logits and every leaf within 1e-5
+    of the whole prefill on the first card, every piece on its entry's
+    card, no byte of a placed leaf gathered; then 4 decode steps within
+    1e-5 of the whole state's."""
+    import dataclasses
+
+    from repro_torch.configs import reduced
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.fault import tree_flatten
+    from repro_torch.distributed.sharding import (Mesh, Placed, cache_pspecs,
+                                                  cuda_devices, device_put,
+                                                  gather, named_shardings,
+                                                  param_pspecs)
+    from repro_torch.models import model as TM
+
+    dev = require_cuda()
+    cards = cuda_devices()
+    mesh = Mesh(np.array([[cards[i % len(cards)] for i in range(4)]],
+                         dtype=object), ("data", "model"))
+    cfg = dataclasses.replace(reduced("llama3-8b"), n_heads=8,
+                              n_kv_heads=4)
+    params = TM.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dtype=torch.float32, device=dev)
+    b, cap = 4, 4096
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (b, 1100)).astype(np.int32)).to(dev)}
+    want, whole = TM.forward_prefill(cfg, params, batch, cache_capacity=cap)
+    if route == "heads":
+        p = device_put(params, named_shardings(param_pspecs(
+            cfg, params, mesh, strategy="megatron"), mesh))
+        state = TM.init_decode_state(cfg, b, cap, dtype=torch.float32,
+                                     mesh=TM.kv_head_mesh(cfg, p))
+        decode_mesh = None
+    else:
+        p, decode_mesh = params, mesh
+        meta = TM.init_decode_state(cfg, b, cap, dtype=torch.float32,
+                                    device="meta")
+        state = device_put(meta, named_shardings(cache_pspecs(cfg, meta,
+                                                              mesh), mesh))
+    seen = []
+    real = SH._whole
+    SH._whole = lambda x, d: seen.append(tuple(x.shape)) or real(x, d)
+    try:
+        got, out = TM.forward_prefill(cfg, p, batch, cache_capacity=cap,
+                                      state=state)
+    finally:
+        SH._whole = real
+    assert not seen and out is state
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    for g, w in zip(tree_flatten(gather(out, dev))[0],
+                    tree_flatten(whole)[0]):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    k = out["layers"][0]["attn"]["k"]
+    assert isinstance(k, Placed)
+    assert [t.device for t in k.pieces.flat] == list(k.mesh.devices.flat)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1)).astype(
+        np.int32)).to(dev)
+    for _ in range(4):
+        lw, whole = TM.decode_step(cfg, params, whole, tok)
+        with runtime.use_mesh(decode_mesh):
+            lp, out = TM.decode_step(cfg, p, out, tok)
+        np.testing.assert_allclose(lp.cpu().numpy(), lw.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        tok = lw[:, :cfg.vocab_size].argmax(-1, keepdim=True).to(
+            torch.int32)
