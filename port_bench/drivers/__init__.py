@@ -1,0 +1,1 @@
+"""One driver per traffic kind; a traffic file names its kind."""
